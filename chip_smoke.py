@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero
+before the last line:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's LLaMA-30B shapes and at a reduced shape whose
+   quantization group spans several heads with GQA; CUDA-event times of
+   kernel and plain version beside the memory bound at 3.35 TB/s;
+4. reference: the reduced LLaMA-30B served in float32 through the
+   engines on the card and on the CPU (plain versions): greedy tokens must
+   agree;
+5. serve: full-width LLaMA-30B (random bf16 weights from a seed) through
+   ``PrefillEngine`` and ``DecodeEngine(paged=True, prefix_sharing=True)``,
+   called in the order the gateway's local clients call them: fresh
+   prefills, a full prefix hit, a partial prefix hit, and a chunked
+   prefill with a 64-token budget; every decode chunk runs under
+   ``torch.cuda.set_sync_debug_mode("error")``. Launch counts are reset
+   just before this phase and read just after it.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
+one (or without the repo beside it) it exits non-zero and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12             # non-tensor-core f32 peak, same source
+SEED = 0
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # as tests/test_torch_gpu.py
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def bound(nbytes, flops):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / F32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def cuda_ms(torch, fn, args_list, iters):
+    """Mean ms per call, CUDA events around ``iters`` calls after one
+    warm-up; ``args_list`` is cycled (distinct buffers defeat the L2)."""
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# -- phase 3: kernels against their plain versions ----------------------------
+
+
+def check_quant(torch, ref, kq, N, G, dtype, *, timed):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + N + G)
+    x = (torch.randn((N, G), generator=gen, device="cuda") * 3).to(dtype)
+    got, want = kq.kv_quant(x), ref.kv_quant_ref(x)
+    err_q = max(float((g_.float() - w_.float()).abs().max())
+                for g_, w_ in zip(got, want))
+    ndiff = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
+    back = kq.kv_dequant(*got, out_dtype=torch.bfloat16)
+    back_ref = ref.kv_dequant_ref(*want, dtype=torch.bfloat16)
+    err_d = float((back.float() - back_ref.float()).abs().max())
+    ndiff_d = int((back != back_ref).sum())
+    log(f"  kv_quant   N={N} G={G} {str(dtype)[6:]}: differing "
+        f"bytes/values {ndiff}; kv_dequant -> bf16: differing {ndiff_d}")
+    if ndiff or ndiff_d:
+        raise AssertionError("kv_quant/kv_dequant differ from the plain "
+                             "version")
+    if not timed:
+        return None
+    esz = x.element_size()
+    iters = 20
+    rq = {"err": err_q,
+          "ms": cuda_ms(torch, kq.kv_quant, [(x,)], iters),
+          "plain_ms": cuda_ms(torch, ref.kv_quant_ref, [(x,)], iters),
+          "bound": bound(N * G * esz + N * G // 2 + 8 * N, 6 * N * G)}
+    deq = lambda p, s, z: kq.kv_dequant(p, s, z, out_dtype=torch.bfloat16)
+    deq_ref = lambda p, s, z: ref.kv_dequant_ref(p, s, z,
+                                                 dtype=torch.bfloat16)
+    rd = {"err": err_d,
+          "ms": cuda_ms(torch, deq, [got], iters),
+          "plain_ms": cuda_ms(torch, deq_ref, [want], iters),
+          "bound": bound(N * G // 2 + 8 * N + N * G * 2, 2 * N * G)}
+    for name, r in (("kv_quant", rq), ("kv_dequant", rd)):
+        log(f"  {name:10s} N={N} G={G}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    return rq, rd
+
+
+def make_pages(torch, L, B, Hkv, gq, hd, ps, W, kv_len, dtype):
+    """Random int4 pages for L layers (like a decode pool), a shuffled page
+    table, q and kv_len."""
+    from repro_torch.kernels.kv_layout import pick_group
+    g = pick_group(Hkv * hd)
+    ppr = Hkv * hd // g
+    R = ps * ppr
+    P = B * W + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + B + hd)
+
+    def triple():
+        return (torch.randint(0, 256, (L, P, R, g // 2), generator=gen,
+                              device="cuda", dtype=torch.uint8),
+                torch.rand((L, P, R, 1), generator=gen, device="cuda") * 0.3,
+                torch.randn((L, P, R, 1), generator=gen, device="cuda"))
+
+    pt = torch.zeros((B, W), dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        SEED)) + 1
+    n = 0
+    for b, ln in enumerate(kv_len):
+        k = -(-ln // ps)
+        pt[b, :k] = perm[n:n + k]
+        n += k
+    q = torch.randn((B, Hkv, gq, hd), generator=gen, device="cuda").to(dtype)
+    return (q, triple(), triple(), pt.cuda(),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"), g, ppr)
+
+
+def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
+                    dtype, *, timed):
+    q, kt, vt, pt, kl, g, ppr = make_pages(torch, L, B, Hkv, gq, hd, ps, W,
+                                           kv_len, dtype)
+    layer = [(q, tuple(t[i] for t in kt), tuple(t[i] for t in vt), pt, kl)
+             for i in range(L)]
+    fn = lambda *a: pa.paged_decode_attention_int4(*a, page_size=ps)
+    fn_ref = lambda *a: ref.paged_decode_attention_ref(*a, page_size=ps)
+    got, want = fn(*layer[0]), fn_ref(*layer[0])
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_TOL[str(dtype)[6:]]
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    log(f"  paged_decode_attention_int4 B={B} Hkv={Hkv} gq={gq} hd={hd} "
+        f"g={g} ps={ps} kv_len={kv_len} {str(dtype)[6:]}: max |err| "
+        f"{err:.3e} (tol {tol})")
+    if not ok:
+        raise AssertionError("paged attention differs from the plain "
+                             "version beyond tolerance")
+    if not timed:
+        return None
+    tokens = sum(kv_len)
+    nbytes = (tokens * 2 * ppr * (g // 2 + 8) + 2 * q.numel()
+              * q.element_size() + 4 * (B * W + B))
+    r = {"err": err,
+         "ms": cuda_ms(torch, fn, layer, 3 * L),
+         "plain_ms": cuda_ms(torch, fn_ref, layer, L),
+         "bound": bound(nbytes, 4 * Hkv * gq * hd * tokens)}
+    log(f"  paged_decode_attention_int4: {r['ms']:.4f} ms/layer, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+        f"({r['bound'][1]}, {nbytes} B); layers cycled, L2 cold")
+    return r
+
+
+# -- phases 4 and 5: serving ------------------------------------------------
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def serve_small(torch, device):
+    """Reduced LLaMA-30B in float32 through the engines; returns tokens."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    cfg = get_reduced("llama-30b").replace(dtype="float32")
+    # drawn on the CPU and copied: a CUDA generator gives other numbers
+    params = to_device(init_params(cfg, seed=SEED, device="cpu",
+                                   dtype=torch.float32), device)
+    pre = E.PrefillEngine(cfg, params, max_seq=64, device=device)
+    dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=64, page_size=8,
+                         chunk_size=4, device=device)
+    rng = np.random.default_rng(SEED)
+    reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n), 12)
+            for i, n in enumerate((7, 19, 33))]
+    out = pre.run(reqs)
+    rest = dec.admit(E.AdmissionBatch(
+        [E.AdmissionItem(r, f, wire=w) for r, w, f in out]))
+    assert not rest, "small reference run: admission rejected"
+    while dec.active:
+        dec.step()
+    return [r.out_tokens for r in reqs]
+
+
+def profile_chunk(torch, run, n_steps):
+    """Device time of one decode chunk by kernel (torch.profiler, CUDA
+    activity only) against the chunk's wall time on the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
+             e.key) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    log(f"  profiled chunk of {n_steps} steps: wall {wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(r[1] for r in rows)} kernel launches")
+    for ms, n, name in rows[:8]:
+        log(f"    {ms:9.3f} ms  x{n:<6d} {name[:70]}")
+
+
+class Clock:
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self):
+        return time.perf_counter() - self.t0
+
+
+def serve_full(torch, cfg, device="cuda"):
+    """Full-width LLaMA-30B through the engines in the gateway's order
+    (``device="cpu"`` rehearses the control flow on a reduced config)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=device)
+    sync()
+    log(f"  weights: {cfg.param_count():,} params, bf16, made on "
+        f"{device} from seed {SEED} in {time.perf_counter() - t:.1f} s")
+    pre = E.PrefillEngine(cfg, params, max_seq=256, max_batch=4,
+                          device=device)
+    dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=256,
+                         page_size=16, chunk_size=8, prefix_sharing=True,
+                         device=device)
+    pool_bytes = sum(a.numel() * a.element_size()
+                     for a in dec.cache["slot0"].values())
+    log(f"  decode pool: {dec.pool.capacity} pages of 16 tokens (+ trash), "
+        f"{pool_bytes / 1e9:.3f} GB")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(1, V, 16)                  # page-aligned prefix
+
+    def prompt(n, head=system):
+        return np.concatenate([head, rng.integers(1, V, n - len(head))])
+
+    clock = Clock()
+    ops.reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    done, n_chunks = [], 0
+
+    def step_all(n_chunks_max=None):
+        nonlocal n_chunks
+        k = 0
+        while dec.active and (n_chunks_max is None or k < n_chunks_max):
+            fin = dec.step(sync_check=True)
+            sync()
+            for r in fin:
+                r.t_done = clock()
+            done.extend(fin)
+            n_chunks += 1
+            k += 1
+
+    def admit(items):
+        rest = dec.admit(E.AdmissionBatch(items))
+        if rest:
+            raise AssertionError(f"admission rejected {len(rest)} item(s)")
+
+    # round 1: three fresh prompts, one prefill call per length bucket
+    r0 = E.GenRequest(0, prompt(40), 16)
+    r1 = E.GenRequest(1, prompt(100), 24)
+    r2 = E.GenRequest(2, prompt(200), 32)
+    for r in (r0, r1, r2):
+        r.t_submit = clock()
+    out = pre.run([r0, r1, r2])
+    for r, _, _ in out:
+        r.t_first = clock()
+    admit([E.AdmissionItem(r, f, wire=w) for r, w, f in out])
+    step_all()
+
+    # round 2: matched against the prefix index first, like the gateway
+    r3 = E.GenRequest(3, r0.tokens.copy(), 16)       # repeat: full hit
+    r4 = E.GenRequest(4, prompt(120, head=r1.tokens[:64]), 20)  # partial
+    r5 = E.GenRequest(5, prompt(150), 24)            # chunked, 16-token hit
+    hits = {}
+    for r in (r3, r4, r5):
+        r.t_submit = clock()
+        m = dec.prefix_match(r.tokens)
+        if m is None or not dec.prefix_pin(m.pages, ("pin", r.rid)):
+            raise AssertionError(f"request {r.rid}: no prefix hit")
+        hits[r.rid] = m
+        if not m.full:
+            r.start_pos = m.length
+            r.prefix_pages = list(m.pages)
+            r.prefix_wire = dec.extract_prefix(m.pages, m.length)
+    if not (hits[3].full and not hits[4].full and hits[4].length == 64
+            and not hits[5].full and hits[5].length == 16):
+        got = {k: (m.full, m.length) for k, m in hits.items()}
+        raise AssertionError(f"unexpected prefix matches: {got}")
+    log(f"  prefix hits: r3 full ({hits[3].length} tokens), r4 partial "
+        f"({hits[4].length}), r5 partial ({hits[5].length})")
+    admit([E.AdmissionItem(r3, hits[3].next_token, E.ADMIT_PREFIX_HIT,
+                           pages=list(hits[3].pages))])
+    r3.t_first = clock()
+    (_, w4, f4), = pre.run([r4])
+    r4.t_first = clock()
+    admit([E.AdmissionItem(r4, f4, wire=w4)])
+    job = E.PartialPrefill(r5)
+    ticks = 0
+    while not job.done:                              # continuous batching
+        pre.prefill_chunk([job], 64)
+        ticks += 1
+        step_all(1)
+    r5.t_first = clock()
+    admit([E.AdmissionItem(r5, job.first, E.ADMIT_CHUNKED,
+                           wire=job.wire())])
+    for r in (r3, r4, r5):
+        dec.prefix_unpin(("pin", r.rid))
+    step_all()
+    sync()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    reqs = [r0, r1, r2, r3, r4, r5]
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)}/{len(reqs)} requests done")
+    for r in reqs:
+        toks = np.asarray(r.out_tokens)
+        if len(toks) != r.max_new_tokens or toks.min() < 0 or \
+                toks.max() >= V:
+            raise AssertionError(f"request {r.rid}: bad tokens {toks}")
+    stats = dec.page_stats()
+    log(f"  requests done: {len(done)}/{len(reqs)}; tokens out: "
+        f"{sum(len(r.out_tokens) for r in reqs)}; chunked prefill ticks: "
+        f"{ticks}")
+    for r in reqs:
+        n = len(r.out_tokens)
+        tpot = (r.t_done - r.t_first) / max(n - 1, 1) * 1e3
+        log(f"  r{r.rid}: prompt {len(r.tokens)}, out {n}, TTFT "
+            f"{(r.t_first - r.t_submit) * 1e3:.1f} ms, TPOT {tpot:.2f} ms")
+    same = r3.out_tokens == r0.out_tokens
+    log(f"  full prefix hit r3 repeats r0's tokens: {same}")
+    log(f"  host_syncs {dec.host_syncs} for steps_run {dec.steps_run} "
+        f"({n_chunks} chunks, each under sync_debug_mode=error)")
+    log("  page_stats: " + json.dumps(
+        {k: stats[k] for k in ("zero_copy_inserts", "reencoded_inserts",
+                               "cow_copies", "prefix_admits",
+                               "leaked_pages", "in_use", "free",
+                               "peak_in_use", "prefix_entries")}))
+    log(f"  peak device memory {peak / 1e9:.2f} GB "
+        f"(allocated, torch.cuda.max_memory_allocated)")
+    if stats["leaked_pages"] != 0:
+        raise AssertionError("leaked pages")
+    if stats["zero_copy_inserts"] == 0 or stats["prefix_admits"] == 0:
+        raise AssertionError("no zero-copy insert or no full prefix hit")
+    if dec.host_syncs * dec.chunk_size != dec.steps_run:
+        raise AssertionError("more than one host sync per chunk")
+    if not same:
+        raise AssertionError("full prefix hit decoded other tokens than "
+                             "the run it repeats")
+    if on_card:
+        # where a decode chunk's time goes, after the counted run: one
+        # more request, one chunk under the profiler (which slows the host)
+        r6 = E.GenRequest(6, prompt(64), 17)
+        (_, w6, f6), = pre.run([r6])
+        admit([E.AdmissionItem(r6, f6, wire=w6)])
+        step_all(1)
+        profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
+        if dec.active or dec.page_stats()["leaked_pages"]:
+            raise AssertionError("profiled request did not finish cleanly")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a "
+              "GPU only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import kv_quant as kq
+    from repro_torch.kernels import paged_attention as pa
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    log("[1/5] device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi.splitlines()[0])
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    log("[2/5] build")
+    t = time.perf_counter()
+    build.library()
+    log(f"  {len(build.sources())} sources -> {build.build().name} in "
+        f"{time.perf_counter() - t:.1f} s")
+    for line in build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            log("  " + line.strip())
+
+    log("[3/5] kernels against their plain versions on the card")
+    cfg = get_config("llama-30b")
+    L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
+    # 128 per token
+    rq, rd = check_quant(torch, ref, kq, 2 * L * 256 * Hkv, 128,
+                         torch.bfloat16, timed=True)
+    check_quant(torch, ref, kq, 4 * Hkv, 128, torch.bfloat16, timed=False)
+    check_quant(torch, ref, kq, 3001, 64, torch.float32, timed=False)
+    # the decode step: 4 slots, kv lengths as in the serve phase
+    ra = check_attention(torch, ref, pa, L, 4, Hkv, 1, hd, 16, 16,
+                         [232, 123, 56, 17], torch.bfloat16, timed=True)
+    check_attention(torch, ref, pa, 2, 3, 2, 4, 32, 8, 4, [5, 16, 23],
+                    torch.float32, timed=False)
+    check_attention(torch, ref, pa, 2, 3, 2, 4, 32, 8, 4, [5, 16, 23],
+                    torch.bfloat16, timed=False)
+    torch.cuda.empty_cache()
+
+    log("[4/5] reduced llama-30b, float32: card vs plain versions on the CPU")
+    on_card = serve_small(torch, "cuda")
+    on_cpu = serve_small(torch, "cpu")
+    log(f"  tokens equal: {on_card == on_cpu} ({sum(map(len, on_card))} "
+        f"tokens)")
+    if on_card != on_cpu:
+        raise AssertionError(f"card {on_card} != cpu {on_cpu}")
+
+    log(f"[5/5] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads "
+        f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}")
+    launches = serve_full(torch, cfg)
+    log(f"  main-path launches: {launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+
+    rows = [("kv_quant", "src/repro_torch/kernels/csrc/kv_quant.cu",
+             "src/repro/kernels/kv_quant.py:55", rq),
+            ("kv_dequant", "src/repro_torch/kernels/csrc/kv_quant.cu",
+             "src/repro/kernels/kv_quant.py:80", rd),
+            ("paged_decode_attention_int4",
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:174", ra)]
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": r["err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "library_ms": None}
+        for name, src, rep, r in rows]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,64 @@
+"""Wrapper of the paged int4 decode-attention CUDA kernel
+(``csrc/paged_attention.cu``; it replaces the int4 body of
+``repro/kernels/paged_attention.py``).
+
+CUDA tensors only (``kernels/ops.py`` sends CPU tensors to
+``ref.paged_decode_attention_ref``); the launch count is
+``paged_decode_attention_int4.launches``. The bf16 page residency is not
+ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.kv_quant import _require_cuda
+
+
+def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
+                                page_size, sm_scale=None):
+    """q: (B, Hkv, gq, hd) bf16/f32; ``k_pages``/``v_pages`` the int4
+    triples ``(packed (P, page_size*ppr, g//2) u8, scale (P, ..., 1) f32,
+    zero)``; page_table (B, W) int32 (0 = trash page); kv_len (B,) int32.
+    Returns (B, Hkv, gq, hd) in ``q.dtype``."""
+    kp, ks, kz = k_pages
+    vp, vs, vz = v_pages
+    _require_cuda("paged_decode_attention", q=q, kp=kp, ks=ks, kz=kz, vp=vp,
+                  vs=vs, vz=vz, page_table=page_table, kv_len=kv_len)
+    B, Hkv, gq, hd = q.shape
+    P, R, g2 = kp.shape
+    W = page_table.shape[1]
+    g = 2 * g2
+    ok = (q.dtype in (torch.bfloat16, torch.float32)
+          and kp.dtype == vp.dtype == torch.uint8
+          and tuple(vp.shape) == (P, R, g2)
+          and all(t.dtype == torch.float32 and tuple(t.shape) == (P, R, 1)
+                  for t in (ks, kz, vs, vz))
+          and page_table.dtype == kv_len.dtype == torch.int32
+          and tuple(page_table.shape) == (B, W)
+          and tuple(kv_len.shape) == (B,)
+          and hd % 2 == 0 and R % page_size == 0
+          and (Hkv * hd) == (R // page_size) * g)
+    if not ok:
+        raise ValueError(
+            f"paged_decode_attention: bad operands q {tuple(q.shape)} "
+            f"{q.dtype}, pages {tuple(kp.shape)}/{tuple(ks.shape)}, "
+            f"page_table {tuple(page_table.shape)} {page_table.dtype}, "
+            f"kv_len {tuple(kv_len.shape)} {kv_len.dtype}, "
+            f"page_size {page_size}")
+    sm_scale = sm_scale or 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    status = build.library().paged_attention_int4_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), kp.data_ptr(),
+        ks.data_ptr(), kz.data_ptr(), vp.data_ptr(), vs.data_ptr(),
+        vz.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), B, Hkv, gq, hd, W, R, g, page_size, sm_scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "paged_decode_attention")
+    paged_decode_attention_int4.launches += 1
+    return out
+
+
+paged_decode_attention_int4.launches = 0

@@ -1,0 +1,143 @@
+"""Paged, int4-resident decode cache and decode step (``repro.models.paged``).
+
+The decode KV cache is a pool of fixed-size PAGES (``page_size`` tokens)
+shared by every slot of a decode engine; each slot names its pages through
+a row of ``page_table``. At rest the pages hold the SAME group-wise affine
+int4 encoding the prefill->decode wire uses, so an arriving wire scatters
+straight into pages and attention dequantizes inside the kernel.
+
+Layout, stacked over the L layers (the reference's layout):
+``kp/vp (L, P, page_size*ppr, g//2) u8`` packed nibbles and
+``ks/kz/vs/vz (L, P, page_size*ppr, 1) f32`` scale/zero, where
+``g = page_group(cfg)`` divides Hkv*hd and ``ppr = Hkv*hd // g``; row
+``t*ppr + r`` of a page is token t's r-th group. Page 0 is the TRASH
+page: unallocated table entries are 0, and inactive slots' writes land
+there. Only the int4 residency is ported; the reference's bf16 residency
+waits for its kernel (ROADMAP, queue B).
+
+Where the reference returns updated arrays, ``decode_step_paged`` writes
+the appended token's page rows IN PLACE (index_put on the page buffers)
+and returns the same cache dict with new ``lengths``. Every index is a
+device tensor, so the step never synchronizes with the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.kv_layout import pick_group
+from repro_torch.models import layers
+from repro_torch.models.layers import dense, rmsnorm
+from repro_torch.models.transformer import _ffn, unembed_matrix
+
+DEFAULT_PAGE_SIZE = 16
+PAGE_KEYS = ("kp", "ks", "kz", "vp", "vs", "vz")
+
+
+def page_group(cfg) -> int:
+    """The quantization group width shared with the wire format."""
+    return pick_group(cfg.num_kv_heads * cfg.head_dim)
+
+
+def groups_per_token(cfg) -> int:
+    return (cfg.num_kv_heads * cfg.head_dim) // page_group(cfg)
+
+
+def table_width(max_seq: int, page_size: int) -> int:
+    """Page-table row width: enough entries for a max_seq-token slot."""
+    return -(-max_seq // page_size)
+
+
+def paged_supported(cfg) -> bool:
+    """Pure full-attention stacks without logit softcap (the families the
+    port runs so far are all dense)."""
+    if cfg.family == "audio" or cfg.sliding_window or cfg.attn_logit_softcap:
+        return False
+    mixes = {k.split("+")[0] for k in cfg.layer_kinds()}
+    return mixes == {"attn"} and page_group(cfg) > 0
+
+
+def init_paged_cache(cfg, max_slots: int, max_seq: int, num_pages: int, *,
+                     page_size: int = DEFAULT_PAGE_SIZE,
+                     resident: str = "int4", device="cuda"):
+    """Page buffers (all zero), ``page_table (max_slots, W)`` (all trash)
+    and ``lengths``."""
+    if not paged_supported(cfg):
+        raise ValueError(f"{cfg.name}: arch cannot page its decode cache")
+    if resident != "int4":
+        raise NotImplementedError(
+            f"kv residency {resident!r}: only int4 pages are ported; the "
+            f"bf16 residency waits for its paged-attention kernel (ROADMAP "
+            f"queue B)")
+    L = cfg.num_layers
+    g, ppr = page_group(cfg), groups_per_token(cfg)
+    R = page_size * ppr
+    slot = {}
+    for name in PAGE_KEYS:
+        packed = name.endswith("p")
+        slot[name] = torch.zeros(
+            (L, num_pages, R, g // 2 if packed else 1),
+            dtype=torch.uint8 if packed else torch.float32, device=device)
+    W = table_width(max_seq, page_size)
+    return {"slot0": slot,
+            "page_table": torch.zeros((max_slots, W), dtype=torch.int32,
+                                      device=device),
+            "lengths": torch.zeros((max_slots,), dtype=torch.int32,
+                                   device=device)}
+
+
+def decode_step_paged(cfg, params, cache, tokens, *,
+                      page_size: int = DEFAULT_PAGE_SIZE,
+                      backend: str = "auto"):
+    """One decode step against the paged pool. tokens: (B, 1).
+
+    Each slot's new K/V is quantized by ``ops.kv_quant`` (the wire's
+    kernel, so pages are byte-identical whichever path wrote a token) and
+    written into its tail page; attention runs through
+    ``ops.paged_decode_attention``. Returns (logits (B, 1, V) f32, cache)
+    with ``lengths + 1``; the page table is host business."""
+    x = params["embed"][tokens]
+    B = x.shape[0]
+    dev = x.device
+    lengths = cache["lengths"]
+    positions = lengths[:, None]
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    gq = cfg.num_heads // Hkv
+    g, ppr = page_group(cfg), groups_per_token(cfg)
+    pt = cache["page_table"]
+    W = pt.shape[1]
+    ps = page_size
+    # tail-page coordinates of this step's writes, clamped so a slot at
+    # its last position (or an inactive one) indexes a real table entry;
+    # unallocated entries are 0, the trash page
+    pos0 = lengths.long()
+    tail_pi = torch.clamp(pos0 // ps, max=W - 1)
+    tail_page = torch.gather(pt, 1, tail_pi[:, None])[:, 0].long()
+    tail_page = tail_page.clamp(min=0)
+    rows = (pos0 % ps)[:, None] * ppr \
+        + torch.arange(ppr, device=dev)[None]                   # (B, ppr)
+    kv_len = (lengths + 1).to(torch.int32)
+    slot = cache["slot0"]
+    for i, p in enumerate(params["layers"]):
+        h = rmsnorm(x, p["norm1"])
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        for base, val in (("k", k), ("v", v)):
+            packed, scale, zero = ops.kv_quant(
+                val[:, 0].reshape(B * ppr, g).contiguous(), backend=backend)
+            for suffix, t, width in (("p", packed, g // 2), ("s", scale, 1),
+                                     ("z", zero, 1)):
+                slot[base + suffix][i][tail_page[:, None], rows] = \
+                    t.reshape(B, ppr, width)
+        kpages = tuple(slot[n][i] for n in ("kp", "ks", "kz"))
+        vpages = tuple(slot[n][i] for n in ("vp", "vs", "vz"))
+        qr = q[:, 0].reshape(B, Hkv, gq, hd).contiguous()
+        o = ops.paged_decode_attention(qr, kpages, vpages, pt, kv_len,
+                                       page_size=ps, backend=backend)
+        x = x + dense(p["attn"]["wo"],
+                      o.reshape(B, 1, cfg.q_dim).to(x.dtype))
+        x = _ffn(cfg, p, x)
+    x = rmsnorm(x, params["final_norm"])
+    logits = (x @ unembed_matrix(cfg, params)).float()
+    new_cache = dict(cache)
+    new_cache["lengths"] = lengths + 1
+    return logits, new_cache

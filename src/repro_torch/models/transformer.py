@@ -1,0 +1,183 @@
+"""Dense decoder-only transformer: init, prefill and suffix prefill
+(the dense-family parts of ``repro.models.transformer``).
+
+Parameters are plain dicts of tensors, one dict per layer instead of the
+reference's layer-stacked pytree (``models/convert.py`` maps one onto the
+other):
+
+    {"embed": (V, d), "final_norm": (d,), "unembed": (d, V),
+     "layers": [{"norm1": (d,), "norm2": (d,),
+                 "attn": {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd),
+                          "wo": (qd, d)},
+                 "mlp": {"wi": (d, 2*d_ff), "wo": (d_ff, d)}}, ...]}
+
+A prefill cache is ``{"slot0": {"k", "v": (L, B, S, Hkv, hd)},
+"lengths": (B,)}``, the reference's layout. The port's prefill cache
+holds the S computed positions; the reference pads it to ``max_seq``
+with zeros that the wire extraction never reads. The cache is written in
+place, layer by layer.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.layers import dense, rmsnorm
+
+NEG_INF = layers.NEG_INF
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda",
+                dtype=torch.bfloat16):
+    """Random weights with the reference's scales (normal * 1/sqrt(d_in),
+    embed * 0.02, norms zero). Each tensor is drawn directly in ``dtype``
+    on ``device`` from one ``torch.Generator``: LLaMA-30B's 65 GB of bf16
+    weights never pass through an f32 temporary. The numbers differ from
+    ``jax.random``'s; parity tests convert the JAX weights instead."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=dtype).mul_(scale)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    blocks = []
+    for _ in range(cfg.num_layers):
+        blocks.append({
+            "norm1": zeros(d),
+            "attn": {"wq": normal((d, qd), 1 / math.sqrt(d)),
+                     "wk": normal((d, kvd), 1 / math.sqrt(d)),
+                     "wv": normal((d, kvd), 1 / math.sqrt(d)),
+                     "wo": normal((qd, d), 1 / math.sqrt(qd))},
+            "norm2": zeros(d),
+            "mlp": {"wi": normal((d, 2 * f), 1 / math.sqrt(d)),
+                    "wo": normal((f, d), 1 / math.sqrt(f))},
+        })
+    params = {"embed": normal((cfg.vocab_size, d), 0.02), "layers": blocks,
+              "final_norm": zeros(d)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
+    return params
+
+
+def unembed_matrix(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def cache_dtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
+               device="cuda"):
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"slot0": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)},
+            "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+
+
+def _ffn(cfg, p, x):
+    return x + layers.mlp_apply(cfg, p["mlp"], rmsnorm(x, p["norm2"]))
+
+
+def _last_logits(cfg, params, x, last_pos):
+    """Final norm + unembed at each sequence's last real position, in f32
+    (``h_last @ w`` in the working type, then cast, as the reference)."""
+    B = x.shape[0]
+    if last_pos is None:
+        h_last = x[:, -1:]
+    else:
+        h_last = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
+    h_last = rmsnorm(h_last, params["final_norm"])
+    return (h_last @ unembed_matrix(cfg, params)).float()
+
+
+def _lengths(true_len, B, S, device):
+    if true_len is None:
+        return torch.full((B,), S, dtype=torch.int32, device=device)
+    return true_len.to(torch.int32)
+
+
+def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
+            true_len=None):
+    """Process right-padded prompts ``tokens (B, S)``; returns
+    (logits at ``last_pos`` (B, 1, V) f32, cache). Causal attention makes
+    the right padding invisible to the real positions."""
+    B, S = tokens.shape
+    if S > max_seq:
+        raise ValueError(f"prompt bucket {S} exceeds max_seq={max_seq}")
+    dev = tokens.device
+    x = params["embed"][tokens]
+    positions = torch.arange(S, device=dev).expand(B, S)
+    cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
+    for i, p in enumerate(params["layers"]):
+        h = rmsnorm(x, p["norm1"])
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        o = layers.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                             chunk_q=cfg.attn_chunk_q,
+                             chunk_kv=cfg.attn_chunk_kv)
+        cache["slot0"]["k"][i] = k
+        cache["slot0"]["v"][i] = v
+        x = x + dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
+        x = _ffn(cfg, p, x)
+    cache["lengths"] = _lengths(true_len, B, S, dev)
+    return _last_logits(cfg, params, x, last_pos), cache
+
+
+def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
+                   max_seq: int, last_pos=None, true_len=None):
+    """Prefill only a prompt SUFFIX against already-computed prefix KV
+    (the partial prefix hit and chunked prefill). ``prefix_kv["slot0"]``
+    is (k, v) of shape (L, B, P, Hkv, hd), right-padded to P;
+    ``prefix_len (B,)`` the true prefix lengths. Suffix queries sit at
+    absolute positions ``prefix_len + i``. The returned cache holds only
+    the suffix KV (lengths = suffix true lengths)."""
+    B, S = tokens.shape
+    if S > max_seq:
+        raise ValueError(f"suffix bucket {S} exceeds max_seq={max_seq}")
+    dev = tokens.device
+    pk_all, pv_all = prefix_kv["slot0"]
+    x = params["embed"][tokens]
+    positions = prefix_len[:, None].long() + torch.arange(S, device=dev)[None]
+    cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
+    for i, p in enumerate(params["layers"]):
+        h = rmsnorm(x, p["norm1"])
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        K = torch.cat([pk_all[i].to(k.dtype), k], dim=1)
+        V = torch.cat([pv_all[i].to(v.dtype), v], dim=1)
+        o = _suffix_attention(q, K, V, prefix_len)
+        cache["slot0"]["k"][i] = k
+        cache["slot0"]["v"][i] = v
+        x = x + dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
+        x = _ffn(cfg, p, x)
+    cache["lengths"] = _lengths(true_len, B, S, dev)
+    return _last_logits(cfg, params, x, last_pos), cache
+
+
+def _suffix_attention(q, K, V, prefix_len):
+    """Suffix queries over [padded prefix ++ suffix] keys. q: (B,S,H,hd);
+    K/V: (B,P+S,Hkv,hd). Prefix key j is valid iff j < prefix_len; suffix
+    key j >= P is visible to query i iff j - P <= i."""
+    B, S, H, hd = q.shape
+    Sk, Hk = K.shape[1], K.shape[2]
+    P = Sk - S
+    g = H // Hk
+    qh = q.reshape(B, S, Hk, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), K.float()) \
+        / math.sqrt(hd)
+    j = torch.arange(Sk, device=q.device)[None, None, :]
+    i = torch.arange(S, device=q.device)[None, :, None]
+    plen = prefix_len[:, None, None]
+    ok = torch.where(j < P, j < plen, (j - P) <= i)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s = s + torch.where(ok, zero, NEG_INF)[:, None, None]
+    w = torch.softmax(s, dim=-1).to(V.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), V.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)

@@ -1,0 +1,720 @@
+"""Serving engines: a prefill engine and a continuous-batching paged decode
+engine around one set of weights each (the port of
+``repro.serving.engine``).
+
+The decode hot loop is DEVICE-RESIDENT: ``DecodeEngine.step()`` runs
+``chunk_size`` decode steps back to back (``registry.make_decode_chunk``)
+with the current tokens, done-flags and emitted tokens in device tensors,
+and brings the chunk's results to the host in ONE copy. Prefill pads
+prompts to power-of-two length buckets and quantizes a whole bucket's KV
+in one kernel launch.
+
+Ported so far: ``PrefillEngine`` (bucketed, with the suffix path of
+partial prefix hits and chunked prefill) and ``DecodeEngine(paged=True)``
+with the int4-resident page pool and prefix sharing. The dense decode
+cache (``paged=False``) and the phase-switching ``Replica`` raise
+``NotImplementedError`` until their ROADMAP items land.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import paged as paged_fmt
+from repro_torch.models import registry
+from repro_torch.serving import kv_transfer, page_pool, protocol
+from repro_torch.serving.kv_transfer import KVWire
+from repro_torch.serving.page_pool import PagePool, pages_needed
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
+
+
+@dataclass
+class GenRequest:
+    """Engine-level unit of work: prompt in, ``out_tokens`` accumulate.
+    Engines never stamp the timestamp fields; their owner does."""
+    rid: int
+    tokens: np.ndarray              # prompt token ids (1D)
+    max_new_tokens: int
+    extras: Dict[str, np.ndarray] = field(default_factory=dict)
+    out_tokens: List[int] = field(default_factory=list)
+    t_submit: float = 0.0
+    t_first: float = -1.0
+    t_done: float = -1.0
+    # prefix-cache partial hit: positions [0, start_pos) are resident on
+    # the target decode engine (``prefix_pages``); prefill covers only the
+    # suffix, attending over ``prefix_wire``'s KV
+    start_pos: int = 0
+    prefix_pages: Optional[List[int]] = None
+    prefix_wire: Optional[KVWire] = None
+    prefix_replica: int = -1
+
+
+# -- unified admission API ----------------------------------------------------
+#   FRESH       one-shot prefill wire; ``token`` is the first output
+#   CHUNKED     concatenated chunked-prefill wire (engine-side like FRESH)
+#   PREFIX_HIT  full prefix-cache hit: no wire, ``pages`` is the resident
+#               chain and ``token`` the known first output
+#   MIGRATED    mid-stream snapshot off another decode engine; ``token`` is
+#               the RESUME token (already in ``out_tokens``)
+
+ADMIT_FRESH = "FRESH"
+ADMIT_CHUNKED = "CHUNKED"
+ADMIT_PREFIX_HIT = "PREFIX_HIT"
+ADMIT_MIGRATED = "MIGRATED"
+
+
+@dataclass
+class AdmissionItem:
+    """One request entering continuous batching, tagged with how its KV
+    arrives: ``wire`` for FRESH/CHUNKED/MIGRATED, ``pages`` for
+    PREFIX_HIT."""
+    req: GenRequest
+    token: int
+    source: str = ADMIT_FRESH
+    wire: Optional[KVWire] = None
+    pages: Optional[List[int]] = None
+
+
+@dataclass
+class AdmissionBatch:
+    """Ordered admission attempt: FIFO, stopping at the first item the
+    page/slot budget cannot place; ``admit`` returns the rejected tail."""
+    items: List[AdmissionItem] = field(default_factory=list)
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __iter__(self):
+        return iter(self.items)
+
+    def __bool__(self) -> bool:
+        return bool(self.items)
+
+
+@dataclass
+class PartialPrefill:
+    """Resumable chunked-prefill state. ``pos`` counts prompt tokens
+    prefilled past ``req.start_pos``; ``wires`` holds one RAW suffix wire
+    per completed chunk (exact floats, so the resumable prefix is what a
+    one-shot prefill computes); quantization happens once, over the
+    spliced whole, when the job completes."""
+    req: GenRequest
+    pos: int = 0
+    wires: List[KVWire] = field(default_factory=list)
+    first: int = -1
+    done: bool = False
+    transport: Optional[KVWire] = None
+
+    @property
+    def next_pos(self) -> int:
+        return self.req.start_pos + self.pos
+
+    @property
+    def remaining(self) -> int:
+        return len(self.req.tokens) - self.next_pos
+
+    def wire(self) -> KVWire:
+        if self.transport is not None:
+            return self.transport
+        return kv_transfer.concat_wires(self.wires)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max((n - 1).bit_length(), 0)
+
+
+def _params_device(params, device) -> torch.device:
+    dev = torch.device(device)
+    have = params["embed"].device
+    if have.type != dev.type:
+        raise ValueError(f"params live on {have}, engine asked for {dev}")
+    return have
+
+
+def _first_tokens(logits) -> np.ndarray:
+    """Greedy first tokens: one device -> host copy per prefill call."""
+    return torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+
+
+class PrefillEngine:
+    """Latency-oriented: processes one prompt batch at a time, right-padded
+    to power-of-two length buckets (at most ``max_batch`` rows per call,
+    itself padded to a power of two). Logits are gathered at each
+    prompt's own last token."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
+                 max_batch: int = 4, min_bucket: int = 16, device="cuda"):
+        self.cfg = cfg
+        self.params = params
+        self.device = _params_device(params, device)
+        self.api = registry.build(cfg)
+        self.max_seq = max_seq
+        self.max_batch = max_batch
+        self.min_bucket = min_bucket
+
+    @property
+    def supports_suffix(self) -> bool:
+        return self.api.prefill_suffix is not None
+
+    def _bucket_of(self, n: int) -> int:
+        return min(max(_next_pow2(n), self.min_bucket), self.max_seq)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def run(self, reqs: List[GenRequest], *, compress: bool = True,
+            backend: str = "auto") -> List[Tuple[GenRequest, KVWire, int]]:
+        """Prefill a batch; returns per-request (req, wire, first_token).
+        Requests carrying a resident prefix (``start_pos``/``prefix_wire``)
+        take the suffix path."""
+        if not reqs:
+            return []
+        suffix = [r for r in reqs
+                  if r.start_pos > 0 and r.prefix_wire is not None]
+        sids = {id(r) for r in suffix}
+        normal = [r for r in reqs if id(r) not in sids]
+        too_long = [r.rid for r in reqs if len(r.tokens) > self.max_seq]
+        if too_long:
+            raise ValueError(
+                f"prompt(s) exceed max_seq={self.max_seq}: rids {too_long}")
+        out = []
+        if suffix:
+            if not self.supports_suffix:
+                raise ValueError("suffix prefill requested but this engine "
+                                 "cannot slice its state at a position")
+            out.extend(self._run_suffix(suffix, compress=compress,
+                                        backend=backend))
+        if normal:
+            out.extend(self._run_bucketed(normal, compress=compress,
+                                          backend=backend))
+        return out
+
+    def prefill_chunk(self, jobs: List[PartialPrefill], budget: int, *,
+                      compress: bool = True, backend: str = "auto"
+                      ) -> List[PartialPrefill]:
+        """Advance chunked prefills by up to ``budget`` prompt tokens TOTAL
+        across ``jobs`` (FIFO), one model call per tick. Each chunk is a
+        suffix prefill over the concat of the job's raw chunk wires (plus
+        any prefix-cache wire); the admission wire is quantized once, over
+        the spliced whole, at completion. Mutates and returns ``jobs``."""
+        left = max(int(budget), 0)
+        work = []                       # (job, clone, take)
+        for job in jobs:
+            if job.done or job.remaining <= 0 or left <= 0:
+                continue
+            take = protocol.chunk_take(job.remaining, left,
+                                       self.supports_suffix)
+            left -= min(take, left)
+            req = job.req
+            upto = job.next_pos + take
+            clone = GenRequest(req.rid, np.asarray(req.tokens)[:upto],
+                               req.max_new_tokens, extras=req.extras)
+            if job.next_pos > 0:
+                parts = ([req.prefix_wire]
+                         if req.start_pos > 0 and req.prefix_wire is not None
+                         else []) + job.wires
+                clone.start_pos = job.next_pos
+                clone.prefix_wire = kv_transfer.concat_wires(
+                    parts, backend=backend)
+            work.append((job, clone, take))
+        if not work:
+            return jobs
+        by_clone = {id(c): (job, take) for job, c, take in work}
+        # chunks extract RAW (protocol.chunk_extract_compress() is False)
+        for clone, wire, first in self.run(
+                [c for _, c, _ in work],
+                compress=protocol.chunk_extract_compress(),
+                backend=backend):
+            job, take = by_clone[id(clone)]
+            job.wires.append(wire)
+            job.pos += take
+            if protocol.chunk_complete(job.next_pos, len(job.req.tokens)):
+                job.done = True
+                job.first = int(first)
+                full = kv_transfer.concat_wires(job.wires)
+                job.transport = (kv_transfer.compress_wire(
+                    full, backend=backend) if compress else full)
+        return jobs
+
+    def _run_bucketed(self, reqs, *, compress, backend):
+        by_bucket: Dict[int, List[GenRequest]] = {}
+        for r in reqs:
+            by_bucket.setdefault(self._bucket_of(len(r.tokens)), []).append(r)
+        out = []
+        for Lb, group in by_bucket.items():
+            for lo in range(0, len(group), self.max_batch):
+                out.extend(self._run_one_bucket(
+                    group[lo:lo + self.max_batch], Lb,
+                    compress=compress, backend=backend))
+        return out
+
+    def _bucket_batch(self, group, Lb, lens, starts):
+        """Right-padded tokens ``r.tokens[start:]`` plus last_pos/true_len
+        for a pow2 batch."""
+        B = min(_next_pow2(len(group)), self.max_batch)
+        toks = np.zeros((B, Lb), np.int64)
+        for i, r in enumerate(group):
+            toks[i, :lens[i]] = np.asarray(r.tokens)[starts[i]:][:lens[i]]
+        last_pos = np.zeros((B,), np.int64)
+        last_pos[:len(group)] = np.asarray(lens) - 1
+        true_len = np.ones((B,), np.int32)
+        true_len[:len(group)] = lens
+        return B, {"tokens": self._tensor(toks),
+                   "last_pos": self._tensor(last_pos),
+                   "true_len": self._tensor(true_len)}
+
+    def _run_one_bucket(self, group, Lb, *, compress, backend):
+        lens = [min(len(r.tokens), Lb) for r in group]
+        _, batch = self._bucket_batch(group, Lb, lens, [0] * len(group))
+        logits, cache = self.api.prefill(self.params, batch,
+                                         max_seq=self.max_seq)
+        first = _first_tokens(logits)
+        wires = kv_transfer.extract_batch(
+            cache, [(i, lens[i]) for i in range(len(group))],
+            compress=compress, backend=backend, pad_to=Lb)
+        return [(r, wires[i], int(first[i])) for i, r in enumerate(group)]
+
+    def _run_suffix(self, reqs, *, compress, backend):
+        """Partial-hit path: group by (suffix bucket, prefix bucket) and
+        prefill each suffix against its dequantized prefix KV."""
+        by_key: Dict[Tuple[int, int], List[GenRequest]] = {}
+        for r in reqs:
+            Lb = self._bucket_of(len(r.tokens) - r.start_pos)
+            Pb = self._bucket_of(r.start_pos)
+            by_key.setdefault((Lb, Pb), []).append(r)
+        out = []
+        for (Lb, Pb), group in by_key.items():
+            for lo in range(0, len(group), self.max_batch):
+                out.extend(self._run_one_suffix_bucket(
+                    group[lo:lo + self.max_batch], Lb, Pb,
+                    compress=compress, backend=backend))
+        return out
+
+    def _run_one_suffix_bucket(self, group, Lb, Pb, *, compress, backend):
+        slens = [min(len(r.tokens) - r.start_pos, Lb) for r in group]
+        B, batch = self._bucket_batch(group, Lb, slens,
+                                      [r.start_pos for r in group])
+        prefix_kv, plen = kv_transfer.dequantize_prefix_batch(
+            [r.prefix_wire for r in group], Pb, backend=backend)
+        if B > len(group):
+            # dummy rows: zero-length prefix, masked out entirely
+            pad = B - len(group)
+            prefix_kv = {
+                name: tuple(torch.cat([a, a.new_zeros(
+                    (a.shape[0], pad) + a.shape[2:])], dim=1) for a in kv)
+                for name, kv in prefix_kv.items()}
+            plen = torch.cat([plen, plen.new_zeros(pad)])
+        batch["prefix_kv"] = prefix_kv
+        batch["prefix_len"] = plen
+        logits, cache = self.api.prefill_suffix(self.params, batch,
+                                                max_seq=self.max_seq)
+        first = _first_tokens(logits)
+        wires = kv_transfer.extract_batch(
+            cache, [(i, slens[i]) for i in range(len(group))],
+            compress=compress, backend=backend, pad_to=Lb)
+        return [(r, wires[i], int(first[i])) for i, r in enumerate(group)]
+
+
+@contextlib.contextmanager
+def _sync_errors(device: torch.device, on: bool):
+    """Turn any host synchronization on ``device`` into an error."""
+    if not (on and device.type == "cuda"):
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class DecodeEngine:
+    """Throughput-oriented: continuous batching over an int4-resident page
+    pool. Admission reserves ``ceil((prompt + max_new) / page_size)``
+    pages per request, aligned wires scatter into pages with no dequant
+    round trip, attention dequantizes in the kernel, and ``free_slots()``
+    truncates to what the page budget can admit. With
+    ``prefix_sharing`` finished chains are donated to a radix index and
+    later requests decode straight off the shared pages."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
+                 max_seq: int = 512, eos_id: int = -1, chunk_size: int = 8,
+                 paged: bool = True,
+                 page_size: int = paged_fmt.DEFAULT_PAGE_SIZE,
+                 num_pages: Optional[int] = None,
+                 kv_resident: str = "int4", paged_backend: str = "auto",
+                 prefix_sharing: bool = False, device="cuda"):
+        if not paged:
+            raise NotImplementedError(
+                "DecodeEngine(paged=False): the dense decode cache is not "
+                "ported yet (ROADMAP queue A, dense decode with the "
+                "decode_attention kernel)")
+        self.cfg = cfg
+        self.params = params
+        self.device = _params_device(params, device)
+        self.api = registry.build(cfg)
+        if self.api.paged_decode_fns is None:
+            raise NotImplementedError(f"{cfg.name}: arch cannot page its "
+                                      f"decode cache")
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.chunk_size = chunk_size
+        self.paged = True
+        self.page_size = page_size
+        self.table_w = paged_fmt.table_width(max_seq, page_size)
+        if num_pages is None:
+            # parity with a dense max_slots x max_seq budget (+ trash page)
+            num_pages = max_slots * self.table_w + 1
+        self.kv_resident = kv_resident
+        self.pool = PagePool(num_pages, page_size)
+        self.cache = paged_fmt.init_paged_cache(
+            cfg, max_slots, max_seq, num_pages, page_size=page_size,
+            resident=kv_resident, device=self.device)
+        _, self._chunk = self.api.paged_decode_fns(page_size, paged_backend)
+        self._slot_pages: Dict[int, List[int]] = {}
+        self._need_sum = 0      # pages reserved across admissions
+        self._need_n = 0
+        self.zero_copy_inserts = 0
+        self.reencoded_inserts = 0
+        self.prefix_cache = (PrefixCache(page_size) if prefix_sharing
+                             else None)
+        self._pins: Dict[object, List[int]] = {}
+        self.cow_copies = 0
+        self.prefix_admits = 0
+        self.slots: List[Optional[GenRequest]] = [None] * max_slots
+        self.cur_token = np.zeros((max_slots,), np.int32)
+        # host-sync accounting: one per chunk
+        self.host_syncs = 0
+        self.steps_run = 0
+
+    # -- slot management ----------------------------------------------------
+
+    def free_slots(self) -> List[int]:
+        """Admissible slot indices, truncated to the PAGE BUDGET: free (and
+        prefix-index-only, reclaimable) pages over the mean reserved pages
+        per admitted request."""
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if not free:
+            return free
+        est = (self._need_sum / self._need_n) if self._need_n \
+            else float(self.table_w)
+        reclaimable = 0
+        if self.prefix_cache is not None:
+            reclaimable = sum(1 for p in self.prefix_cache.page_set()
+                              if self.pool.refcount(p) == 1)
+        cap = int((self.pool.n_free + reclaimable) / max(est, 1.0))
+        return free[:max(cap, 0)]
+
+    def _alloc_pages(self, n: int, owner) -> Optional[List[int]]:
+        """Pool alloc; on failure evict unshared prefix-cache entries (LRU)
+        to cover the shortfall, then retry."""
+        if n == 0:
+            return []
+        pages = self.pool.alloc(n, owner)
+        if pages is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(self.pool, n - self.pool.n_free)
+            pages = self.pool.alloc(n, owner)
+        return pages
+
+    def admit(self, batch: AdmissionBatch, *,
+              backend: str = "auto") -> AdmissionBatch:
+        """One FIFO pass over an :class:`AdmissionBatch`; returns the
+        REJECTED tail. All-or-nothing per request on the page budget:
+        pages for prompt + max_new are reserved up front. PREFIX_HIT items
+        share their resident chain (copy-on-write of the boundary page);
+        wire items scatter in one ``insert_wires`` call."""
+        if not isinstance(batch, AdmissionBatch):
+            raise TypeError("admit() takes an AdmissionBatch")
+        items = list(batch.items)
+        n_taken = 0
+        placed = []                      # wire-carrying placements
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        for it in items:
+            if it.source == ADMIT_PREFIX_HIT:
+                if not self._admit_one_prefix(it.req, it.pages or [],
+                                              it.token):
+                    break
+                free = [i for i, s in enumerate(self.slots) if s is None]
+                n_taken += 1
+                continue
+            if not free:
+                break
+            req, wire = it.req, it.wire
+            migrated = it.source == ADMIT_MIGRATED
+            # partial prefix hit: the wire covers only the suffix; share
+            # the resident prefix chain and splice suffix pages after it
+            prefix = (list(req.prefix_pages)
+                      if (not migrated and req.prefix_pages) else [])
+            budget = min(len(req.tokens) + req.max_new_tokens, self.max_seq)
+            need = min(pages_needed(budget, self.page_size), self.table_w) \
+                - len(prefix)
+            need = max(need, pages_needed(wire.request_len, self.page_size))
+            if len(prefix) + need > self.table_w:
+                break
+            pages = self._alloc_pages(need, free[0])
+            if pages is None:
+                break
+            if prefix:
+                try:
+                    self.pool.share(prefix, free[0])
+                except ValueError:
+                    self.pool.free(pages, owner=free[0])
+                    break
+            slot = free.pop(0)
+            placed.append((it, slot, pages, prefix))
+            n_taken += 1
+        if placed:
+            self.cache, nz, nr = page_pool.insert_wires(
+                self.cache, self.cfg,
+                [(it.wire, s, p, pre) for it, s, p, pre in placed],
+                backend=backend)
+            self.zero_copy_inserts += nz
+            self.reencoded_inserts += nr
+            for it, slot, pages, prefix in placed:
+                self.slots[slot] = it.req
+                self._slot_pages[slot] = prefix + pages
+                self.cur_token[slot] = it.token
+                if it.source != ADMIT_MIGRATED:
+                    it.req.out_tokens.append(it.token)
+                self._need_sum += len(pages)
+                self._need_n += 1
+        return AdmissionBatch(items[n_taken:])
+
+    # -- prefix sharing -----------------------------------------------------
+
+    def prefix_match(self, tokens) -> Optional[PrefixMatch]:
+        if self.prefix_cache is None:
+            return None
+        return self.prefix_cache.match([int(t) for t in tokens])
+
+    def prefix_pin(self, pages: List[int], tag) -> bool:
+        """Reference matched pages under an in-flight tag so neither
+        eviction nor a donor release recycles them before admission."""
+        try:
+            self.pool.share(pages, tag)
+        except ValueError:
+            return False
+        self._pins[tag] = list(pages)
+        return True
+
+    def prefix_unpin(self, tag):
+        pages = self._pins.pop(tag, None)
+        if pages:
+            self.pool.unshare(pages, tag)
+
+    def extract_prefix(self, pages: List[int], length: int) -> KVWire:
+        """Gather a (pinned) prefix chain into a wire for the suffix
+        prefill: a pure page gather, no dequantization here."""
+        return page_pool.extract_slot_wire(self.cache, self.cfg, length,
+                                           pages)
+
+    def _admit_one_prefix(self, req: GenRequest, pages: List[int],
+                          next_token: int) -> bool:
+        """Admit a FULL prefix hit: every prompt token's KV is resident in
+        ``pages`` and ``next_token`` is the known first output, so prefill
+        is skipped. If the next append lands in a shared page, that page
+        is copy-on-write duplicated first."""
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if not free:
+            return False
+        slot = free[0]
+        ln = len(req.tokens)
+        budget = min(ln + req.max_new_tokens, self.max_seq)
+        need_total = min(pages_needed(budget, self.page_size), self.table_w)
+        n_extra = max(need_total - len(pages), 0)
+        cow_at = protocol.cow_boundary(ln, self.page_size, self.table_w)
+        cow = protocol.cow_needed(ln, self.page_size, self.table_w,
+                                  len(pages))
+        alloced = self._alloc_pages(n_extra + int(cow), slot)
+        if alloced is None:
+            return False
+        try:
+            self.pool.share(pages, slot)
+        except ValueError:
+            if alloced:
+                self.pool.free(alloced, owner=slot)
+            return False
+        chain = list(pages) + (alloced[:n_extra] if cow else alloced)
+        if cow:
+            repl = alloced[-1]
+            self.cache = page_pool.copy_page(self.cache, chain[cow_at],
+                                             repl)
+            self.pool.unshare([chain[cow_at]], slot)
+            chain[cow_at] = repl
+            self.cow_copies += 1
+        self.cache = page_pool.set_page_chain(self.cache, slot, chain, ln)
+        self.slots[slot] = req
+        self._slot_pages[slot] = chain
+        self.cur_token[slot] = next_token
+        req.out_tokens.append(next_token)
+        self._need_sum += len(alloced)
+        self._need_n += 1
+        self.prefix_admits += 1
+        return True
+
+    def _retire_slot(self, slot: int, req: GenRequest, kv_len: int):
+        """Release a finished slot's pages, first donating the chain to the
+        prefix index (order from ``protocol.retire_steps``)."""
+        donate = (self.prefix_cache is not None and req is not None
+                  and kv_len > 0)
+        chain = self._slot_pages.get(slot, []) if donate else []
+        n_used = pages_needed(kv_len, self.page_size) if donate else 0
+        donate = bool(donate and chain and n_used <= len(chain))
+        for op in protocol.retire_steps(donate):
+            if op == "donate":
+                toks = [int(t) for t in req.tokens] + \
+                    [int(t) for t in req.out_tokens]
+                self.prefix_cache.insert(toks, kv_len, chain[:n_used],
+                                         len(req.tokens), self.pool)
+            elif op == "free":
+                self._free_pages_of(slot)
+
+    def clear_prefix(self) -> int:
+        """Drop the radix index and every in-flight pin."""
+        for tag in list(self._pins):
+            self.prefix_unpin(tag)
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.clear(self.pool)
+
+    def extract_resident(self, *, compress: bool = True,
+                         backend: str = "auto"
+                         ) -> List[Tuple[int, GenRequest, KVWire, int]]:
+        """Snapshot every resident request as (slot, req, wire, cur_token)
+        for migration: a zero-dequant page gather of the tokens whose K/V
+        is resident. Slots are NOT released."""
+        out = []
+        if self.active == 0:
+            return out
+        lengths = self.cache["lengths"].cpu().numpy()
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            ln = int(lengths[slot])
+            wire = page_pool.extract_slot_wire(
+                self.cache, self.cfg, ln, self._slot_pages[slot])
+            out.append((slot, req, wire, int(self.cur_token[slot])))
+        return out
+
+    def _free_pages_of(self, slot: int):
+        pages = self._slot_pages.pop(slot, [])
+        if pages:
+            self.pool.free(pages, owner=slot)
+
+    def release(self, slot: int) -> Optional[GenRequest]:
+        """Free one slot (cancellation / failure recovery): every page goes
+        back to the pool and the table row to the trash page."""
+        req = self.slots[slot]
+        self.slots[slot] = None
+        self._free_pages_of(slot)
+        self.cache = page_pool.release_slot(self.cache, slot)
+        return req
+
+    @property
+    def active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    # -- stepping -----------------------------------------------------------
+
+    def _host_state(self):
+        active = np.array([s is not None for s in self.slots], bool)
+        n_out = np.array([len(s.out_tokens) if s else 0 for s in self.slots],
+                         np.int32)
+        max_new = np.array([s.max_new_tokens if s else 0 for s in self.slots],
+                           np.int32)
+        dev = self.device
+        return {"cur": torch.as_tensor(self.cur_token, device=dev),
+                "active": torch.as_tensor(active, device=dev),
+                "n_out": torch.as_tensor(n_out, device=dev),
+                "max_new": torch.as_tensor(max_new, device=dev)}
+
+    def step(self, n_steps: Optional[int] = None, *,
+             sync_check: bool = False) -> List[GenRequest]:
+        """Advance all active slots by up to ``chunk_size`` tokens; returns
+        finished requests. ONE device -> host copy for the whole chunk.
+        ``sync_check=True`` runs the chunk's device loop under
+        ``torch.cuda.set_sync_debug_mode("error")``, so a hidden host
+        synchronization inside the loop raises."""
+        if self.active == 0:
+            return []
+        n = n_steps or self.chunk_size
+        state = self._host_state()
+        with _sync_errors(self.device, sync_check):
+            toks_d, valid_d, self.cache, st = self._chunk(
+                self.params, self.cache, state, n_steps=n,
+                eos_id=self.eos_id, max_seq=self.max_seq)
+        B = self.max_slots
+        # the single device -> host hop for this chunk
+        host = torch.cat([toks_d.reshape(-1),
+                          valid_d.reshape(-1).to(torch.int32), st["cur"],
+                          st["active"].to(torch.int32),
+                          self.cache["lengths"]]).cpu().numpy()
+        toks = host[:n * B].reshape(n, B)
+        valid = host[n * B:2 * n * B].reshape(n, B).astype(bool)
+        cur, still_active, lengths = (host[2 * n * B:2 * n * B + B],
+                                      host[2 * n * B + B:2 * n * B + 2 * B],
+                                      host[2 * n * B + 2 * B:])
+        self.host_syncs += 1
+        self.steps_run += n
+        self.cur_token = cur.astype(np.int32)
+        finished, freed = [], []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            req.out_tokens.extend(int(t) for t in toks[valid[:, i], i])
+            if not still_active[i]:
+                finished.append(req)
+                self.slots[i] = None
+                freed.append(i)
+        if freed:
+            # finished chains go to the prefix index before the slot's
+            # references return to the pool; rows point back at trash
+            for req, i in zip(finished, freed):
+                self._retire_slot(i, req, int(lengths[i]))
+                self.cache = page_pool.release_slot(self.cache, i)
+        return finished
+
+    # -- paged accounting ---------------------------------------------------
+
+    def page_stats(self) -> Dict[str, float]:
+        """Pool occupancy, internal fragmentation, insert counters and
+        ``leaked_pages`` (pages in use that nothing references: 0)."""
+        st = self.pool.stats()
+        reserved = sum(len(p) for p in self._slot_pages.values()) \
+            * self.page_size
+        used = sum(len(r.tokens) + len(r.out_tokens)
+                   for r in self.slots if r is not None)
+        st["resident_tokens"] = used
+        st["reserved_tokens"] = reserved
+        st["internal_frag"] = (1.0 - used / reserved) if reserved else 0.0
+        st["zero_copy_inserts"] = self.zero_copy_inserts
+        st["reencoded_inserts"] = self.reencoded_inserts
+        referenced = {p for ps in self._slot_pages.values() for p in ps}
+        if self.prefix_cache is not None:
+            referenced |= self.prefix_cache.page_set()
+        for pinned in self._pins.values():
+            referenced.update(pinned)
+        st["leaked_pages"] = sum(1 for p in self.pool.pages_in_use()
+                                 if p not in referenced)
+        st["cow_copies"] = self.cow_copies
+        st["prefix_admits"] = self.prefix_admits
+        if self.prefix_cache is not None:
+            for k, v in self.prefix_cache.stats().items():
+                st[f"prefix_{k}"] = v
+        return st
+
+
+class Replica:
+    """Phase-switchable replica (paper §3.4): not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Replica (phase flips around resident weights) is ported with "
+            "the gateway in slice 2 (ROADMAP queue A)")

@@ -24,3 +24,9 @@ def admit_many(eng, triples, *, backend="auto"):
     return eng.admit(AdmissionBatch(
         [AdmissionItem(r, f, wire=w) for r, w, f in triples]),
         backend=backend)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped (by a fixture) without "
+        "one")

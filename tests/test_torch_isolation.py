@@ -1,0 +1,241 @@
+"""The port stands alone, and its copies of the reference's jax-free
+modules have not drifted.
+
+* ``repro_torch`` imports and serves with ``jax`` and ``repro`` blocked in
+  ``sys.meta_path`` (a subprocess), and an AST scan finds no import of
+  either in ``src/repro_torch/`` or ``chip_smoke.py``; the kernel modules
+  hold no ``try`` that could turn a failed build or launch into the plain
+  version.
+* The copies of ``protocol.py`` (the lifecycle table and every hook over
+  small exhaustive ranges), ``PagePool``, ``PrefixCache`` and the
+  ``ModelConfig`` behave like the reference's, so the model checker's
+  guarantees about the reference's hooks (DESIGN.md §12) hold for the
+  copies too.
+"""
+import ast
+import dataclasses
+import itertools
+import os
+import pathlib
+import random
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs import get_reduced as j_get_reduced  # noqa: E402
+from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
+from repro.serving import page_pool as j_pp  # noqa: E402
+from repro.serving import prefix_cache as j_pc  # noqa: E402
+from repro.serving import protocol as j_proto  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.serving import page_pool as t_pp  # noqa: E402
+from repro_torch.serving import prefix_cache as t_pc  # noqa: E402
+from repro_torch.serving import protocol as t_proto  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_file_of_the_port_imports_jax_or_repro():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                top = n.split(".")[0]
+                if top in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {n}")
+    assert not bad, bad
+
+
+def test_kernel_modules_hold_no_fallback():
+    for path in sorted((PORT / "kernels").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        assert not tries, f"{path.name}: try at lines {tries}"
+
+
+_BLOCKED_RUN = r"""
+import importlib, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import numpy as np, torch
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+from repro_torch.configs import get_reduced
+from repro_torch.models.transformer import init_params
+from repro_torch.serving import engine as E
+cfg = get_reduced("llama-30b")
+params = init_params(cfg, device="cpu")
+pre = E.PrefillEngine(cfg, params, max_seq=32, device="cpu")
+dec = E.DecodeEngine(cfg, params, max_slots=2, max_seq=32, page_size=8,
+                     device="cpu")
+req = E.GenRequest(0, np.arange(1, 12), 5)
+(r, w, f), = pre.run([req])
+assert not dec.admit(E.AdmissionBatch([E.AdmissionItem(r, f, wire=w)]))
+while dec.active:
+    dec.step()
+assert len(req.out_tokens) == 5
+assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
+print("OK")
+"""
+
+
+def test_port_imports_and_serves_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+# -- configs -------------------------------------------------------------------
+
+
+def test_model_config_copy_matches():
+    assert [f.name for f in dataclasses.fields(ModelConfig)] == \
+        [f.name for f in dataclasses.fields(JModelConfig)]
+    for mine, theirs in ((get_config("llama-30b"),
+                          j_get_config("llama-30b")),
+                         (get_reduced("llama-30b"),
+                          j_get_reduced("llama-30b"))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        assert mine.param_count() == theirs.param_count()
+        assert mine.layer_kinds() == theirs.layer_kinds()
+
+
+# -- protocol hooks ------------------------------------------------------------
+
+
+def test_protocol_table_and_states_match():
+    assert t_proto.TRANSITIONS == j_proto.TRANSITIONS
+    assert t_proto.TERMINAL_STATES == j_proto.TERMINAL_STATES
+    states = sorted(j_proto.TRANSITIONS)
+    for a, b in itertools.product(states + ["BOGUS"], repeat=2):
+        assert t_proto.legal(a, b) == j_proto.legal(a, b)
+
+
+def test_protocol_hooks_match_exhaustively():
+    for donate in (False, True):
+        assert t_proto.retire_steps(donate) == j_proto.retire_steps(donate)
+    for n, ps, w in itertools.product(range(0, 41), range(1, 9),
+                                      range(1, 9)):
+        assert t_proto.cow_boundary(n, ps, w) == \
+            j_proto.cow_boundary(n, ps, w)
+        for chain in range(0, 9):
+            assert t_proto.cow_needed(n, ps, w, chain) == \
+                j_proto.cow_needed(n, ps, w, chain)
+    for rem, left, sup in itertools.product(range(0, 25), range(0, 25),
+                                            (False, True)):
+        assert t_proto.chunk_take(rem, left, sup) == \
+            j_proto.chunk_take(rem, left, sup)
+    for a, b in itertools.product(range(0, 25), repeat=2):
+        assert t_proto.chunk_complete(a, b) == j_proto.chunk_complete(a, b)
+    assert t_proto.chunk_extract_compress() == \
+        j_proto.chunk_extract_compress()
+
+
+# -- PagePool and PrefixCache driven side by side --------------------------------
+
+
+def _outcome(fn, *args):
+    try:
+        return ("ok", fn(*args))
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+def _pool_ops(rng, n_pages):
+    owners = [0, 1, 2, "pin"]
+    pages = list(range(0, n_pages + 1))
+    for _ in range(400):
+        op = rng.choice(["alloc", "share", "free", "unshare", "free_none"])
+        owner = rng.choice(owners)
+        sel = rng.sample(pages, rng.randint(0, 3))
+        if op == "alloc":
+            yield "alloc", (rng.randint(0, 4), owner)
+        elif op == "free_none":
+            yield "free", (sel, None)
+        else:
+            yield op, (sel, owner)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_page_pool_copy_behaves_like_reference(seed):
+    rng = random.Random(seed)
+    a, b = j_pp.PagePool(9, 4), t_pp.PagePool(9, 4)
+    for op, args in _pool_ops(rng, 9):
+        assert _outcome(getattr(a, op), *args) == \
+            _outcome(getattr(b, op), *args), (op, args)
+        assert a.state_key() == b.state_key()
+        assert a.stats() == b.stats()
+        a.canonicalize()
+        b.canonicalize()
+    for n in (0, 1, 4, 5, 8, 9, 17):
+        assert t_pp.pages_needed(n, 4) == j_pp.pages_needed(n, 4)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_prefix_cache_copy_behaves_like_reference(seed):
+    """Donate finished chains, match prompts and evict in the same order
+    on both; matches, stats and the pools' states stay equal."""
+    rng = random.Random(100 + seed)
+    ps = 4
+    sides = []
+    for pp, pc in ((j_pp, j_pc), (t_pp, t_pc)):
+        sides.append((pp.PagePool(40, ps), pc.PrefixCache(ps)))
+    vocab = [1, 2, 3]
+    for step in range(60):
+        kind = rng.choice(["donate", "match", "evict", "donate"])
+        if kind == "donate":
+            n_prompt = rng.randint(1, 10)
+            toks = [rng.choice(vocab) for _ in range(n_prompt + 3)]
+            kv_len = rng.randint(1, len(toks))
+            need = t_pp.pages_needed(kv_len, ps)
+            results = []
+            for pool, cache in sides:
+                chain = pool.alloc(need, ("slot", step))
+                if chain is None:
+                    results.append(None)
+                    continue
+                got = cache.insert(toks, kv_len, chain, n_prompt, pool)
+                pool.free(chain, owner=("slot", step))
+                results.append(got)
+            assert results[0] == results[1]
+        elif kind == "match":
+            toks = [rng.choice(vocab) for _ in range(rng.randint(1, 12))]
+            ms = [cache.match(toks) for _, cache in sides]
+            assert (ms[0] is None) == (ms[1] is None)
+            if ms[0] is not None:
+                assert (ms[0].length, ms[0].pages, ms[0].full,
+                        ms[0].next_token) == (ms[1].length, ms[1].pages,
+                                              ms[1].full, ms[1].next_token)
+        else:
+            n = rng.randint(1, 5)
+            assert sides[0][1].evict(sides[0][0], n) == \
+                sides[1][1].evict(sides[1][0], n)
+        assert sides[0][1].stats() == sides[1][1].stats()
+        assert sides[0][1].page_set() == sides[1][1].page_set()
+        assert sides[0][0].state_key() == sides[1][0].state_key()
+    assert sides[0][1].clear(sides[0][0]) == sides[1][1].clear(sides[1][0])
+    assert sides[0][0].state_key() == sides[1][0].state_key()

@@ -1,0 +1,230 @@
+"""The port's plain kernel versions against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both frameworks.
+Against ``repro.kernels.ref`` the port must agree BIT FOR BIT on
+``kv_quant``/``kv_dequant`` (packed bytes, scale, zero, dequantized
+values). The Pallas kernels run in interpret mode (as
+``tests/test_kernels.py`` runs them) round their scale and f32 dequant
+differently (a reciprocal multiply, a fused multiply-add): against them
+scale and values are held to 1e-6 relative and a nibble on a rounding
+knife edge may move by one, as ``tests/test_kernels.py`` holds the two
+JAX paths. Paged attention sums in another order: 2e-5 in f32.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import kv_layout as j_layout  # noqa: E402
+from repro.kernels import ops as j_ops  # noqa: E402
+from repro.kernels import ref as j_ref  # noqa: E402
+from repro_torch.kernels import kv_layout as t_layout  # noqa: E402
+from repro_torch.kernels import kv_quant as t_kq  # noqa: E402
+from repro_torch.kernels import ops as t_ops  # noqa: E402
+from repro_torch.kernels import paged_attention as t_pa  # noqa: E402
+from repro_torch.kernels import ref as t_ref  # noqa: E402
+
+DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float32": (jnp.float32, torch.float32)}
+
+
+def _both(x: np.ndarray, dtype: str):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy() if a.dtype == torch.bfloat16 else a.numpy()
+    return np.asarray(a, np.float32) if a.dtype == jnp.bfloat16 \
+        else np.asarray(a)
+
+
+# -- layout contract ------------------------------------------------------------
+
+
+def test_layout_constants_and_group_rule_match():
+    assert t_layout.GROUPS == j_layout.GROUPS
+    for span in range(0, 1100):
+        assert t_layout.pick_group(span) == j_layout.pick_group(span)
+
+
+@pytest.mark.parametrize("shape", [(7, 3), (4, 64), (2, 5, 8)])
+def test_nibble_helpers_match(shape):
+    rng = np.random.default_rng(sum(shape))
+    even = rng.integers(0, 16, shape).astype(np.uint8)
+    odd = rng.integers(0, 16, shape).astype(np.uint8)
+    pj = j_layout.pack_nibbles(jnp.asarray(even), jnp.asarray(odd))
+    pt = t_layout.pack_nibbles(torch.from_numpy(even), torch.from_numpy(odd))
+    np.testing.assert_array_equal(np.asarray(pj), pt.numpy())
+    for a, b in zip(j_layout.unpack_nibbles(pj), t_layout.unpack_nibbles(pt)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    np.testing.assert_array_equal(np.asarray(j_layout.interleave_nibbles(pj)),
+                                  t_layout.interleave_nibbles(pt).numpy())
+
+
+# -- kv_quant / kv_dequant --------------------------------------------------------
+
+
+QUANT_CASES = [(17, 64), (300, 64), (257, 128), (256, 16), (1, 2)]
+
+
+@pytest.mark.parametrize("N,G", QUANT_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_quant_ref_bit_exact_vs_jax(N, G, dtype):
+    x = np.random.default_rng(N * G).standard_normal((N, G)) \
+        .astype(np.float32) * 3
+    xj, xt = _both(x, dtype)
+    for a, b in zip(j_ref.kv_quant_ref(xj), t_ref.kv_quant_ref(xt)):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    # the CPU dispatch of ops is exactly the plain version
+    for a, b in zip(t_ops.kv_quant(xt), t_ref.kv_quant_ref(xt)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,G", QUANT_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_quant_ref_vs_pallas_interpret(N, G, dtype):
+    x = np.random.default_rng(N + G).standard_normal((N, G)) \
+        .astype(np.float32) * 3
+    xj, xt = _both(x, dtype)
+    pj, sj, zj = j_ops.kv_quant(xj, backend="interpret")
+    pt, st, zt = t_ref.kv_quant_ref(xt)
+    np.testing.assert_allclose(_np(sj), _np(st), rtol=1e-6)
+    np.testing.assert_array_equal(_np(zj), _np(zt))
+    # the interpreted scale is a rounding apart, so a value on a rounding
+    # knife edge may land one nibble over (tests/test_kernels.py allows
+    # the same between the two JAX paths)
+    nj = np.asarray(j_layout.interleave_nibbles(pj))
+    nt = t_layout.interleave_nibbles(pt).numpy()
+    assert np.abs(nj - nt).max() <= 1
+    assert (nj != nt).mean() < 1e-3
+
+
+@pytest.mark.parametrize("N,G", QUANT_CASES)
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_kv_dequant_ref_vs_jax(N, G, out):
+    rng = np.random.default_rng(N * 3 + G)
+    packed = rng.integers(0, 256, (N, G // 2)).astype(np.uint8)
+    scale = (rng.random((N, 1)) * 0.4).astype(np.float32)
+    zero = rng.standard_normal((N, 1)).astype(np.float32)
+    jd, td = DTYPES[out]
+    yt = t_ref.kv_dequant_ref(torch.from_numpy(packed),
+                              torch.from_numpy(scale),
+                              torch.from_numpy(zero), dtype=td)
+    yj = j_ref.kv_dequant_ref(jnp.asarray(packed), jnp.asarray(scale),
+                              jnp.asarray(zero), dtype=jd)
+    np.testing.assert_array_equal(_np(yj), _np(yt))
+    yi = j_ops.kv_dequant(jnp.asarray(packed), jnp.asarray(scale),
+                          jnp.asarray(zero), out_dtype=jd,
+                          backend="interpret")
+    # interpret mode fuses the multiply-add in f32: one rounding apart
+    np.testing.assert_allclose(_np(yi), _np(yt), rtol=1e-6, atol=1e-6)
+
+
+# -- paged decode attention ---------------------------------------------------------
+
+
+def _paged_inputs(B, Hkv, gq, hd, ps, lens, seed, n_extra_pages=3):
+    """Random int4 pages (numpy), a shuffled page table whose unused
+    entries point at the trash page 0, q and kv_len."""
+    rng = np.random.default_rng(seed)
+    g = j_layout.pick_group(Hkv * hd)
+    ppr = Hkv * hd // g
+    W = max(-(-ln // ps) for ln in lens) + 1           # >= 1 trash entry
+    need = sum(-(-ln // ps) for ln in lens)
+    P = 1 + need + n_extra_pages
+    perm = rng.permutation(np.arange(1, P))
+    pt = np.zeros((B, W), np.int32)
+    n = 0
+    for b, ln in enumerate(lens):
+        k = -(-ln // ps)
+        pt[b, :k] = perm[n:n + k]
+        n += k
+
+    def triple():
+        return (rng.integers(0, 256, (P, ps * ppr, g // 2)).astype(np.uint8),
+                (rng.random((P, ps * ppr, 1)) * 0.3).astype(np.float32),
+                rng.standard_normal((P, ps * ppr, 1)).astype(np.float32))
+
+    q = rng.standard_normal((B, Hkv, gq, hd)).astype(np.float32)
+    return q, triple(), triple(), pt, np.asarray(lens, np.int32)
+
+
+PAGED_CASES = [
+    # (B, Hkv, gq, hd, page_size, kv_lens)
+    (3, 2, 4, 16, 8, [5, 16, 23]),       # GQA; g = 32 spans 2 heads
+    (2, 1, 8, 32, 16, [17, 48]),         # MQA; g = 32 = hd
+    (4, 4, 1, 16, 8, [1, 9, 24, 31]),    # reduced llama: g = 64 spans 4
+    (2, 2, 2, 128, 4, [7, 13]),          # g = 128 = hd, GQA
+]
+
+
+@pytest.mark.parametrize("B,Hkv,gq,hd,ps,lens", PAGED_CASES)
+@pytest.mark.parametrize("against", ["ref", "interpret"])
+def test_paged_attention_ref_vs_jax(B, Hkv, gq, hd, ps, lens, against):
+    q, kp, vp, pt, kl = _paged_inputs(B, Hkv, gq, hd, ps, lens,
+                                      seed=B * 31 + hd)
+    jt = lambda tr: tuple(jnp.asarray(a) for a in tr)
+    tt = lambda tr: tuple(torch.from_numpy(a) for a in tr)
+    if against == "ref":
+        want = j_ref.paged_decode_attention_ref(
+            jnp.asarray(q), jt(kp), jt(vp), jnp.asarray(pt),
+            jnp.asarray(kl), page_size=ps)
+    else:
+        want = j_ops.paged_decode_attention(
+            jnp.asarray(q), jt(kp), jt(vp), jnp.asarray(pt),
+            jnp.asarray(kl), page_size=ps, backend="interpret")
+    got = t_ops.paged_decode_attention(
+        torch.from_numpy(q), tt(kp), tt(vp), torch.from_numpy(pt),
+        torch.from_numpy(kl), page_size=ps)
+    np.testing.assert_allclose(np.asarray(want), got.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_paged_attention_ignores_trash_page_and_tail():
+    q, kp, vp, pt, kl = _paged_inputs(3, 2, 4, 16, 8, [5, 16, 23], seed=4)
+    tt = lambda tr: tuple(torch.from_numpy(a) for a in tr)
+    args = (torch.from_numpy(pt), torch.from_numpy(kl))
+    a = t_ref.paged_decode_attention_ref(torch.from_numpy(q), tt(kp), tt(vp),
+                                         *args, page_size=8)
+    kp2 = (kp[0].copy(), kp[1].copy(), kp[2])
+    kp2[0][0] = 255
+    kp2[1][0] = 1e6
+    b = t_ref.paged_decode_attention_ref(torch.from_numpy(q), tt(kp2),
+                                         tt(vp), *args, page_size=8)
+    assert torch.equal(a, b)
+
+
+# -- the wrappers take CUDA tensors only ----------------------------------------------
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper never turns into its plain version: only
+    ``ops`` dispatches, and only on the tensor's device."""
+    x = torch.zeros((4, 64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_kq.kv_quant(x)
+    p, s, z = t_ref.kv_quant_ref(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_kq.kv_dequant(p, s, z)
+    q, kp, vp, pt, kl = _paged_inputs(1, 2, 1, 16, 8, [3], seed=0)
+    tt = lambda tr: tuple(torch.from_numpy(a) for a in tr)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_pa.paged_decode_attention_int4(
+            torch.from_numpy(q), tt(kp), tt(vp), torch.from_numpy(pt),
+            torch.from_numpy(kl), page_size=8)
+    before = (t_kq.kv_quant.launches, t_kq.kv_dequant.launches,
+              t_pa.paged_decode_attention_int4.launches)
+    t_ops.kv_quant(x)
+    t_ops.kv_dequant(p, s, z)
+    after = (t_kq.kv_quant.launches, t_kq.kv_dequant.launches,
+             t_pa.paged_decode_attention_int4.launches)
+    assert before == after, "plain CPU runs must not count as launches"
+
+
+def test_ops_refuse_unknown_device():
+    with pytest.raises(ValueError, match="no kernel for device"):
+        t_ops.kv_quant(torch.zeros((4, 64), device="meta"))

@@ -1,0 +1,154 @@
+"""The port's model against the JAX package on the same weights (CPU).
+
+Reduced LLaMA-30B (2 layers, d_model 64) with ``dtype="float32"``; the
+JAX params pytree is cast to float32, converted with
+``repro_torch.models.convert.params_from_numpy`` and fed to both sides.
+Tolerances: logits and KV within 1e-4 absolute (f32 products summed in
+another order; |logits| <= ~5). Page bytes after N decode steps must be
+identical; the f32 scale/zero rows within 1e-5 relative.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_reduced as j_get_reduced  # noqa: E402
+from repro.models import build as j_build  # noqa: E402
+from repro.models import paged as j_paged  # noqa: E402
+from repro.models import transformer as j_tf  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.models import build, convert  # noqa: E402
+from repro_torch.models import paged as t_paged  # noqa: E402
+from repro_torch.models import transformer as t_tf  # noqa: E402
+
+ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = j_get_reduced("llama-30b").replace(dtype="float32")
+    tcfg = get_reduced("llama-30b").replace(dtype="float32")
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        j_build(jcfg).init(jax.random.PRNGKey(0)))
+    return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
+            convert.params_from_numpy(tree, tcfg, "cpu"))
+
+
+def _tokens(B, S, seed, V=256):
+    return np.random.default_rng(seed).integers(1, V, (B, S)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("B,S", [(2, 16), (1, 300)])   # 300: blocked path
+def test_prefill_logits_and_cache_match(model, B, S):
+    jcfg, jp, tcfg, tp = model
+    toks = _tokens(B, S, seed=S)
+    lp = np.array([S - 1, S // 2][:B], np.int32)
+    lj, cj = j_tf.prefill(jcfg, jp, jnp.asarray(toks), max_seq=S,
+                          last_pos=jnp.asarray(lp),
+                          true_len=jnp.asarray(lp + 1))
+    lt, ct = t_tf.prefill(tcfg, tp, torch.from_numpy(toks).long(),
+                          max_seq=S, last_pos=torch.from_numpy(lp),
+                          true_len=torch.from_numpy(lp + 1))
+    np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(np.asarray(cj["slot0"][key]),
+                                   ct["slot0"][key].numpy(), atol=ATOL)
+    np.testing.assert_array_equal(np.asarray(cj["lengths"]),
+                                  ct["lengths"].numpy())
+
+
+def test_prefill_suffix_logits_match(model):
+    jcfg, jp, tcfg, tp = model
+    B, S, P = 2, 16, 32
+    rng = np.random.default_rng(7)
+    toks = _tokens(B, S, seed=8)
+    plen = np.array([32, 16], np.int32)
+    shape = (jcfg.num_layers, B, P, jcfg.num_kv_heads, jcfg.head_dim)
+    pk = rng.standard_normal(shape).astype(np.float32)
+    pv = rng.standard_normal(shape).astype(np.float32)
+    lp = np.array([15, 9], np.int32)
+    lj, cj = j_tf.prefill_suffix(
+        jcfg, jp, jnp.asarray(toks), {"slot0": (jnp.asarray(pk),
+                                                jnp.asarray(pv))},
+        jnp.asarray(plen), max_seq=S, last_pos=jnp.asarray(lp),
+        true_len=jnp.asarray(lp + 1))
+    lt, ct = t_tf.prefill_suffix(
+        tcfg, tp, torch.from_numpy(toks).long(),
+        {"slot0": (torch.from_numpy(pk), torch.from_numpy(pv))},
+        torch.from_numpy(plen), max_seq=S, last_pos=torch.from_numpy(lp),
+        true_len=torch.from_numpy(lp + 1))
+    np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
+    np.testing.assert_allclose(np.asarray(cj["slot0"]["k"]),
+                               ct["slot0"]["k"].numpy(), atol=ATOL)
+
+
+def test_decode_step_paged_logits_and_pages_match(model):
+    """N steps from an empty pool: per-step logits, then every page byte
+    (slot 1 runs past its last allocated page into the trash page)."""
+    jcfg, jp, tcfg, tp = model
+    toks = _tokens(2, 12, seed=3)
+    table = np.array([[3, 5, 1, 0], [2, 0, 0, 0]], np.int32)
+    jc = j_paged.init_paged_cache(jcfg, 2, 32, 9, page_size=8)
+    jc["page_table"] = jnp.asarray(table)
+    tc = t_paged.init_paged_cache(tcfg, 2, 32, 9, page_size=8,
+                                  device="cpu")
+    tc["page_table"] = torch.from_numpy(table)
+    for s in range(toks.shape[1]):
+        lj, jc = j_paged.decode_step_paged(
+            jcfg, jp, jc, jnp.asarray(toks[:, s:s + 1]), page_size=8,
+            backend="ref")
+        lt, tc = t_paged.decode_step_paged(
+            tcfg, tp, tc, torch.from_numpy(toks[:, s:s + 1]).long(),
+            page_size=8)
+        np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
+    np.testing.assert_array_equal(np.asarray(jc["lengths"]),
+                                  tc["lengths"].numpy())
+    for name in ("kp", "vp"):
+        np.testing.assert_array_equal(np.asarray(jc["slot0"][name][:, 1:]),
+                                      tc["slot0"][name][:, 1:].numpy())
+    for name in ("ks", "kz", "vs", "vz"):
+        np.testing.assert_allclose(np.asarray(jc["slot0"][name][:, 1:]),
+                                   tc["slot0"][name][:, 1:].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_converter_layout_and_init_shapes(model):
+    jcfg, jp, tcfg, tp = model
+    mine = t_tf.init_params(tcfg, seed=1, device="cpu")
+    for p in (tp, mine):
+        n = sum(t.numel() for t in jax.tree.leaves(
+            p, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+        # the analytic count leaves out the final norm's d_model scales
+        assert n == tcfg.param_count() + tcfg.d_model
+    assert mine["layers"][0]["mlp"]["wi"].dtype == torch.bfloat16
+    assert mine["layers"][0]["norm1"].dtype == torch.float32
+    for a, b in zip(jax.tree.leaves(mine, is_leaf=lambda x: isinstance(
+            x, torch.Tensor)), jax.tree.leaves(tp, is_leaf=lambda x:
+                                               isinstance(x, torch.Tensor))):
+        assert a.shape == b.shape
+
+
+def test_full_width_config_is_llama_30b():
+    cfg = get_config("llama-30b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
+        (60, 6656, 52, 52, 128, 17920, 32000)
+    assert cfg.param_count() == 32_528_936_960
+    assert (t_paged.page_group(cfg), t_paged.groups_per_token(cfg)) == \
+        (128, 52)
+    # K+V bytes of one token in one layer: 2 * ppr * (g/2 + 8)
+    assert 2 * 52 * (128 // 2 + 8) == 7488
+
+
+def test_unported_families_raise():
+    cfg = get_reduced("llama-30b").replace(qk_norm=True)
+    with pytest.raises(NotImplementedError):
+        build(cfg)
+    with pytest.raises(NotImplementedError):
+        t_paged.init_paged_cache(get_reduced("llama-30b"), 2, 32, 9,
+                                 resident="bf16", device="cpu")

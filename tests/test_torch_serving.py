@@ -1,0 +1,309 @@
+"""The port's serving slice against the JAX engines, and the reference's
+own contracts re-pinned inside the port (CPU, reduced LLaMA-30B, f32).
+
+One scenario runs through both packages' ``PrefillEngine`` and paged
+``DecodeEngine(prefix_sharing=True)`` in the order the gateway's local
+clients call them: three fresh prompts, then a repeat of a finished
+prompt (full prefix hit), a prompt sharing two pages with a finished one
+(partial hit: suffix prefill over the int4-dequantized prefix, the JAX
+package's WARM path), and a chunked prefill (8-token budget) on top of a
+one-page hit.
+
+Tolerances: wire packed bytes identical; f32 scale/zero rows within 1e-5
+relative (the K/V they quantize come from f32 products summed in another
+order); greedy tokens equal where the JAX prefill's top-2 logit margin
+clears 1e-3 (at this seed every request's does, and the decoded streams
+are compared whole).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_reduced as j_get_reduced  # noqa: E402
+from repro.models import build as j_build  # noqa: E402
+from repro.serving import engine as JE  # noqa: E402
+from repro.serving import kv_transfer as j_kvt  # noqa: E402
+from repro.models import transformer as j_tf  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.serving import engine as TE  # noqa: E402
+from repro_torch.serving import kv_transfer as t_kvt  # noqa: E402
+
+MARGIN = 1e-3
+PS = 8
+
+
+def _scenario(E, cfg, params, **dev):
+    rng = np.random.default_rng(5)
+    V = cfg.vocab_size
+    system = rng.integers(1, V, PS)
+
+    def prompt(n, head=system):
+        return np.concatenate([head, rng.integers(1, V, n - len(head))]) \
+            .astype(np.int32)
+
+    pre = E.PrefillEngine(cfg, params, max_seq=64, **dev)
+    dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=64, paged=True,
+                         page_size=PS, chunk_size=4, prefix_sharing=True,
+                         **dev)
+
+    def admit(items):
+        assert not dec.admit(E.AdmissionBatch(items), backend="ref")
+
+    def drain(max_chunks=None):
+        k = 0
+        while dec.active and (max_chunks is None or k < max_chunks):
+            dec.step()
+            k += 1
+
+    r0 = E.GenRequest(0, prompt(13), 6)
+    r1 = E.GenRequest(1, prompt(24), 8)
+    r2 = E.GenRequest(2, prompt(30), 6)
+    fresh = pre.run([r0, r1, r2], backend="ref")
+    admit([E.AdmissionItem(r, f, wire=w) for r, w, f in fresh])
+    drain()
+
+    r3 = E.GenRequest(3, r0.tokens.copy(), 6)
+    r4 = E.GenRequest(4, prompt(26, head=r1.tokens[:2 * PS]), 6)
+    r5 = E.GenRequest(5, prompt(29), 6)
+    matches = {}
+    for r in (r3, r4, r5):
+        m = dec.prefix_match(r.tokens)
+        assert m is not None and dec.prefix_pin(m.pages, ("pin", r.rid))
+        matches[r.rid] = (m.full, m.length)
+        if m.full:
+            full_hit = m
+        else:
+            r.start_pos, r.prefix_pages = m.length, list(m.pages)
+            r.prefix_wire = dec.extract_prefix(m.pages, m.length)
+    admit([E.AdmissionItem(r3, full_hit.next_token, E.ADMIT_PREFIX_HIT,
+                           pages=list(full_hit.pages))])
+    (_, w4, f4), = pre.run([r4], backend="ref")
+    admit([E.AdmissionItem(r4, f4, wire=w4)])
+    job = E.PartialPrefill(r5)
+    ticks = 0
+    while not job.done:
+        pre.prefill_chunk([job], PS, backend="ref")
+        ticks += 1
+        drain(1)
+    admit([E.AdmissionItem(r5, job.first, E.ADMIT_CHUNKED,
+                           wire=job.wire())])
+    for r in (r3, r4, r5):
+        dec.prefix_unpin(("pin", r.rid))
+    drain()
+    reqs = [r0, r1, r2, r3, r4, r5]
+    return {"reqs": reqs, "wires": [w for _, w, _ in fresh] + [w4,
+                                                             job.wire()],
+            "first": [f for _, _, f in fresh] + [f4, job.first],
+            "matches": matches, "ticks": ticks, "stats": dec.page_stats(),
+            "dec": dec, "pre": pre}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jcfg = j_get_reduced("llama-30b").replace(dtype="float32")
+    tcfg = get_reduced("llama-30b").replace(dtype="float32")
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        j_build(jcfg).init(jax.random.PRNGKey(0)))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    tparams = convert.params_from_numpy(tree, tcfg, "cpu")
+    return {"jax": _scenario(JE, jcfg, jparams),
+            "torch": _scenario(TE, tcfg, tparams, device="cpu"),
+            "jcfg": jcfg, "jparams": jparams, "tcfg": tcfg,
+            "tparams": tparams}
+
+
+def _payload(wt, key):
+    a = wt.payload[key]
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def test_prefix_matches_are_the_same(runs):
+    assert runs["jax"]["matches"] == runs["torch"]["matches"] == \
+        {3: (True, 13), 4: (False, 16), 5: (False, 8)}
+    assert runs["jax"]["ticks"] == runs["torch"]["ticks"] == 3
+
+
+def test_wire_payload_bytes_equal(runs):
+    """Fresh wires, the partial hit's suffix wire and the chunked
+    transport wire: same kind, shapes and packed bytes."""
+    for wj, wt in zip(runs["jax"]["wires"], runs["torch"]["wires"]):
+        assert wj.request_len == wt.request_len
+        for key in ("k", "v"):
+            a, b = wj.slots["slot0"][key], wt.slots["slot0"][key]
+            assert a.kind == b.kind == "int4"
+            assert tuple(a.orig_shape) == tuple(b.orig_shape)
+            np.testing.assert_array_equal(_payload(a, "packed"),
+                                          _payload(b, "packed"))
+            for k in ("scale", "zero"):
+                np.testing.assert_allclose(_payload(a, k), _payload(b, k),
+                                           rtol=1e-5, atol=1e-6)
+        assert wj.nbytes() == wt.nbytes()
+        assert j_kvt.wire_bytes_uncompressed(wj) == \
+            t_kvt.wire_bytes_uncompressed(wt)
+
+
+def test_insert_counters_equal(runs):
+    sj, st = runs["jax"]["stats"], runs["torch"]["stats"]
+    for k in ("zero_copy_inserts", "reencoded_inserts", "cow_copies",
+              "prefix_admits", "in_use", "prefix_entries"):
+        assert sj[k] == st[k], k
+    assert st["zero_copy_inserts"] > 0 and st["reencoded_inserts"] == 0
+
+
+def test_greedy_tokens_equal_where_margin_clears(runs):
+    jcfg, jp = runs["jcfg"], runs["jparams"]
+    checked = 0
+    for rj, rt in zip(runs["jax"]["reqs"], runs["torch"]["reqs"]):
+        assert rj.rid == rt.rid
+        logits, _ = j_tf.prefill(jcfg, jp, jnp.asarray(rj.tokens[None]),
+                                 max_seq=len(rj.tokens))
+        top2 = np.sort(np.asarray(logits[0, -1]))[-2:]
+        if top2[1] - top2[0] < MARGIN:
+            continue
+        assert rj.out_tokens == rt.out_tokens, rj.rid
+        checked += 1
+    assert checked == 6
+
+
+def test_full_prefix_hit_matches_cold_run(runs):
+    """r3 repeats r0's prompt and decodes straight off the shared chain:
+    its tokens are r0's (within the port, and within the reference)."""
+    for side in ("torch", "jax"):
+        reqs = runs[side]["reqs"]
+        assert reqs[3].out_tokens == reqs[0].out_tokens
+
+
+def test_no_page_leaks_and_pool_drains(runs):
+    dec = runs["torch"]["dec"]
+    assert dec.page_stats()["leaked_pages"] == 0
+    assert dec.active == 0
+    dec.clear_prefix()
+    assert dec.pool.n_in_use == 0
+    assert dec.pool.n_free == dec.pool.capacity
+    assert int(dec.cache["page_table"].abs().sum()) == 0
+    assert int(dec.cache["lengths"].abs().sum()) == 0
+
+
+def test_chunked_prefill_matches_one_shot_bit_for_bit(runs):
+    """Within the port: chunked prefill (4-token budget) and one-shot
+    prefill decode bit-identical token streams. (The transport wires agree
+    to f32 rounding: the chunk's K/V come from products over fewer rows,
+    which PyTorch's CPU GEMM may round differently.)"""
+    cfg, params = runs["tcfg"], runs["tparams"]
+    prompt = np.random.default_rng(11).integers(1, 256, 27).astype(np.int32)
+    outs = []
+    for chunked in (False, True):
+        pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+        dec = TE.DecodeEngine(cfg, params, max_slots=2, max_seq=64,
+                              page_size=PS, device="cpu")
+        req = TE.GenRequest(0, prompt, 10)
+        if chunked:
+            job = TE.PartialPrefill(req)
+            while not job.done:
+                pre.prefill_chunk([job], 4)
+            wire, first, src = job.wire(), job.first, TE.ADMIT_CHUNKED
+        else:
+            (_, wire, first), = pre.run([req])
+            src = TE.ADMIT_FRESH
+        assert not dec.admit(TE.AdmissionBatch(
+            [TE.AdmissionItem(req, first, src, wire=wire)]))
+        while dec.active:
+            dec.step()
+        outs.append((wire, req.out_tokens))
+    (w1, t1), (w2, t2) = outs
+    assert t1 == t2 and len(t1) == 10
+    for key in ("k", "v"):
+        for k in ("scale", "zero"):
+            torch.testing.assert_close(w1.slots["slot0"][key].payload[k],
+                                       w2.slots["slot0"][key].payload[k],
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_admit_returns_rejected_tail(runs):
+    cfg, params = runs["tcfg"], runs["tparams"]
+    pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+    dec = TE.DecodeEngine(cfg, params, max_slots=8, max_seq=64,
+                          page_size=PS, num_pages=7, device="cpu")
+    rng = np.random.default_rng(2)
+    reqs = [TE.GenRequest(i, rng.integers(1, 256, 20), 12) for i in range(3)]
+    out = pre.run(reqs)
+    rest = dec.admit(TE.AdmissionBatch(
+        [TE.AdmissionItem(r, f, wire=w) for r, w, f in out]))
+    # each needs ceil(32/8) = 4 of the 6 usable pages: one fits
+    assert [it.req.rid for it in rest] == [1, 2]
+    assert dec.active == 1 and dec.free_slots() == []
+    while dec.active:
+        dec.step()
+    assert dec.pool.n_in_use == 0 and len(dec.free_slots()) >= 1
+
+
+def test_extract_resident_migrates_without_changing_tokens(runs):
+    """Mid-stream migration: a resident slot's pages, gathered into a wire
+    and admitted as MIGRATED elsewhere, decode the undisturbed tokens."""
+    cfg, params = runs["tcfg"], runs["tparams"]
+    prompt = np.random.default_rng(3).integers(1, 256, 19).astype(np.int32)
+    pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+    streams = []
+    for migrate in (False, True):
+        a = TE.DecodeEngine(cfg, params, max_slots=2, max_seq=64,
+                            page_size=PS, chunk_size=3, device="cpu")
+        req = TE.GenRequest(0, prompt, 12)
+        (_, w, f), = pre.run([req])
+        assert not a.admit(TE.AdmissionBatch([TE.AdmissionItem(req, f,
+                                                               wire=w)]))
+        a.step()
+        if migrate:
+            (slot, r, wire, cur), = a.extract_resident()
+            a.release(slot)
+            b = TE.DecodeEngine(cfg, params, max_slots=2, max_seq=64,
+                                page_size=PS, chunk_size=3, device="cpu")
+            assert not b.admit(TE.AdmissionBatch([TE.AdmissionItem(
+                r, cur, TE.ADMIT_MIGRATED, wire=wire)]))
+            assert b.zero_copy_inserts == 2
+            a = b
+        while a.active:
+            a.step()
+        streams.append(req.out_tokens)
+    assert streams[0] == streams[1]
+
+
+def test_unported_engine_modes_raise(runs):
+    cfg, params = runs["tcfg"], runs["tparams"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TE.DecodeEngine(cfg, params, paged=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TE.Replica(cfg, params)
+    with pytest.raises(ValueError, match="params live on"):
+        TE.PrefillEngine(cfg, params, device="cuda")
+
+
+def test_materialize_is_the_host_hop(runs):
+    wire = runs["torch"]["wires"][0]
+    before = wire.nbytes()
+    wire.materialize()
+    assert all(a.device.type == "cpu"
+               for t in wire.slots["slot0"].values()
+               for a in t.payload.values())
+    assert wire.nbytes() == before
+
+
+def test_insert_batch_dense_matches_jax(runs):
+    """The dense-cache insert (kept for the dense decode engine)."""
+    wj, wt = runs["jax"]["wires"][1], runs["torch"]["wires"][1]
+    cfg = runs["tcfg"]
+    shape = (cfg.num_layers, 2, 32, cfg.num_kv_heads, cfg.head_dim)
+    jc = {"slot0": {"k": jnp.zeros(shape), "v": jnp.zeros(shape)},
+          "lengths": jnp.zeros((2,), jnp.int32)}
+    tc = {"slot0": {"k": torch.zeros(shape), "v": torch.zeros(shape)},
+          "lengths": torch.zeros((2,), dtype=torch.int32)}
+    jc = j_kvt.insert_batch(jc, [(wj, 1)], backend="ref")
+    tc = t_kvt.insert_batch(tc, [(wt, 1)])
+    np.testing.assert_allclose(np.asarray(jc["slot0"]["k"]),
+                               tc["slot0"]["k"].numpy(), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(jc["lengths"]),
+                                  tc["lengths"].numpy())
