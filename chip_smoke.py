@@ -9,9 +9,12 @@ before the last line:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's LLaMA-30B shapes and at a reduced shape whose
-   quantization group spans several heads with GQA; CUDA-event times of
-   kernel and plain version beside the memory bound at 3.35 TB/s;
+   the main path's LLaMA-30B shapes and at reduced shapes (a quantization
+   group spanning several heads, GQA, a sliding window, a ragged suffix
+   prefix); CUDA-event times of kernel, plain version and, where one
+   PyTorch call computes the same function, that call (timed, never used
+   by the port), beside the bound (bytes at 3.35 TB/s or operations at
+   the peak rate of the inputs' type);
 4. reference: the reduced LLaMA-30B served in float32 through the
    engines on the card and on the CPU (plain versions): greedy tokens must
    agree;
@@ -21,7 +24,15 @@ before the last line:
    prefills, a full prefix hit, a partial prefix hit, and a chunked
    prefill with a 64-token budget; every decode chunk runs under
    ``torch.cuda.set_sync_debug_mode("error")``. Launch counts are reset
-   just before this phase and read just after it.
+   just before this phase and read just after it; then one decode chunk
+   runs under the profiler;
+6. gateway: the system's entry point, ``repro_torch.launch.serve.run``,
+   at full width on phase 5's weights, twice: (a) default flags with a
+   32-token chunked-prefill budget over a short open-loop trace, (b)
+   ``--live-reschedule`` over a short shifted trace. Every request must be
+   DONE with 0 leaked pages, (a) must chunk, and in (b) every replica must
+   still hold phase 5's parameters. Launch counts are reset before and
+   read after, and summed with phase 5's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -40,23 +51,56 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12             # non-tensor-core f32 peak, same source
+BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak, same source
 SEED = 0
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # as tests/test_torch_gpu.py
+NORM_RTOL = {"bfloat16": 2 ** -7, "float32": 1e-5}  # one bf16 ulp
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / F32_FLOP_PER_S * 1e3
+    t_o = flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def peak_of(torch, dtype):
+    return BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+
+
 def cuda_ms(torch, fn, args_list, iters):
-    """Mean ms per call, CUDA events around ``iters`` calls after one
-    warm-up; ``args_list`` is cycled (distinct buffers defeat the L2)."""
+    """Mean device ms per call: ``iters`` calls (``args_list`` cycled, so
+    distinct buffers defeat the L2) captured in one CUDA graph after a
+    warm-up, and the graph replayed between CUDA events. Host launch
+    overhead (the Python wrapper, PyTorch's dispatch) is not counted: at
+    small shapes it is larger than the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(*args_list[i % len(args_list)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / iters
+
+
+def eager_ms(torch, fn, args_list, iters):
+    """Mean ms per call launched eagerly, host overhead included: CUDA
+    events around ``iters`` calls after one warm-up."""
     fn(*args_list[0])
     torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -168,6 +212,98 @@ def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
     log(f"  paged_decode_attention_int4: {r['ms']:.4f} ms/layer, plain "
         f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
         f"({r['bound'][1]}, {nbytes} B); layers cycled, L2 cold")
+    return r
+
+
+def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
+                plen=None, timed):
+    """Flash attention against its plain version; ``plen`` (B,) makes it
+    the suffix mask over a P-token padded prefix."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + B + Sq + P)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, P + Sq, Hkv, hd), generator=gen,
+                    device="cuda").to(dtype)
+    v = torch.randn((B, P + Sq, Hkv, hd), generator=gen,
+                    device="cuda").to(dtype)
+    pl = None if plen is None else torch.tensor(plen, dtype=torch.int32,
+                                                device="cuda")
+    kw = dict(causal=True, window=window, prefix_len=pl)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_TOL[str(dtype)[6:]]
+    ok = (torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+          and bool(torch.isfinite(got.float()).all()))
+    log(f"  flash_attention B={B} S={Sq} P={P} H={H} Hkv={Hkv} hd={hd} "
+        f"window={window} prefix_len={plen} {str(dtype)[6:]}: max |err| "
+        f"{err:.3e} (tol {tol})")
+    if not ok:
+        raise AssertionError("flash attention differs from the plain "
+                             "version beyond tolerance")
+    if not timed:
+        return None
+    # visible (query, key) pairs: what these inputs need
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(Sq))
+    if plen is not None:
+        pairs = B * pairs + Sq * sum(plen)
+    else:
+        pairs *= B
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    fn = lambda a, b, c: fa.flash_attention(a, b, c, **kw)
+    fn_ref = lambda a, b, c: ref.flash_attention_ref(a, b, c, **kw)
+    r = {"err": err, "ms": cuda_ms(torch, fn, [(q, k, v)], 50),
+         "plain_ms": cuda_ms(torch, fn_ref, [(q, k, v)], 10),
+         "bound": bound(nbytes, 4 * hd * H * pairs, peak_of(torch, dtype))}
+    if plen is None and not window:
+        # one PyTorch call of the same function (timed only, never used by
+        # the port): SDPA on (B, H, S, hd) views of the same tensors
+        sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True)
+        lib = sdpa(q, k, v).transpose(1, 2)
+        log(f"    SDPA vs plain max |err| "
+            f"{float((lib.float() - want.float()).abs().max()):.3e}")
+        r["library_ms"] = cuda_ms(torch, sdpa, [(q, k, v)], 50)
+    r["eager_ms"] = eager_ms(torch, fn, [(q, k, v)], 50)
+    log(f"  flash_attention: {r['ms']:.4f} ms ({r['eager_ms']:.4f} ms "
+        f"launched eagerly), plain {r['plain_ms']:.4f} "
+        f"ms, library {r.get('library_ms', float('nan')):.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {nbytes} B, "
+        f"{4 * hd * H * pairs} FLOP)")
+    return r
+
+
+def check_rmsnorm(torch, ref, rn, N, d, dtype, *, timed):
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + N + d)
+    x = (torch.randn((N, d), generator=gen, device="cuda") * 2).to(dtype)
+    scale = torch.randn((d,), generator=gen, device="cuda") * 0.1
+    got, want = rn.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale)
+    err = float((got.float() - want.float()).abs().max())
+    rtol = NORM_RTOL[str(dtype)[6:]]
+    ok = torch.allclose(got.float(), want.float(), atol=1e-6, rtol=rtol)
+    log(f"  rmsnorm N={N} d={d} {str(dtype)[6:]}: max |err| {err:.3e} "
+        f"(rtol {rtol:.3g})")
+    if not ok:
+        raise AssertionError("rmsnorm differs from the plain version "
+                             "beyond one ulp")
+    if not timed:
+        return None
+    esz = x.element_size()
+    gain = (1.0 + scale).to(dtype)
+    r = {"err": err, "ms": cuda_ms(torch, rn.rmsnorm, [(x, scale)], 100),
+         "plain_ms": cuda_ms(torch, ref.rmsnorm_ref, [(x, scale)], 100),
+         "library_ms": cuda_ms(
+             torch, lambda a, w: F.rms_norm(a, (d,), weight=w, eps=1e-6),
+             [(x, gain)], 100),
+         "bound": bound(2 * N * d * esz + 4 * d, 4 * N * d,
+                        peak_of(torch, dtype))}
+    r["eager_ms"] = eager_ms(torch, rn.rmsnorm, [(x, scale)], 100)
+    log(f"  rmsnorm {N}x{d}: {r['ms']:.4f} ms ({r['eager_ms']:.4f} ms "
+        f"launched eagerly), plain {r['plain_ms']:.4f} "
+        f"ms, library {r['library_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     return r
 
 
@@ -391,6 +527,45 @@ def serve_full(torch, cfg, device="cuda"):
         profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
         if dec.active or dec.page_stats()["leaked_pages"]:
             raise AssertionError("profiled request did not finish cleanly")
+    return launches, params
+
+
+def serve_gateway(torch, params, *, device="cuda", reduced=False):
+    """Phase 6: the entry point ``launch.serve.run`` on ``params``, one
+    plain run with a 32-token chunk budget and one live-rescheduled run;
+    returns the kernels' launch counts over both."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    base = ["--device", device, "--rate", "2"] + (["--reduced"] if reduced
+                                                 else [])
+    ops.reset_launches()
+    runs = {"a": serve.run(base + ["--duration", "8", "--chunk-tokens",
+                                   "32"], params=params),
+            "b": serve.run(["--device", device, "--rate", "3"]
+                           + (["--reduced"] if reduced else [])
+                           + ["--duration", "10", "--live-reschedule",
+                              "--workload", "coding"], params=params)}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for name, out in runs.items():
+        s, gw = out["summary"], out["gateway"]
+        leaked = sum(p["leaked_pages"] for p in out["page_stats"])
+        log(f"  run {name}: {s['n_done']}/{s['n_submitted']} done, states "
+            f"{s['states']}, TTFT p50/p99 {s['ttft_p50_s'] * 1e3:.1f}/"
+            f"{s['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50/p99 "
+            f"{s['tpot_p50_s'] * 1e3:.1f}/{s['tpot_p99_s'] * 1e3:.1f} ms, "
+            f"wall {out['wall_s']:.1f} s, leaked pages {leaked}, epoch "
+            f"{gw.epoch}, counters {json.dumps(out['stats']['counters'])}")
+        if s["n_submitted"] == 0 or s["n_done"] != s["n_submitted"]:
+            raise AssertionError(f"run {name}: not every request is DONE")
+        if leaked:
+            raise AssertionError(f"run {name}: {leaked} leaked pages")
+        if not out["params_resident"]:
+            raise AssertionError(f"run {name}: an engine holds other "
+                                 f"parameters than the ones passed in")
+    if runs["a"]["stats"]["counters"]["chunked_prefills"] == 0:
+        raise AssertionError("run a: no prompt was prefilled in chunks")
     return launches
 
 
@@ -404,13 +579,15 @@ def main() -> int:
         os.path.abspath(__file__)), "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_quant as kq
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/5] device")
+    log("[1/6] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -418,7 +595,7 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[2/5] build")
+    log("[2/6] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -427,7 +604,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
 
-    log("[3/5] kernels against their plain versions on the card")
+    log("[3/6] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -443,9 +620,27 @@ def main() -> int:
                     torch.float32, timed=False)
     check_attention(torch, ref, pa, 2, 3, 2, 4, 32, 8, 4, [5, 16, 23],
                     torch.bfloat16, timed=False)
+    H = cfg.num_heads
+    # the prefill bucket: 4 prompts of 256 tokens
+    rf = check_flash(torch, ref, fa, 4, 256, 0, H, Hkv, hd, torch.bfloat16,
+                     timed=True)
+    # a partial prefix hit: 128-token suffix over a 64-token padded prefix
+    check_flash(torch, ref, fa, 4, 128, 64, H, Hkv, hd, torch.bfloat16,
+                plen=[64, 0, 13, 40], timed=False)
+    check_flash(torch, ref, fa, 2, 130, 0, 8, 2, 16, torch.float32,
+                window=17, timed=False)
+    check_flash(torch, ref, fa, 2, 16, 32, 8, 2, 16, torch.float32,
+                plen=[32, 5], timed=False)
+    # the prefill bucket's rows, then a decode step's
+    rn_pre = check_rmsnorm(torch, ref, rn, 1024, cfg.d_model,
+                           torch.bfloat16, timed=True)
+    rn_dec = check_rmsnorm(torch, ref, rn, 4, cfg.d_model, torch.bfloat16,
+                           timed=True)
+    check_rmsnorm(torch, ref, rn, 37, cfg.d_model, torch.float32,
+                  timed=False)
     torch.cuda.empty_cache()
 
-    log("[4/5] reduced llama-30b, float32: card vs plain versions on the CPU")
+    log("[4/6] reduced llama-30b, float32: card vs plain versions on the CPU")
     on_card = serve_small(torch, "cuda")
     on_cpu = serve_small(torch, "cpu")
     log(f"  tokens equal: {on_card == on_cpu} ({sum(map(len, on_card))} "
@@ -453,12 +648,18 @@ def main() -> int:
     if on_card != on_cpu:
         raise AssertionError(f"card {on_card} != cpu {on_cpu}")
 
-    log(f"[5/5] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/6] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
-    launches = serve_full(torch, cfg)
-    log(f"  main-path launches: {launches}")
+    launches5, params = serve_full(torch, cfg)
+    log(f"  phase-5 launches: {launches5}")
+
+    log(f"[6/6] the gateway entry point (repro_torch.launch.serve) at full "
+        f"width on phase 5's weights")
+    launches6 = serve_gateway(torch, params)
+    log(f"  phase-6 launches: {launches6}")
+    launches = {k: launches5[k] + launches6[k] for k in launches5}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -470,13 +671,23 @@ def main() -> int:
              "src/repro/kernels/kv_quant.py:80", rd),
             ("paged_decode_attention_int4",
              "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention.py:174", ra)]
+             "src/repro/kernels/paged_attention.py:174", ra),
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:97", rf),
+            ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:24", rn_pre)]
+    log(f"  rmsnorm at the decode step's 4 x {cfg.d_model}: "
+        f"{rn_dec['ms']:.4f} ms ({rn_dec['eager_ms']:.4f} ms launched "
+        f"eagerly), plain {rn_dec['plain_ms']:.4f} ms, "
+        f"library {rn_dec['library_ms']:.4f} ms, bound "
+        f"{rn_dec['bound'][0]:.5f} ms")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": r["err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-         "bound_by": r["bound"][1], "library_ms": None}
+         "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
         for name, src, rep, r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

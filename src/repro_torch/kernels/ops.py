@@ -11,15 +11,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kv_quant as _kq
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rn
 
 # name -> wrapper carrying the ``.launches`` count
 KERNELS = {
     "kv_quant": _kq.kv_quant,
     "kv_dequant": _kq.kv_dequant,
     "paged_decode_attention_int4": _pa.paged_decode_attention_int4,
+    "flash_attention": _fa.flash_attention,
+    "rmsnorm": _rn.rmsnorm,
 }
 
 
@@ -63,3 +67,27 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
                                                page_size=page_size)
     return _pa.paged_decode_attention_int4(q, k_pages, v_pages, page_table,
                                            kv_len, page_size=page_size)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None,
+                    backend: str = "auto"):
+    """Prefill attention, (B, S, H, hd) layout; see
+    ``ref.flash_attention_ref`` for the mask (``prefix_len`` selects the
+    suffix mask of partial-hit and chunked prefill)."""
+    window = int(window or 0)
+    if _on_cpu(q):
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, prefix_len=prefix_len)
+    if prefix_len is not None:
+        prefix_len = prefix_len.to(torch.int32).contiguous()
+    return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window,
+                               prefix_len=prefix_len)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6, backend: str = "auto"):
+    """RMSNorm over the last axis with a ``(1 + scale)`` gain."""
+    if _on_cpu(x):
+        return _ref.rmsnorm_ref(x, scale, eps=eps)
+    return _rn.rmsnorm(x.contiguous(),
+                       scale.to(torch.float32).contiguous(), eps=eps)

@@ -4,12 +4,20 @@ They are what ``kernels/ops.py`` runs on CPU tensors, and the yardstick
 each CUDA kernel is held to on the card. Only the int4 residency of the
 paged decode attention is ported; the bf16 page residency waits for its
 kernel.
+
+``flash_attention_ref`` is the prefill attention the model computed in
+plain PyTorch before the flash kernel took its place: scores and softmax
+in f32, probabilities cast to the value type, materialized for problems
+up to 256 x 256 and an online softmax over key chunks above, exactly as
+``repro.models.layers.attention``; with ``prefix_len`` the suffix mask of
+``repro.models.transformer._suffix_attention``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.kv_layout import interleave_nibbles, pack_nibbles
 
@@ -79,3 +87,124 @@ def kv_dequant_ref(packed, scale, zero, dtype=torch.bfloat16):
     separate multiply and add, no fused multiply-add) cast to ``dtype``."""
     q = interleave_nibbles(packed)
     return (q * scale + zero).to(dtype)
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last axis in
+    f32, cast back to ``x.dtype``."""
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * (1.0 + scale.float())).to(dt)
+
+
+def _mask_bias(qpos, kpos, *, causal, window):
+    """(B, Sq, Sk) additive f32 bias from causal / window masks."""
+    qp = qpos[..., :, None]
+    kp = kpos[..., None, :]
+    ok = torch.ones(qp.shape[:-1] + kp.shape[-1:], dtype=torch.bool,
+                    device=qpos.device)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window and window > 0:
+        ok = ok & (kp > qp - window)
+    zero = torch.zeros((), dtype=torch.float32, device=qpos.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def _attention_materialized(q, k, v, *, causal, window):
+    B, Sq, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    g = H // Hk
+    qh = q.reshape(B, Sq, Hk, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float()) \
+        / math.sqrt(hd)
+    qpos = torch.arange(Sq, device=q.device).expand(B, Sq)
+    kpos = torch.arange(Sk, device=q.device).expand(B, Sk)
+    s = s + _mask_bias(qpos, kpos, causal=causal,
+                       window=window)[:, None, None]
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _attention_blocked(q, k, v, *, causal, window):
+    """Online softmax over chunks of 512 queries x 1024 keys (the
+    reference's default tiles): no (Sq, Sk) score tensor."""
+    B, Sq, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    g = H // Hk
+    cq, ck = min(512, Sq), min(1024, Sk)
+    nq, nk = -(-Sq // cq), -(-Sk // ck)
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * cq - Sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, nk * ck - Sk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nk * ck - Sk))
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi in range(nq):
+        blk = qp[:, qi * cq:(qi + 1) * cq].reshape(B, cq, Hk, g, hd).float()
+        qpos = (qi * cq + torch.arange(cq, device=dev)).expand(B, cq)
+        m = torch.full((B, Hk, g, cq), NEG_INF, device=dev)
+        l = torch.zeros((B, Hk, g, cq), device=dev)
+        acc = torch.zeros((B, Hk, g, cq, hd), device=dev)
+        for ki in range(nk):
+            kblk = kp[:, ki * ck:(ki + 1) * ck]
+            vblk = vp[:, ki * ck:(ki + 1) * ck]
+            kpos = (ki * ck + torch.arange(ck, device=dev)).expand(B, ck)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", blk, kblk.float()) * scale
+            bias = _mask_bias(qpos, kpos, causal=causal, window=window)
+            # the zero padding past Sk is never a key
+            bias = torch.where(kpos[:, None, :] < Sk, bias, NEG_INF)
+            s = s + bias[:, None, None]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vblk.dtype).float(), vblk.float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B,cq,Hk,g,hd)
+    o = torch.cat(outs, dim=1).reshape(B, nq * cq, H, hd)
+    return o[:, :Sq]
+
+
+def _suffix_attention(q, K, V, prefix_len):
+    B, S, H, hd = q.shape
+    Sk, Hk = K.shape[1], K.shape[2]
+    P = Sk - S
+    g = H // Hk
+    qh = q.reshape(B, S, Hk, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), K.float()) \
+        / math.sqrt(hd)
+    j = torch.arange(Sk, device=q.device)[None, None, :]
+    i = torch.arange(S, device=q.device)[None, :, None]
+    plen = prefix_len[:, None, None]
+    ok = torch.where(j < P, j < plen, (j - P) <= i)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s = s + torch.where(ok, zero, NEG_INF)[:, None, None]
+    w = torch.softmax(s, dim=-1).to(V.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), V.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, prefix_len=None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd), H a multiple of Hkv (GQA:
+    q head h reads kv head h // (H // Hkv)). Output (B, Sq, H, hd) in
+    ``q.dtype``.
+
+    Without ``prefix_len``: query i sees key j iff j <= i (``causal``) and
+    j > i - window (``window > 0``), positions aligned at 0 -- the TPU
+    kernel's contract. With ``prefix_len (B,)``: keys are a right-padded
+    prefix of width P = Sk - Sq followed by the Sq suffix keys; query i
+    sees prefix key j iff j < prefix_len[b] and suffix key P + j' iff
+    j' <= i (suffix prefill and chunked prefill; causal, no window)."""
+    if prefix_len is not None:
+        if window or not causal:
+            raise ValueError("suffix attention is causal with no window")
+        return _suffix_attention(q, k, v, prefix_len)
+    if q.shape[1] * k.shape[1] <= 256 * 256:
+        return _attention_materialized(q, k, v, causal=causal,
+                                       window=window)
+    return _attention_blocked(q, k, v, causal=causal, window=window)

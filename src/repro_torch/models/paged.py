@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.kv_layout import pick_group
 from repro_torch.models import layers
-from repro_torch.models.layers import dense, rmsnorm
+from repro_torch.models.layers import dense
 from repro_torch.models.transformer import _ffn, unembed_matrix
 
 DEFAULT_PAGE_SIZE = 16
@@ -119,7 +119,7 @@ def decode_step_paged(cfg, params, cache, tokens, *,
     kv_len = (lengths + 1).to(torch.int32)
     slot = cache["slot0"]
     for i, p in enumerate(params["layers"]):
-        h = rmsnorm(x, p["norm1"])
+        h = ops.rmsnorm(x, p["norm1"], backend=backend)
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
         for base, val in (("k", k), ("v", v)):
             packed, scale, zero = ops.kv_quant(
@@ -136,7 +136,7 @@ def decode_step_paged(cfg, params, cache, tokens, *,
         x = x + dense(p["attn"]["wo"],
                       o.reshape(B, 1, cfg.q_dim).to(x.dtype))
         x = _ffn(cfg, p, x)
-    x = rmsnorm(x, params["final_norm"])
+    x = ops.rmsnorm(x, params["final_norm"], backend=backend)
     logits = (x @ unembed_matrix(cfg, params)).float()
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1

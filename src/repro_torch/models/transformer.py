@@ -23,10 +23,9 @@ import math
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.layers import dense, rmsnorm
-
-NEG_INF = layers.NEG_INF
+from repro_torch.models.layers import dense
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
@@ -84,7 +83,7 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
 
 
 def _ffn(cfg, p, x):
-    return x + layers.mlp_apply(cfg, p["mlp"], rmsnorm(x, p["norm2"]))
+    return x + layers.mlp_apply(cfg, p["mlp"], ops.rmsnorm(x, p["norm2"]))
 
 
 def _last_logits(cfg, params, x, last_pos):
@@ -95,7 +94,7 @@ def _last_logits(cfg, params, x, last_pos):
         h_last = x[:, -1:]
     else:
         h_last = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
-    h_last = rmsnorm(h_last, params["final_norm"])
+    h_last = ops.rmsnorm(h_last, params["final_norm"])
     return (h_last @ unembed_matrix(cfg, params)).float()
 
 
@@ -118,11 +117,10 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
     for i, p in enumerate(params["layers"]):
-        h = rmsnorm(x, p["norm1"])
+        h = ops.rmsnorm(x, p["norm1"])
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
-        o = layers.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                             chunk_q=cfg.attn_chunk_q,
-                             chunk_kv=cfg.attn_chunk_kv)
+        o = ops.flash_attention(q, k, v, causal=True,
+                                window=cfg.sliding_window)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
         x = x + dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
@@ -148,36 +146,14 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     positions = prefix_len[:, None].long() + torch.arange(S, device=dev)[None]
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
     for i, p in enumerate(params["layers"]):
-        h = rmsnorm(x, p["norm1"])
+        h = ops.rmsnorm(x, p["norm1"])
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
         K = torch.cat([pk_all[i].to(k.dtype), k], dim=1)
         V = torch.cat([pv_all[i].to(v.dtype), v], dim=1)
-        o = _suffix_attention(q, K, V, prefix_len)
+        o = ops.flash_attention(q, K, V, prefix_len=prefix_len)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
         x = x + dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
         x = _ffn(cfg, p, x)
     cache["lengths"] = _lengths(true_len, B, S, dev)
     return _last_logits(cfg, params, x, last_pos), cache
-
-
-def _suffix_attention(q, K, V, prefix_len):
-    """Suffix queries over [padded prefix ++ suffix] keys. q: (B,S,H,hd);
-    K/V: (B,P+S,Hkv,hd). Prefix key j is valid iff j < prefix_len; suffix
-    key j >= P is visible to query i iff j - P <= i."""
-    B, S, H, hd = q.shape
-    Sk, Hk = K.shape[1], K.shape[2]
-    P = Sk - S
-    g = H // Hk
-    qh = q.reshape(B, S, Hk, g, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), K.float()) \
-        / math.sqrt(hd)
-    j = torch.arange(Sk, device=q.device)[None, None, :]
-    i = torch.arange(S, device=q.device)[None, :, None]
-    plen = prefix_len[:, None, None]
-    ok = torch.where(j < P, j < plen, (j - P) <= i)
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
-    s = s + torch.where(ok, zero, NEG_INF)[:, None, None]
-    w = torch.softmax(s, dim=-1).to(V.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), V.float())
-    return o.reshape(B, S, H, hd).to(q.dtype)

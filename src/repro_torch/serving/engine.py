@@ -10,10 +10,10 @@ prompts to power-of-two length buckets and quantizes a whole bucket's KV
 in one kernel launch.
 
 Ported so far: ``PrefillEngine`` (bucketed, with the suffix path of
-partial prefix hits and chunked prefill) and ``DecodeEngine(paged=True)``
-with the int4-resident page pool and prefix sharing. The dense decode
-cache (``paged=False``) and the phase-switching ``Replica`` raise
-``NotImplementedError`` until their ROADMAP items land.
+partial prefix hits and chunked prefill), ``DecodeEngine(paged=True)``
+with the int4-resident page pool and prefix sharing, and the
+phase-switching ``Replica``. The dense decode cache (``paged=False``)
+raises ``NotImplementedError`` until its ROADMAP item lands.
 """
 from __future__ import annotations
 
@@ -711,10 +711,78 @@ class DecodeEngine:
         return st
 
 
-class Replica:
-    """Phase-switchable replica (paper §3.4): not ported yet."""
+# -- phase-switchable replica -------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Replica (phase flips around resident weights) is ported with "
-            "the gateway in slice 2 (ROADMAP queue A)")
+
+class Replica:
+    """One model replica that owns its parameters ONCE and can host either
+    serving role (paper §3.4's core trick: a phase flip re-uses the
+    resident weights — no reload, no restart).
+
+    ``switch_phase()`` constructs (or re-activates) the engine for the
+    other phase around the SAME parameter tensors. Engines are cached per
+    phase, so a replica that flips back re-enters the engine it built
+    before. A decode replica must be drained (or its requests requeued by
+    the gateway) before flipping — the slotted KV cache does not survive a
+    role change. The page pool is likewise DECODE-phase-owned: it lives on
+    the cached decode engine, so a drained flip leaves an all-free pool
+    behind and a warm re-flip re-enters it without reallocation.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *,
+                 phase: str = "prefill", max_seq: int = 512, device="cuda",
+                 prefill_kw: Optional[Dict] = None,
+                 decode_kw: Optional[Dict] = None):
+        if phase not in ("prefill", "decode"):
+            raise ValueError(f"unknown phase {phase!r}")
+        self.cfg = cfg
+        self.params = params
+        self._prefill_kw = {"max_seq": max_seq, "device": device,
+                            **(prefill_kw or {})}
+        self._decode_kw = {"max_seq": max_seq, "device": device,
+                           **(decode_kw or {})}
+        self._engines: Dict[str, object] = {}
+        self.phase = ""
+        self.switches = 0
+        self.engine = None
+        self._activate(phase)
+
+    def _activate(self, phase: str):
+        if phase not in self._engines:
+            if phase == "prefill":
+                self._engines[phase] = PrefillEngine(self.cfg, self.params,
+                                                     **self._prefill_kw)
+            else:
+                self._engines[phase] = DecodeEngine(self.cfg, self.params,
+                                                    **self._decode_kw)
+        self.engine = self._engines[phase]
+        self.phase = phase
+
+    @property
+    def drained(self) -> bool:
+        """True when no request state would be lost by a phase flip."""
+        return self.phase != "decode" or self.engine.active == 0
+
+    def switch_phase(self, phase: Optional[str] = None):
+        """Flip to ``phase`` (default: the other one) around the resident
+        parameter tensors. Raises if an undrained decode engine would lose
+        in-flight requests — the caller (gateway) drains or requeues them
+        first. Returns the now-active engine."""
+        target = phase or ("decode" if self.phase == "prefill"
+                           else "prefill")
+        if target not in ("prefill", "decode"):
+            raise ValueError(f"unknown phase {target!r}")
+        if target == self.phase:
+            return self.engine
+        if not self.drained:
+            raise RuntimeError(
+                f"cannot flip an undrained {self.phase} replica "
+                f"({self.engine.active} request(s) resident): drain or "
+                f"requeue them first")
+        if self.phase == "decode" and hasattr(self.engine, "clear_prefix"):
+            # shared prefixes don't survive a role change: release the
+            # index's page references so the pool is left all-free
+            self.engine.clear_prefix()
+        self._activate(target)
+        self.switches += 1
+        return self.engine

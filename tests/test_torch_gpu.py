@@ -6,9 +6,12 @@ the ``cuda`` fixture, never at import). On a machine with a card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: ``kv_quant``/``kv_dequant`` must agree bit for bit (the wire,
-the pages and the decode append share one encoding); paged attention sums
-in another order than the plain version, so it is held to 1e-5 in f32 and
-to 2e-2 (a few bf16 ulps at |out| <= 4) in bf16.
+the pages and the decode append share one encoding); paged attention and
+flash attention sum in another order than the plain versions (and keep
+probabilities in f32 where the plain flash version rounds them to bf16),
+so they are held to 1e-5 in f32 and to 2e-2 (a few bf16 ulps at
+|out| <= 4) in bf16. RMSNorm sums its row in another order: 1e-5
+relative in f32, one bf16 ulp (2**-7 relative) in bf16.
 """
 import math
 
@@ -16,9 +19,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+
+# the port's CPU tests share the machine with latency-sensitive JAX tests
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.gpu
 
@@ -127,3 +135,113 @@ def test_paged_attention_ignores_trash_page(cuda):
                                    page_size=8)
     assert torch.equal(a, b)
     assert math.isfinite(float(a.abs().max()))
+
+
+# -- flash attention -------------------------------------------------------------
+
+FLASH_CASES = [
+    # (B, Sq, P, H, Hkv, hd, causal, window, prefix_len)
+    (4, 256, 0, 52, 52, 128, True, 0, None),      # LLaMA-30B prefill bucket
+    (2, 100, 0, 8, 2, 16, True, 0, None),         # GQA, ragged q tile
+    (2, 130, 0, 8, 2, 16, True, 17, None),        # sliding window
+    (1, 70, 0, 4, 4, 32, False, 0, None),         # not causal
+    (3, 65, 0, 6, 3, 64, True, 40, None),
+    (4, 128, 64, 52, 52, 128, True, 0, [64, 0, 13, 40]),  # suffix, ragged
+    (2, 16, 32, 8, 2, 16, True, 0, [32, 5]),      # chunked-prefill tick
+]
+
+
+@pytest.mark.parametrize("B,Sq,P,H,Hkv,hd,causal,window,plen", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, P, H, Hkv, hd,
+                                              causal, window, plen, dtype):
+    dt = getattr(torch, dtype)
+    gen = _gen(B * 100 + Sq + hd)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=cuda).to(dt)
+    k = torch.randn((B, P + Sq, Hkv, hd), generator=gen, device=cuda).to(dt)
+    v = torch.randn((B, P + Sq, Hkv, hd), generator=gen, device=cuda).to(dt)
+    pl = None if plen is None else torch.tensor(plen, dtype=torch.int32,
+                                                device=cuda)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              prefix_len=pl)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   prefix_len=pl)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_attention_ignores_masked_prefix_keys(cuda):
+    """Prefix keys at or past prefix_len (the bucket's right padding) and a
+    dummy row's whole prefix are never read into the result."""
+    gen = _gen(7)
+    B, S, P, H, hd = 3, 20, 24, 4, 16
+    q = torch.randn((B, S, H, hd), generator=gen, device=cuda)
+    k = torch.randn((B, P + S, H, hd), generator=gen, device=cuda)
+    v = torch.randn((B, P + S, H, hd), generator=gen, device=cuda)
+    pl = torch.tensor([24, 9, 0], dtype=torch.int32, device=cuda)
+    a = ops.flash_attention(q, k, v, prefix_len=pl)
+    k2, v2 = k.clone(), v.clone()
+    k2[1, 9:P] = 1e4
+    v2[1, 9:P] = float("nan")
+    k2[2, :P] = -1e4
+    v2[2, :P] = float("inf")
+    b = ops.flash_attention(q, k2, v2, prefix_len=pl)
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_rejects_bad_operands(cuda):
+    q = torch.zeros((1, 8, 2, 24), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="bad operands"):
+        fa.flash_attention(q, q, q, window=4,
+                           prefix_len=torch.zeros((1,), dtype=torch.int32,
+                                                  device=cuda))
+
+
+# -- rmsnorm -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1024, 6656), (4, 6656), (4, 1, 6656),
+                                   (37, 6656), (3, 5, 64), (2, 1)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    dt = getattr(torch, dtype)
+    gen = _gen(sum(shape))
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2).to(dt)
+    scale = torch.randn((shape[-1],), generator=gen, device=cuda) * 0.1
+    before = rn.rmsnorm.launches
+    got = ops.rmsnorm(x, scale)
+    want = ref.rmsnorm_ref(x, scale)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 1
+    assert got.dtype == dt and got.shape == x.shape
+    rtol = 2 ** -7 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
+                               rtol=rtol)
+
+
+def test_norm_and_attention_launch_without_host_sync(cuda):
+    """The decode chunk runs under sync_debug_mode("error"): the
+    wrappers must read nothing back from the card."""
+    x = torch.randn((4, 1, 6656), device=cuda, dtype=torch.bfloat16)
+    scale = torch.zeros((6656,), device=cuda)
+    q = torch.randn((4, 16, 4, 16), device=cuda)
+    pl = torch.tensor([3, 0, 16, 7], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.rmsnorm(x, scale)
+        ops.flash_attention(q, torch.cat([q, q], 1), torch.cat([q, q], 1),
+                            prefix_len=pl)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()

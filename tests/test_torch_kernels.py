@@ -9,6 +9,13 @@ differently (a reciprocal multiply, a fused multiply-add): against them
 scale and values are held to 1e-6 relative and a nibble on a rounding
 knife edge may move by one, as ``tests/test_kernels.py`` holds the two
 JAX paths. Paged attention sums in another order: 2e-5 in f32.
+
+Flash attention (the port's prefill attention, ``(B, S, H, hd)`` layout)
+is held to ``repro.kernels.ref.flash_attention_ref`` and to the Pallas
+kernel in interpret mode (``(B*H, S, hd)`` layout) over causal, window and
+GQA shapes at 1e-5 in f32; its suffix mask to the port's previous
+``_suffix_attention`` formula. RMSNorm is held to ``rmsnorm_ref`` and the
+interpreted Pallas kernel at 1e-6 in f32 and one ulp in bf16.
 """
 import numpy as np
 import pytest
@@ -20,11 +27,16 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import kv_layout as j_layout  # noqa: E402
 from repro.kernels import ops as j_ops  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
+from repro_torch.kernels import flash_attention as t_fa  # noqa: E402
 from repro_torch.kernels import kv_layout as t_layout  # noqa: E402
 from repro_torch.kernels import kv_quant as t_kq  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import paged_attention as t_pa  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as t_rn  # noqa: E402
+
+# the port's CPU tests share the machine with latency-sensitive JAX tests
+torch.set_num_threads(2)
 
 DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
           "float32": (jnp.float32, torch.float32)}
@@ -216,15 +228,158 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_pa.paged_decode_attention_int4(
             torch.from_numpy(q), tt(kp), tt(vp), torch.from_numpy(pt),
             torch.from_numpy(kl), page_size=8)
-    before = (t_kq.kv_quant.launches, t_kq.kv_dequant.launches,
-              t_pa.paged_decode_attention_int4.launches)
+    qa = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fa.flash_attention(qa, qa, qa)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_rn.rmsnorm(x, torch.zeros((64,)))
+    before = t_ops.launch_counts()
     t_ops.kv_quant(x)
     t_ops.kv_dequant(p, s, z)
-    after = (t_kq.kv_quant.launches, t_kq.kv_dequant.launches,
-             t_pa.paged_decode_attention_int4.launches)
-    assert before == after, "plain CPU runs must not count as launches"
+    t_ops.flash_attention(qa, qa, qa)
+    t_ops.rmsnorm(x, torch.zeros((64,)))
+    assert t_ops.launch_counts() == before, \
+        "plain CPU runs must not count as launches"
 
 
 def test_ops_refuse_unknown_device():
     with pytest.raises(ValueError, match="no kernel for device"):
         t_ops.kv_quant(torch.zeros((4, 64), device="meta"))
+
+
+# -- flash attention ------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (B, S, H, Hkv, hd, causal, window)
+    (2, 16, 4, 4, 16, True, 0),
+    (1, 64, 8, 2, 32, True, 0),          # GQA
+    (2, 32, 4, 1, 16, True, 8),          # MQA, sliding window
+    (1, 48, 6, 3, 16, False, 0),         # not causal
+    (1, 128, 2, 2, 16, True, 33),        # window across several blocks
+]
+
+
+def _to_bh(a):
+    """(B, S, H, hd) -> the Pallas kernel's (B*H, S, hd)."""
+    B, S, H, hd = a.shape
+    return jnp.asarray(np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                       .reshape(B * H, S, hd))
+
+
+def _from_bh(a, B, H):
+    a = np.asarray(a, np.float32)
+    return a.reshape(B, H, a.shape[1], a.shape[2]).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("against", ["ref", "interpret"])
+def test_flash_attention_ref_vs_jax(B, S, H, Hkv, hd, causal, window,
+                                    against):
+    rng = np.random.default_rng(B * 100 + S + H + hd)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    got = t_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal,
+                                window=window)
+    if against == "ref":
+        want = j_ref.flash_attention_ref(_to_bh(q), _to_bh(k), _to_bh(v),
+                                         causal=causal, window=window)
+    else:
+        want = j_ops.flash_attention(_to_bh(q), _to_bh(k), _to_bh(v),
+                                     causal=causal, window=window,
+                                     backend="interpret", block_q=16,
+                                     block_k=16)
+    np.testing.assert_allclose(_from_bh(want, B, H), got.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_flash_attention_blocked_plain_path_matches_materialized():
+    """Above 256 x 256 the plain version takes the online softmax over key
+    chunks (the reference's blocked jnp path): same result to f32
+    rounding."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 300, 2, 16)).astype(np.float32)) for _ in range(3))
+    for window in (0, 70):
+        blocked = t_ops.flash_attention(q, k, v, window=window)
+        full = t_ref._attention_materialized(q, k, v, causal=True,
+                                             window=window)
+        torch.testing.assert_close(blocked, full, atol=1e-5, rtol=1e-5)
+
+
+def _old_suffix_attention(q, K, V, prefix_len):
+    """``models/transformer.py: _suffix_attention`` as the port had it
+    before the flash kernel replaced it."""
+    import math
+    B, S, H, hd = q.shape
+    Sk, Hk = K.shape[1], K.shape[2]
+    P = Sk - S
+    qh = q.reshape(B, S, Hk, H // Hk, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), K.float()) \
+        / math.sqrt(hd)
+    j = torch.arange(Sk)[None, None, :]
+    i = torch.arange(S)[None, :, None]
+    ok = torch.where(j < P, j < prefix_len[:, None, None], (j - P) <= i)
+    s = s + torch.where(ok, torch.zeros(()), -1e30)[:, None, None]
+    w = torch.softmax(s, dim=-1).to(V.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), V.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S,P,H,Hkv,hd,plen", [
+    (3, 8, 16, 4, 2, 16, [16, 5, 0]),     # ragged, one dummy row
+    (2, 16, 32, 2, 2, 32, [32, 17]),
+    (1, 4, 8, 8, 1, 16, [8]),
+])
+def test_flash_attention_suffix_mask_is_the_old_formula(B, S, P, H, Hkv, hd,
+                                                        plen):
+    rng = np.random.default_rng(B + S + P)
+    q = torch.from_numpy(rng.standard_normal((B, S, H, hd))
+                         .astype(np.float32))
+    K = torch.from_numpy(rng.standard_normal((B, P + S, Hkv, hd))
+                         .astype(np.float32))
+    V = torch.from_numpy(rng.standard_normal((B, P + S, Hkv, hd))
+                         .astype(np.float32))
+    pl = torch.tensor(plen, dtype=torch.int32)
+    got = t_ops.flash_attention(q, K, V, prefix_len=pl)
+    assert torch.equal(got, _old_suffix_attention(q, K, V, pl))
+    assert bool(torch.isfinite(got).all())
+    # with an empty prefix the suffix mask is plain causal attention
+    z = t_ops.flash_attention(q, K[:, P:], V[:, P:],
+                              prefix_len=torch.zeros((B,), dtype=torch.int32))
+    torch.testing.assert_close(z, t_ops.flash_attention(q, K[:, P:],
+                                                        V[:, P:]),
+                               atol=1e-6, rtol=1e-6)
+
+
+def test_flash_attention_suffix_refuses_a_window():
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match="no window"):
+        t_ops.flash_attention(q, torch.cat([q, q], 1), torch.cat([q, q], 1),
+                              window=2,
+                              prefix_len=torch.zeros((1,), dtype=torch.int32))
+
+
+# -- rmsnorm ------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,d", [(1, 8), (7, 64), (256, 96), (512, 128)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("against", ["ref", "interpret"])
+def test_rmsnorm_ref_vs_jax(N, d, dtype, against):
+    rng = np.random.default_rng(N * d)
+    x = (rng.standard_normal((N, d)) * 2).astype(np.float32)
+    scale = (rng.standard_normal((d,)) * 0.1).astype(np.float32)
+    xj, xt = _both(x, dtype)
+    got = t_ops.rmsnorm(xt, torch.from_numpy(scale))
+    assert got.dtype == xt.dtype
+    if against == "ref":
+        want = j_ref.rmsnorm_ref(xj, jnp.asarray(scale))
+    else:
+        want = j_ops.rmsnorm(xj, jnp.asarray(scale), backend="interpret",
+                             block_n=min(N, 256))
+    # f32: the same arithmetic, summed in another order; bf16: the f32
+    # results round to the same bf16 value or to a neighbour (one ulp)
+    rtol = 2 ** -7 if dtype == "bfloat16" else 1e-6
+    np.testing.assert_allclose(_np(want), _np(got), rtol=rtol, atol=1e-6)

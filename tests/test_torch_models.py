@@ -25,6 +25,9 @@ from repro_torch.models import build, convert  # noqa: E402
 from repro_torch.models import paged as t_paged  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
 
+# the port's CPU tests share the machine with latency-sensitive JAX tests
+torch.set_num_threads(2)
+
 ATOL = 1e-4
 
 

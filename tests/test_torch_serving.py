@@ -33,6 +33,9 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.serving import engine as TE  # noqa: E402
 from repro_torch.serving import kv_transfer as t_kvt  # noqa: E402
 
+# the port's CPU tests share the machine with latency-sensitive JAX tests
+torch.set_num_threads(2)
+
 MARGIN = 1e-3
 PS = 8
 
@@ -273,13 +276,35 @@ def test_extract_resident_migrates_without_changing_tokens(runs):
 
 
 def test_unported_engine_modes_raise(runs):
+    """The dense decode cache is still unported and raises; the
+    phase-switching ``Replica`` is ported: it builds each phase's engine
+    once around the same parameters and refuses an undrained flip."""
     cfg, params = runs["tcfg"], runs["tparams"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.DecodeEngine(cfg, params, paged=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.Replica(cfg, params)
+        TE.Replica(cfg, params, phase="decode", device="cpu",
+                   decode_kw={"paged": False})
     with pytest.raises(ValueError, match="params live on"):
         TE.PrefillEngine(cfg, params, device="cuda")
+    with pytest.raises(ValueError, match="params live on"):
+        TE.Replica(cfg, params)                  # the card by default
+    rep = TE.Replica(cfg, params, phase="decode", max_seq=64, device="cpu",
+                     decode_kw={"page_size": PS, "max_slots": 2})
+    dec = rep.engine
+    pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+    req = TE.GenRequest(0, np.arange(1, 12), 6)
+    (_, w, f), = pre.run([req])
+    assert not dec.admit(TE.AdmissionBatch([TE.AdmissionItem(req, f,
+                                                             wire=w)]))
+    with pytest.raises(RuntimeError, match="undrained"):
+        rep.switch_phase()
+    while dec.active:
+        dec.step()
+    assert isinstance(rep.switch_phase(), TE.PrefillEngine)
+    assert rep.switch_phase("decode") is dec     # cached, not rebuilt
+    assert rep.switches == 2 and rep.engine.params is params
+    assert dec.pool.n_in_use == 0
 
 
 def test_materialize_is_the_host_hop(runs):
