@@ -11,13 +11,14 @@ before the last line:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's LLaMA-30B shapes and at reduced shapes (a quantization
    group spanning several heads, GQA, a sliding window, a ragged suffix
-   prefix); CUDA-event times of kernel, plain version and, where one
-   PyTorch call computes the same function, that call (timed, never used
-   by the port), beside the bound (bytes at 3.35 TB/s or operations at
-   the peak rate of the inputs' type);
+   prefix, kv_len 1 and S); CUDA-event times of kernel, plain version and,
+   where one PyTorch call computes the same function, that call (timed,
+   never used by the port), beside the bound (bytes at 3.35 TB/s or
+   operations at the peak rate of the inputs' type);
 4. reference: the reduced LLaMA-30B served in float32 through the
-   engines on the card and on the CPU (plain versions): greedy tokens must
-   agree;
+   engines on the card and on the CPU (plain versions), once for each
+   decode cache (int4 pages, the dense cache, bf16 pages): greedy tokens
+   must agree;
 5. serve: full-width LLaMA-30B (random bf16 weights from a seed) through
    ``PrefillEngine`` and ``DecodeEngine(paged=True, prefix_sharing=True)``,
    called in the order the gateway's local clients call them: fresh
@@ -25,14 +26,19 @@ before the last line:
    prefill with a 64-token budget; every decode chunk runs under
    ``torch.cuda.set_sync_debug_mode("error")``. Launch counts are reset
    just before this phase and read just after it; then one decode chunk
-   runs under the profiler;
+   runs under the profiler. Then, each with its own launch counts, the
+   dense cache (``DecodeEngine(paged=False)``) and the bf16 pages
+   (``kv_resident="bf16"``) serve fresh prompts and a chunked prefill the
+   same way, each with one profiled chunk; on the dense engine
+   ``step_reference()`` must decode what ``step()`` decodes;
 6. gateway: the system's entry point, ``repro_torch.launch.serve.run``,
-   at full width on phase 5's weights, twice: (a) default flags with a
-   32-token chunked-prefill budget over a short open-loop trace, (b)
-   ``--live-reschedule`` over a short shifted trace. Every request must be
-   DONE with 0 leaked pages, (a) must chunk, and in (b) every replica must
-   still hold phase 5's parameters. Launch counts are reset before and
-   read after, and summed with phase 5's.
+   at full width on phase 5's weights, three times: (a) default flags
+   with a 32-token chunked-prefill budget over a short open-loop trace,
+   (b) ``--live-reschedule`` over a short shifted trace, (c)
+   ``--no-paged`` (dense decode engines). Every request must be DONE with
+   0 leaked pages, (a) must chunk, and every engine must still hold phase
+   5's parameters. Launch counts are reset before and read after, and
+   summed with phase 5's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -307,6 +313,112 @@ def check_rmsnorm(torch, ref, rn, N, d, dtype, *, timed):
     return r
 
 
+def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
+                 timed):
+    """Dense decode attention on one layer of an (L, B, S, Hkv, hd) cache,
+    read through the permuted (B, Hkv, S, hd) view as the model does;
+    layers cycled when timed, so the L2 is cold."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + B + S + hd)
+    K = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda").to(kvdt)
+    V = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda").to(kvdt)
+    q = torch.randn((B, Hkv, g, hd), generator=gen, device="cuda").to(qdt)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    layer = [(q, K[i].permute(0, 2, 1, 3), V[i].permute(0, 2, 1, 3), kl)
+             for i in range(L)]
+    fn_ref = lambda a, b, c, n: ref.decode_attention_ref(a, b, c, kv_len=n)
+    got, want = da.decode_attention(*layer[0]), fn_ref(*layer[0])
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_TOL[str(qdt)[6:]]
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    log(f"  decode_attention B={B} Hkv={Hkv} g={g} hd={hd} S={S} "
+        f"kv_len={kv_len} q {str(qdt)[6:]} kv {str(kvdt)[6:]}: max |err| "
+        f"{err:.3e} (tol {tol})")
+    if not ok:
+        raise AssertionError("decode attention differs from the plain "
+                             "version beyond tolerance")
+    if not timed:
+        return None
+    tokens = sum(kv_len)
+    nbytes = (tokens * Hkv * hd * 2 * K.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * B)
+
+    def sdpa(a, b, c, n):
+        # the g query heads of a KV head as g query rows, kv_len as a mask
+        mask = (torch.arange(S, device="cuda")[None] < n[:, None])
+        return F.scaled_dot_product_attention(a, b, c,
+                                              attn_mask=mask[:, None, None])
+
+    lib = sdpa(*layer[0])
+    log(f"    SDPA vs plain max |err| "
+        f"{float((lib.float() - want.float()).abs().max()):.3e}")
+    r = {"err": err,
+         "ms": cuda_ms(torch, da.decode_attention, layer, 3 * L),
+         "plain_ms": cuda_ms(torch, fn_ref, layer, L),
+         "library_ms": cuda_ms(torch, sdpa, layer, 3 * L),
+         "bound": bound(nbytes, 4 * Hkv * g * hd * tokens,
+                        peak_of(torch, kvdt))}
+    r["eager_ms"] = eager_ms(torch, da.decode_attention, layer, 3 * L)
+    log(f"  decode_attention: {r['ms']:.4f} ms/layer ({r['eager_ms']:.4f} "
+        f"ms launched eagerly), plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms (SDPA, kv_len mask), bound "
+        f"{r['bound'][0]:.5f} ms ({r['bound'][1]}, {nbytes} B); layers "
+        f"cycled, L2 cold")
+    return r
+
+
+def check_paged_bf16(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len, qdt,
+                     *, timed):
+    """The bf16 paged body over L layers of (P, ps, Hkv, hd) bf16 pages
+    and a shuffled page table (unused entries: the trash page 0)."""
+    P = B * W + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + B + ps + hd)
+    kp = torch.randn((L, P, ps, Hkv, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vp = torch.randn((L, P, ps, Hkv, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    pt = torch.zeros((B, W), dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        SEED)) + 1
+    n = 0
+    for b, ln in enumerate(kv_len):
+        k = min(-(-ln // ps), W)
+        pt[b, :k] = perm[n:n + k]
+        n += k
+    q = torch.randn((B, Hkv, gq, hd), generator=gen, device="cuda").to(qdt)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    layer = [(q, kp[i], vp[i], pt.cuda(), kl) for i in range(L)]
+    fn = lambda *a: pa.paged_decode_attention_bf16(*a, page_size=ps)
+    fn_ref = lambda *a: ref.paged_decode_attention_ref(*a, page_size=ps)
+    got, want = fn(*layer[0]), fn_ref(*layer[0])
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_TOL[str(qdt)[6:]]
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    log(f"  paged_decode_attention_bf16 B={B} Hkv={Hkv} gq={gq} hd={hd} "
+        f"ps={ps} W={W} kv_len={kv_len} q {str(qdt)[6:]}: max |err| "
+        f"{err:.3e} (tol {tol})")
+    if not ok:
+        raise AssertionError("bf16 paged attention differs from the plain "
+                             "version beyond tolerance")
+    if not timed:
+        return None
+    tokens = sum(kv_len)
+    nbytes = (tokens * Hkv * hd * 2 * 2 + 2 * q.numel() * q.element_size()
+              + 4 * (B * W + B))
+    r = {"err": err,
+         "ms": cuda_ms(torch, fn, layer, 3 * L),
+         "plain_ms": cuda_ms(torch, fn_ref, layer, L),
+         "bound": bound(nbytes, 4 * Hkv * gq * hd * tokens,
+                        peak_of(torch, torch.bfloat16))}
+    r["eager_ms"] = eager_ms(torch, fn, layer, 3 * L)
+    log(f"  paged_decode_attention_bf16: {r['ms']:.4f} ms/layer "
+        f"({r['eager_ms']:.4f} ms launched eagerly), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+        f"({r['bound'][1]}, {nbytes} B); no single PyTorch call gathers "
+        f"pages; layers cycled, L2 cold")
+    return r
+
+
 # -- phases 4 and 5: serving ------------------------------------------------
 
 
@@ -318,8 +430,13 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def serve_small(torch, device):
-    """Reduced LLaMA-30B in float32 through the engines; returns tokens."""
+DECODE_MODES = {"int4": {}, "dense": {"paged": False},
+                "bf16": {"kv_resident": "bf16"}}
+
+
+def serve_small(torch, device, mode="int4"):
+    """Reduced LLaMA-30B in float32 through the engines with the decode
+    cache of ``mode`` (``DECODE_MODES``); returns tokens."""
     from repro_torch.configs import get_reduced
     from repro_torch.models.transformer import init_params
     from repro_torch.serving import engine as E
@@ -329,7 +446,7 @@ def serve_small(torch, device):
                                    dtype=torch.float32), device)
     pre = E.PrefillEngine(cfg, params, max_seq=64, device=device)
     dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=64, page_size=8,
-                         chunk_size=4, device=device)
+                         chunk_size=4, device=device, **DECODE_MODES[mode])
     rng = np.random.default_rng(SEED)
     reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n), 12)
             for i, n in enumerate((7, 19, 33))]
@@ -354,9 +471,11 @@ def profile_chunk(torch, run, n_steps):
              e.key) for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    n_launch = sum(r[1] for r in rows)
     log(f"  profiled chunk of {n_steps} steps: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(r[1] for r in rows)} kernel launches")
+        f"{n_launch} kernel launches; per step: {busy_ms / n_steps:.2f} ms "
+        f"of device time, {n_launch / n_steps:.0f} launches")
     for ms, n, name in rows[:8]:
         log(f"    {ms:9.3f} ms  x{n:<6d} {name[:70]}")
 
@@ -530,10 +649,129 @@ def serve_full(torch, cfg, device="cuda"):
     return launches, params
 
 
+def serve_variant(torch, cfg, params, mode, device="cuda"):
+    """Phase 5, after the int4 engine: the decode cache of ``mode`` ("dense"
+    or "bf16") at full width, fresh prompts and a chunked prefill, every
+    chunk under ``sync_check=True``; returns the kernels' launch counts of
+    that run. On the dense engine ``step_reference()`` then decodes the
+    same admissions as ``step()``, token for token."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine as E
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    pre = E.PrefillEngine(cfg, params, max_seq=256, max_batch=4,
+                          device=device)
+    dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=256,
+                         page_size=16, chunk_size=8, device=device,
+                         **DECODE_MODES[mode])
+    kv_bytes = sum(a.numel() * a.element_size()
+                   for a in dec.cache["slot0"].values())
+    log(f"  {mode} decode cache: {kv_bytes / 1e9:.3f} GB")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 1)
+    clock = Clock()
+
+    def step_all(n_chunks_max=None):
+        k = 0
+        while dec.active and (n_chunks_max is None or k < n_chunks_max):
+            for r in dec.step(sync_check=True):
+                sync()
+                r.t_done = clock()
+            k += 1
+        sync()
+
+    def admit(items):
+        if dec.admit(E.AdmissionBatch(items)):
+            raise AssertionError(f"{mode}: admission rejected")
+
+    ops.reset_launches()
+    reqs = [E.GenRequest(i, rng.integers(1, V, n), m)
+            for i, (n, m) in enumerate(((40, 16), (100, 24), (200, 32)))]
+    for r in reqs:
+        r.t_submit = clock()
+    out = pre.run(reqs)
+    for r in reqs:
+        r.t_first = clock()
+    admit([E.AdmissionItem(r, f, wire=w) for r, w, f in out])
+    step_all()       # round 1 decodes alone, as phase 5's int4 round 1
+    # round 2: a fresh prompt decodes while another is prefilled in chunks
+    r3 = E.GenRequest(3, rng.integers(1, V, 60), 20)
+    r4 = E.GenRequest(4, rng.integers(1, V, 150), 24)
+    r3.t_submit = r4.t_submit = clock()
+    (_, w3, f3), = pre.run([r3])
+    r3.t_first = clock()
+    admit([E.AdmissionItem(r3, f3, wire=w3)])
+    job = E.PartialPrefill(r4)
+    while not job.done:                              # continuous batching
+        pre.prefill_chunk([job], 64)
+        step_all(1)
+    r4.t_first = clock()
+    admit([E.AdmissionItem(r4, job.first, E.ADMIT_CHUNKED,
+                           wire=job.wire())])
+    step_all()
+    launches = ops.launch_counts()
+    reqs += [r3, r4]
+    for r in reqs:
+        toks = np.asarray(r.out_tokens)
+        if len(toks) != r.max_new_tokens or toks.min() < 0 or \
+                toks.max() >= V:
+            raise AssertionError(f"{mode} r{r.rid}: bad tokens {toks}")
+        n = len(toks)
+        log(f"  {mode} r{r.rid}: prompt {len(r.tokens)}, out {n}, TTFT "
+            f"{(r.t_first - r.t_submit) * 1e3:.1f} ms, TPOT "
+            f"{(r.t_done - r.t_first) / max(n - 1, 1) * 1e3:.2f} ms")
+    log(f"  {mode}: host_syncs {dec.host_syncs} for steps_run "
+        f"{dec.steps_run} (each chunk under sync_debug_mode=error); "
+        f"launches {json.dumps(launches)}")
+    if dec.host_syncs * dec.chunk_size != dec.steps_run:
+        raise AssertionError(f"{mode}: more than one host sync per chunk")
+    if dec.paged and dec.page_stats()["leaked_pages"]:
+        raise AssertionError(f"{mode}: leaked pages")
+    if int(dec.cache["lengths"].abs().sum()) != 0:
+        raise AssertionError(f"{mode}: finished slots kept their lengths")
+    kernel = {"dense": "decode_attention",
+              "bf16": "paged_decode_attention_bf16"}[mode]
+    if on_card and launches[kernel] == 0:
+        raise AssertionError(f"{mode}: {kernel} never launched")
+    if on_card:
+        r5 = E.GenRequest(5, rng.integers(1, V, 64), 17)
+        (_, w5, f5), = pre.run([r5])
+        admit([E.AdmissionItem(r5, f5, wire=w5)])
+        step_all(1)
+        profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
+    if mode == "dense":
+        # the seed path on the same admissions decodes the same tokens
+        pair = [E.GenRequest(10 + i, rng.integers(1, V, n), 9)
+                for i, n in enumerate((30, 70))]
+        out = pre.run(pair)
+        streams = []
+        for use_ref in (False, True):
+            copies = [E.GenRequest(r.rid, r.tokens, r.max_new_tokens)
+                      for r in pair]
+            admit([E.AdmissionItem(c, f, wire=w)
+                   for c, (_, w, f) in zip(copies, out)])
+            while dec.active:
+                dec.step_reference() if use_ref else dec.step()
+            sync()
+            streams.append([c.out_tokens for c in copies])
+        log(f"  dense step_reference() == step(): "
+            f"{streams[0] == streams[1]} ({sum(map(len, streams[0]))} "
+            f"tokens)")
+        if streams[0] != streams[1]:
+            raise AssertionError(f"step_reference {streams[1]} != step "
+                                 f"{streams[0]}")
+    return launches
+
+
 def serve_gateway(torch, params, *, device="cuda", reduced=False):
     """Phase 6: the entry point ``launch.serve.run`` on ``params``, one
-    plain run with a 32-token chunk budget and one live-rescheduled run;
-    returns the kernels' launch counts over both."""
+    plain run with a 32-token chunk budget, one live-rescheduled run and
+    one on dense decode engines (``--no-paged``); returns the kernels'
+    launch counts over the three."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     base = ["--device", device, "--rate", "2"] + (["--reduced"] if reduced
@@ -544,7 +782,9 @@ def serve_gateway(torch, params, *, device="cuda", reduced=False):
             "b": serve.run(["--device", device, "--rate", "3"]
                            + (["--reduced"] if reduced else [])
                            + ["--duration", "10", "--live-reschedule",
-                              "--workload", "coding"], params=params)}
+                              "--workload", "coding"], params=params),
+            "c": serve.run(base + ["--duration", "6", "--no-paged"],
+                           params=params)}
     if device == "cuda":
         torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -566,6 +806,8 @@ def serve_gateway(torch, params, *, device="cuda", reduced=False):
                                  f"parameters than the ones passed in")
     if runs["a"]["stats"]["counters"]["chunked_prefills"] == 0:
         raise AssertionError("run a: no prompt was prefilled in chunks")
+    if any(h.engine.paged for h in runs["c"]["gateway"].dec):
+        raise AssertionError("run c: a decode engine pages its cache")
     return launches
 
 
@@ -579,6 +821,7 @@ def main() -> int:
         os.path.abspath(__file__)), "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_quant as kq
     from repro_torch.kernels import paged_attention as pa
@@ -638,22 +881,48 @@ def main() -> int:
                            timed=True)
     check_rmsnorm(torch, ref, rn, 37, cfg.d_model, torch.float32,
                   timed=False)
+    # the dense decode step: one layer of the (60, 4, 256, 52, 128) cache
+    # of 4 slots, kv lengths as the paged step's
+    rdec = check_decode(torch, ref, da, L, 4, Hkv, 1, hd, 256,
+                        [232, 123, 56, 17], torch.bfloat16, torch.bfloat16,
+                        timed=True)
+    check_decode(torch, ref, da, 2, 3, 2, 4, 16, 40, [1, 40, 23],
+                 torch.float32, torch.float32, timed=False)
+    check_decode(torch, ref, da, 2, 3, 2, 4, 16, 40, [1, 40, 23],
+                 torch.float32, torch.bfloat16, timed=False)
+    check_decode(torch, ref, da, 2, 2, 4, 2, 64, 512, [300, 512],
+                 torch.bfloat16, torch.bfloat16, timed=False)
+    # the bf16 pages at row 3's shapes, then reduced ones (q f32 is the
+    # reduced float32 model's)
+    rpb = check_paged_bf16(torch, ref, pa, L, 4, Hkv, 1, hd, 16, 16,
+                           [232, 123, 56, 17], torch.bfloat16, timed=True)
+    check_paged_bf16(torch, ref, pa, 2, 3, 2, 4, 32, 8, 4, [5, 16, 23],
+                     torch.float32, timed=False)
+    check_paged_bf16(torch, ref, pa, 2, 3, 2, 4, 32, 8, 4, [5, 16, 23],
+                     torch.bfloat16, timed=False)
+    check_paged_bf16(torch, ref, pa, 2, 2, 4, 1, 16, 8, 2, [40, 9],
+                     torch.float32, timed=False)
     torch.cuda.empty_cache()
 
     log("[4/6] reduced llama-30b, float32: card vs plain versions on the CPU")
-    on_card = serve_small(torch, "cuda")
-    on_cpu = serve_small(torch, "cpu")
-    log(f"  tokens equal: {on_card == on_cpu} ({sum(map(len, on_card))} "
-        f"tokens)")
-    if on_card != on_cpu:
-        raise AssertionError(f"card {on_card} != cpu {on_cpu}")
+    for mode in DECODE_MODES:
+        on_card = serve_small(torch, "cuda", mode)
+        on_cpu = serve_small(torch, "cpu", mode)
+        log(f"  {mode}: tokens equal: {on_card == on_cpu} "
+            f"({sum(map(len, on_card))} tokens)")
+        if on_card != on_cpu:
+            raise AssertionError(f"{mode}: card {on_card} != cpu {on_cpu}")
 
     log(f"[5/6] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
     launches5, params = serve_full(torch, cfg)
-    log(f"  phase-5 launches: {launches5}")
+    log(f"  phase-5 launches (int4 pages): {launches5}")
+    for mode in ("dense", "bf16"):
+        got = serve_variant(torch, cfg, params, mode)
+        launches5 = {k: launches5[k] + got[k] for k in launches5}
+        torch.cuda.empty_cache()            # the engine's cache is freed
 
     log(f"[6/6] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
@@ -672,9 +941,15 @@ def main() -> int:
             ("paged_decode_attention_int4",
              "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:174", ra),
+            ("paged_decode_attention_bf16",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/paged_attention.py:193", rpb),
             ("flash_attention",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:97", rf),
+            ("decode_attention",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:96", rdec),
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:24", rn_pre)]
     log(f"  rmsnorm at the decode step's 4 x {cfg.d_model}: "

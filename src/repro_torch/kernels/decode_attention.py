@@ -1,0 +1,75 @@
+"""Wrapper of the dense flash-decode CUDA kernel
+(``csrc/decode_attention.cu``; it replaces
+``repro/kernels/decode_attention.py``).
+
+CUDA tensors only (``kernels/ops.py`` sends CPU tensors to
+``ref.decode_attention_ref``); the launch count is
+``decode_attention.launches``. K and V are read IN PLACE through their
+strides: any view whose last (head) dimension is contiguous, such as the
+JAX signature's ``(B, Hkv, S, hd)`` or one layer of the port's dense
+decode cache ``(B, S, Hkv, hd)`` permuted to ``(B, Hkv, S, hd)``. The
+wrapper never copies K/V: copying the cache of every layer at every step
+would move the whole ``max_seq`` cache per token.
+
+The reference's model does not call its Pallas ``decode_attention``: its
+dense decode step attends in plain jnp (``layers.attention`` with
+``kv_len``/``q_offset``). The port's dense step calls this kernel, which
+computes the same function: keys at or past ``kv_len[b]`` are masked.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.kv_quant import _require_cuda
+
+HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+_TYPES = (torch.bfloat16, torch.float32)
+
+
+def decode_attention(q, k, v, kv_len, *, sm_scale=None):
+    """q: (B, Hkv, g, hd) contiguous, bf16/f32; k/v: (B, Hkv, S, hd) views
+    with the same strides and a contiguous last dimension, bf16/f32;
+    kv_len (B,) int32. Keys at or past ``kv_len[b]`` are never loaded;
+    ``kv_len`` 0 gives zeros (the plain version's softmax over an all-masked
+    row gives the mean of V instead; the model never asks: its kv_len is
+    at least 1). Returns (B, Hkv, g, hd) in ``q.dtype``."""
+    _require_cuda("decode_attention", q=q, kv_len=kv_len)
+    for name, t in (("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"decode_attention: {name} must be a CUDA "
+                             f"tensor, got {t.device}")
+    B, Hkv, g, hd = q.shape
+    S = k.shape[2]
+    epl = hd // 16                  # elements a lane reads per row
+    ok = (q.dtype in _TYPES and k.dtype in _TYPES and v.dtype == k.dtype
+          and k.dim() == 4 and tuple(k.shape) == (B, Hkv, S, hd)
+          and tuple(v.shape) == tuple(k.shape)
+          and k.stride() == v.stride() and k.stride(3) == 1
+          and hd in HEAD_DIMS
+          and all(s % epl == 0 for s in k.stride()[:3])
+          and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+          and kv_len.dtype == torch.int32 and tuple(kv_len.shape) == (B,))
+    if not ok:
+        raise ValueError(
+            f"decode_attention: bad operands q {tuple(q.shape)} {q.dtype}, "
+            f"k {tuple(k.shape)} {k.dtype} strides {k.stride()}, v "
+            f"{tuple(v.shape)} {v.dtype} strides {v.stride()}, kv_len "
+            f"{tuple(kv_len.shape)} {kv_len.dtype}; want a contiguous head "
+            f"dimension in {HEAD_DIMS}, 16-byte aligned rows, and no copy")
+    sb, sh, ss, _ = k.stride()
+    out = torch.empty_like(q)
+    status = build.library().decode_attention_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+        v.data_ptr(), int(k.dtype == torch.bfloat16), kv_len.data_ptr(),
+        out.data_ptr(), B, Hkv, g, hd, S, sb, ss, sh,
+        sm_scale or 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kv_quant as _kq
 from repro_torch.kernels import paged_attention as _pa
@@ -22,7 +23,9 @@ KERNELS = {
     "kv_quant": _kq.kv_quant,
     "kv_dequant": _kq.kv_dequant,
     "paged_decode_attention_int4": _pa.paged_decode_attention_int4,
+    "paged_decode_attention_bf16": _pa.paged_decode_attention_bf16,
     "flash_attention": _fa.flash_attention,
+    "decode_attention": _da.decode_attention,
     "rmsnorm": _rn.rmsnorm,
 }
 
@@ -57,12 +60,26 @@ def kv_dequant(packed, scale, zero, *, out_dtype=torch.bfloat16,
     return _kq.kv_dequant(packed, scale, zero, out_dtype=out_dtype)
 
 
+def decode_attention(q, k, v, kv_len, *, backend: str = "auto"):
+    """Dense flash-decode: q (B, Hkv, g, hd), k/v (B, Hkv, S, hd) read in
+    place through their strides (never copied), keys at or past
+    ``kv_len (B,)`` masked."""
+    if _on_cpu(q):
+        return _ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+    return _da.decode_attention(q, k, v, kv_len.to(torch.int32))
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
                            page_size, backend: str = "auto"):
-    """Decode attention over int4 pages reached through ``page_table``;
-    dequantization happens inside the kernel."""
+    """Decode attention over pages reached through ``page_table``. The
+    residency picks the kernel: int4 triples go to the kernel that
+    dequantizes in its loop, bf16 page tensors to the bf16 body."""
     if _on_cpu(q):
         return _ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                               page_table, kv_len,
+                                               page_size=page_size)
+    if isinstance(k_pages, torch.Tensor):
+        return _pa.paged_decode_attention_bf16(q, k_pages, v_pages,
                                                page_table, kv_len,
                                                page_size=page_size)
     return _pa.paged_decode_attention_int4(q, k_pages, v_pages, page_table,

@@ -1,11 +1,16 @@
-"""Wrapper of the paged int4 decode-attention CUDA kernel
-(``csrc/paged_attention.cu``; it replaces the int4 body of
-``repro/kernels/paged_attention.py``).
+"""Wrappers of the paged decode-attention CUDA kernels, one per page
+residency of ``repro/kernels/paged_attention.py``:
+
+* int4 pages (``_kernel_int4``): ``csrc/paged_attention.cu``, dequantization
+  fused into the loop;
+* bf16 pages (``_kernel_bf16``): the bf16 decode body of
+  ``csrc/decode_attention.cu``, the dense decode kernel with key t read
+  from row ``t % page_size`` of page ``page_table[b, t // page_size]``.
 
 CUDA tensors only (``kernels/ops.py`` sends CPU tensors to
-``ref.paged_decode_attention_ref``); the launch count is
-``paged_decode_attention_int4.launches``. The bf16 page residency is not
-ported yet.
+``ref.paged_decode_attention_ref``); the launch counts are
+``paged_decode_attention_int4.launches`` and
+``paged_decode_attention_bf16.launches``.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import HEAD_DIMS
 from repro_torch.kernels.kv_quant import _require_cuda
 
 
@@ -62,3 +68,45 @@ def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
 
 
 paged_decode_attention_int4.launches = 0
+
+
+def paged_decode_attention_bf16(q, k_pages, v_pages, page_table, kv_len, *,
+                                page_size, sm_scale=None):
+    """q: (B, Hkv, gq, hd) bf16/f32; ``k_pages``/``v_pages`` (P, page_size,
+    Hkv, hd) bf16; page_table (B, W) int32 (entries clamped at 0, the trash
+    page); kv_len (B,) int32 (keys past ``W * page_size`` do not exist).
+    Returns (B, Hkv, gq, hd) in ``q.dtype``."""
+    _require_cuda("paged_decode_attention", q=q, k_pages=k_pages,
+                  v_pages=v_pages, page_table=page_table, kv_len=kv_len)
+    B, Hkv, gq, hd = q.shape
+    W = page_table.shape[1]
+    ok = (q.dtype in (torch.bfloat16, torch.float32)
+          and k_pages.dtype == v_pages.dtype == torch.bfloat16
+          and k_pages.dim() == 4
+          and tuple(k_pages.shape[1:]) == (page_size, Hkv, hd)
+          and tuple(v_pages.shape) == tuple(k_pages.shape)
+          and hd in HEAD_DIMS
+          and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages))
+          and page_table.dtype == kv_len.dtype == torch.int32
+          and tuple(page_table.shape) == (B, W)
+          and tuple(kv_len.shape) == (B,))
+    if not ok:
+        raise ValueError(
+            f"paged_decode_attention: bad bf16 operands q {tuple(q.shape)} "
+            f"{q.dtype}, pages {tuple(k_pages.shape)} {k_pages.dtype}, "
+            f"page_table {tuple(page_table.shape)} {page_table.dtype}, "
+            f"kv_len {tuple(kv_len.shape)} {kv_len.dtype}, page_size "
+            f"{page_size}; head_dim must be one of {HEAD_DIMS}")
+    out = torch.empty_like(q)
+    status = build.library().paged_attention_bf16_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
+        v_pages.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), B, Hkv, gq, hd, W, page_size,
+        sm_scale or 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "paged_decode_attention")
+    paged_decode_attention_bf16.launches += 1
+    return out
+
+
+paged_decode_attention_bf16.launches = 0

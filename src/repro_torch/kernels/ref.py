@@ -1,9 +1,8 @@
 """Plain PyTorch versions of the kernels (ports of ``repro.kernels.ref``).
 
 They are what ``kernels/ops.py`` runs on CPU tensors, and the yardstick
-each CUDA kernel is held to on the card. Only the int4 residency of the
-paged decode attention is ported; the bf16 page residency waits for its
-kernel.
+each CUDA kernel is held to on the card. ``paged_decode_attention_ref``
+serves both page residencies (int4 triples and bf16 pages).
 
 ``flash_attention_ref`` is the prefill attention the model computed in
 plain PyTorch before the flash kernel took its place: scores and softmax
@@ -25,8 +24,11 @@ NEG_INF = -1e30
 
 
 def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None):
-    """q: (B, Hkv, g, hd); k/v: (B, Hkv, S, hd); kv_len: (B,) valid
-    lengths. f32 softmax; output in ``q.dtype``."""
+    """q: (B, Hkv, g, hd); k/v: (B, Hkv, S, hd) (any strided view);
+    kv_len: (B,) valid lengths. f32 softmax; output in ``q.dtype``. A row
+    with ``kv_len`` 0 is all masked and gives the mean of V (the kernel
+    gives zeros there, as the TPU kernel does; the model's kv_len is at
+    least 1)."""
     B, Hkv, g, hd = q.shape
     S = k.shape[2]
     sm_scale = sm_scale or 1.0 / math.sqrt(hd)
@@ -41,11 +43,16 @@ def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None):
 
 
 def paged_gather_ref(pages, page_table, *, page_size):
-    """Dequantize int4 pages ``(packed (P, page_size*ppr, g//2), scale,
-    zero)`` through ``page_table (B, W)`` into dense f32
-    ``(B, W*page_size, Hkv*hd)``. Table entry 0 is the trash page."""
-    packed, scale, zero = pages
+    """Gather pages through ``page_table (B, W)`` into dense f32
+    ``(B, W*page_size, Hkv*hd)``: int4 triples ``(packed (P,
+    page_size*ppr, g//2), scale, zero)`` are dequantized, bf16 pages
+    ``(P, page_size, Hkv, hd)`` cast. Table entry 0 is the trash page."""
     pt = page_table.clamp(min=0).long()
+    if isinstance(pages, torch.Tensor):
+        gathered = pages[pt]                      # (B, W, ps, Hkv, hd)
+        B, W, ps, Hkv, hd = gathered.shape
+        return gathered.float().reshape(B, W * ps, Hkv * hd)
+    packed, scale, zero = pages
     g = packed.shape[-1] * 2
     x = kv_dequant_ref(packed[pt], scale[pt], zero[pt], dtype=torch.float32)
     B, W, R = x.shape[:3]
@@ -55,8 +62,9 @@ def paged_gather_ref(pages, page_table, *, page_size):
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, kv_len, *,
                                page_size, sm_scale=None):
-    """q: (B, Hkv, gq, hd); int4 K/V pages as in ``paged_gather_ref``.
-    Gathers and dequantizes to dense, then runs the dense decode version."""
+    """q: (B, Hkv, gq, hd); int4 or bf16 K/V pages as in
+    ``paged_gather_ref``. Gathers (and dequantizes) to dense, then runs the
+    dense decode version."""
     B, Hkv, gq, hd = q.shape
     k = paged_gather_ref(k_pages, page_table, page_size=page_size)
     v = paged_gather_ref(v_pages, page_table, page_size=page_size)

@@ -89,7 +89,7 @@ def parse_args(argv=None):
                          "with the dense max_slots x max_seq budget)")
     ap.add_argument("--no-paged", action="store_true",
                     help="dense slotted decode cache instead of the paged "
-                         "int4-resident pool (not ported yet: raises)")
+                         "int4-resident pool")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable the radix prefix cache (refcounted "
                          "copy-on-write page sharing + prefill skip)")

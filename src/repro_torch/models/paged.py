@@ -1,19 +1,23 @@
-"""Paged, int4-resident decode cache and decode step (``repro.models.paged``).
+"""Paged decode cache and decode step (``repro.models.paged``).
 
 The decode KV cache is a pool of fixed-size PAGES (``page_size`` tokens)
 shared by every slot of a decode engine; each slot names its pages through
-a row of ``page_table``. At rest the pages hold the SAME group-wise affine
-int4 encoding the prefill->decode wire uses, so an arriving wire scatters
-straight into pages and attention dequantizes inside the kernel.
+a row of ``page_table``. At rest the pages hold (by default) the SAME
+group-wise affine int4 encoding the prefill->decode wire uses, so an
+arriving wire scatters straight into pages and attention dequantizes
+inside the kernel.
 
-Layout, stacked over the L layers (the reference's layout):
-``kp/vp (L, P, page_size*ppr, g//2) u8`` packed nibbles and
-``ks/kz/vs/vz (L, P, page_size*ppr, 1) f32`` scale/zero, where
-``g = page_group(cfg)`` divides Hkv*hd and ``ppr = Hkv*hd // g``; row
-``t*ppr + r`` of a page is token t's r-th group. Page 0 is the TRASH
-page: unallocated table entries are 0, and inactive slots' writes land
-there. Only the int4 residency is ported; the reference's bf16 residency
-waits for its kernel (ROADMAP, queue B).
+Layouts, stacked over the L layers (the reference's), one per residency:
+
+* ``"int4"``: ``kp/vp (L, P, page_size*ppr, g//2) u8`` packed nibbles and
+  ``ks/kz/vs/vz (L, P, page_size*ppr, 1) f32`` scale/zero, where
+  ``g = page_group(cfg)`` divides Hkv*hd and ``ppr = Hkv*hd // g``; row
+  ``t*ppr + r`` of a page is token t's r-th group;
+* ``"bf16"``: ``k/v (L, P, page_size, Hkv, hd)`` bf16, the reference's
+  ablation residency (attention through the bf16 paged kernel).
+
+Page 0 is the TRASH page: unallocated table entries are 0, and inactive
+slots' writes land there.
 
 Where the reference returns updated arrays, ``decode_step_paged`` writes
 the appended token's page rows IN PLACE (index_put on the page buffers)
@@ -60,24 +64,27 @@ def paged_supported(cfg) -> bool:
 def init_paged_cache(cfg, max_slots: int, max_seq: int, num_pages: int, *,
                      page_size: int = DEFAULT_PAGE_SIZE,
                      resident: str = "int4", device="cuda"):
-    """Page buffers (all zero), ``page_table (max_slots, W)`` (all trash)
-    and ``lengths``."""
+    """Page buffers (all zero) of the ``resident`` layout, ``page_table
+    (max_slots, W)`` (all trash) and ``lengths``."""
     if not paged_supported(cfg):
         raise ValueError(f"{cfg.name}: arch cannot page its decode cache")
-    if resident != "int4":
-        raise NotImplementedError(
-            f"kv residency {resident!r}: only int4 pages are ported; the "
-            f"bf16 residency waits for its paged-attention kernel (ROADMAP "
-            f"queue B)")
     L = cfg.num_layers
-    g, ppr = page_group(cfg), groups_per_token(cfg)
-    R = page_size * ppr
-    slot = {}
-    for name in PAGE_KEYS:
-        packed = name.endswith("p")
-        slot[name] = torch.zeros(
-            (L, num_pages, R, g // 2 if packed else 1),
-            dtype=torch.uint8 if packed else torch.float32, device=device)
+    if resident == "int4":
+        g, ppr = page_group(cfg), groups_per_token(cfg)
+        R = page_size * ppr
+        slot = {}
+        for name in PAGE_KEYS:
+            packed = name.endswith("p")
+            slot[name] = torch.zeros(
+                (L, num_pages, R, g // 2 if packed else 1),
+                dtype=torch.uint8 if packed else torch.float32,
+                device=device)
+    elif resident == "bf16":
+        shape = (L, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+        slot = {name: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+                for name in ("k", "v")}
+    else:
+        raise ValueError(f"unknown residency {resident!r}")
     W = table_width(max_seq, page_size)
     return {"slot0": slot,
             "page_table": torch.zeros((max_slots, W), dtype=torch.int32,
@@ -91,11 +98,13 @@ def decode_step_paged(cfg, params, cache, tokens, *,
                       backend: str = "auto"):
     """One decode step against the paged pool. tokens: (B, 1).
 
-    Each slot's new K/V is quantized by ``ops.kv_quant`` (the wire's
-    kernel, so pages are byte-identical whichever path wrote a token) and
-    written into its tail page; attention runs through
-    ``ops.paged_decode_attention``. Returns (logits (B, 1, V) f32, cache)
-    with ``lengths + 1``; the page table is host business."""
+    Each slot's new K/V is written into its tail page: int4 pages take it
+    quantized by ``ops.kv_quant`` (the wire's kernel, so pages are
+    byte-identical whichever path wrote a token), bf16 pages as bf16 rows
+    (one ``index_put`` each for K and V). Attention runs through
+    ``ops.paged_decode_attention``, whose kernel follows the residency.
+    Returns (logits (B, 1, V) f32, cache) with ``lengths + 1``; the page
+    table is host business."""
     x = params["embed"][tokens]
     B = x.shape[0]
     dev = x.device
@@ -104,6 +113,7 @@ def decode_step_paged(cfg, params, cache, tokens, *,
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim
     gq = cfg.num_heads // Hkv
     g, ppr = page_group(cfg), groups_per_token(cfg)
+    int4 = "kp" in cache["slot0"]
     pt = cache["page_table"]
     W = pt.shape[1]
     ps = page_size
@@ -114,22 +124,30 @@ def decode_step_paged(cfg, params, cache, tokens, *,
     tail_pi = torch.clamp(pos0 // ps, max=W - 1)
     tail_page = torch.gather(pt, 1, tail_pi[:, None])[:, 0].long()
     tail_page = tail_page.clamp(min=0)
-    rows = (pos0 % ps)[:, None] * ppr \
-        + torch.arange(ppr, device=dev)[None]                   # (B, ppr)
+    tail_off = pos0 % ps
+    if int4:
+        rows = tail_off[:, None] * ppr \
+            + torch.arange(ppr, device=dev)[None]               # (B, ppr)
     kv_len = (lengths + 1).to(torch.int32)
     slot = cache["slot0"]
     for i, p in enumerate(params["layers"]):
         h = ops.rmsnorm(x, p["norm1"], backend=backend)
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
-        for base, val in (("k", k), ("v", v)):
-            packed, scale, zero = ops.kv_quant(
-                val[:, 0].reshape(B * ppr, g).contiguous(), backend=backend)
-            for suffix, t, width in (("p", packed, g // 2), ("s", scale, 1),
-                                     ("z", zero, 1)):
-                slot[base + suffix][i][tail_page[:, None], rows] = \
-                    t.reshape(B, ppr, width)
-        kpages = tuple(slot[n][i] for n in ("kp", "ks", "kz"))
-        vpages = tuple(slot[n][i] for n in ("vp", "vs", "vz"))
+        if int4:
+            for base, val in (("k", k), ("v", v)):
+                packed, scale, zero = ops.kv_quant(
+                    val[:, 0].reshape(B * ppr, g).contiguous(),
+                    backend=backend)
+                for suffix, t, width in (("p", packed, g // 2),
+                                         ("s", scale, 1), ("z", zero, 1)):
+                    slot[base + suffix][i][tail_page[:, None], rows] = \
+                        t.reshape(B, ppr, width)
+            kpages = tuple(slot[n][i] for n in ("kp", "ks", "kz"))
+            vpages = tuple(slot[n][i] for n in ("vp", "vs", "vz"))
+        else:
+            kpages, vpages = slot["k"][i], slot["v"][i]
+            kpages[tail_page, tail_off] = k[:, 0].to(kpages.dtype)
+            vpages[tail_page, tail_off] = v[:, 0].to(vpages.dtype)
         qr = q[:, 0].reshape(B, Hkv, gq, hd).contiguous()
         o = ops.paged_decode_attention(qr, kpages, vpages, pt, kv_len,
                                        page_size=ps, backend=backend)

@@ -1,8 +1,10 @@
 """Model API over the ported families (``repro.models.registry``).
 
 ``build(cfg)`` returns a :class:`ModelApi` for the dense family, the only
-one ported so far; other families raise ``NotImplementedError``.
-``make_decode_chunk`` turns a single decode step into the engine's
+one ported so far; other families raise ``NotImplementedError``. ``decode``
+and ``decode_chunk`` step the dense cache (``transformer.decode_step``),
+``paged_decode_fns`` the page pool. ``make_decode_chunk`` turns a single
+decode step into the engine's
 multi-token greedy loop: the reference's device ``lax.scan`` becomes a
 Python loop over steps whose state (current tokens, active flags, token
 counts) stays in device tensors, so a chunk launches kernels back to back
@@ -27,6 +29,10 @@ class ModelApi:
     prefill_suffix: Optional[Callable] = None
     # paged_decode_fns(page_size, backend) -> (step_fn, chunk_fn)
     paged_decode_fns: Optional[Callable] = None
+    # dense-cache decode: decode(params, cache, tokens) -> (logits, cache)
+    # and its device-resident multi-step loop
+    decode: Optional[Callable] = None
+    decode_chunk: Optional[Callable] = None
 
 
 def make_decode_chunk(decode_fn: Callable) -> Callable:
@@ -99,5 +105,10 @@ def build(cfg: ModelConfig) -> ModelApi:
                     backend=backend)
             return step_fn, make_decode_chunk(step_fn)
 
+    def decode_fn(params, cache, tokens):
+        return transformer.decode_step(cfg, params, cache, tokens)
+
     return ModelApi(cfg=cfg, prefill=prefill_fn,
-                    prefill_suffix=suffix_fn, paged_decode_fns=paged_fns)
+                    prefill_suffix=suffix_fn, paged_decode_fns=paged_fns,
+                    decode=decode_fn,
+                    decode_chunk=make_decode_chunk(decode_fn))

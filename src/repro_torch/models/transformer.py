@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer: init, prefill and suffix prefill
-(the dense-family parts of ``repro.models.transformer``).
+"""Dense decoder-only transformer: init, prefill, suffix prefill and the
+dense decode step (the dense-family parts of ``repro.models.transformer``).
 
 Parameters are plain dicts of tensors, one dict per layer instead of the
 reference's layer-stacked pytree (``models/convert.py`` maps one onto the
@@ -16,6 +16,16 @@ A prefill cache is ``{"slot0": {"k", "v": (L, B, S, Hkv, hd)},
 holds the S computed positions; the reference pads it to ``max_seq``
 with zeros that the wire extraction never reads. The cache is written in
 place, layer by layer.
+
+A decode cache has the same layout at ``max_seq`` positions
+(``init_cache``). ``decode_step`` is the reference's ``decode_step`` /
+``decode_step_inplace`` for the plain dense family: it scatters the new
+token's K/V into the stacked cache IN PLACE and attends through the
+``decode_attention`` kernel, which reads one layer of the cache where it
+lies. The reference's dense step attends with plain jnp
+(``layers.attention`` with ``kv_len``/``q_offset``, or
+``_decode_attn_hkv``), not with its Pallas ``decode_attention``; the
+kernel computes the same function.
 """
 from __future__ import annotations
 
@@ -157,3 +167,55 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
         x = _ffn(cfg, p, x)
     cache["lengths"] = _lengths(true_len, B, S, dev)
     return _last_logits(cfg, params, x, last_pos), cache
+
+
+def _dense_decode_unported(cfg):
+    why = [name for name, on in (
+        ("a sliding-window ring cache", cfg.sliding_window),
+        ("a logit softcap", cfg.attn_logit_softcap),
+        ("the hkv_s cache layout", cfg.decode_cache_layout == "hkv_s"))
+        if on]
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: the dense decode step with {', '.join(why)} is not "
+            f"ported (ROADMAP A.8)")
+
+
+def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
+    """One decode step against the dense cache. tokens: (B, 1).
+
+    Each slot's new K/V is written at position ``lengths`` of every layer
+    of ``cache["slot0"]`` ((L, B, max_seq, Hkv, hd), in place, device
+    indices only, so nothing waits on the host), then attention reads the
+    layer through ``ops.decode_attention`` with ``kv_len = lengths + 1``.
+    A write position past the cache is clamped to its last row (the
+    engines retire a slot at ``max_seq - 1``, so only an idle slot gets
+    there). Returns (logits (B, 1, V) f32, cache) with ``lengths + 1``."""
+    _dense_decode_unported(cfg)
+    x = params["embed"][tokens]
+    B = x.shape[0]
+    lengths = cache["lengths"]
+    positions = lengths[:, None]
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // Hkv
+    K, V = cache["slot0"]["k"], cache["slot0"]["v"]
+    bidx = torch.arange(B, device=x.device)
+    w_pos = torch.clamp(lengths.long(), max=K.shape[2] - 1)
+    kv_len = (lengths + 1).to(torch.int32)
+    for i, p in enumerate(params["layers"]):
+        h = ops.rmsnorm(x, p["norm1"], backend=backend)
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        K[i][bidx, w_pos] = k[:, 0].to(K.dtype)
+        V[i][bidx, w_pos] = v[:, 0].to(V.dtype)
+        o = ops.decode_attention(
+            q[:, 0].reshape(B, Hkv, g, hd).contiguous(),
+            K[i].permute(0, 2, 1, 3), V[i].permute(0, 2, 1, 3), kv_len,
+            backend=backend)
+        x = x + dense(p["attn"]["wo"],
+                      o.reshape(B, 1, cfg.q_dim).to(x.dtype))
+        x = _ffn(cfg, p, x)
+    x = ops.rmsnorm(x, params["final_norm"], backend=backend)
+    logits = (x @ unembed_matrix(cfg, params)).float()
+    new_cache = dict(cache)
+    new_cache["lengths"] = lengths + 1
+    return logits, new_cache

@@ -1,4 +1,4 @@
-"""Serving engines: a prefill engine and a continuous-batching paged decode
+"""Serving engines: a prefill engine and a continuous-batching decode
 engine around one set of weights each (the port of
 ``repro.serving.engine``).
 
@@ -9,11 +9,14 @@ and brings the chunk's results to the host in ONE copy. Prefill pads
 prompts to power-of-two length buckets and quantizes a whole bucket's KV
 in one kernel launch.
 
-Ported so far: ``PrefillEngine`` (bucketed, with the suffix path of
-partial prefix hits and chunked prefill), ``DecodeEngine(paged=True)``
-with the int4-resident page pool and prefix sharing, and the
-phase-switching ``Replica``. The dense decode cache (``paged=False``)
-raises ``NotImplementedError`` until its ROADMAP item lands.
+Ported: ``PrefillEngine`` (bucketed, with the suffix path of partial
+prefix hits and chunked prefill); ``DecodeEngine`` over the page pool
+(``paged=True``, int4 pages by default or ``kv_resident="bf16"``, with
+prefix sharing) or over the dense ``(L, max_slots, max_seq, Hkv, hd)``
+cache (``paged=False``), each with ``step()`` and the one-token-per-host-
+round-trip ``step_reference()``; and the phase-switching ``Replica``. The
+port's ``DecodeEngine`` pages by default (the reference's defaults to the
+dense cache): the paged int4 path is the system's main path.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import paged as paged_fmt
-from repro_torch.models import registry
+from repro_torch.models import registry, transformer
 from repro_torch.serving import kv_transfer, page_pool, protocol
 from repro_torch.serving.kv_transfer import KVWire
 from repro_torch.serving.page_pool import PagePool, pages_needed
@@ -335,13 +338,19 @@ def _sync_errors(device: torch.device, on: bool):
 
 
 class DecodeEngine:
-    """Throughput-oriented: continuous batching over an int4-resident page
-    pool. Admission reserves ``ceil((prompt + max_new) / page_size)``
-    pages per request, aligned wires scatter into pages with no dequant
-    round trip, attention dequantizes in the kernel, and ``free_slots()``
-    truncates to what the page budget can admit. With
-    ``prefix_sharing`` finished chains are donated to a radix index and
-    later requests decode straight off the shared pages."""
+    """Throughput-oriented: continuous batching over a fixed set of slots.
+
+    With ``paged=True`` the KV lives in a page pool, int4 at rest
+    (``kv_resident="bf16"`` for the ablation): admission reserves
+    ``ceil((prompt + max_new) / page_size)`` pages per request, aligned
+    wires scatter into int4 pages with no dequant round trip, attention
+    dequantizes in the kernel, and ``free_slots()`` truncates to what the
+    page budget can admit. With ``prefix_sharing`` finished chains are
+    donated to a radix index and later requests decode straight off the
+    shared pages. With ``paged=False`` (or an arch that cannot page:
+    ``paged_fallback`` says why) each slot owns a ``max_seq`` column of a
+    dense bf16 cache, wires are dequantized into it on admission, and
+    attention runs through the ``decode_attention`` kernel."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
                  max_seq: int = 512, eos_id: int = -1, chunk_size: int = 8,
@@ -350,58 +359,63 @@ class DecodeEngine:
                  num_pages: Optional[int] = None,
                  kv_resident: str = "int4", paged_backend: str = "auto",
                  prefix_sharing: bool = False, device="cuda"):
-        if not paged:
-            raise NotImplementedError(
-                "DecodeEngine(paged=False): the dense decode cache is not "
-                "ported yet (ROADMAP queue A, dense decode with the "
-                "decode_attention kernel)")
         self.cfg = cfg
         self.params = params
         self.device = _params_device(params, device)
         self.api = registry.build(cfg)
-        if self.api.paged_decode_fns is None:
-            raise NotImplementedError(f"{cfg.name}: arch cannot page its "
-                                      f"decode cache")
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.chunk_size = chunk_size
-        self.paged = True
-        self.page_size = page_size
-        self.table_w = paged_fmt.table_width(max_seq, page_size)
-        if num_pages is None:
-            # parity with a dense max_slots x max_seq budget (+ trash page)
-            num_pages = max_slots * self.table_w + 1
-        self.kv_resident = kv_resident
-        self.pool = PagePool(num_pages, page_size)
-        self.cache = paged_fmt.init_paged_cache(
-            cfg, max_slots, max_seq, num_pages, page_size=page_size,
-            resident=kv_resident, device=self.device)
-        _, self._chunk = self.api.paged_decode_fns(page_size, paged_backend)
-        self._slot_pages: Dict[int, List[int]] = {}
-        self._need_sum = 0      # pages reserved across admissions
-        self._need_n = 0
-        self.zero_copy_inserts = 0
-        self.reencoded_inserts = 0
-        self.prefix_cache = (PrefixCache(page_size) if prefix_sharing
-                             else None)
-        self._pins: Dict[object, List[int]] = {}
-        self.cow_copies = 0
-        self.prefix_admits = 0
+        supported = self.api.paged_decode_fns is not None
+        self.paged = bool(paged) and supported
+        self.paged_fallback = (
+            None if (not paged or supported) else
+            f"{cfg.name}: arch cannot page its decode cache (SWA ring "
+            f"buffer / softcap)")
+        if self.paged:
+            self.page_size = page_size
+            self.table_w = paged_fmt.table_width(max_seq, page_size)
+            if num_pages is None:
+                # parity with a dense max_slots x max_seq budget (+ trash)
+                num_pages = max_slots * self.table_w + 1
+            self.kv_resident = kv_resident
+            self.pool = PagePool(num_pages, page_size)
+            self.cache = paged_fmt.init_paged_cache(
+                cfg, max_slots, max_seq, num_pages, page_size=page_size,
+                resident=kv_resident, device=self.device)
+            self._decode, self._chunk = self.api.paged_decode_fns(
+                page_size, paged_backend)
+            self._slot_pages: Dict[int, List[int]] = {}
+            self._need_sum = 0      # pages reserved across admissions
+            self._need_n = 0
+            self.zero_copy_inserts = 0
+            self.reencoded_inserts = 0
+            self.prefix_cache = (PrefixCache(page_size) if prefix_sharing
+                                 else None)
+            self._pins: Dict[object, List[int]] = {}
+            self.cow_copies = 0
+            self.prefix_admits = 0
+        else:
+            # bf16 whatever the model's type, as the reference's cache
+            self.cache = transformer.init_cache(cfg, max_slots, max_seq,
+                                                device=self.device)
+            self._decode, self._chunk = self.api.decode, \
+                self.api.decode_chunk
         self.slots: List[Optional[GenRequest]] = [None] * max_slots
         self.cur_token = np.zeros((max_slots,), np.int32)
-        # host-sync accounting: one per chunk
+        # host-sync accounting: one per chunk (one per step_reference step)
         self.host_syncs = 0
         self.steps_run = 0
 
     # -- slot management ----------------------------------------------------
 
     def free_slots(self) -> List[int]:
-        """Admissible slot indices, truncated to the PAGE BUDGET: free (and
-        prefix-index-only, reclaimable) pages over the mean reserved pages
-        per admitted request."""
+        """Admissible slot indices. Paged engines truncate to the PAGE
+        BUDGET: free (and prefix-index-only, reclaimable) pages over the
+        mean reserved pages per admitted request."""
         free = [i for i, s in enumerate(self.slots) if s is None]
-        if not free:
+        if not self.paged or not free:
             return free
         est = (self._need_sum / self._need_n) if self._need_n \
             else float(self.table_w)
@@ -426,13 +440,40 @@ class DecodeEngine:
     def admit(self, batch: AdmissionBatch, *,
               backend: str = "auto") -> AdmissionBatch:
         """One FIFO pass over an :class:`AdmissionBatch`; returns the
-        REJECTED tail. All-or-nothing per request on the page budget:
-        pages for prompt + max_new are reserved up front. PREFIX_HIT items
-        share their resident chain (copy-on-write of the boundary page);
-        wire items scatter in one ``insert_wires`` call."""
+        REJECTED tail. Dense: one request per free slot, every wire
+        inserted with one batched dequant. Paged: all-or-nothing per
+        request on the page budget (pages for prompt + max_new reserved up
+        front); PREFIX_HIT items share their resident chain (copy-on-write
+        of the boundary page); wire items scatter in one ``insert_wires``
+        call."""
         if not isinstance(batch, AdmissionBatch):
             raise TypeError("admit() takes an AdmissionBatch")
         items = list(batch.items)
+        if self.paged:
+            n = self._admit_paged(items, backend=backend)
+        else:
+            n = self._admit_dense(items, backend=backend)
+        return AdmissionBatch(items[n:])
+
+    def _admit_dense(self, items: List[AdmissionItem], *, backend) -> int:
+        free = self.free_slots()
+        placed = []
+        for it in items:
+            if not free or it.source == ADMIT_PREFIX_HIT:
+                break       # page-handle admission needs the paged pool
+            placed.append((it, free.pop(0)))
+        if placed:
+            self.cache = kv_transfer.insert_batch(
+                self.cache, [(it.wire, slot) for it, slot in placed],
+                backend=backend)
+            for it, slot in placed:
+                self.slots[slot] = it.req
+                self.cur_token[slot] = it.token
+                if it.source != ADMIT_MIGRATED:
+                    it.req.out_tokens.append(it.token)
+        return len(placed)
+
+    def _admit_paged(self, items: List[AdmissionItem], *, backend) -> int:
         n_taken = 0
         placed = []                      # wire-carrying placements
         free = [i for i, s in enumerate(self.slots) if s is None]
@@ -485,12 +526,12 @@ class DecodeEngine:
                     it.req.out_tokens.append(it.token)
                 self._need_sum += len(pages)
                 self._need_n += 1
-        return AdmissionBatch(items[n_taken:])
+        return n_taken
 
     # -- prefix sharing -----------------------------------------------------
 
     def prefix_match(self, tokens) -> Optional[PrefixMatch]:
-        if self.prefix_cache is None:
+        if not self.paged or self.prefix_cache is None:
             return None
         return self.prefix_cache.match([int(t) for t in tokens])
 
@@ -521,6 +562,8 @@ class DecodeEngine:
         ``pages`` and ``next_token`` is the known first output, so prefill
         is skipped. If the next append lands in a shared page, that page
         is copy-on-write duplicated first."""
+        if not self.paged:
+            return False
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
             return False
@@ -578,6 +621,8 @@ class DecodeEngine:
 
     def clear_prefix(self) -> int:
         """Drop the radix index and every in-flight pin."""
+        if not self.paged:
+            return 0
         for tag in list(self._pins):
             self.prefix_unpin(tag)
         if self.prefix_cache is None:
@@ -588,8 +633,9 @@ class DecodeEngine:
                          backend: str = "auto"
                          ) -> List[Tuple[int, GenRequest, KVWire, int]]:
         """Snapshot every resident request as (slot, req, wire, cur_token)
-        for migration: a zero-dequant page gather of the tokens whose K/V
-        is resident. Slots are NOT released."""
+        for migration, covering the tokens whose K/V is resident: paged
+        engines gather pages (zero dequant for int4), dense ones go through
+        ``kv_transfer.extract``. Slots are NOT released."""
         out = []
         if self.active == 0:
             return out
@@ -598,8 +644,13 @@ class DecodeEngine:
             if req is None:
                 continue
             ln = int(lengths[slot])
-            wire = page_pool.extract_slot_wire(
-                self.cache, self.cfg, ln, self._slot_pages[slot])
+            if self.paged:
+                wire = page_pool.extract_slot_wire(
+                    self.cache, self.cfg, ln, self._slot_pages[slot])
+            else:
+                wire = kv_transfer.extract(self.cache, slot, ln,
+                                           compress=compress,
+                                           backend=backend)
             out.append((slot, req, wire, int(self.cur_token[slot])))
         return out
 
@@ -609,12 +660,16 @@ class DecodeEngine:
             self.pool.free(pages, owner=slot)
 
     def release(self, slot: int) -> Optional[GenRequest]:
-        """Free one slot (cancellation / failure recovery): every page goes
-        back to the pool and the table row to the trash page."""
+        """Free one slot (cancellation / failure recovery): zero its length;
+        paged engines also return every page to the pool and point the
+        table row back at the trash page."""
         req = self.slots[slot]
         self.slots[slot] = None
-        self._free_pages_of(slot)
-        self.cache = page_pool.release_slot(self.cache, slot)
+        if self.paged:
+            self._free_pages_of(slot)
+            self.cache = page_pool.release_slot(self.cache, slot)
+        else:
+            self.cache["lengths"][slot] = 0
         return req
 
     @property
@@ -673,19 +728,57 @@ class DecodeEngine:
                 finished.append(req)
                 self.slots[i] = None
                 freed.append(i)
-        if freed:
-            # finished chains go to the prefix index before the slot's
-            # references return to the pool; rows point back at trash
-            for req, i in zip(finished, freed):
-                self._retire_slot(i, req, int(lengths[i]))
-                self.cache = page_pool.release_slot(self.cache, i)
+        for req, i in zip(finished, freed):
+            self._release_finished(i, req, int(lengths[i]))
+        return finished
+
+    def _release_finished(self, slot: int, req: GenRequest, kv_len: int):
+        """Zero a finished slot's length (the chunk loop froze it) and, for
+        paged engines, donate its chain to the prefix index before the
+        slot's references return to the pool; the row points at trash."""
+        if self.paged:
+            self._retire_slot(slot, req, kv_len)
+            self.cache = page_pool.release_slot(self.cache, slot)
+        else:
+            self.cache["lengths"][slot] = 0
+
+    def step_reference(self) -> List[GenRequest]:
+        """The seed path, kept for A/B benchmarks and equivalence tests:
+        one decode step per call, one host synchronization and a Python
+        slot loop per token. Every slot's length advances, as in the
+        reference; finished slots are released."""
+        if self.active == 0:
+            return []
+        tokens = torch.as_tensor(self.cur_token[:, None], device=self.device)
+        logits, self.cache = self._decode(self.params, self.cache, tokens)
+        host = torch.cat([torch.argmax(logits[:, -1], dim=-1).to(
+            torch.int32), self.cache["lengths"]]).cpu().numpy()
+        nxt, lengths = host[:self.max_slots], host[self.max_slots:]
+        self.host_syncs += 1
+        self.steps_run += 1
+        finished = []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tok = int(nxt[i])
+            req.out_tokens.append(tok)
+            self.cur_token[i] = tok
+            if (len(req.out_tokens) >= req.max_new_tokens
+                    or tok == self.eos_id
+                    or int(lengths[i]) >= self.max_seq - 1):
+                finished.append(req)
+                self.slots[i] = None
+                self._release_finished(i, req, int(lengths[i]))
         return finished
 
     # -- paged accounting ---------------------------------------------------
 
-    def page_stats(self) -> Dict[str, float]:
+    def page_stats(self) -> Optional[Dict[str, float]]:
         """Pool occupancy, internal fragmentation, insert counters and
-        ``leaked_pages`` (pages in use that nothing references: 0)."""
+        ``leaked_pages`` (pages in use that nothing references: 0). None
+        for a dense engine."""
+        if not self.paged:
+            return None
         st = self.pool.stats()
         reserved = sum(len(p) for p in self._slot_pages.values()) \
             * self.page_size

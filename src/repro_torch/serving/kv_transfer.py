@@ -170,6 +170,15 @@ def extract_batch(cache, requests: Sequence[Tuple[int, int]], *,
     return wires
 
 
+def extract(cache, batch_index: int, length: int, *, compress: bool = True,
+            backend: str = "auto") -> KVWire:
+    """One request's KV out of a prefill or dense decode cache (the dense
+    engine's migration snapshot): one ``ops.kv_quant`` launch per distinct
+    tensor shape."""
+    return extract_batch(cache, [(batch_index, length)], compress=compress,
+                         backend=backend)[0]
+
+
 def compress_wire(wire: KVWire, *, backend: str = "auto") -> KVWire:
     """int4-quantize a raw wire's positional tensors with position-aligned
     groups (one launch per distinct shape): compressing a spliced chunked
@@ -266,6 +275,12 @@ def dequantize_prefix_batch(wires: Sequence[KVWire], pad_to: int, *,
             stacked.append(torch.stack(ts, dim=1))
         out[name] = (stacked[0], stacked[1])
     return out, lens
+
+
+def insert(cache, wire: KVWire, batch_index: int, *,
+           backend: str = "auto"):
+    """Insert one transferred request into a dense decode cache."""
+    return insert_batch(cache, [(wire, batch_index)], backend=backend)
 
 
 def insert_batch(cache, items: Sequence[Tuple[KVWire, int]], *,

@@ -4,12 +4,13 @@
 :class:`PagePool` is the reference's pure-Python refcounted allocator,
 copied (``tests/test_torch_isolation.py`` drives both with the same
 operations and holds their states equal). The functions below move KV
-between wires and the int4 pages of ``models/paged.py``. A wire from the
+between wires and the pages of ``models/paged.py``. A wire from the
 bucketed prefill (``kv_transfer.extract_batch(pad_to=...)``) carries
 POSITION-ALIGNED int4 groups, row ``t*ppr + r`` = token t's r-th group,
-exactly a page's row order, so insertion is a pure uint8/f32 scatter
-(zero-copy: no dequantization, no requantization). Other wires are
-re-encoded on arrival with one dequant + quant.
+exactly an int4 page's row order, so insertion is a pure uint8/f32
+scatter (zero-copy: no dequantization, no requantization). Other wires
+are re-encoded on arrival with one dequant + quant. bf16 pages take a
+wire dequantized to token rows and give back raw wires.
 
 Where the reference returns updated arrays, these functions write the
 cache's page buffers, page table and lengths IN PLACE (index tensors are
@@ -25,7 +26,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import paged
-from repro_torch.serving.kv_transfer import KVWire, WireTensor, _dequantize
+from repro_torch.serving.kv_transfer import (KVWire, WireTensor, _dequantize,
+                                             _dtype_name)
 
 
 class PagePool:
@@ -264,11 +266,6 @@ def _wire_to_rows(wt: WireTensor, cfg, backend: str):
     return packed, scale, zero, False
 
 
-def _check_int4(cache):
-    if "kp" not in cache["slot0"]:
-        raise NotImplementedError("only the int4 page residency is ported")
-
-
 def insert_wires(cache, cfg, items: Sequence[Tuple], *,
                  backend: str = "auto"):
     """Scatter transferred requests into their allocated pages.
@@ -279,7 +276,7 @@ def insert_wires(cache, cfg, items: Sequence[Tuple], *,
     position ``len(prefix_pages) * page_size``, the table row becomes
     ``prefix_pages + pages`` and the length covers the whole chain; prefix
     pages are never written. Returns (cache, n_zero_copy, n_reencoded)."""
-    _check_int4(cache)
+    int4 = "kp" in cache["slot0"]
     ps = cache_page_size(cache, cfg)
     ppr = paged.groups_per_token(cfg)
     g = paged.page_group(cfg)
@@ -299,13 +296,21 @@ def insert_wires(cache, cfg, items: Sequence[Tuple], *,
         tpos = np.arange(ln)
         dst_page = torch.as_tensor(
             np.asarray(pages, np.int64)[tpos // ps][:, None], device=dev)
-        rows = torch.as_tensor((tpos % ps)[:, None] * ppr
-                               + np.arange(ppr)[None], device=dev)
+        if int4:
+            rows = torch.as_tensor((tpos % ps)[:, None] * ppr
+                                   + np.arange(ppr)[None], device=dev)
+        else:
+            dst_off = torch.as_tensor(tpos % ps, device=dev)
         for name, slot_wire in wire.slots.items():
             buf = cache[name]
             for base in ("k", "v"):
                 wt = slot_wire.get(base)
                 if wt is None:
+                    continue
+                if not int4:
+                    # bf16 pages: dequantize and scatter the token rows
+                    buf[base][:, dst_page[:, 0], dst_off] = \
+                        _dequantize(wt, backend).to(buf[base].dtype)
                     continue
                 packed, scale, zero, aligned = _wire_to_rows(wt, cfg,
                                                              backend)
@@ -349,10 +354,10 @@ def copy_page(cache, src_page: int, dst_page: int):
 
 def extract_slot_wire(cache, cfg, ln: int, pages: Sequence[int]) -> KVWire:
     """Gather one resident slot's pages back into a :class:`KVWire` (prefix
-    extraction for a partial hit, and migration). A pure page gather: the
+    extraction for a partial hit, and migration). A pure page gather: int4
     pages already hold the wire's position-aligned encoding, so the result
-    scatters zero-copy into another pool."""
-    _check_int4(cache)
+    scatters zero-copy into another pool; bf16 pages ship raw tokens."""
+    int4 = "kp" in cache["slot0"]
     ps = cache_page_size(cache, cfg)
     ppr = paged.groups_per_token(cfg)
     g = paged.page_group(cfg)
@@ -368,6 +373,12 @@ def extract_slot_wire(cache, cfg, ln: int, pages: Sequence[int]) -> KVWire:
             continue
         out: Dict[str, WireTensor] = {}
         for base in ("k", "v"):
+            if not int4:
+                a = buf[base][:, pg]              # (L, n_pg, ps, Hkv, hd)
+                t = a.reshape(a.shape[0], len(pages) * ps, Hkv, hd)[:, :ln]
+                out[base] = WireTensor("raw", {"x": t}, tuple(t.shape),
+                                       _dtype_name(t))
+                continue
             payload = {}
             for suffix, wkey, width in (("p", "packed", g // 2),
                                         ("s", "scale", 1), ("z", "zero", 1)):
@@ -391,4 +402,7 @@ def release_slot(cache, slot: int):
 
 def cache_page_size(cache, cfg) -> int:
     """page_size from the cache shapes (token rows per page)."""
-    return cache["slot0"]["kp"].shape[2] // paged.groups_per_token(cfg)
+    slot = cache["slot0"]
+    if "kp" in slot:
+        return slot["kp"].shape[2] // paged.groups_per_token(cfg)
+    return slot["k"].shape[2]

@@ -15,6 +15,13 @@ gateway contracts re-pinned inside the port (CPU, reduced LLaMA-30B, f32).
   request; a preemption drain migrates resident KV and the streams are
   bit-identical to an undisturbed run; ``launch.serve.run`` serves a trace
   end to end; ``REPRO_SANITIZE=1`` raises instead of running unsanitized.
+* The reference's fault cases on DENSE decode engines
+  (``tests/test_faults.py``, whose engines are dense by default) re-pinned
+  on the port with a ``VirtualClock`` and no wall-clock threshold: a
+  chaos crash recovers every request, a preemption drain migrates with
+  zero loss (bit-identical streams over raw wires), a zero-grace drain
+  requeues, and a dead replica triggers a failover reschedule;
+  ``launch.serve.run --no-paged`` serves a trace end to end.
 """
 import numpy as np
 import pytest
@@ -286,3 +293,144 @@ def test_repro_sanitize_raises(models, monkeypatch):
         _gw(models["tcfg"], models["tparams"])
     monkeypatch.setenv("REPRO_SANITIZE", "0")
     assert _gw(models["tcfg"], models["tparams"]).sanitizer is None
+
+
+# -- dense decode engines (the reference's fault tests' default) ------------------
+
+
+def _dense_gw(cfg, params, *, n_dec=2, chunk_size=2, **gw_kw):
+    pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+    decs = [TE.DecodeEngine(cfg, params, max_slots=4, max_seq=64,
+                            paged=False, chunk_size=chunk_size, device="cpu")
+            for _ in range(n_dec)]
+    return TG.Gateway([pre], decs, clock=TF.VirtualClock(), **gw_kw)
+
+
+def test_dense_chaos_crash_recovers_all_requests(models):
+    cfg, params = models["tcfg"], models["tparams"]
+    gw = _dense_gw(cfg, params)
+    sched = TF.FaultSchedule([TF.FaultEvent(t=0.0, kind=TF.CRASH,
+                                            phase="decode", idx=-1,
+                                            require_busy=True)])
+    ctl = TF.install_chaos(gw, sched, clock=gw.clock)
+    hs = [gw.submit(r) for r in _reqs(cfg, 4, max_new=10)]
+    gw.run_until_drained()
+    assert [f["kind"] for f in ctl.fired] == [TF.CRASH]
+    assert sum(d.status == "dead" for d in gw.dec) == 1
+    assert any("confirmed dead" in e for e in gw.events)
+    assert all(h.state == TG.DONE and len(h.tokens) == 10 for h in hs)
+    assert gw.stats()["counters"]["requeues"] >= 1
+    assert gw.stats()["page_pool"] is None
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_dense_preemption_migrates_with_zero_loss(models, compress):
+    """A preemption drain moves resident dense-cache KV to the survivor:
+    no request restarts and none loses a token; over raw wires the
+    streams are bit-identical to an undisturbed run."""
+    cfg, params = models["tcfg"], models["tparams"]
+    reqs = _reqs(cfg, 3, max_new=20)
+    base = _dense_gw(cfg, params, compress=compress)
+    bh = [base.submit(r) for r in reqs]
+    base.run_until_drained()
+    want = {h.request.rid: list(h.tokens) for h in bh}
+
+    gw = _dense_gw(cfg, params, compress=compress)
+    hs = [gw.submit(r) for r in reqs]
+    for _ in range(60):
+        gw.pump()
+        if (all(h.state == TG.DECODING for h in hs)
+                and min(len(h.tokens) for h in hs) >= 2):
+            break
+    assert all(h.state == TG.DECODING for h in hs)
+    vic = max(range(2), key=lambda j: len(gw.dec[j].client.resident()))
+    n_vic = len(gw.dec[vic].client.resident())
+    rep = gw.handle_preemption("decode", vic, grace_s=60.0)
+    assert n_vic >= 1 and rep["migrated"] == n_vic
+    assert rep["requeued"] == 0
+    assert rep["tokens_migrated"] >= n_vic * 13   # 12 prompt + >= 1 decoded
+    assert gw.dec[vic].status == "dead" and gw.dec[vic].engine.active == 0
+    gw.run_until_drained()
+    assert all(h.state == TG.DONE and h.restarts == 0
+               and len(h.tokens) == 20 for h in hs)
+    if not compress:
+        assert {h.request.rid: list(h.tokens) for h in hs} == want
+    st = gw.stats()["counters"]
+    assert st["migrations"] == n_vic and st["preemptions"] == 1
+
+
+def test_dense_preemption_zero_grace_requeues(models):
+    cfg, params = models["tcfg"], models["tparams"]
+    gw = _dense_gw(cfg, params)
+    hs = [gw.submit(r) for r in _reqs(cfg, 2, max_new=10)]
+    for _ in range(60):
+        gw.pump()
+        if all(h.state == TG.DECODING for h in hs):
+            break
+    vic = max(range(2), key=lambda j: len(gw.dec[j].client.resident()))
+    n_vic = len(gw.dec[vic].client.resident())
+    rep = gw.handle_preemption("decode", vic, grace_s=0.0)
+    assert rep["migrated"] == 0 and rep["requeued"] == n_vic
+    assert any("preemption drain" in e for e in gw.events)
+    gw.run_until_drained()
+    assert all(h.state == TG.DONE and len(h.tokens) == 10 for h in hs)
+    assert sum(h.restarts for h in hs) >= n_vic
+
+
+def test_dense_dead_replica_triggers_failover_reschedule(models):
+    cfg, params = models["tcfg"], models["tparams"]
+    cfg_full = get_config("llama-30b")
+    slo = SloSpec(ttft_s=2.0, tpot_s=0.15, e2e_s=30.0)
+    cluster = make_paper_cloud()
+    solver = t_sched.LowerLevelSolver(cluster, cfg_full, CONVERSATION, 2.0,
+                                      slo)
+    groups = ((0, 1, 2, 3), (4, 5, 6, 7), tuple(range(8, 16)),
+              tuple(range(16, 24)))
+    sol = t_tabu.Solution(groups, ("prefill", "prefill", "decode", "decode"))
+    score, replicas, o = solver.solve(sol)
+    plan = t_sched.DeploymentPlan(solution=sol, replicas=replicas,
+                                  orchestration=o, score=score)
+    calls = []
+
+    def pinned(cluster_, cfg_, plan_, wl, rate, slo_, *, init_solution=None,
+               **kw):
+        calls.append(init_solution)
+        sc, reps, orch = solver.solve(init_solution)
+        return t_sched.DeploymentPlan(solution=init_solution, replicas=reps,
+                                      orchestration=orch, score=sc)
+
+    gw = TG.gateway_from_plan(plan, cfg, params, max_seq=64, max_slots=4,
+                              chunk_size=4, device="cpu",
+                              decode_kw={"paged": False},
+                              clock=TF.VirtualClock())
+    assert all(not h.engine.paged for h in gw.dec)
+    gw.set_failover(cluster, cfg_full, slo, workload=CONVERSATION, rate=2.0,
+                    search_fn=pinned)
+    hs = [gw.submit(r) for r in _reqs(cfg, 3, max_new=8)]
+    for _ in range(30):
+        gw.pump()
+        if any(h.state == TG.DECODING for h in hs):
+            break
+    dead_group = gw.dec[1].group
+    gw.kill_replica("decode", 1)
+    gw.pump()
+    assert calls, "failover search never ran"
+    assert gw.epoch == 1
+    live_groups = {h.group for h in gw.pre + gw.dec if h.alive}
+    assert dead_group not in live_groups
+    assert set(calls[0].groups) == live_groups
+    assert any(e.startswith("failover reschedule:") for e in gw.events)
+    gw.run_until_drained()
+    assert all(h.state == TG.DONE and len(h.tokens) == 8 for h in hs)
+
+
+def test_launch_serve_no_paged_runs_end_to_end_on_cpu(capsys):
+    out = t_serve.run(["--device", "cpu", "--reduced", "--no-paged",
+                       "--duration", "3", "--rate", "2", "--steps", "6",
+                       "--chunk-tokens", "16"])
+    s = out["summary"]
+    assert s["n_submitted"] > 0 and s["n_done"] == s["n_submitted"]
+    assert out["params_resident"] and out["page_stats"] == []
+    assert all(not h.engine.paged for h in out["gateway"].dec)
+    assert out["stats"]["page_pool"] is None
+    assert "paged KV" not in capsys.readouterr().out

@@ -6,11 +6,12 @@ the ``cuda`` fixture, never at import). On a machine with a card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: ``kv_quant``/``kv_dequant`` must agree bit for bit (the wire,
-the pages and the decode append share one encoding); paged attention and
-flash attention sum in another order than the plain versions (and keep
-probabilities in f32 where the plain flash version rounds them to bf16),
-so they are held to 1e-5 in f32 and to 2e-2 (a few bf16 ulps at
-|out| <= 4) in bf16. RMSNorm sums its row in another order: 1e-5
+the pages and the decode append share one encoding); paged attention (both
+residencies), dense decode attention and flash attention sum in another
+order than the plain versions (and keep probabilities in f32 where the
+plain flash version rounds them to bf16), so they are held to 1e-5 when
+q is f32 (K/V f32 or bf16: the plain version reads the same bf16 values)
+and to 2e-2 (a few bf16 ulps at |out| <= 4) when q is bf16. RMSNorm sums its row in another order: 1e-5
 relative in f32, one bf16 ulp (2**-7 relative) in bf16.
 """
 import math
@@ -19,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -242,6 +245,190 @@ def test_norm_and_attention_launch_without_host_sync(cuda):
         ops.rmsnorm(x, scale)
         ops.flash_attention(q, torch.cat([q, q], 1), torch.cat([q, q], 1),
                             prefix_len=pl)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+
+
+# -- dense decode attention and the bf16 paged body ------------------------------
+
+DECODE_CASES = [
+    # (B, Hkv, g, hd, S, kv_len)
+    (4, 52, 1, 128, 256, [232, 123, 56, 17]),    # LLaMA-30B decode step
+    (3, 2, 4, 16, 40, [1, 40, 23]),              # GQA, kv_len 1 and S
+    (2, 4, 2, 64, 512, [300, 512]),              # two 256-key blocks
+    (1, 3, 3, 32, 70, [69]),
+]
+DTYPE_PAIRS = [("bfloat16", "bfloat16"), ("float32", "float32"),
+               ("float32", "bfloat16")]          # (q, K/V)
+
+
+def _decode_inputs(B, Hkv, g, hd, S, lens, qdt, kvdt, layout, seed):
+    """q, K/V as (B, Hkv, S, hd) views (``layout`` "bhsd": contiguous, as
+    the JAX signature; "cache": one layer of an (L, B, S, Hkv, hd) cache,
+    permuted), the cache itself and kv_len."""
+    gen = _gen(seed)
+    q = torch.randn((B, Hkv, g, hd), generator=gen, device="cuda").to(qdt)
+    if layout == "bhsd":
+        cache = torch.randn((2, B, Hkv, S, hd), generator=gen,
+                            device="cuda").to(kvdt)
+        k, v = cache[0], cache[1]
+    else:
+        cache = torch.randn((2, 3, B, S, Hkv, hd), generator=gen,
+                            device="cuda").to(kvdt)
+        k, v = (cache[i, 1].permute(0, 2, 1, 3) for i in (0, 1))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len, cache
+
+
+@pytest.mark.parametrize("B,Hkv,g,hd,S,lens", DECODE_CASES)
+@pytest.mark.parametrize("qdt,kvdt", DTYPE_PAIRS)
+@pytest.mark.parametrize("layout", ["bhsd", "cache"])
+def test_decode_attention_kernel_matches_plain(cuda, B, Hkv, g, hd, S, lens,
+                                               qdt, kvdt, layout):
+    q, k, v, kv_len, _ = _decode_inputs(
+        B, Hkv, g, hd, S, lens, getattr(torch, qdt), getattr(torch, kvdt),
+        layout, seed=B * 13 + hd + S)
+    before = da.decode_attention.launches
+    got = ops.decode_attention(q, k, v, kv_len)
+    want = ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-2 if qdt == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_decode_attention_reads_the_cache_in_place(cuda, monkeypatch):
+    """The kernel gets the cache's own addresses: no copy of K/V."""
+    q, k, v, kv_len, cache = _decode_inputs(4, 8, 1, 128, 64, [5, 64, 1, 30],
+                                            torch.bfloat16, torch.bfloat16,
+                                            "cache", seed=1)
+    lib = build.library()
+    seen = []
+
+    class Spy:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+
+            def call(*args):
+                seen.append(args)
+                return fn(*args)
+            return call
+
+    monkeypatch.setattr(build, "library", lambda: Spy())
+    ops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    (args,) = seen
+    assert args[2] == cache[0, 1].data_ptr() == k.data_ptr()
+    assert args[3] == cache[1, 1].data_ptr() == v.data_ptr()
+
+
+def test_decode_attention_never_reads_past_kv_len(cuda):
+    """Keys at or past kv_len (poisoned with NaN/inf) change nothing, and
+    kv_len 0 gives zeros, as the TPU kernel does."""
+    q, k, v, kv_len, _ = _decode_inputs(3, 2, 4, 16, 40, [1, 40, 23],
+                                        torch.float32, torch.float32,
+                                        "cache", seed=2)
+    a = ops.decode_attention(q, k, v, kv_len)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, :, 1:] = float("nan")
+    v2[2, :, 23:] = float("inf")
+    assert torch.equal(a, ops.decode_attention(q, k2, v2, kv_len))
+    zero = ops.decode_attention(q, k, v, torch.zeros_like(kv_len))
+    assert torch.equal(zero, torch.zeros_like(zero))
+
+
+def test_decode_attention_refuses_a_copy(cuda):
+    q, k, v, kv_len, _ = _decode_inputs(2, 2, 1, 16, 8, [3, 8],
+                                        torch.float32, torch.float32,
+                                        "bhsd", seed=3)
+    with pytest.raises(ValueError, match="no copy"):
+        da.decode_attention(q, k.transpose(2, 3), v.transpose(2, 3),
+                            kv_len)
+    shifted = torch.as_strided(k, k.shape, k.stride(),
+                               k.storage_offset() + 1)   # misaligned rows
+    with pytest.raises(ValueError, match="no copy"):
+        da.decode_attention(q, shifted, shifted, kv_len)
+
+
+def _bf16_pages(B, Hkv, gq, hd, ps, W, lens, qdt, seed):
+    """Random bf16 pages and a shuffled table (at most W pages a row; the
+    rest of a row is the trash page 0), q and kv_len."""
+    n_pages = [min(-(-ln // ps), W) for ln in lens]
+    need = sum(n_pages)
+    P = 1 + need + 3
+    gen = _gen(seed)
+    kp = torch.randn((P, ps, Hkv, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vp = torch.randn((P, ps, Hkv, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pt = torch.zeros((B, W), dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        seed))[:need] + 1
+    n = 0
+    for b, k in enumerate(n_pages):
+        pt[b, :k] = perm[n:n + k]
+        n += k
+    q = torch.randn((B, Hkv, gq, hd), generator=gen, device="cuda").to(qdt)
+    return (q, kp, vp, pt.cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+BF16_PAGED_CASES = [
+    # (B, Hkv, gq, hd, ps, W, kv_len)
+    (4, 52, 1, 128, 16, 16, [232, 123, 56, 17]),  # LLaMA-30B decode step
+    (3, 2, 4, 32, 8, 4, [5, 16, 23]),             # GQA
+    (2, 4, 1, 16, 16, 5, [70, 3]),                # reduced config
+    (2, 4, 1, 16, 8, 2, [40, 9]),                 # kv_len past W * ps
+]
+
+
+@pytest.mark.parametrize("B,Hkv,gq,hd,ps,W,lens", BF16_PAGED_CASES)
+@pytest.mark.parametrize("qdt", ["bfloat16", "float32"])
+def test_paged_bf16_kernel_matches_plain(cuda, B, Hkv, gq, hd, ps, W, lens,
+                                         qdt):
+    q, kp, vp, pt, kv_len = _bf16_pages(B, Hkv, gq, hd, ps, W, lens,
+                                        getattr(torch, qdt), seed=B + hd)
+    before = pa.paged_decode_attention_bf16.launches
+    got = ops.paged_decode_attention(q, kp, vp, pt, kv_len, page_size=ps)
+    want = ref.paged_decode_attention_ref(q, kp, vp, pt, kv_len,
+                                          page_size=ps)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention_bf16.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-2 if qdt == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_paged_bf16_ignores_trash_page(cuda):
+    q, kp, vp, pt, kv_len = _bf16_pages(3, 2, 4, 32, 8, 4, [5, 16, 23],
+                                        torch.float32, seed=4)
+    a = ops.paged_decode_attention(q, kp, vp, pt, kv_len, page_size=8)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[0] = float("nan")
+    vp2[0] = float("inf")
+    pt2 = pt.clone()
+    pt2[pt2 == 0] = -3                            # clamped to the trash page
+    b = ops.paged_decode_attention(q, kp2, vp2, pt2, kv_len, page_size=8)
+    assert torch.equal(a, b)
+    assert math.isfinite(float(a.abs().max()))
+
+
+def test_decode_kernels_launch_without_host_sync(cuda):
+    q, k, v, kv_len, _ = _decode_inputs(4, 8, 1, 128, 64, [5, 64, 1, 30],
+                                        torch.bfloat16, torch.bfloat16,
+                                        "cache", seed=5)
+    pq, kp, vp, pt, pl = _bf16_pages(3, 2, 4, 32, 8, 4, [5, 16, 23],
+                                     torch.bfloat16, seed=6)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.decode_attention(q, k, v, kv_len)
+        ops.paged_decode_attention(pq, kp, vp, pt, pl, page_size=8)
     finally:
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()

@@ -16,6 +16,13 @@ kernel in interpret mode (``(B*H, S, hd)`` layout) over causal, window and
 GQA shapes at 1e-5 in f32; its suffix mask to the port's previous
 ``_suffix_attention`` formula. RMSNorm is held to ``rmsnorm_ref`` and the
 interpreted Pallas kernel at 1e-6 in f32 and one ulp in bf16.
+
+Dense decode attention (``decode_attention_ref``, read through a strided
+cache view) and the bf16 page residency of paged attention are held to
+``repro.kernels.ref`` and to the interpreted Pallas kernels at 2e-5 in
+f32 (another summation order), with ragged ``kv_len >= 1`` (the Pallas
+decode kernel needs S divisible by min(256, S): S = 40 is one key block,
+S = 512 two) and trash-page table entries.
 """
 import numpy as np
 import pytest
@@ -27,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import kv_layout as j_layout  # noqa: E402
 from repro.kernels import ops as j_ops  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
+from repro_torch.kernels import decode_attention as t_da  # noqa: E402
 from repro_torch.kernels import flash_attention as t_fa  # noqa: E402
 from repro_torch.kernels import kv_layout as t_layout  # noqa: E402
 from repro_torch.kernels import kv_quant as t_kq  # noqa: E402
@@ -210,6 +218,93 @@ def test_paged_attention_ignores_trash_page_and_tail():
     assert torch.equal(a, b)
 
 
+DECODE_CASES = [
+    # (B, Hkv, g, hd, S, kv_lens)
+    (3, 2, 4, 16, 40, [1, 40, 23]),      # GQA, one key block
+    (2, 4, 1, 16, 512, [300, 512]),      # two 256-key blocks, MHA
+    (2, 1, 8, 32, 40, [17, 2]),          # MQA
+]
+
+
+@pytest.mark.parametrize("B,Hkv,g,hd,S,lens", DECODE_CASES)
+@pytest.mark.parametrize("against", ["ref", "interpret"])
+def test_decode_attention_ref_vs_jax(B, Hkv, g, hd, S, lens, against):
+    """The plain version, fed one layer of an (L, B, S, Hkv, hd) cache as
+    the permuted view the model passes, against the JAX oracle and the
+    interpreted Pallas kernel on (B, Hkv, S, hd) copies."""
+    rng = np.random.default_rng(B * 7 + S)
+    q = rng.standard_normal((B, Hkv, g, hd)).astype(np.float32)
+    cache = rng.standard_normal((2, 2, B, S, Hkv, hd)).astype(np.float32)
+    kl = np.asarray(lens, np.int32)
+    k_j = np.ascontiguousarray(cache[0, 1].transpose(0, 2, 1, 3))
+    v_j = np.ascontiguousarray(cache[1, 1].transpose(0, 2, 1, 3))
+    if against == "ref":
+        want = j_ref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k_j),
+                                          jnp.asarray(v_j),
+                                          kv_len=jnp.asarray(kl))
+    else:
+        want = j_ops.decode_attention(jnp.asarray(q), jnp.asarray(k_j),
+                                      jnp.asarray(v_j), jnp.asarray(kl),
+                                      backend="interpret")
+    tc = torch.from_numpy(cache)
+    got = t_ops.decode_attention(torch.from_numpy(q),
+                                 tc[0, 1].permute(0, 2, 1, 3),
+                                 tc[1, 1].permute(0, 2, 1, 3),
+                                 torch.from_numpy(kl))
+    np.testing.assert_allclose(np.asarray(want), got.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def _bf16_page_inputs(B, Hkv, gq, hd, ps, lens, seed):
+    """bf16-valued pages (as f32 numpy: both sides cast), the page table
+    of ``_paged_inputs`` (unused entries on the trash page 0), q, kv_len."""
+    q, _, _, pt, kl = _paged_inputs(B, Hkv, gq, hd, ps, lens, seed)
+    rng = np.random.default_rng(seed + 1)
+    P = int(pt.max()) + 4
+
+    def pages():
+        x = rng.standard_normal((P, ps, Hkv, hd)).astype(np.float32)
+        return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+    return q, pages(), pages(), pt, kl
+
+
+@pytest.mark.parametrize("B,Hkv,gq,hd,ps,lens", PAGED_CASES)
+@pytest.mark.parametrize("against", ["ref", "interpret"])
+def test_paged_attention_bf16_ref_vs_jax(B, Hkv, gq, hd, ps, lens, against):
+    q, kp, vp, pt, kl = _bf16_page_inputs(B, Hkv, gq, hd, ps, lens,
+                                          seed=B * 17 + hd)
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    if against == "ref":
+        want = j_ref.paged_decode_attention_ref(
+            jnp.asarray(q), jb(kp), jb(vp), jnp.asarray(pt),
+            jnp.asarray(kl), page_size=ps)
+    else:
+        want = j_ops.paged_decode_attention(
+            jnp.asarray(q), jb(kp), jb(vp), jnp.asarray(pt),
+            jnp.asarray(kl), page_size=ps, backend="interpret")
+    got = t_ops.paged_decode_attention(
+        torch.from_numpy(q), tb(kp), tb(vp), torch.from_numpy(pt),
+        torch.from_numpy(kl), page_size=ps)
+    np.testing.assert_allclose(np.asarray(want), got.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_paged_attention_bf16_ignores_trash_page_and_tail():
+    q, kp, vp, pt, kl = _bf16_page_inputs(3, 2, 4, 16, 8, [5, 16, 23],
+                                          seed=5)
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    args = (torch.from_numpy(pt), torch.from_numpy(kl))
+    a = t_ref.paged_decode_attention_ref(torch.from_numpy(q), tb(kp),
+                                         tb(vp), *args, page_size=8)
+    kp2 = kp.copy()
+    kp2[0] = 1e4
+    b = t_ref.paged_decode_attention_ref(torch.from_numpy(q), tb(kp2),
+                                         tb(vp), *args, page_size=8)
+    assert torch.equal(a, b)
+
+
 # -- the wrappers take CUDA tensors only ----------------------------------------------
 
 
@@ -240,6 +335,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     t_ops.rmsnorm(x, torch.zeros((64,)))
     assert t_ops.launch_counts() == before, \
         "plain CPU runs must not count as launches"
+
+
+def test_decode_wrappers_refuse_cpu_tensors():
+    """The dense decode kernel and the bf16 paged body take CUDA tensors
+    only; on the CPU ``ops`` runs their plain versions uncounted."""
+    q = torch.zeros((2, 2, 1, 16))
+    kv = torch.zeros((2, 2, 8, 16))
+    kl = torch.tensor([3, 8], dtype=torch.int32)
+    pages = torch.zeros((3, 8, 2, 16), dtype=torch.bfloat16)
+    pt = torch.tensor([[1], [2]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_da.decode_attention(q, kv, kv, kl)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_pa.paged_decode_attention_bf16(q, pages, pages, pt, kl,
+                                         page_size=8)
+    before = t_ops.launch_counts()
+    t_ops.decode_attention(q, kv, kv, kl)
+    t_ops.paged_decode_attention(q, pages, pages, pt, kl, page_size=8)
+    assert t_ops.launch_counts() == before
 
 
 def test_ops_refuse_unknown_device():

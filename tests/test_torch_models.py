@@ -5,7 +5,10 @@ JAX params pytree is cast to float32, converted with
 ``repro_torch.models.convert.params_from_numpy`` and fed to both sides.
 Tolerances: logits and KV within 1e-4 absolute (f32 products summed in
 another order; |logits| <= ~5). Page bytes after N decode steps must be
-identical; the f32 scale/zero rows within 1e-5 relative.
+identical; the f32 scale/zero rows within 1e-5 relative. The dense decode
+step (an f32 cache) and the bf16 page residency are held to the same 1e-4
+on their logits; the bf16 pages within one bf16 ulp (2**-7 relative:
+K/V a few f32 roundings apart can land on neighbouring bf16 values).
 """
 import numpy as np
 import pytest
@@ -120,6 +123,68 @@ def test_decode_step_paged_logits_and_pages_match(model):
                                    rtol=1e-5, atol=1e-6)
 
 
+def test_decode_step_dense_logits_and_cache_match(model):
+    """N dense steps after a ragged prefill: per-step logits, then the
+    cache and lengths (slot 1 starts shorter, so its writes land at other
+    positions than slot 0's)."""
+    jcfg, jp, tcfg, tp = model
+    B, S, max_seq = 2, 8, 32
+    toks = _tokens(B, S + 10, seed=5)
+    true_len = np.array([8, 5], np.int32)
+    jc = j_tf.init_cache(jcfg, B, max_seq, jnp.float32)
+    tc = t_tf.init_cache(tcfg, B, max_seq, torch.float32, device="cpu")
+    _, jpre = j_tf.prefill(jcfg, jp, jnp.asarray(toks[:, :S]), max_seq=S,
+                           true_len=jnp.asarray(true_len))
+    for key in ("k", "v"):
+        jc["slot0"][key] = jc["slot0"][key].at[:, :, :S].set(
+            jpre["slot0"][key][:, :, :S])
+        tc["slot0"][key][:, :, :S] = torch.from_numpy(
+            np.array(jpre["slot0"][key][:, :, :S]))
+    jc["lengths"] = jnp.asarray(true_len)
+    tc["lengths"] = torch.from_numpy(true_len)
+    for s in range(S, toks.shape[1]):
+        lj, jc = j_tf.decode_step(jcfg, jp, jc,
+                                  jnp.asarray(toks[:, s:s + 1]))
+        lt, tc = t_tf.decode_step(tcfg, tp, tc,
+                                  torch.from_numpy(toks[:, s:s + 1]).long())
+        np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
+    np.testing.assert_array_equal(np.asarray(jc["lengths"]),
+                                  tc["lengths"].numpy())
+    for key in ("k", "v"):
+        np.testing.assert_allclose(np.asarray(jc["slot0"][key]),
+                                   tc["slot0"][key].numpy(), atol=ATOL)
+
+
+def test_decode_step_paged_bf16_logits_and_pages_match(model):
+    """The bf16 residency: N steps from an empty pool, per-step logits and
+    every page (slot 1 runs past its last page into the trash page)."""
+    jcfg, jp, tcfg, tp = model
+    toks = _tokens(2, 12, seed=4)
+    table = np.array([[3, 5, 1, 0], [2, 0, 0, 0]], np.int32)
+    jc = j_paged.init_paged_cache(jcfg, 2, 32, 9, page_size=8,
+                                  resident="bf16")
+    jc["page_table"] = jnp.asarray(table)
+    tc = t_paged.init_paged_cache(tcfg, 2, 32, 9, page_size=8,
+                                  resident="bf16", device="cpu")
+    tc["page_table"] = torch.from_numpy(table)
+    for s in range(toks.shape[1]):
+        lj, jc = j_paged.decode_step_paged(
+            jcfg, jp, jc, jnp.asarray(toks[:, s:s + 1]), page_size=8,
+            backend="ref")
+        lt, tc = t_paged.decode_step_paged(
+            tcfg, tp, tc, torch.from_numpy(toks[:, s:s + 1]).long(),
+            page_size=8)
+        np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
+    np.testing.assert_array_equal(np.asarray(jc["lengths"]),
+                                  tc["lengths"].numpy())
+    for key in ("k", "v"):
+        assert tc["slot0"][key].dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            np.asarray(jc["slot0"][key][:, 1:], np.float32),
+            tc["slot0"][key][:, 1:].float().numpy(), rtol=2 ** -7,
+            atol=1e-6)
+
+
 def test_converter_layout_and_init_shapes(model):
     jcfg, jp, tcfg, tp = model
     mine = t_tf.init_params(tcfg, seed=1, device="cpu")
@@ -149,9 +214,21 @@ def test_full_width_config_is_llama_30b():
 
 
 def test_unported_families_raise():
+    """What still refuses: a family the port lacks, a residency nobody
+    has, and a dense decode step the plain kernel cannot compute (ring
+    caches, softcap, the hkv_s layout: ROADMAP A.8)."""
     cfg = get_reduced("llama-30b").replace(qk_norm=True)
     with pytest.raises(NotImplementedError):
         build(cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown residency"):
         t_paged.init_paged_cache(get_reduced("llama-30b"), 2, 32, 9,
-                                 resident="bf16", device="cpu")
+                                 resident="fp8", device="cpu")
+    base = get_reduced("llama-30b")
+    for cfg in (base.replace(sliding_window=8),
+                base.replace(attn_logit_softcap=30.0),
+                base.replace(decode_cache_layout="hkv_s")):
+        api = build(cfg)
+        params = t_tf.init_params(cfg, device="cpu", dtype=torch.float32)
+        cache = t_tf.init_cache(cfg, 1, 16, device="cpu")
+        with pytest.raises(NotImplementedError, match="A.8"):
+            api.decode(params, cache, torch.ones((1, 1), dtype=torch.long))

@@ -14,6 +14,12 @@ relative (the K/V they quantize come from f32 products summed in another
 order); greedy tokens equal where the JAX prefill's top-2 logit margin
 clears 1e-3 (at this seed every request's does, and the decoded streams
 are compared whole).
+
+The dense decode cache (``paged=False``) and the bf16 page residency are
+held to the JAX package's engines the same way (the same margin rule on
+the same weights), and within the port to their own contracts:
+``step()`` and ``step_reference()`` decode bit-identical streams, and so
+do chunked and one-shot prefill into the dense cache.
 """
 import numpy as np
 import pytest
@@ -40,7 +46,7 @@ MARGIN = 1e-3
 PS = 8
 
 
-def _scenario(E, cfg, params, **dev):
+def _scenario(E, cfg, params, kv_resident="int4", **dev):
     rng = np.random.default_rng(5)
     V = cfg.vocab_size
     system = rng.integers(1, V, PS)
@@ -52,7 +58,7 @@ def _scenario(E, cfg, params, **dev):
     pre = E.PrefillEngine(cfg, params, max_seq=64, **dev)
     dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=64, paged=True,
                          page_size=PS, chunk_size=4, prefix_sharing=True,
-                         **dev)
+                         kv_resident=kv_resident, **dev)
 
     def admit(items):
         assert not dec.admit(E.AdmissionBatch(items), backend="ref")
@@ -276,15 +282,32 @@ def test_extract_resident_migrates_without_changing_tokens(runs):
 
 
 def test_unported_engine_modes_raise(runs):
-    """The dense decode cache is still unported and raises; the
-    phase-switching ``Replica`` is ported: it builds each phase's engine
-    once around the same parameters and refuses an undrained flip."""
+    """What still refuses: an unknown page residency, and decoding an arch
+    that cannot page (it falls back to the dense cache, as the reference
+    does, whose step with a ring cache is not ported: ROADMAP A.8). The
+    dense engine and a dense ``Replica`` build. The phase-switching
+    ``Replica`` builds each phase's engine once around the same parameters
+    and refuses an undrained flip."""
     cfg, params = runs["tcfg"], runs["tparams"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.DecodeEngine(cfg, params, paged=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.Replica(cfg, params, phase="decode", device="cpu",
-                   decode_kw={"paged": False})
+    dense = TE.DecodeEngine(cfg, params, paged=False, device="cpu")
+    assert not dense.paged and dense.paged_fallback is None
+    assert dense.page_stats() is None and dense.prefix_match([1, 2]) is None
+    rep = TE.Replica(cfg, params, phase="decode", device="cpu",
+                     decode_kw={"paged": False})
+    assert not rep.engine.paged
+    with pytest.raises(ValueError, match="unknown residency"):
+        TE.DecodeEngine(cfg, params, kv_resident="int8", device="cpu")
+    swa = cfg.replace(sliding_window=8)
+    fb = TE.DecodeEngine(swa, params, max_slots=2, max_seq=64,
+                         device="cpu")
+    assert not fb.paged and "cannot page" in fb.paged_fallback
+    (_, w, f), = TE.PrefillEngine(swa, params, max_seq=64,
+                                  device="cpu").run(
+        [TE.GenRequest(0, np.arange(1, 12), 4)])
+    assert not fb.admit(TE.AdmissionBatch([TE.AdmissionItem(
+        TE.GenRequest(0, np.arange(1, 12), 4), f, wire=w)]))
+    with pytest.raises(NotImplementedError, match="A.8"):
+        fb.step()
     with pytest.raises(ValueError, match="params live on"):
         TE.PrefillEngine(cfg, params, device="cuda")
     with pytest.raises(ValueError, match="params live on"):
@@ -332,3 +355,187 @@ def test_insert_batch_dense_matches_jax(runs):
                                tc["slot0"]["k"].numpy(), atol=1e-5)
     np.testing.assert_array_equal(np.asarray(jc["lengths"]),
                                   tc["lengths"].numpy())
+
+
+# -- the dense decode cache and the bf16 page residency -------------------------
+
+
+def _serve(cfg, params, prompts, max_new, *, use_reference=False, **kw):
+    """Prefill ``prompts`` and decode them to the end on one port engine,
+    with ``step()`` or ``step_reference()``."""
+    pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+    dec = TE.DecodeEngine(cfg, params, max_slots=4, max_seq=64, chunk_size=4,
+                          device="cpu", **kw)
+    reqs = [TE.GenRequest(i, p, n) for i, (p, n) in
+            enumerate(zip(prompts, max_new))]
+    out = pre.run(reqs)
+    assert not dec.admit(TE.AdmissionBatch(
+        [TE.AdmissionItem(r, f, wire=w) for r, w, f in out]))
+    while dec.active:
+        dec.step_reference() if use_reference else dec.step()
+    return [r.out_tokens for r in reqs], dec
+
+
+MODES = {"dense": {"paged": False},
+         "bf16": {"paged": True, "page_size": PS, "kv_resident": "bf16"}}
+
+
+def _prompts(n_each=(7, 19, 33)):
+    rng = np.random.default_rng(9)
+    return [rng.integers(1, 256, n).astype(np.int32) for n in n_each]
+
+
+# the reference's jnp dense step rounds attention probabilities to the
+# bf16 cache type before P.V; the port's kernel keeps them in f32 (the
+# Pallas decode_attention's contract), so the two dense paths' logits are
+# ~1e-2 apart on this model. Both bf16 page bodies keep f32 probabilities.
+STEP_MARGIN = {"dense": 2e-2, "bf16": MARGIN}
+
+
+def _greedy_steps(E, cfg, params, prompts, n_steps, *, jax_side, **kw):
+    """Prefill, admit, then ``n_steps`` greedy steps of the engine's own
+    decode step over every slot; returns per-step (tokens, top-2 margins),
+    each (n_steps, n_prompts), and the first tokens."""
+    dev = {} if jax_side else {"device": "cpu"}
+    bk = {"backend": "ref"} if jax_side else {}
+    pre = E.PrefillEngine(cfg, params, max_seq=64, **dev)
+    dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=64, **kw, **dev)
+    reqs = [E.GenRequest(i, p, n_steps + 1) for i, p in enumerate(prompts)]
+    out = pre.run(reqs, **bk)
+    assert not dec.admit(E.AdmissionBatch(
+        [E.AdmissionItem(r, f, wire=w) for r, w, f in out]), **bk)
+    cache, cur = dec.cache, np.array(dec.cur_token)
+    toks, margins = [], []
+    for _ in range(n_steps):
+        if jax_side:
+            logits, cache = dec._decode(params, cache,
+                                        {"tokens": jnp.asarray(cur[:, None])})
+        else:
+            logits, cache = dec._decode(params, cache,
+                                        torch.as_tensor(cur[:, None]))
+        lg = np.asarray(logits[:, -1], np.float32)[:len(prompts)]
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        cur[:len(prompts)] = lg.argmax(-1)
+        toks.append(lg.argmax(-1))
+        margins.append(top2[:, 1] - top2[:, 0])
+    return np.array(toks), np.array(margins), [f for _, _, f in out]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_dense_and_bf16_engines_match_jax(runs, mode):
+    """The JAX package's engine and the port's on the same weights and
+    prompts, stepped greedily: the first tokens are equal, and each
+    stream's tokens are equal up to the first step whose top-2 margin in
+    the JAX run is below ``STEP_MARGIN[mode]`` (past it the streams may
+    part on rounding)."""
+    prompts, n = _prompts(), 12
+    jt, jm, jf = _greedy_steps(JE, runs["jcfg"], runs["jparams"], prompts,
+                               n, jax_side=True, **MODES[mode])
+    tt, _, tf = _greedy_steps(TE, runs["tcfg"], runs["tparams"], prompts,
+                              n, jax_side=False, **MODES[mode])
+    assert jf == tf
+    compared = 0
+    for i in range(len(prompts)):
+        for t in range(n):
+            if jm[t, i] < STEP_MARGIN[mode]:
+                break
+            assert jt[t, i] == tt[t, i], (i, t)
+            compared += 1
+    assert compared >= n * len(prompts) // 2, compared
+
+
+def test_bf16_pages_serve_the_prefix_scenario(runs):
+    """The scenario's prefix sharing over bf16 pages: the same matches,
+    the full hit repeats its donor's tokens, raw prefix wires feed the
+    partial hit and the chunked prefill, and no page leaks."""
+    out = _scenario(TE, runs["tcfg"], runs["tparams"], kv_resident="bf16",
+                    device="cpu")
+    assert out["matches"] == runs["torch"]["matches"]
+    reqs = out["reqs"]
+    assert reqs[3].out_tokens == reqs[0].out_tokens
+    assert all(len(r.out_tokens) == r.max_new_tokens for r in reqs)
+    st = out["stats"]
+    assert st["leaked_pages"] == 0 and st["prefix_admits"] == 1
+    assert st["zero_copy_inserts"] == st["reencoded_inserts"] == 0
+    assert out["dec"].cache["slot0"]["k"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("mode", ["int4", "dense", "bf16"])
+def test_step_reference_matches_step(runs, mode):
+    """One host round trip per token decodes what the chunked device loop
+    decodes, bit for bit, and leaves the cache released."""
+    kw = MODES.get(mode, {"paged": True, "page_size": PS})
+    prompts, max_new = _prompts(), [10, 6, 8]
+    a, _ = _serve(runs["tcfg"], runs["tparams"], prompts, max_new, **kw)
+    b, dec = _serve(runs["tcfg"], runs["tparams"], prompts, max_new,
+                    use_reference=True, **kw)
+    assert a == b and [len(t) for t in a] == max_new
+    assert dec.steps_run == dec.host_syncs == max(max_new) - 1
+    if dec.paged:
+        assert dec.pool.n_in_use == 0
+
+
+def test_dense_chunked_prefill_matches_one_shot(runs):
+    """The dense cache's counterpart of the reference's chunked-prefill
+    parity: a 4-token budget and one-shot prefill decode bit-identical
+    streams."""
+    cfg, params = runs["tcfg"], runs["tparams"]
+    prompt = np.random.default_rng(11).integers(1, 256, 27).astype(np.int32)
+    outs = []
+    for chunked in (False, True):
+        pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+        dec = TE.DecodeEngine(cfg, params, max_slots=2, max_seq=64,
+                              paged=False, device="cpu")
+        req = TE.GenRequest(0, prompt, 10)
+        if chunked:
+            job = TE.PartialPrefill(req)
+            while not job.done:
+                pre.prefill_chunk([job], 4)
+            wire, first, src = job.wire(), job.first, TE.ADMIT_CHUNKED
+        else:
+            (_, wire, first), = pre.run([req])
+            src = TE.ADMIT_FRESH
+        assert not dec.admit(TE.AdmissionBatch(
+            [TE.AdmissionItem(req, first, src, wire=wire)]))
+        while dec.active:
+            dec.step()
+        outs.append(req.out_tokens)
+        assert int(dec.cache["lengths"].abs().sum()) == 0
+    assert outs[0] == outs[1] and len(outs[0]) == 10
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_dense_extract_resident_migrates(runs, compress):
+    """A dense slot's KV, extracted mid-stream and admitted as MIGRATED on
+    another dense engine, finishes the stream: a raw wire reproduces the
+    undisturbed tokens bit for bit; an int4 wire loses no token."""
+    cfg, params = runs["tcfg"], runs["tparams"]
+    prompt = np.random.default_rng(3).integers(1, 256, 19).astype(np.int32)
+    pre = TE.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+    streams = []
+    for migrate in (False, True):
+        a = TE.DecodeEngine(cfg, params, max_slots=2, max_seq=64,
+                            paged=False, chunk_size=3, device="cpu")
+        req = TE.GenRequest(0, prompt, 12)
+        (_, w, f), = pre.run([req])
+        assert not a.admit(TE.AdmissionBatch([TE.AdmissionItem(req, f,
+                                                               wire=w)]))
+        a.step()
+        if migrate:
+            (slot, r, wire, cur), = a.extract_resident(compress=compress)
+            assert wire.request_len == len(prompt) + 3
+            assert {t.kind for t in wire.slots["slot0"].values()} == \
+                {"int4" if compress else "raw"}
+            a.release(slot)
+            assert int(a.cache["lengths"][slot]) == 0
+            b = TE.DecodeEngine(cfg, params, max_slots=2, max_seq=64,
+                                paged=False, chunk_size=3, device="cpu")
+            assert not b.admit(TE.AdmissionBatch([TE.AdmissionItem(
+                r, cur, TE.ADMIT_MIGRATED, wire=wire)]))
+            a = b
+        while a.active:
+            a.step()
+        streams.append(req.out_tokens)
+    assert len(streams[1]) == 12
+    if not compress:
+        assert streams[0] == streams[1]
