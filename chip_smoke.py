@@ -7,14 +7,17 @@ Phases, in order; any failure raises and the script exits non-zero
 before the last line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``, with
+   each kernel's registers and spills from ptxas;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's LLaMA-30B shapes and at reduced shapes (a quantization
    group spanning several heads, GQA, a sliding window, a ragged suffix
    prefix, kv_len 1 and S); CUDA-event times of kernel, plain version and,
    where one PyTorch call computes the same function, that call (timed,
    never used by the port), beside the bound (bytes at 3.35 TB/s or
-   operations at the peak rate of the inputs' type);
+   operations at the peak rate of the inputs' type). Besides the rows of
+   the kernels line, ``kv_quant`` is timed at the decode append's shape
+   and flash attention at a 32-token chunked-prefill tick;
 4. reference: the reduced LLaMA-30B served in float32 through the
    engines on the card and on the CPU (plain versions), once for each
    decode cache (int4 pages, the dense cache, bf16 pages): greedy tokens
@@ -26,7 +29,8 @@ before the last line:
    prefill with a 64-token budget; every decode chunk runs under
    ``torch.cuda.set_sync_debug_mode("error")``. Launch counts are reset
    just before this phase and read just after it; then one decode chunk
-   runs under the profiler. Then, each with its own launch counts, the
+   and one prefill call of the 256-token bucket at batch 4 run under the
+   profiler. Then, each with its own launch counts, the
    dense cache (``DecodeEngine(paged=False)``) and the bf16 pages
    (``kv_resident="bf16"``) serve fresh prompts and a chunked prefill the
    same way, each with one profiled chunk; on the dense engine
@@ -118,6 +122,30 @@ def eager_ms(torch, fn, args_list, iters):
     return a.elapsed_time(b) / iters
 
 
+def kernel_resources(build_log):
+    """(kernel<template arguments>, registers, spills) of each kernel in
+    ptxas's report, names read from the mangled symbol."""
+    import re
+    rows, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}"
+                      r"(?:2tc)?\d+(\w+?_kernel)I(\w*?)EEv", line)
+        if m:
+            args = re.sub(r"Li(\d+)E", r"\1,", m.group(2)).replace(
+                "13__nv_bfloat16", "bf16,")
+            args = re.sub(r"(^|,)f", r"\1f32,", args)
+            name = f"{m.group(1)}<{args.rstrip(',')}>"
+        m = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads",
+                      line)
+        if m:
+            spill = m.group(0)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 # -- phase 3: kernels against their plain versions ----------------------------
 
 
@@ -140,7 +168,7 @@ def check_quant(torch, ref, kq, N, G, dtype, *, timed):
     if not timed:
         return None
     esz = x.element_size()
-    iters = 20
+    iters = 20 if N * G > 1 << 20 else 200
     rq = {"err": err_q,
           "ms": cuda_ms(torch, kq.kv_quant, [(x,)], iters),
           "plain_ms": cuda_ms(torch, ref.kv_quant_ref, [(x,)], iters),
@@ -261,12 +289,19 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
     r = {"err": err, "ms": cuda_ms(torch, fn, [(q, k, v)], 50),
          "plain_ms": cuda_ms(torch, fn_ref, [(q, k, v)], 10),
          "bound": bound(nbytes, 4 * hd * H * pairs, peak_of(torch, dtype))}
-    if plen is None and not window:
+    if not window and H == Hkv:
         # one PyTorch call of the same function (timed only, never used by
-        # the port): SDPA on (B, H, S, hd) views of the same tensors
+        # the port): SDPA on (B, H, S, hd) views of the same tensors, with
+        # the suffix mask as a boolean mask when there is a prefix
+        mask = None
+        if plen is not None:
+            j = torch.arange(P + Sq, device="cuda")[None, None, :]
+            i = torch.arange(Sq, device="cuda")[None, :, None]
+            mask = torch.where(j < P, j < pl[:, None, None],
+                               (j - P) <= i)[:, None]
         sdpa = lambda a, b, c: F.scaled_dot_product_attention(
             a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-            is_causal=True)
+            attn_mask=mask, is_causal=mask is None)
         lib = sdpa(q, k, v).transpose(1, 2)
         log(f"    SDPA vs plain max |err| "
             f"{float((lib.float() - want.float()).abs().max()):.3e}")
@@ -459,9 +494,10 @@ def serve_small(torch, device, mode="int4"):
     return [r.out_tokens for r in reqs]
 
 
-def profile_chunk(torch, run, n_steps):
-    """Device time of one decode chunk by kernel (torch.profiler, CUDA
-    activity only) against the chunk's wall time on the host clock."""
+def profile_chunk(torch, run, n_steps, what="chunk", per="step"):
+    """Device time of one decode chunk (or of ``what``: ``n_steps`` units
+    of ``per``) by kernel (torch.profiler, CUDA activity only) against its
+    wall time on the host clock."""
     from torch.profiler import ProfilerActivity, profile
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -472,11 +508,14 @@ def profile_chunk(torch, run, n_steps):
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     n_launch = sum(r[1] for r in rows)
-    log(f"  profiled chunk of {n_steps} steps: wall {wall_ms:.1f} ms, "
+    log(f"  profiled {what} of {n_steps} {per}s: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{n_launch} kernel launches; per step: {busy_ms / n_steps:.2f} ms "
+        f"{n_launch} kernel launches; per {per}: {busy_ms / n_steps:.2f} ms "
         f"of device time, {n_launch / n_steps:.0f} launches")
-    for ms, n, name in rows[:8]:
+    # the 8 largest, then the port's own kernels below them
+    for ms, n, name in rows[:8] + [r for r in rows[8:]
+                                   if "(anonymous namespace)::" in r[2]
+                                   and "at::" not in r[2]]:
         log(f"    {ms:9.3f} ms  x{n:<6d} {name[:70]}")
 
 
@@ -646,6 +685,13 @@ def serve_full(torch, cfg, device="cuda"):
         profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
         if dec.active or dec.page_stats()["leaked_pages"]:
             raise AssertionError("profiled request did not finish cleanly")
+        # and one prefill call of the 256-token bucket at batch 4 (the
+        # flash kernel's main-path shape); its wires are not admitted
+        bucket = [E.GenRequest(7 + i, prompt(256), 1) for i in range(4)]
+        pre.run(bucket)
+        sync()
+        profile_chunk(torch, lambda: (pre.run(bucket), sync()), 1,
+                      what="prefill call (4 x 256 tokens)", per="call")
     return launches, params
 
 
@@ -843,9 +889,8 @@ def main() -> int:
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
         f"{time.perf_counter() - t:.1f} s")
-    for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    for name, regs, spill in kernel_resources(build.build_log()):
+        log(f"  {name}: {regs} registers, {spill}")
 
     log("[3/6] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
@@ -854,7 +899,9 @@ def main() -> int:
     # 128 per token
     rq, rd = check_quant(torch, ref, kq, 2 * L * 256 * Hkv, 128,
                          torch.bfloat16, timed=True)
-    check_quant(torch, ref, kq, 4 * Hkv, 128, torch.bfloat16, timed=False)
+    # the decode append: K or V of one layer for 4 slots, 120 launches a step
+    rq_app, _ = check_quant(torch, ref, kq, 4 * Hkv, 128, torch.bfloat16,
+                            timed=True)
     check_quant(torch, ref, kq, 3001, 64, torch.float32, timed=False)
     # the decode step: 4 slots, kv lengths as in the serve phase
     ra = check_attention(torch, ref, pa, L, 4, Hkv, 1, hd, 16, 16,
@@ -870,6 +917,10 @@ def main() -> int:
     # a partial prefix hit: 128-token suffix over a 64-token padded prefix
     check_flash(torch, ref, fa, 4, 128, 64, H, Hkv, hd, torch.bfloat16,
                 plen=[64, 0, 13, 40], timed=False)
+    # a chunked-prefill tick of the gateway's 32-token budget: one prompt,
+    # 32 queries over its first 96 tokens padded to the 128-token bucket
+    rf_tick = check_flash(torch, ref, fa, 1, 32, 128, H, Hkv, hd,
+                          torch.bfloat16, plen=[96], timed=True)
     check_flash(torch, ref, fa, 2, 130, 0, 8, 2, 16, torch.float32,
                 window=17, timed=False)
     check_flash(torch, ref, fa, 2, 16, 32, 8, 2, 16, torch.float32,
@@ -952,6 +1003,14 @@ def main() -> int:
              "src/repro/kernels/decode_attention.py:96", rdec),
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:24", rn_pre)]
+    log(f"  kv_quant at the decode append's {4 * Hkv} x 128: "
+        f"{rq_app['ms']:.4f} ms, plain {rq_app['plain_ms']:.4f} ms, bound "
+        f"{rq_app['bound'][0]:.5f} ms")
+    log(f"  flash_attention at a 32-token chunked-prefill tick (prefix 96 "
+        f"of 128): {rf_tick['ms']:.4f} ms ({rf_tick['eager_ms']:.4f} ms "
+        f"launched eagerly), plain {rf_tick['plain_ms']:.4f} ms, library "
+        f"{rf_tick['library_ms']:.4f} ms (SDPA, suffix mask), bound "
+        f"{rf_tick['bound'][0]:.5f} ms")
     log(f"  rmsnorm at the decode step's 4 x {cfg.d_model}: "
         f"{rn_dec['ms']:.4f} ms ({rn_dec['eager_ms']:.4f} ms launched "
         f"eagerly), plain {rn_dec['plain_ms']:.4f} ms, "

@@ -38,8 +38,8 @@ SIGNATURES = {
     "kv_quant_launch": (_P, _I, _P, _P, _P, _LL, _I, _P),
     "kv_dequant_launch": (_P, _P, _P, _P, _I, _LL, _I, _P),
     "paged_attention_int4_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                    _P),
+                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
     "rmsnorm_launch": (_P, _P, _P, _I, _LL, _I, _F, _P),

@@ -13,33 +13,48 @@
 // rows [P, Sk) the keys aligned with the queries. Query i sees prefix key
 // j iff j < prefix_len[b], and aligned key P + j iff j <= i (causal) and
 // j > i - window (window > 0). With P = 0 this is the TPU kernel's
-// contract.
+// contract. Both bodies walk the same two segments: the prefix tiles below
+// prefix_len[b], then the aligned tiles from the window's left edge to the
+// causal diagonal, so wholly masked tiles are never loaded; masked
+// probabilities are exactly 0, so a row whose first tiles are all masked
+// (the window, a dummy row with prefix_len 0) carries nothing into its sum.
 //
 // Bound on the H100: at the prefill bucket (B=4, S=256, 52 heads, hd 128,
-// bf16) the kernel must move 54.5 MB (q, k, v, out once: 16.3 us at
-// 3.35 TB/s) and do 3.49 GFLOP of causal products (3.5 us on the bf16
-// tensor cores), so its bound is bytes; this first kernel computes in f32
-// FMAs off shared memory, which caps it far lower (3.49 GFLOP at 67
-// TFLOP/s is 52 us), and is meant to be right first.
+// bf16, causal) the kernel must move 54.5 MB (q, k, v, out once: 16.3 us
+// at 3.35 TB/s) and do 3.49 GFLOP of causal products (3.5 us at the bf16
+// tensor cores' 989 TFLOP/s), so its bound is bytes. What kept the first
+// kernel (379 us there on an H100 80GB HBM3 at 700 W, chip_smoke.py) far
+// from it was latency, not arithmetic: every element converted to f32 in
+// shared memory, scalar FMAs off shared memory, and each K/V tile loaded
+// synchronously between two barriers.
 //
-// Design: the TPU ran (bh, q block, k block) as a sequential grid and kept
-// (m, l, acc) in VMEM across the k axis. Here one CTA of 128 threads owns
-// (q tile of 64 rows, q head, batch row) and walks its key tiles (32 keys)
-// in a loop: first the prefix tiles below prefix_len, then the aligned
-// tiles from the window's left edge to the causal diagonal, so wholly
-// masked tiles are never loaded. Q (converted to f32) stays in shared
-// memory; each key tile's K and V are staged there. Thread (ty, tx),
-// ty = tid / 8, tx = tid % 8, owns query rows 4*ty .. 4*ty+3, key columns
-// tx + 8*c of a tile and hd/8 output columns; the 8 threads of a row
-// group are consecutive lanes of one warp, so row max and row sum are
-// three xor-shuffles and the probabilities pass between them through
-// shared memory with only a warp barrier. Rows keep m, l and the
-// (4 x hd/8) accumulator in registers. Shared-memory operands are read
-// as float4 (float2 for hd 16): one load feeds 4 (QK) or 16 (PV) FMAs.
-// Masked probabilities are set to 0 explicitly, so a row whose first
-// tiles are all masked (the window, a dummy row with prefix_len 0)
-// carries nothing into its sum. Later work: bf16 tiles through TMA and
-// wgmma.
+// The dtype picks the body inside the one entry point:
+//
+// * bf16 (the model's prefill): a FlashAttention-2 forward on the tensor
+//   cores. One CTA of 4 warps owns 64 query rows (16 per warp) of one
+//   (batch row, q head); q tiles run heaviest first (the grid's slowest
+//   axis, reversed), so the causal diagonal's long tiles do not straggle.
+//   Q is loaded once, straight into its A fragments, which stay in
+//   registers. K and V tiles of 64 keys, in bf16, go through a 2-stage
+//   ring in shared memory filled by 16-byte cp.async (rows past the
+//   segment's end zero-filled), so the next tile's load overlaps this
+//   tile's math; rows are padded by 16 bytes, which makes every ldmatrix
+//   conflict-free. 70 KB of shared memory at hd 128: 3 CTAs per SM.
+//   S = Q K^T and O += P V are mma.sync.m16n8k16 (bf16 in, f32
+//   accumulate); V's B fragments come from ldmatrix.trans. The online
+//   softmax runs in registers in the log2 domain: a row's max is two quad
+//   shuffles, its sum stays per thread until the end. P is rounded to
+//   bf16 in registers and fed straight back as the A fragment of P V (the
+//   plain version also rounds probabilities to bf16 before P V).
+// * f32 (the reduced float32 model): the first kernel's FMA body,
+//   unchanged, so its rounding (and the reduced model's tokens on the
+//   card) stay as they were. One CTA of 128 threads owns 64 query rows;
+//   Q (f32) stays in shared memory and each 32-key tile's K and V are
+//   staged there. Thread (ty, tx), ty = tid / 8, tx = tid % 8, owns query
+//   rows 4*ty .. 4*ty+3, key columns tx + 8*c of a tile and hd/8 output
+//   columns; row max and row sum are three xor-shuffles among the 8 lanes
+//   of a row group, and the probabilities pass between them through shared
+//   memory with only a warp barrier.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +62,44 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the plain version's mask value
+
+// Operands of one launch, as the entry point receives them.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* prefix_len;
+  void* out;
+  int B, Sq, Sk, H, Hkv, P, causal, window;
+  float sm_scale;
+};
+
+// The key segments of one q tile (rows q0 .. q0+bq-1) in tiles of bk keys:
+// tiles [0, n_pre) walk the padded prefix below plen, the rest the aligned
+// keys [P + lo, P + hi), from the window's left edge to the diagonal.
+struct Segments {
+  int plen, lo, hi, n_pre, n_tiles;
+  __device__ Segments(const int* prefix_len, int P, int Sk, int causal,
+                      int window, int b, int q0, int bq, int bk) {
+    plen = prefix_len ? prefix_len[b] : 0;
+    plen = plen < 0 ? 0 : (plen > P ? P : plen);
+    const int n_al = Sk - P;  // aligned keys
+    hi = causal ? min(n_al, q0 + bq) : n_al;
+    lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    n_pre = (plen + bk - 1) / bk;
+    n_tiles = n_pre + (hi > lo ? (hi - lo + bk - 1) / bk : 0);
+  }
+  // first key row of tile t, and the end of its segment
+  __device__ int k0(int t, int P, int bk) const {
+    return t < n_pre ? t * bk : P + lo + (t - n_pre) * bk;
+  }
+  __device__ int kend(int t, int P) const {
+    return t < n_pre ? plen : P + hi;
+  }
+};
+
+// ---- f32: the first kernel's FMA body ---------------------------------------
+
 constexpr int kBQ = 64;            // query rows per CTA
 constexpr int kBK = 32;            // keys per tile
 constexpr int kThreads = 128;
@@ -54,13 +107,7 @@ constexpr int kRows = kBQ / (kThreads / 8);  // 4 rows per thread
 constexpr int kCols = kBK / 8;               // 4 key columns per thread
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float group8_max(float v) {
 #pragma unroll
@@ -113,7 +160,7 @@ struct Vec<2> {
 };
 
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+__global__ void __launch_bounds__(kThreads) flash_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ prefix_len,
     T* __restrict__ out, int Sq, int Sk, int H, int Hkv, int P, int causal,
@@ -152,20 +199,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int c = 0; c < kOut; ++c) acc[r][c] = 0.0f;
   }
 
-  int plen = prefix_len ? prefix_len[b] : 0;
-  plen = plen < 0 ? 0 : (plen > P ? P : plen);
-  const int n_al = Sk - P;  // aligned keys
-  const int hi = causal ? min(n_al, q0 + kBQ) : n_al;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int n_pre = (plen + kBK - 1) / kBK;
-  const int n_tiles = n_pre + (hi > lo ? (hi - lo + kBK - 1) / kBK : 0);
+  const Segments seg(prefix_len, P, Sk, causal, window, b, q0, kBQ, kBK);
   __syncthreads();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const bool pre = t < n_pre;
+  for (int t = 0; t < seg.n_tiles; ++t) {
+    const bool pre = t < seg.n_pre;
     // key rows [k0, kend) of this segment; tile columns past kend are 0
-    const int k0 = pre ? t * kBK : P + lo + (t - n_pre) * kBK;
-    const int kend = pre ? plen : P + hi;
+    const int k0 = seg.k0(t, P, kBK);
+    const int kend = seg.kend(t, P);
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int c = i / HD, d = i % HD;
       const int j = k0 + c;
@@ -275,43 +316,329 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-template <int HD, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* prefix_len, void* out, int B, int Sq, int Sk,
-                   int H, int Hkv, int P, int causal, int window,
-                   float sm_scale, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<HD, T>;
-  constexpr size_t smem = smem_bytes<HD>();
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+template <int HD>
+struct F32Body {
+  static cudaError_t run(const Args& a, cudaStream_t st) {
+    auto kern = flash_f32_kernel<HD, float>;
+    constexpr size_t smem = smem_bytes<HD>();
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+    kern<<<grid, kThreads, smem, st>>>(
+        (const float*)a.q, (const float*)a.k, (const float*)a.v,
+        a.prefix_len, (float*)a.out, a.Sq, a.Sk, a.H, a.Hkv, a.P, a.causal,
+        a.window, a.sm_scale);
+    return cudaGetLastError();
   }
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)prefix_len, (T*)out,
-      Sq, Sk, H, Hkv, P, causal, window, sm_scale);
-  return cudaGetLastError();
+};
+
+// ---- bf16: FlashAttention-2 forward on the tensor cores ----------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBQ = 64;      // query rows per CTA, 16 per warp
+constexpr int kBK = 64;      // keys per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;   // K/V ring depth
+
+// shared rows of hd bf16 padded by 8 (16 bytes): cp.async destinations stay
+// 16-byte aligned, and the 8 rows an ldmatrix phase reads fall on 8
+// distinct 4-bank groups for every hd in {16, 32, 64, 128}
+template <int HD>
+constexpr int kStride = HD + 8;
+
+template <int HD>
+constexpr size_t smem_bytes() {  // kStages K tiles, then kStages V tiles
+  return sizeof(bf16) * (size_t)(2 * kStages * kBK) * kStride<HD>;
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      const void* prefix_len, void* out, int B, int Sq, int Sk,
-                      int H, int Hkv, int P, int causal, int window,
-                      float sm_scale, cudaStream_t st) {
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [r0, r0 + kBK) of one head of a (rows, row_stride) bf16 matrix into
+// a padded shared tile; rows at or past rend are zero-filled, never read
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
+                                          size_t row_stride, int r0,
+                                          int rend, int tid) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = tid; i < kBK * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = r0 + r < rend;
+    const bf16* g = src + (size_t)(valid ? r0 + r : 0) * row_stride + c * 8;
+    cp_async16(smem_addr(tile + r * kStride<HD> + c * 8), g, valid);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const int* __restrict__ prefix_len,
+                      bf16* __restrict__ out, int Sq, int Sk, int H, int Hkv,
+                      int P, int causal, int window, float scale_log2) {
+  constexpr int S = kStride<HD>;
+  constexpr int KD = HD / 16;   // k steps of Q K^T
+  constexpr int ND = HD / 8;    // 8-wide column blocks of O
+  constexpr int NK = kBK / 8;   // 8-key column blocks of S
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ uint4 smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // kStages tiles
+  bf16* sV = sK + kStages * kBK * S;             // kStages tiles
+
+  const Segments seg(prefix_len, P, Sk, causal, window, b, q0, kBQ, kBK);
+  const size_t kv_stride = (size_t)Hkv * HD;
+  const bf16* kb = k + (size_t)b * Sk * kv_stride + (size_t)hk * HD;
+  const bf16* vb = v + (size_t)b * Sk * kv_stride + (size_t)hk * HD;
+  auto load_kv = [&](int t) {
+    const int st = t % kStages;
+    const int k0 = seg.k0(t, P, kBK), kend = seg.kend(t, P);
+    load_tile<HD>(sK + st * kBK * S, kb, kv_stride, k0, kend, tid);
+    load_tile<HD>(sV + st * kBK * S, vb, kv_stride, k0, kend, tid);
+  };
+
+  // group s: tile s (groups are committed even when empty, so "all but
+  // the newest kStages-1 groups" is tile t)
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    if (t < seg.n_tiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  // thread (lane) holds rows r_lo = lane/4 and r_lo + 8 of its warp's 16,
+  // and columns 2*(lane%4) + {0, 1} of every 8-wide block. Q's A fragments
+  // come straight from global memory (rows past Sq are 0): read once, they
+  // need no shared tile, which leaves room for 3 CTAs per SM at hd 128
+  const int r_lo = q0 + warp * 16 + (lane >> 2);
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r_lo + (i & 1) * 8;
+      const int col = kk * 16 + (i >> 1) * 8 + (lane & 3) * 2;
+      qf[kk][i] = row < Sq ? *reinterpret_cast<const uint32_t*>(
+                                 q + (((size_t)b * Sq + row) * H + h) * HD +
+                                 col)
+                           : 0u;
+    }
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int t = 0; t < seg.n_tiles; ++t) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const bf16* cK = sK + (t % kStages) * kBK * S;
+    const bf16* cV = sV + (t % kStages) * kBK * S;
+
+    // S = Q K^T: B fragments of two 8-key blocks per ldmatrix
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, smem_addr(cK + (np * 16 + (lane & 7) +
+                                       (lane >> 4) * 8) * S +
+                                 kk * 16 + ((lane >> 3) & 1) * 8));
+        mma(s[2 * np], qf[kk], r[0], r[1]);
+        mma(s[2 * np + 1], qf[kk], r[2], r[3]);
+      }
+    }
+
+    // scale into the log2 domain and mask; a tile every row of this CTA
+    // sees in full skips the per-element test
+    const bool pre = t < seg.n_pre;
+    const int k0 = seg.k0(t, P, kBK), kend = seg.kend(t, P);
+    const bool full =
+        k0 + kBK <= kend &&
+        (pre || ((!causal || k0 + kBK - 1 - P <= q0) &&
+                 (window <= 0 || k0 - P > q0 + kBQ - 1 - window)));
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (!full) {
+          const int i = r_lo + (e >> 1) * 8;  // query row
+          const int j = k0 + n * 8 + (lane & 3) * 2 + (e & 1);  // key row
+          bool vis = j < kend;
+          if (!pre) {
+            const int ja = j - P;
+            vis = vis && (!causal || ja <= i) &&
+                  (window <= 0 || ja > i - window);
+          }
+          x = vis ? x : kNegInf;
+        }
+        s[n][e] = x;
+      }
+
+    // online softmax, rows r_lo (e = 0, 1) and r_lo + 8 (e = 2, 3)
+    float corr[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = m[hf];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * hf], s[n][2 * hf + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[hf] = exp2f(m[hf] - mx);
+      m[hf] = mx;
+      l[hf] *= corr[hf];
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const float p =
+            s[n][e] == kNegInf ? 0.0f : exp2f(s[n][e] - m[hf]);
+        l[hf] += p;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P V: P (bf16) is the A fragment straight from S's accumulator
+    // layout; V's B fragments of two 8-wide column blocks per ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem_addr(cV + (kk * 16 + (lane & 7) +
+                                             ((lane >> 3) & 1) * 8) * S +
+                                       np * 16 + (lane >> 4) * 8));
+        mma(o[2 * np], a, r[0], r[1]);
+        mma(o[2 * np + 1], a, r[2], r[3]);
+      }
+    }
+
+    __syncthreads();  // every warp is done with stage t % kStages
+    if (t + kStages < seg.n_tiles) load_kv(t + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float sum = l[hf];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.0f / fmaxf(sum, 1e-30f);
+    const int i = r_lo + hf * 8;
+    if (i >= Sq) continue;
+    bf16* orow = out + (((size_t)b * Sq + i) * H + h) * HD + (lane & 3) * 2;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack_bf16(o[n][2 * hf] * inv, o[n][2 * hf + 1] * inv);
+  }
+}
+
+}  // namespace tc
+
+template <int HD>
+struct Bf16Body {
+  static cudaError_t run(const Args& a, cudaStream_t st) {
+    auto kern = tc::flash_bf16_kernel<HD>;
+    constexpr size_t smem = tc::smem_bytes<HD>();
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    // q tiles on the slowest axis, walked in reverse by the kernel
+    dim3 grid(a.H, a.B, (a.Sq + tc::kBQ - 1) / tc::kBQ);
+    kern<<<grid, tc::kThreads, smem, st>>>(
+        (const tc::bf16*)a.q, (const tc::bf16*)a.k, (const tc::bf16*)a.v,
+        a.prefix_len, (tc::bf16*)a.out, a.Sq, a.Sk, a.H, a.Hkv, a.P,
+        a.causal, a.window, a.sm_scale * 1.4426950408889634f);
+    return cudaGetLastError();
+  }
+};
+
+template <template <int> class Body>
+cudaError_t launch_hd(int hd, const Args& a, cudaStream_t st) {
   switch (hd) {
     case 16:
-      return launch<16, T>(q, k, v, prefix_len, out, B, Sq, Sk, H, Hkv, P,
-                           causal, window, sm_scale, st);
+      return Body<16>::run(a, st);
     case 32:
-      return launch<32, T>(q, k, v, prefix_len, out, B, Sq, Sk, H, Hkv, P,
-                           causal, window, sm_scale, st);
+      return Body<32>::run(a, st);
     case 64:
-      return launch<64, T>(q, k, v, prefix_len, out, B, Sq, Sk, H, Hkv, P,
-                           causal, window, sm_scale, st);
+      return Body<64>::run(a, st);
     case 128:
-      return launch<128, T>(q, k, v, prefix_len, out, B, Sq, Sk, H, Hkv, P,
-                            causal, window, sm_scale, st);
+      return Body<128>::run(a, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -328,12 +655,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaGetLastError();
   if (Hkv <= 0 || H % Hkv != 0 || P < 0 || P > Sk)
     return (int)cudaErrorInvalidValue;
+  const Args a{q,  k,  v,   (const int*)prefix_len, out, B, Sq, Sk, H, Hkv,
+               P, causal, window, sm_scale};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e =
-      is_bf16 ? launch_hd<__nv_bfloat16>(hd, q, k, v, prefix_len, out, B, Sq,
-                                         Sk, H, Hkv, P, causal, window,
-                                         sm_scale, st)
-              : launch_hd<float>(hd, q, k, v, prefix_len, out, B, Sq, Sk, H,
-                                 Hkv, P, causal, window, sm_scale, st);
-  return (int)e;
+  return (int)(is_bf16 ? launch_hd<Bf16Body>(hd, a, st)
+                       : launch_hd<F32Body>(hd, a, st));
 }

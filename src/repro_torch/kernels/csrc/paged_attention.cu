@@ -1,34 +1,50 @@
 // Paged flash-decode attention over int4-resident K/V pages, for Hopper
-// (sm_90a).
+// (sm_90a), split across the sequence (flash-decoding).
 //
 // Replaces the int4 body of src/repro/kernels/paged_attention.py
 // (paged_decode_attention -> _kernel_int4): one query token per sequence,
-// K/V pages dequantized inside the loop, f32 online softmax, pages at or
-// past kv_len skipped, table entry 0 = the trash page.
+// K/V pages dequantized inside the loop, f32 online softmax with masked
+// scores -1e30 and out = acc / max(l, 1e-30) in q's type (kv_len = 0 gives
+// 0), pages at or past min(ceil(kv_len/ps), W) never read, table entries
+// clamped at 0 (the trash page).
 //
-// Shapes: q (B, Hkv, gq, hd) bf16 or f32; kp/vp (P, ps*ppr, g/2) u8;
-// ks/kz/vs/vz (P, ps*ppr, 1) f32; page_table (B, W) i32; kv_len (B,) i32;
-// out (B, Hkv, gq, hd) in q's type. Element (t, h, d) of a page sits at the
-// flat index f = h*hd + d of token t: row t*ppr + f/g, byte (f%g)/2,
-// nibble (f%g)&1. The group g may span several heads (reduced configs) or
-// equal hd (LLaMA-30B: g = hd = 128), so nothing here assumes one group per
-// head.
+// Shapes: q (B, Hkv, gq, hd) bf16 or f32, hd in {16, 32, 64, 128}; kp/vp
+// (P, ps*ppr, g/2) u8; ks/kz/vs/vz (P, ps*ppr, 1) f32; page_table (B, W)
+// i32; kv_len (B,) i32; out (B, Hkv, gq, hd) in q's type. Element (t, h, d)
+// of a page sits at the flat index f = h*hd + d of token t: row t*ppr +
+// f/g, byte (f%g)/2, nibble (f%g)&1. The group g may span several heads
+// (reduced configs: g = 64 over heads of 32) or equal hd (LLaMA-30B: g =
+// hd = 128); a lane's chunk of EPC elements never crosses a row, because
+// EPC divides both hd and g.
 //
 // Bound on the H100: memory. Per cached token and layer the kernel must
-// read 2*ppr*(g/2 + 8) bytes of pages (plus q and out once); the arithmetic
-// is ~4*gq*hd FLOP per token and head, far below the compute roof.
+// read 2*ppr*(g/2 + 8) bytes of pages (plus q and out once): at the main
+// path's decode step (4 slots, kv_len 232/123/56/17, 52 KV heads, hd 128,
+// 16-token pages) 428 tokens x 14,976 B = 3.2 MB, 0.96 us at 3.35 TB/s; the
+// arithmetic, ~4*gq*hd FLOP per token and head, is far below the compute
+// roof. The first kernel (81 us there on an H100 80GB HBM3 at 700 W,
+// chip_smoke.py) ran one CTA per (slot, head) that walked its pages
+// serially, a dependent page-table load and four barriers per page, so
+// the longest slot's CTAs set the time while most SMs idled.
 //
-// Design: one thread block per (sequence, KV head), so the grid is B*Hkv
-// blocks (208 at LLaMA-30B width and batch 4) and each block walks its own
-// page list with a loop, where the TPU walked pages as a sequential grid
-// axis. Per page, the block dequantizes only its head's hd columns of the
-// ps tokens into shared memory (each thread one packed byte -> two values,
-// neighbouring threads on neighbouring bytes), warps compute the gq*ps
-// scores with shuffle reductions, one thread per query row updates the
-// running max and sum, and the f32 accumulator (gq*hd) stays in shared
-// memory. Pages past ceil(kv_len/ps) are never read. A simple first kernel:
-// no cp.async/TMA prefetch of the next page and no split over the sequence
-// yet, which leaves the card idle at small batch; that is later work.
+// Design: the grid is (split, slot x KV head, query-row block). A split is
+// a fixed run of pages (kernels/paged_attention.py: split_plan, a function
+// of W and page_size only, so nothing depends on kv_len on the host and
+// the launch is capturable in a CUDA graph); CTAs whose split starts at or
+// past kv_len exit at once. A CTA loads its split's page ids into shared
+// memory up front, so no data load waits behind a page-table load. Its 4
+// warps dequantize in registers with no shared staging: a token's head is
+// LPT lanes (each EPC elements: 16 packed bytes in one vector load when
+// gq = 1), a warp covers 32/LPT tokens per step, and every lane issues kU
+// steps' loads (packed K and V, scale and zero) before using any of them.
+// Dequantization is the wire's own arithmetic (__fmul_rn then __fadd_rn,
+// no FMA). Each token group keeps its own running (max, sum, accumulator);
+// the CTA merges them through shared memory. A CTA whose slot has one
+// active split writes `out` directly; otherwise it writes its partial
+// state (m, l, acc) in f32 to scratch, and the last CTA of the (slot,
+// head, row block) to finish, found with __threadfence and an atomic
+// counter that it resets to 0 itself, merges the partial states and writes
+// `out`. One launch per call.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +52,10 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the plain version's mask value
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kU = 2;              // token steps whose loads are in flight
+constexpr int kMaxSplitPages = 64; // >= pages per split (split_plan)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -47,143 +66,344 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_attn_int4_kernel(
-    const T* __restrict__ q, const uint8_t* __restrict__ kp,
+// Lane geometry for head dim HD and GQ query rows per CTA.
+template <int HD, int GQ>
+struct Geo {
+  // elements per lane: 32 (16 packed bytes) for one query row; 8 when a
+  // lane keeps GQ rows of q and accumulator in registers
+  static constexpr int EPC = GQ == 1 ? (HD < 32 ? HD : 32) : 8;
+  static constexpr int LPT = HD / EPC;        // lanes per token
+  static constexpr int TPW = 32 / LPT;        // tokens per warp step
+  static constexpr int G = kWarps * TPW;      // token groups (and tokens)
+                                              // per step of a CTA
+};
+
+// EPC/2 packed bytes at p (aligned to that size)
+template <int EPC>
+struct Packed {
+  static constexpr int N = EPC / 8 > 0 ? EPC / 8 : 1;  // 32-bit words
+  unsigned w[N];
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    if constexpr (EPC == 32) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else if constexpr (EPC == 16) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      static_assert(EPC == 8, "EPC is 8, 16 or 32");
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < N; ++i) w[i] = 0;
+  }
+  // element e: byte e/2, low nibble for even e (kv_layout.py)
+  __device__ __forceinline__ float deq(int e, float scale, float zp) const {
+    const unsigned nib = (w[e >> 3] >> (4 * (e & 7))) & 0xFu;
+    return __fadd_rn(__fmul_rn((float)nib, scale), zp);
+  }
+};
+
+template <typename Tq, int HD, int GQ>
+__global__ void __launch_bounds__(kThreads) paged_int4_kernel(
+    const Tq* __restrict__ q, const uint8_t* __restrict__ kp,
     const float* __restrict__ ks, const float* __restrict__ kz,
     const uint8_t* __restrict__ vp, const float* __restrict__ vs,
     const float* __restrict__ vz, const int* __restrict__ page_table,
-    const int* __restrict__ kv_len, T* __restrict__ out, int Hkv, int gq,
-    int hd, int W, int R, int g, int ps, float sm_scale) {
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = kThreads / 32;
-  const int ppr = R / ps;
-  const int g2 = g / 2;
+    const int* __restrict__ kv_len, Tq* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ counters, int Hkv, int gq,
+    int W, int R, int g, int ps, int pps, float sm_scale) {
+  using Gm = Geo<HD, GQ>;
+  constexpr int EPC = Gm::EPC, LPT = Gm::LPT, TPW = Gm::TPW, G = Gm::G;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int bh = blockIdx.y, b = bh / Hkv, h = bh % Hkv;
+  const int rb = blockIdx.z, n_rb = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = lane % LPT;                   // chunk of the head
+  const int grp = warp * TPW + lane / LPT;    // token group
 
-  extern __shared__ float smem[];
-  float* sq = smem;                  // (gq, hd) query rows
-  float* sacc = sq + gq * hd;        // (gq, hd) running numerators
-  float* sk = sacc + gq * hd;        // (ps, hd) this page's K for head h
-  float* sv = sk + ps * hd;          // (ps, hd) ... and V
-  float* sp = sv + ps * hd;          // (gq, ps) scores, then probabilities
-  float* sm = sp + gq * ps;          // (gq) running max
-  float* sl = sm + gq;               // (gq) running sum
-  float* sc = sl + gq;               // (gq) rescale factor of this page
+  int len = kv_len[b];
+  len = len < 0 ? 0 : (len > W * ps ? W * ps : len);
+  const int split_len = pps * ps;
+  const int n_active = (len + split_len - 1) / split_len;
+  // split 0 also serves kv_len = 0 (it writes zeros)
+  if (split >= (n_active > 0 ? n_active : 1)) return;
+  const int t0 = split * split_len;
+  const int t_end = min(len, t0 + split_len);
 
-  const size_t qoff = ((size_t)b * Hkv + h) * gq * hd;
-  for (int i = tid; i < gq * hd; i += kThreads) {
-    sq[i] = to_f(q[qoff + i]);
-    sacc[i] = 0.0f;
+  __shared__ int s_page[kMaxSplitPages];
+  __shared__ float s_m[G][GQ], s_l[G][GQ];
+  // accumulators by (row, element, thread): a warp's stores hit 32
+  // consecutive words, and the column sums read them with a stride of
+  // kThreads + 1 words, so neither side has bank conflicts
+  __shared__ float s_acc[GQ * EPC][kThreads + 1];
+  __shared__ float s_M[GQ], s_L[GQ];
+  __shared__ int s_last;
+
+  for (int i = tid; i < pps; i += kThreads) {
+    const int pi = split * pps + i;
+    int page = pi < W ? page_table[(size_t)b * W + pi] : 0;
+    s_page[i] = page < 0 ? 0 : page;
   }
-  for (int j = tid; j < gq; j += kThreads) {
-    sm[j] = kNegInf;
-    sl[j] = 0.0f;
+  float qf[GQ][EPC];
+#pragma unroll
+  for (int j = 0; j < GQ; ++j) {
+    const int row = rb * GQ + j;
+    const Tq* qr = q + ((size_t)bh * gq + (row < gq ? row : 0)) * HD + c * EPC;
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) qf[j][e] = row < gq ? to_f(qr[e]) : 0.0f;
   }
-  const int len = kv_len[b];
-  int n_pages = (len + ps - 1) / ps;
-  if (n_pages > W) n_pages = W;
   __syncthreads();
 
-  for (int pi = 0; pi < n_pages; ++pi) {
-    int page = page_table[(size_t)b * W + pi];
-    if (page < 0) page = 0;
-    const size_t prow = (size_t)page * R;
-    // dequantize head h of the page's ps tokens: one packed byte each
-    for (int i = tid; i < ps * (hd / 2); i += kThreads) {
-      const int t = i / (hd / 2);
-      const int d = 2 * (i % (hd / 2));
-      const int f = h * hd + d;
-      const size_t row = prow + (size_t)t * ppr + f / g;
-      const size_t byte = row * g2 + (f % g) / 2;
-      const unsigned kb = kp[byte], vb = vp[byte];
-      const float ksc = ks[row], kzp = kz[row];
-      const float vsc = vs[row], vzp = vz[row];
-      sk[t * hd + d] = __fadd_rn(__fmul_rn((float)(kb & 0xFu), ksc), kzp);
-      sk[t * hd + d + 1] = __fadd_rn(__fmul_rn((float)(kb >> 4), ksc), kzp);
-      sv[t * hd + d] = __fadd_rn(__fmul_rn((float)(vb & 0xFu), vsc), vzp);
-      sv[t * hd + d + 1] = __fadd_rn(__fmul_rn((float)(vb >> 4), vsc), vzp);
-    }
-    __syncthreads();
-    // scores: one warp per (query row, token) pair
-    for (int pair = warp; pair < gq * ps; pair += n_warps) {
-      const int j = pair / ps, t = pair % ps;
-      float acc = 0.0f;
-      for (int d = lane; d < hd; d += 32)
-        acc += sq[j * hd + d] * sk[t * hd + d];
+  float m[GQ], l[GQ], acc[GQ][EPC];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0)
-        sp[pair] = (pi * ps + t < len) ? acc * sm_scale : kNegInf;
-    }
-    __syncthreads();
-    // online softmax bookkeeping: one thread per query row
-    for (int j = tid; j < gq; j += kThreads) {
-      const float m_prev = sm[j];
-      float m_new = m_prev;
-      for (int t = 0; t < ps; ++t) m_new = fmaxf(m_new, sp[j * ps + t]);
-      float psum = 0.0f;
-      for (int t = 0; t < ps; ++t) {
-        const float p = expf(sp[j * ps + t] - m_new);
-        sp[j * ps + t] = p;
-        psum += p;
+  for (int j = 0; j < GQ; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) acc[j][e] = 0.0f;
+  }
+  const int ppr = R / ps;
+  const int f = h * HD + c * EPC;             // flat index of the chunk
+  const int rrow = f / g;                     // its row within a token
+  const size_t boff = (size_t)((f % g) / 2);  // and byte within the row
+  const size_t g2 = (size_t)(g / 2);
+
+  // the trip count is the same for every thread (tokens past t_end are
+  // masked, not branched around), so the shuffles never see a diverged warp
+  for (int base = t0; base < t_end; base += kU * G) {
+    Packed<EPC> kb[kU], vb[kU];
+    float ksc[kU], kzp[kU], vsc[kU], vzp[kU];
+    bool ok[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int t = base + u * G + grp;
+      ok[u] = t < t_end;
+      if (ok[u]) {
+        const int tl = t - t0;
+        const size_t row = (size_t)s_page[tl / ps] * R + (tl % ps) * ppr +
+                           rrow;
+        kb[u].load(kp + row * g2 + boff);
+        vb[u].load(vp + row * g2 + boff);
+        ksc[u] = ks[row], kzp[u] = kz[row];
+        vsc[u] = vs[row], vzp[u] = vz[row];
+      } else {
+        kb[u].zero(), vb[u].zero();
+        ksc[u] = kzp[u] = vsc[u] = vzp[u] = 0.0f;
       }
-      const float corr = expf(m_prev - m_new);
-      sl[j] = sl[j] * corr + psum;
-      sm[j] = m_new;
-      sc[j] = corr;
     }
-    __syncthreads();
-    for (int i = tid; i < gq * hd; i += kThreads) {
-      const int j = i / hd, d = i % hd;
-      float a = sacc[i] * sc[j];
-      for (int t = 0; t < ps; ++t) a += sp[j * ps + t] * sv[t * hd + d];
-      sacc[i] = a;
+    float s[kU][GQ];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float kf[EPC];
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) kf[e] = kb[u].deq(e, ksc[u], kzp[u]);
+#pragma unroll
+      for (int j = 0; j < GQ; ++j) {
+        float d = 0.0f;
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) d += qf[j][e] * kf[e];
+#pragma unroll
+        for (int off = LPT / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        s[u][j] = ok[u] ? d * sm_scale : kNegInf;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < GQ; ++j) {
+      float m_new = m[j];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) m_new = fmaxf(m_new, s[u][j]);
+      const float corr = expf(m[j] - m_new);
+      l[j] *= corr;
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) acc[j][e] *= corr;
+      m[j] = m_new;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float vf[EPC];
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) vf[e] = vb[u].deq(e, vsc[u], vzp[u]);
+#pragma unroll
+      for (int j = 0; j < GQ; ++j) {
+        const float p = ok[u] ? expf(s[u][j] - m[j]) : 0.0f;
+        l[j] += p;
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) acc[j][e] += p * vf[e];
+      }
+    }
   }
-  for (int i = tid; i < gq * hd; i += kThreads) {
-    const int j = i / hd;
-    from_f(&out[qoff + i], sacc[i] / fmaxf(sl[j], 1e-30f));
+
+  // merge the token groups: warp j finds row j's max and each group's
+  // weight, then one thread per (row, column) sums the weighted columns
+  if (c == 0) {
+#pragma unroll
+    for (int j = 0; j < GQ; ++j) s_m[grp][j] = m[j], s_l[grp][j] = l[j];
   }
+#pragma unroll
+  for (int j = 0; j < GQ; ++j)
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) s_acc[j * EPC + e][tid] = acc[j][e];
+  __syncthreads();
+  if (warp < GQ) {
+    const int j = warp;
+    float mx = kNegInf;
+    for (int i = lane; i < G; i += 32) mx = fmaxf(mx, s_m[i][j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.0f;
+    for (int i = lane; i < G; i += 32) {
+      const float w = expf(s_m[i][j] - mx);
+      s_m[i][j] = w;  // the group's weight from here on
+      sum += s_l[i][j] * w;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) s_M[j] = mx, s_L[j] = sum;
+  }
+  __syncthreads();
+
+  // row j's weighted column d = c*EPC + e: group gi's part is at thread
+  // gi*LPT + c
+  auto column = [&](int j, int d) {
+    const float* a = s_acc[j * EPC + d % EPC] + d / EPC;
+    float o = 0.0f;
+    for (int gi = 0; gi < G; ++gi) o += a[gi * LPT] * s_m[gi][j];
+    return o;
+  };
+  const size_t prow0 = (size_t)bh * n_rb * GQ + rb * GQ;  // partial rows
+  const int stride = HD + 2;                              // (m, l, acc)
+  if (n_active <= 1) {
+    for (int i = tid; i < GQ * HD; i += kThreads) {
+      const int j = i / HD, d = i % HD, row = rb * GQ + j;
+      if (row >= gq) continue;
+      from_f(&out[((size_t)bh * gq + row) * HD + d],
+             column(j, d) / fmaxf(s_L[j], 1e-30f));
+    }
+    return;
+  }
+  for (int i = tid; i < GQ * HD; i += kThreads) {
+    const int j = i / HD, d = i % HD;
+    const float o = column(j, d);
+    float* pr = part + ((prow0 + j) * n_split + split) * stride;
+    pr[2 + d] = o;
+    if (d == 0) pr[0] = s_M[j], pr[1] = s_L[j];
+  }
+  __threadfence();  // partial state visible before the count
+  __syncthreads();
+  int* counter = counters + (size_t)bh * n_rb + rb;
+  if (tid == 0) s_last = atomicAdd(counter, 1) == n_active - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (tid == 0) *counter = 0;  // ready for the next launch
+  for (int i = tid; i < GQ * HD; i += kThreads) {
+    const int j = i / HD, d = i % HD, row = rb * GQ + j;
+    if (row >= gq) continue;
+    const float* pr = part + (prow0 + j) * n_split * stride;
+    // one pass over the splits, rescaling as the max grows: the loads of
+    // several splits are in flight together (L2, past the L1)
+    float mx = kNegInf, sum = 0.0f, o = 0.0f;
+#pragma unroll 4
+    for (int sp = 0; sp < n_active; ++sp) {
+      const float m_s = __ldcg(pr + sp * stride);
+      const float l_s = __ldcg(pr + sp * stride + 1);
+      const float o_s = __ldcg(pr + sp * stride + 2 + d);
+      const float m_new = fmaxf(mx, m_s);
+      const float a = expf(mx - m_new), w = expf(m_s - m_new);
+      sum = sum * a + l_s * w;
+      o = o * a + o_s * w;
+      mx = m_new;
+    }
+    from_f(&out[((size_t)bh * gq + row) * HD + d], o / fmaxf(sum, 1e-30f));
+  }
+}
+
+template <typename Tq, int HD, int GQ>
+cudaError_t launch(const void* q, const void* kp, const void* ks,
+                   const void* kz, const void* vp, const void* vs,
+                   const void* vz, const void* page_table, const void* kv_len,
+                   void* out, void* part, void* counters, int B, int Hkv,
+                   int gq, int W, int R, int g, int ps, int pps, int n_split,
+                   float sm_scale, cudaStream_t st) {
+  constexpr int EPC = Geo<HD, GQ>::EPC;
+  // a lane's chunk must stay inside one group row and be a whole vector
+  if (g % EPC != 0 || ((uintptr_t)kp | (uintptr_t)vp) % (EPC / 2) != 0)
+    return cudaErrorInvalidValue;
+  const dim3 grid(n_split, B * Hkv, (gq + GQ - 1) / GQ);
+  paged_int4_kernel<Tq, HD, GQ><<<grid, kThreads, 0, st>>>(
+      (const Tq*)q, (const uint8_t*)kp, (const float*)ks, (const float*)kz,
+      (const uint8_t*)vp, (const float*)vs, (const float*)vz,
+      (const int*)page_table, (const int*)kv_len, (Tq*)out, (float*)part,
+      (int*)counters, Hkv, gq, W, R, g, ps, pps, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename Tq, int GQ>
+cudaError_t launch_hd(int hd, const void* q, const void* kp, const void* ks,
+                      const void* kz, const void* vp, const void* vs,
+                      const void* vz, const void* page_table,
+                      const void* kv_len, void* out, void* part,
+                      void* counters, int B, int Hkv, int gq, int W, int R,
+                      int g, int ps, int pps, int n_split, float sm_scale,
+                      cudaStream_t st) {
+#define PAGED_INT4_HD(HD)                                                   \
+  case HD:                                                                  \
+    return launch<Tq, HD, GQ>(q, kp, ks, kz, vp, vs, vz, page_table, kv_len, \
+                              out, part, counters, B, Hkv, gq, W, R, g, ps, \
+                              pps, n_split, sm_scale, st);
+  switch (hd) {
+    PAGED_INT4_HD(16)
+    PAGED_INT4_HD(32)
+    PAGED_INT4_HD(64)
+    PAGED_INT4_HD(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PAGED_INT4_HD
 }
 
 }  // namespace
 
+// rows: query rows per CTA, 1 or 4 (paged_attention.py: rows_per_cta);
+// pps/n_split: the split plan; part: (B*Hkv*ceil(gq/rows)*rows, n_split,
+// hd + 2) f32 scratch; counters: B*Hkv*ceil(gq/rows) i32, all 0 between
+// launches (each launch leaves them at 0).
 extern "C" int paged_attention_int4_launch(
     const void* q, int q_is_bf16, const void* kp, const void* ks,
     const void* kz, const void* vp, const void* vs, const void* vz,
-    const void* page_table, const void* kv_len, void* out, int B, int Hkv,
-    int gq, int hd, int W, int R, int g, int ps, float sm_scale,
-    void* stream) {
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)gq * hd + 2 * (size_t)ps * hd +
-                       (size_t)gq * ps + 3 * (size_t)gq);
+    const void* page_table, const void* kv_len, void* out, void* part,
+    void* counters, int B, int Hkv, int gq, int hd, int W, int R, int g,
+    int ps, int pps, int n_split, int rows, float sm_scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || gq <= 0) return (int)cudaGetLastError();
+  if (ps <= 0 || R % ps != 0 || W <= 0 || pps <= 0 ||
+      pps > kMaxSplitPages || n_split != (W + pps - 1) / pps ||
+      (rows != 1 && rows != 4))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (B > 0 && Hkv > 0) {
-    if (q_is_bf16) {
-      auto k = paged_attn_int4_kernel<__nv_bfloat16>;
-      if (smem > 48 * 1024)
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-      k<<<B * Hkv, kThreads, smem, st>>>(
-          (const __nv_bfloat16*)q, (const uint8_t*)kp, (const float*)ks,
-          (const float*)kz, (const uint8_t*)vp, (const float*)vs,
-          (const float*)vz, (const int*)page_table, (const int*)kv_len,
-          (__nv_bfloat16*)out, Hkv, gq, hd, W, R, g, ps, sm_scale);
-    } else {
-      auto k = paged_attn_int4_kernel<float>;
-      if (smem > 48 * 1024)
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-      k<<<B * Hkv, kThreads, smem, st>>>(
-          (const float*)q, (const uint8_t*)kp, (const float*)ks,
-          (const float*)kz, (const uint8_t*)vp, (const float*)vs,
-          (const float*)vz, (const int*)page_table, (const int*)kv_len,
-          (float*)out, Hkv, gq, hd, W, R, g, ps, sm_scale);
-    }
-  }
-  return (int)cudaGetLastError();
+  cudaError_t e;
+  if (rows == 1)
+    e = q_is_bf16 ? launch_hd<__nv_bfloat16, 1>(
+                        hd, q, kp, ks, kz, vp, vs, vz, page_table, kv_len,
+                        out, part, counters, B, Hkv, gq, W, R, g, ps, pps,
+                        n_split, sm_scale, st)
+                  : launch_hd<float, 1>(hd, q, kp, ks, kz, vp, vs, vz,
+                                        page_table, kv_len, out, part,
+                                        counters, B, Hkv, gq, W, R, g, ps,
+                                        pps, n_split, sm_scale, st);
+  else
+    e = q_is_bf16 ? launch_hd<__nv_bfloat16, 4>(
+                        hd, q, kp, ks, kz, vp, vs, vz, page_table, kv_len,
+                        out, part, counters, B, Hkv, gq, W, R, g, ps, pps,
+                        n_split, sm_scale, st)
+                  : launch_hd<float, 4>(hd, q, kp, ks, kz, vp, vs, vz,
+                                        page_table, kv_len, out, part,
+                                        counters, B, Hkv, gq, W, R, g, ps,
+                                        pps, n_split, sm_scale, st);
+  return (int)e;
 }

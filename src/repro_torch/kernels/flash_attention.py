@@ -4,7 +4,9 @@
 CUDA tensors only (``kernels/ops.py`` sends CPU tensors to
 ``ref.flash_attention_ref``); the launch count is
 ``flash_attention.launches``. q/k/v are read in the model's
-``(B, S, H, hd)`` layout, so no transposed copy is made.
+``(B, S, H, hd)`` layout, so no transposed copy is made. The dtype picks
+the kernel's body: bf16 runs on the tensor cores (16-byte asynchronous
+copies, so q/k/v must be 16-byte aligned), f32 on FMAs.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):
           and k.dim() == 4 and tuple(k.shape[::3]) == (B, hd)
           and tuple(v.shape) == tuple(k.shape)
           and Hkv > 0 and H % Hkv == 0 and hd in HEAD_DIMS
+          and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
           and window >= 0
           and (prefix_len is None
                or (prefix_len.dtype == torch.int32
@@ -46,7 +49,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):
             f"k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} {v.dtype}, "
             f"causal={causal} window={window}, prefix_len "
             f"{None if prefix_len is None else tuple(prefix_len.shape)}; "
-            f"head_dim must be one of {HEAD_DIMS}")
+            f"head_dim must be one of {HEAD_DIMS}, q/k/v 16-byte aligned")
     out = torch.empty_like(q)
     status = build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -2,7 +2,8 @@
 residency of ``repro/kernels/paged_attention.py``:
 
 * int4 pages (``_kernel_int4``): ``csrc/paged_attention.cu``, dequantization
-  fused into the loop;
+  fused into the loop, the sequence split across CTAs (flash-decoding) by
+  :func:`split_plan`;
 * bf16 pages (``_kernel_bf16``): the bf16 decode body of
   ``csrc/decode_attention.cu``, the dense decode kernel with key t read
   from row ``t % page_size`` of page ``page_table[b, t // page_size]``.
@@ -22,13 +23,61 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import HEAD_DIMS
 from repro_torch.kernels.kv_quant import _require_cuda
 
+SPLIT_TOKENS = 64     # keys a split covers (a whole number of pages)
+
+
+def split_plan(W: int, page_size: int):
+    """``(pages_per_split, n_split)`` for a page table of width ``W``: split
+    s covers pages ``[s * pages_per_split, min((s + 1) * pages_per_split,
+    W))``. A function of host shapes only, never of ``kv_len``: the decode
+    chunk runs under ``set_sync_debug_mode("error")`` and the launch must
+    stay capturable in a CUDA graph; the kernel's CTAs whose split starts
+    at or past ``kv_len`` exit at once."""
+    pages = max(1, SPLIT_TOKENS // page_size)
+    return pages, -(-W // pages)
+
+
+def rows_per_cta(gq: int) -> int:
+    """Query rows a CTA keeps in registers: 1, or 4 under GQA (a block of
+    4 rows, the last one padded)."""
+    return 1 if gq == 1 else 4
+
+
+def launch_shape(B: int, Hkv: int, gq: int, hd: int, W: int,
+                 page_size: int):
+    """The int4 kernel's grid ``(n_split, B * Hkv, row blocks)``, its f32
+    scratch elements (one ``(m, l, acc[hd])`` per row and split) and its
+    counters (one per slot, head and row block), from host shapes."""
+    _, n_split = split_plan(W, page_size)
+    rows = rows_per_cta(gq)
+    blocks = -(-gq // rows)
+    return ((n_split, B * Hkv, blocks),
+            B * Hkv * blocks * rows * n_split * (hd + 2), B * Hkv * blocks)
+
+
+_COUNTERS = {}        # device index -> [int32 zeros], newest last
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The merge counters of ``device``: zeroed once, reset to 0 by the
+    kernel's last CTA in every launch, so no launch pays a memset. Launches
+    on one device run in stream order and must not overlap. A buffer that
+    grows keeps its predecessor alive: a captured CUDA graph may still
+    point at it."""
+    bufs = _COUNTERS.setdefault(device.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros((max(n, 1 << 14),), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
 
 def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
                                 page_size, sm_scale=None):
-    """q: (B, Hkv, gq, hd) bf16/f32; ``k_pages``/``v_pages`` the int4
-    triples ``(packed (P, page_size*ppr, g//2) u8, scale (P, ..., 1) f32,
-    zero)``; page_table (B, W) int32 (0 = trash page); kv_len (B,) int32.
-    Returns (B, Hkv, gq, hd) in ``q.dtype``."""
+    """q: (B, Hkv, gq, hd) bf16/f32, hd in ``HEAD_DIMS``;
+    ``k_pages``/``v_pages`` the int4 triples ``(packed (P, page_size*ppr,
+    g//2) u8, scale (P, ..., 1) f32, zero)``, packed pages 16-byte aligned;
+    page_table (B, W) int32 (0 = trash page); kv_len (B,) int32. Returns
+    (B, Hkv, gq, hd) in ``q.dtype``."""
     kp, ks, kz = k_pages
     vp, vs, vz = v_pages
     _require_cuda("paged_decode_attention", q=q, kp=kp, ks=ks, kz=kz, vp=vp,
@@ -45,7 +94,9 @@ def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
           and page_table.dtype == kv_len.dtype == torch.int32
           and tuple(page_table.shape) == (B, W)
           and tuple(kv_len.shape) == (B,)
-          and hd % 2 == 0 and R % page_size == 0
+          and hd in HEAD_DIMS and g % min(hd, 32) == 0
+          and kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0
+          and R % page_size == 0
           and (Hkv * hd) == (R // page_size) * g)
     if not ok:
         raise ValueError(
@@ -53,14 +104,19 @@ def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
             f"{q.dtype}, pages {tuple(kp.shape)}/{tuple(ks.shape)}, "
             f"page_table {tuple(page_table.shape)} {page_table.dtype}, "
             f"kv_len {tuple(kv_len.shape)} {kv_len.dtype}, "
-            f"page_size {page_size}")
+            f"page_size {page_size}; head_dim must be one of {HEAD_DIMS}")
     sm_scale = sm_scale or 1.0 / math.sqrt(hd)
+    pages, n_split = split_plan(W, page_size)
+    _, n_part, n_count = launch_shape(B, Hkv, gq, hd, W, page_size)
     out = torch.empty_like(q)
+    part = torch.empty((n_part,), dtype=torch.float32, device=q.device)
     status = build.library().paged_attention_int4_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kp.data_ptr(),
         ks.data_ptr(), kz.data_ptr(), vp.data_ptr(), vs.data_ptr(),
         vz.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, Hkv, gq, hd, W, R, g, page_size, sm_scale,
+        out.data_ptr(), part.data_ptr(),
+        _counters(q.device, n_count).data_ptr(), B, Hkv, gq, hd, W, R, g,
+        page_size, pages, n_split, rows_per_cta(gq), sm_scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_decode_attention")
     paged_decode_attention_int4.launches += 1

@@ -8,11 +8,13 @@ the ``cuda`` fixture, never at import). On a machine with a card:
 Tolerances: ``kv_quant``/``kv_dequant`` must agree bit for bit (the wire,
 the pages and the decode append share one encoding); paged attention (both
 residencies), dense decode attention and flash attention sum in another
-order than the plain versions (and keep probabilities in f32 where the
-plain flash version rounds them to bf16), so they are held to 1e-5 when
-q is f32 (K/V f32 or bf16: the plain version reads the same bf16 values)
-and to 2e-2 (a few bf16 ulps at |out| <= 4) when q is bf16. RMSNorm sums its row in another order: 1e-5
-relative in f32, one bf16 ulp (2**-7 relative) in bf16.
+order than the plain versions (flash attention's f32 body keeps
+probabilities in f32 where the plain version rounds them to bf16; its bf16
+body rounds them to bf16 before P.V as the plain version does, but before
+normalising), so they are held to 1e-5 when q is f32 (K/V f32 or bf16:
+the plain version reads the same bf16 values) and to 2e-2 (a few bf16
+ulps at |out| <= 4) when q is bf16. RMSNorm sums its row in another order:
+1e-5 relative in f32, one bf16 ulp (2**-7 relative) in bf16.
 """
 import math
 
@@ -74,7 +76,7 @@ def _random_pages(B, Hkv, gq, hd, ps, W, kv_len, dtype, seed):
     g = next(c for c in (128, 64, 32, 16, 8, 4, 2) if (Hkv * hd) % c == 0)
     ppr = Hkv * hd // g
     R = ps * ppr
-    need = sum(-(-l // ps) for l in kv_len)
+    need = sum(min(-(-l // ps), W) for l in kv_len)
     P = 1 + need + 3
     gen = _gen(seed)
 
@@ -89,7 +91,7 @@ def _random_pages(B, Hkv, gq, hd, ps, W, kv_len, dtype, seed):
     perm = torch.randperm(P - 1)[:need] + 1
     n = 0
     for b, l in enumerate(kv_len):
-        k = -(-l // ps)
+        k = min(-(-l // ps), W)          # keys past W * ps do not exist
         pt[b, :k] = perm[n:n + k]
         n += k
     q = torch.randn((B, Hkv, gq, hd), generator=gen, device="cuda").to(dtype)
@@ -102,6 +104,11 @@ PAGED_CASES = [
     (4, 52, 1, 128, 16, 16, [256, 1, 100, 17]),   # LLaMA-30B width, g = hd
     (3, 2, 4, 32, 8, 4, [5, 16, 23]),             # GQA, g = 64 spans 2 heads
     (2, 4, 1, 16, 16, 5, [70, 3]),                # reduced config, trash tail
+    # the split plan's 64-key splits (16-token pages): kv_len on a split
+    # boundary, one past it, 1, and past W x page_size
+    (4, 8, 1, 128, 16, 16, [64, 65, 1, 300]),
+    (4, 3, 4, 64, 16, 16, [128, 129, 1, 256]),    # GQA over several splits
+    (2, 4, 2, 32, 8, 16, [64, 65]),               # g = 128 spans 4 heads
 ]
 
 
@@ -119,6 +126,22 @@ def test_paged_attention_kernel_matches_plain(cuda, B, Hkv, gq, hd, ps, W,
     torch.cuda.synchronize()
     assert pa.paged_decode_attention_int4.launches == before + 1
     assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_paged_attention_slot_on_the_trash_page(cuda, dtype):
+    """A slot whose whole page list is the trash page (entry 0) attends
+    over the trash page's contents, as the plain version does."""
+    dt = getattr(torch, dtype)
+    q, kpg, vpg, pt, kv_len = _random_pages(3, 4, 1, 128, 16, 8,
+                                            [40, 100, 77], dt, seed=11)
+    pt[1] = 0
+    got = ops.paged_decode_attention(q, kpg, vpg, pt, kv_len, page_size=16)
+    want = ref.paged_decode_attention_ref(q, kpg, vpg, pt, kv_len,
+                                          page_size=16)
     tol = 2e-2 if dt == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
@@ -151,6 +174,16 @@ FLASH_CASES = [
     (3, 65, 0, 6, 3, 64, True, 40, None),
     (4, 128, 64, 52, 52, 128, True, 0, [64, 0, 13, 40]),  # suffix, ragged
     (2, 16, 32, 8, 2, 16, True, 0, [32, 5]),      # chunked-prefill tick
+    # the tensor-core body's 64-row q tiles and 64-key tiles: Sq 1, one
+    # short of a tile, one tile, one past, several; every head dim
+    (2, 1, 0, 4, 2, 128, True, 0, None),
+    (2, 63, 0, 4, 4, 64, True, 0, None),
+    (2, 64, 0, 4, 2, 32, True, 0, None),
+    (2, 65, 0, 4, 1, 16, True, 0, None),
+    (2, 300, 0, 8, 2, 128, True, 0, None),
+    (1, 300, 0, 4, 2, 64, False, 0, None),
+    (2, 300, 0, 4, 4, 32, True, 100, None),       # window across tiles
+    (3, 32, 224, 8, 4, 128, True, 0, [0, 100, 224]),  # chunked tick
 ]
 
 
@@ -432,3 +465,55 @@ def test_decode_kernels_launch_without_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()
+
+
+# -- the redesigned kernels under CUDA-graph replay -------------------------------
+
+
+def test_graph_replay_follows_kv_len_and_prefix_len(cuda):
+    """Flash attention (bf16, suffix mask) and paged int4 attention captured
+    once in a CUDA graph, then replayed after the kv_len / prefix_len
+    tensors were overwritten in place: each replay must match the plain
+    version on the new contents, so no host-side decision (split count,
+    tile count, early exit) was baked into the capture."""
+    gen = _gen(21)
+    B, S, P, H, Hkv, hd = 3, 32, 224, 8, 4, 128
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, hd), generator=gen, device=cuda).to(bf)
+    k = torch.randn((B, P + S, Hkv, hd), generator=gen, device=cuda).to(bf)
+    v = torch.randn((B, P + S, Hkv, hd), generator=gen, device=cuda).to(bf)
+    plen = torch.tensor([224, 0, 100], dtype=torch.int32, device=cuda)
+    pq, kpg, vpg, pt, kv_len = _random_pages(4, 8, 1, 128, 16, 16,
+                                             [256, 256, 256, 256], bf,
+                                             seed=22)
+    kv_len.copy_(torch.tensor([17, 232, 64, 1], dtype=torch.int32))
+
+    def run():
+        return (fa.flash_attention(q, k, v, prefix_len=plen),
+                pa.paged_decode_attention_int4(pq, kpg, vpg, pt, kv_len,
+                                               page_size=16))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                   # build, counters, warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fo, po = run()
+    for pl, lens in (([224, 0, 100], [17, 232, 64, 1]),
+                     ([0, 224, 31], [256, 1, 65, 0]),
+                     ([5, 64, 223], [129, 64, 300, 200])):
+        plen.copy_(torch.tensor(pl, dtype=torch.int32))
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want_f = ref.flash_attention_ref(q, k, v, prefix_len=plen)
+        want_p = ref.paged_decode_attention_ref(pq, kpg, vpg, pt, kv_len,
+                                                page_size=16)
+        torch.testing.assert_close(fo.float(), want_f.float(), atol=2e-2,
+                                   rtol=2e-2)
+        live = kv_len > 0     # kv_len 0 gives 0 (the plain version: mean V)
+        torch.testing.assert_close(po[live].float(), want_p[live].float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert torch.equal(po[~live], torch.zeros_like(po[~live]))

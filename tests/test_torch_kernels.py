@@ -24,6 +24,8 @@ f32 (another summation order), with ragged ``kv_len >= 1`` (the Pallas
 decode kernel needs S divisible by min(256, S): S = 40 is one key block,
 S = 512 two) and trash-page table entries.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -216,6 +218,52 @@ def test_paged_attention_ignores_trash_page_and_tail():
     b = t_ref.paged_decode_attention_ref(torch.from_numpy(q), tt(kp2),
                                          tt(vp), *args, page_size=8)
     assert torch.equal(a, b)
+
+
+# -- the int4 CUDA kernel's split plan (host side, no card needed) -------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("W,ps", [(16, 16), (6, 16), (5, 16), (1, 16),
+                                  (4, 8), (17, 4), (64, 1), (3, 128)])
+def test_split_plan_covers_every_page_once(W, ps):
+    """Splits tile the page table: every page index in exactly one split,
+    none empty; for every kv_len the splits the kernel keeps (those that
+    start below kv_len, and split 0 for kv_len 0) hold exactly the pages
+    it must read, min(ceil(kv_len / ps), W) of them."""
+    pages, n_split = t_pa.split_plan(W, ps)
+    spans = [range(s * pages, min((s + 1) * pages, W))
+             for s in range(n_split)]
+    assert all(len(r) > 0 for r in spans)
+    assert [i for r in spans for i in r] == list(range(W))
+    for kv_len in range(W * ps + 5):
+        n_need = min(-(-kv_len // ps), W)
+        live = [r for s, r in enumerate(spans)
+                if s * pages * ps < min(kv_len, W * ps) or s == 0]
+        read = [i for r in live for i in r if i < n_need]
+        assert read == list(range(n_need))
+        assert len(live) == max(1, -(-min(kv_len, W * ps) // (pages * ps)))
+
+
+def test_split_plan_reads_only_host_shapes():
+    """Grid, scratch and counters come from shapes alone (the wrapper never
+    reads kv_len, so it runs under set_sync_debug_mode("error") and in a
+    CUDA graph), and the main path's decode step (4 slots, 52 KV heads,
+    W = 16 pages of 16 tokens) puts at least 2 CTAs on each SM."""
+    import inspect
+    assert list(inspect.signature(t_pa.split_plan).parameters) == \
+        ["W", "page_size"]
+    params = inspect.signature(t_pa.launch_shape).parameters
+    assert "kv_len" not in params
+    grid, n_part, n_count = t_pa.launch_shape(4, 52, 1, 128, 16, 16)
+    assert math.prod(grid) >= 2 * H100_SMS
+    assert grid == (t_pa.split_plan(16, 16)[1], 4 * 52, 1)
+    assert n_part == 4 * 52 * grid[0] * (128 + 2) and n_count == 4 * 52
+    # GQA: rows in blocks of 4, the last block padded
+    grid, n_part, n_count = t_pa.launch_shape(3, 2, 6, 32, 4, 8)
+    assert grid == (1, 6, 2) and n_count == 12
+    assert n_part == 6 * 2 * 4 * 1 * (32 + 2)
 
 
 DECODE_CASES = [
