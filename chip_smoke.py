@@ -15,9 +15,13 @@ before the last line:
    prefix, kv_len 1 and S); CUDA-event times of kernel, plain version and,
    where one PyTorch call computes the same function, that call (timed,
    never used by the port), beside the bound (bytes at 3.35 TB/s or
-   operations at the peak rate of the inputs' type). Besides the rows of
-   the kernels line, ``kv_quant`` is timed at the decode append's shape
-   and flash attention at a 32-token chunked-prefill tick;
+   operations at the peak rate of the inputs' type). ``kv_quant`` and
+   ``kv_dequant`` are checked through both bodies (vector and scalar, and
+   a misaligned view) and timed through both at the prefill bucket; the
+   decode append (``kv_quant_append``, K and V of 4 slots in one launch)
+   is checked on every page but the trash page and timed beside the path
+   it replaced (two ``kv_quant`` launches and six ``index_put``s); flash
+   attention is also timed at a 32-token chunked-prefill tick;
 4. reference: the reduced LLaMA-30B served in float32 through the
    engines on the card and on the CPU (plain versions), once for each
    decode cache (int4 pages, the dense cache, bf16 pages): greedy tokens
@@ -29,9 +33,10 @@ before the last line:
    prefill with a 64-token budget; every decode chunk runs under
    ``torch.cuda.set_sync_debug_mode("error")``. Launch counts are reset
    just before this phase and read just after it; then one decode chunk
-   and one prefill call of the 256-token bucket at batch 4 run under the
-   profiler. Then, each with its own launch counts, the
-   dense cache (``DecodeEngine(paged=False)``) and the bf16 pages
+   (which must launch ``kv_quant_append`` once per layer per step and
+   ``kv_quant`` never) and one prefill call of the 256-token bucket at
+   batch 4 run under the profiler. Then, each with its own launch counts,
+   the dense cache (``DecodeEngine(paged=False)``) and the bf16 pages
    (``kv_resident="bf16"``) serve fresh prompts and a chunked prefill the
    same way, each with one profiled chunk; on the dense engine
    ``step_reference()`` must decode what ``step()`` decodes;
@@ -131,7 +136,9 @@ def kernel_resources(build_log):
         m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}"
                       r"(?:2tc)?\d+(\w+?_kernel)I(\w*?)EEv", line)
         if m:
-            args = re.sub(r"Li(\d+)E", r"\1,", m.group(2)).replace(
+            args = re.sub(r"NS_\d+([A-Za-z]+?)I\w*?EE", r"\1,",
+                          m.group(2))
+            args = re.sub(r"Li(\d+)E", r"\1,", args).replace(
                 "13__nv_bfloat16", "bf16,")
             args = re.sub(r"(^|,)f", r"\1f32,", args)
             name = f"{m.group(1)}<{args.rstrip(',')}>"
@@ -149,19 +156,35 @@ def kernel_resources(build_log):
 # -- phase 3: kernels against their plain versions ----------------------------
 
 
-def check_quant(torch, ref, kq, N, G, dtype, *, timed):
+def at_offset(torch, t, offset):
+    """A copy of ``t`` starting ``offset`` elements into a fresh buffer."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_quant(torch, ref, kq, N, G, dtype, *, timed, offset=0):
+    """kv_quant and kv_dequant (to bf16) against their plain versions, with
+    x and the packed bytes ``offset`` elements into their buffers (1 puts
+    them off the vector bodies' grain: the scalar bodies run)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + N + G)
-    x = (torch.randn((N, G), generator=gen, device="cuda") * 3).to(dtype)
-    got, want = kq.kv_quant(x), ref.kv_quant_ref(x)
+    x = at_offset(torch, (torch.randn((N, G), generator=gen, device="cuda")
+                          * 3).to(dtype), offset)
+    got = kq.kv_quant(x)
+    want = ref.kv_quant_ref(x)
     err_q = max(float((g_.float() - w_.float()).abs().max())
                 for g_, w_ in zip(got, want))
     ndiff = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
+    got = (at_offset(torch, got[0], offset),) + got[1:]
     back = kq.kv_dequant(*got, out_dtype=torch.bfloat16)
     back_ref = ref.kv_dequant_ref(*want, dtype=torch.bfloat16)
     err_d = float((back.float() - back_ref.float()).abs().max())
     ndiff_d = int((back != back_ref).sum())
-    log(f"  kv_quant   N={N} G={G} {str(dtype)[6:]}: differing "
-        f"bytes/values {ndiff}; kv_dequant -> bf16: differing {ndiff_d}")
+    qbody, dbody = kq.quant_body(x), kq.dequant_body(got[0])
+    log(f"  kv_quant   N={N} G={G} {str(dtype)[6:]} offset {offset}: "
+        f"{qbody} body, differing bytes/values {ndiff}; kv_dequant -> "
+        f"bf16: {dbody} body, differing {ndiff_d}")
     if ndiff or ndiff_d:
         raise AssertionError("kv_quant/kv_dequant differ from the plain "
                              "version")
@@ -180,11 +203,91 @@ def check_quant(torch, ref, kq, N, G, dtype, *, timed):
           "ms": cuda_ms(torch, deq, [got], iters),
           "plain_ms": cuda_ms(torch, deq_ref, [want], iters),
           "bound": bound(N * G // 2 + 8 * N + N * G * 2, 2 * N * G)}
-    for name, r in (("kv_quant", rq), ("kv_dequant", rd)):
-        log(f"  {name:10s} N={N} G={G}: {r['ms']:.4f} ms, plain "
+    for name, r, b in (("kv_quant", rq, qbody), ("kv_dequant", rd, dbody)):
+        log(f"  {name:10s} N={N} G={G} ({b} body): {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]})")
     return rq, rd
+
+
+def check_append(torch, ref, kq, B, Hkv, hd, ps, W, kv_len, dtype, *,
+                 timed):
+    """The decode step's append (K and V of B slots quantized into their
+    tail pages, one launch) against its plain version on every page but
+    the trash page; timed beside the path it replaced (two kv_quant
+    launches and six index_puts)."""
+    from repro_torch.kernels.kv_layout import pick_group
+    g = pick_group(Hkv * hd)
+    ppr = Hkv * hd // g
+    R, P = ps * ppr, B * W + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + B + Hkv)
+    pages = lambda: (
+        (torch.randint(0, 256, (P, R, g // 2), generator=gen,
+                       device="cuda", dtype=torch.uint8),
+         torch.rand((P, R, 1), generator=gen, device="cuda"),
+         torch.randn((P, R, 1), generator=gen, device="cuda")))
+    kpg, vpg = pages(), pages()
+    pt = torch.zeros((B, W), dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        SEED)) + 1
+    n = 0
+    for b, ln in enumerate(kv_len):
+        k = min(ln // ps + 1, W)
+        pt[b, :k] = perm[n:n + k]
+        n += k
+    pt = pt.cuda()
+    lengths = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    kv = [tuple((torch.randn((B, 1, Hkv, hd), generator=gen, device="cuda")
+                 * 2).to(dtype) for _ in range(2)) for _ in range(8)]
+    want_k = tuple(t.clone() for t in kpg)
+    want_v = tuple(t.clone() for t in vpg)
+    ref.kv_quant_append_ref(*kv[0], want_k, want_v, pt, lengths,
+                            page_size=ps)
+    kq.kv_quant_append(*kv[0], kpg, vpg, pt, lengths, page_size=ps)
+    ndiff = sum(int((a[1:] != b[1:]).sum())
+                for a, b in zip(kpg + vpg, want_k + want_v))
+    err = max(float((a[1:].float() - b[1:].float()).abs().max())
+              for a, b in zip(kpg + vpg, want_k + want_v))
+    log(f"  kv_quant_append B={B} Hkv={Hkv} hd={hd} g={g} ps={ps} W={W} "
+        f"kv_len={kv_len} {str(dtype)[6:]}: differing bytes/values on "
+        f"pages 1+ {ndiff}")
+    if ndiff:
+        raise AssertionError("kv_quant_append differs from the plain "
+                             "version")
+    if not timed:
+        return None
+    fused = lambda k, v: kq.kv_quant_append(k, v, kpg, vpg, pt, lengths,
+                                            page_size=ps)
+    plain = lambda k, v: ref.kv_quant_append_ref(k, v, kpg, vpg, pt,
+                                                 lengths, page_size=ps)
+    rows = (lengths.long() % ps)[:, None] * ppr \
+        + torch.arange(ppr, device="cuda")[None]
+    tail = ref.append_coords(pt, lengths, ps)[0][:, None]
+
+    def two_launch(k, v):
+        # the append before the fused kernel: kv_quant on K and on V, then
+        # six index_puts into the pages
+        for val, pgs in ((k, kpg), (v, vpg)):
+            out = kq.kv_quant(val.reshape(B * ppr, g))
+            for buf, t in zip(pgs, out):
+                buf[tail, rows] = t.reshape(B, ppr, -1)
+
+    quant2 = lambda k, v: (kq.kv_quant(k.reshape(B * ppr, g)),
+                           kq.kv_quant(v.reshape(B * ppr, g)))
+    nbytes = (2 * B * Hkv * hd * kv[0][0].element_size()
+              + 2 * B * ppr * (g // 2 + 8) + 8 * B)
+    r = {"err": err, "ms": cuda_ms(torch, fused, kv, 200),
+         "plain_ms": cuda_ms(torch, plain, kv, 50),
+         "old_ms": cuda_ms(torch, two_launch, kv, 200),
+         "quant2_ms": cuda_ms(torch, quant2, kv, 200),
+         "bound": bound(nbytes, 6 * 2 * B * Hkv * hd)}
+    r["eager_ms"] = eager_ms(torch, fused, kv, 200)
+    log(f"  kv_quant_append: {r['ms']:.4f} ms ({r['eager_ms']:.4f} ms "
+        f"launched eagerly), plain {r['plain_ms']:.4f} ms, the path it "
+        f"replaced {r['old_ms']:.4f} ms (of which two kv_quant launches "
+        f"{r['quant2_ms']:.4f} ms), bound {r['bound'][0]:.5f} ms "
+        f"({r['bound'][1]}, {nbytes} B)")
+    return r
 
 
 def make_pages(torch, L, B, Hkv, gq, hd, ps, W, kv_len, dtype):
@@ -682,7 +785,17 @@ def serve_full(torch, cfg, device="cuda"):
         (_, w6, f6), = pre.run([r6])
         admit([E.AdmissionItem(r6, f6, wire=w6)])
         step_all(1)
+        before, steps = ops.launch_counts(), dec.steps_run
         profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
+        after = ops.launch_counts()
+        n_app = after["kv_quant_append"] - before["kv_quant_append"]
+        n_quant = after["kv_quant"] - before["kv_quant"]
+        per = (dec.steps_run - steps) * cfg.num_layers
+        log(f"  profiled int4 chunk: kv_quant_append {n_app} launches "
+            f"({per} = steps x layers), kv_quant {n_quant}")
+        if n_app != per or n_quant:
+            raise AssertionError("the int4 chunk's append is not one "
+                                 "kv_quant_append launch per layer per step")
         if dec.active or dec.page_stats()["leaked_pages"]:
             raise AssertionError("profiled request did not finish cleanly")
         # and one prefill call of the 256-token bucket at batch 4 (the
@@ -896,13 +1009,22 @@ def main() -> int:
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
-    # 128 per token
+    # 128 per token; the vector bodies, then the scalar ones on the same
+    # values one element off the grain
     rq, rd = check_quant(torch, ref, kq, 2 * L * 256 * Hkv, 128,
                          torch.bfloat16, timed=True)
-    # the decode append: K or V of one layer for 4 slots, 120 launches a step
-    rq_app, _ = check_quant(torch, ref, kq, 4 * Hkv, 128, torch.bfloat16,
-                            timed=True)
-    check_quant(torch, ref, kq, 3001, 64, torch.float32, timed=False)
+    rq_s, rd_s = check_quant(torch, ref, kq, 2 * L * 256 * Hkv, 128,
+                             torch.bfloat16, timed=True, offset=1)
+    for offset in (0, 1):
+        check_quant(torch, ref, kq, 3001, 64, torch.float32, timed=False,
+                    offset=offset)
+    check_quant(torch, ref, kq, 517, 4, torch.float32, timed=False)
+    # the decode append: K and V of one layer for 4 slots, one launch a
+    # layer (lengths as the paged step's), then the reduced f32 model's
+    rapp = check_append(torch, ref, kq, 4, Hkv, hd, 16, 16,
+                        [232, 123, 56, 17], torch.bfloat16, timed=True)
+    check_append(torch, ref, kq, 4, 4, 16, 8, 8, [63, 5, 0, 17],
+                 torch.float32, timed=False)
     # the decode step: 4 slots, kv lengths as in the serve phase
     ra = check_attention(torch, ref, pa, L, 4, Hkv, 1, hd, 16, 16,
                          [232, 123, 56, 17], torch.bfloat16, timed=True)
@@ -989,6 +1111,8 @@ def main() -> int:
              "src/repro/kernels/kv_quant.py:55", rq),
             ("kv_dequant", "src/repro_torch/kernels/csrc/kv_quant.cu",
              "src/repro/kernels/kv_quant.py:80", rd),
+            ("kv_quant_append", "src/repro_torch/kernels/csrc/kv_quant.cu",
+             "src/repro/kernels/kv_quant.py:55", rapp),
             ("paged_decode_attention_int4",
              "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:174", ra),
@@ -1003,9 +1127,14 @@ def main() -> int:
              "src/repro/kernels/decode_attention.py:96", rdec),
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:24", rn_pre)]
-    log(f"  kv_quant at the decode append's {4 * Hkv} x 128: "
-        f"{rq_app['ms']:.4f} ms, plain {rq_app['plain_ms']:.4f} ms, bound "
-        f"{rq_app['bound'][0]:.5f} ms")
+    log(f"  kv_quant at the bucket: vector body {rq['ms']:.4f} ms, scalar "
+        f"body {rq_s['ms']:.4f} ms; kv_dequant: vector {rd['ms']:.4f} ms, "
+        f"scalar {rd_s['ms']:.4f} ms; bounds {rq['bound'][0]:.4f} / "
+        f"{rd['bound'][0]:.4f} ms")
+    log(f"  kv_quant_append at the decode step (4 slots x {Hkv} heads x "
+        f"{hd}): {rapp['ms']:.4f} ms, the path it replaced "
+        f"{rapp['old_ms']:.4f} ms (two kv_quant launches "
+        f"{rapp['quant2_ms']:.4f} ms), bound {rapp['bound'][0]:.5f} ms")
     log(f"  flash_attention at a 32-token chunked-prefill tick (prefix 96 "
         f"of 128): {rf_tick['ms']:.4f} ms ({rf_tick['eager_ms']:.4f} ms "
         f"launched eagerly), plain {rf_tick['plain_ms']:.4f} ms, library "

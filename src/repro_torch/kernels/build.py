@@ -35,8 +35,11 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # every exported C function: (argtypes), returns cudaGetLastError()
 SIGNATURES = {
-    "kv_quant_launch": (_P, _I, _P, _P, _P, _LL, _I, _P),
-    "kv_dequant_launch": (_P, _P, _P, _P, _I, _LL, _I, _P),
+    "kv_quant_launch": (_P, _I, _P, _P, _P, _LL, _I, _I, _P),
+    "kv_dequant_launch": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
+    "kv_quant_append_launch": (_P, _P, _I, _LL, _LL, _LL, _LL, _I, _I, _I,
+                               _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+                               _P, _I, _P),
     "paged_attention_int4_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _P),

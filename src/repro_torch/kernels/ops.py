@@ -22,6 +22,7 @@ from repro_torch.kernels import rmsnorm as _rn
 KERNELS = {
     "kv_quant": _kq.kv_quant,
     "kv_dequant": _kq.kv_dequant,
+    "kv_quant_append": _kq.kv_quant_append,
     "paged_decode_attention_int4": _pa.paged_decode_attention_int4,
     "paged_decode_attention_bf16": _pa.paged_decode_attention_bf16,
     "flash_attention": _fa.flash_attention,
@@ -58,6 +59,19 @@ def kv_dequant(packed, scale, zero, *, out_dtype=torch.bfloat16,
     if _on_cpu(packed):
         return _ref.kv_dequant_ref(packed, scale, zero, dtype=out_dtype)
     return _kq.kv_dequant(packed, scale, zero, out_dtype=out_dtype)
+
+
+def kv_quant_append(k, v, kpages, vpages, page_table, lengths, *,
+                    page_size, backend: str = "auto"):
+    """The paged decode step's append to int4 pages, in place: this step's
+    k/v (B, 1, Hkv, hd) quantized as ``kv_quant`` and written into each
+    slot's tail page (one launch on the card; ``ref.kv_quant_append_ref``
+    on the CPU)."""
+    if _on_cpu(k):
+        return _ref.kv_quant_append_ref(k, v, kpages, vpages, page_table,
+                                        lengths, page_size=page_size)
+    return _kq.kv_quant_append(k, v, kpages, vpages, page_table, lengths,
+                               page_size=page_size)
 
 
 def decode_attention(q, k, v, kv_len, *, backend: str = "auto"):

@@ -97,6 +97,38 @@ def kv_dequant_ref(packed, scale, zero, dtype=torch.bfloat16):
     return (q * scale + zero).to(dtype)
 
 
+def append_coords(page_table, lengths, page_size):
+    """Where each slot's next token goes: ``(tail_page, tail_off)`` (B,)
+    int64, the page ``page_table[b, min(lengths[b] // page_size, W - 1)]``
+    (clamped so a slot at its last position, or an inactive one, indexes a
+    real table entry; unallocated entries are 0, the trash page) and the
+    token's place in it."""
+    W = page_table.shape[1]
+    pos0 = lengths.long()
+    tail_pi = torch.clamp(pos0 // page_size, max=W - 1)
+    tail_page = torch.gather(page_table, 1, tail_pi[:, None])[:, 0].long()
+    return tail_page.clamp(min=0), pos0 % page_size
+
+
+def kv_quant_append_ref(k, v, kpages, vpages, page_table, lengths, *,
+                        page_size):
+    """The paged decode step's append, in place: k/v (B, 1, Hkv, hd) of B
+    slots quantized by :func:`kv_quant_ref` (groups of ``g``, the pages'
+    width) and slot b's ``ppr`` groups written to rows ``tail_off * ppr +
+    r`` of its tail page (:func:`append_coords`) in the int4 triples
+    ``kpages``/``vpages`` = ``(packed (P, R, g//2), scale (P, R, 1), zero
+    (P, R, 1))``. Inactive slots all write to the trash page 0."""
+    B = k.shape[0]
+    g = kpages[0].shape[-1] * 2
+    ppr = k[0].numel() // g
+    tail_page, tail_off = append_coords(page_table, lengths, page_size)
+    rows = tail_off[:, None] * ppr \
+        + torch.arange(ppr, device=k.device)[None]               # (B, ppr)
+    for val, pages in ((k, kpages), (v, vpages)):
+        for buf, t in zip(pages, kv_quant_ref(val.reshape(B * ppr, g))):
+            buf[tail_page[:, None], rows] = t.reshape(B, ppr, -1)
+
+
 def rmsnorm_ref(x, scale, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last axis in
     f32, cast back to ``x.dtype``."""

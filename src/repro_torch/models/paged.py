@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kv_layout import pick_group
 from repro_torch.models import layers
 from repro_torch.models.layers import dense
@@ -99,51 +99,34 @@ def decode_step_paged(cfg, params, cache, tokens, *,
     """One decode step against the paged pool. tokens: (B, 1).
 
     Each slot's new K/V is written into its tail page: int4 pages take it
-    quantized by ``ops.kv_quant`` (the wire's kernel, so pages are
-    byte-identical whichever path wrote a token), bf16 pages as bf16 rows
-    (one ``index_put`` each for K and V). Attention runs through
+    through ``ops.kv_quant_append`` (quantized with the wire's arithmetic,
+    so pages are byte-identical whichever path wrote a token; one launch a
+    layer on the card), bf16 pages as bf16 rows (one ``index_put`` each
+    for K and V). Attention runs through
     ``ops.paged_decode_attention``, whose kernel follows the residency.
     Returns (logits (B, 1, V) f32, cache) with ``lengths + 1``; the page
     table is host business."""
     x = params["embed"][tokens]
     B = x.shape[0]
-    dev = x.device
     lengths = cache["lengths"]
     positions = lengths[:, None]
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim
     gq = cfg.num_heads // Hkv
-    g, ppr = page_group(cfg), groups_per_token(cfg)
     int4 = "kp" in cache["slot0"]
     pt = cache["page_table"]
-    W = pt.shape[1]
     ps = page_size
-    # tail-page coordinates of this step's writes, clamped so a slot at
-    # its last position (or an inactive one) indexes a real table entry;
-    # unallocated entries are 0, the trash page
-    pos0 = lengths.long()
-    tail_pi = torch.clamp(pos0 // ps, max=W - 1)
-    tail_page = torch.gather(pt, 1, tail_pi[:, None])[:, 0].long()
-    tail_page = tail_page.clamp(min=0)
-    tail_off = pos0 % ps
-    if int4:
-        rows = tail_off[:, None] * ppr \
-            + torch.arange(ppr, device=dev)[None]               # (B, ppr)
+    if not int4:
+        tail_page, tail_off = ref.append_coords(pt, lengths, ps)
     kv_len = (lengths + 1).to(torch.int32)
     slot = cache["slot0"]
     for i, p in enumerate(params["layers"]):
         h = ops.rmsnorm(x, p["norm1"], backend=backend)
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
         if int4:
-            for base, val in (("k", k), ("v", v)):
-                packed, scale, zero = ops.kv_quant(
-                    val[:, 0].reshape(B * ppr, g).contiguous(),
-                    backend=backend)
-                for suffix, t, width in (("p", packed, g // 2),
-                                         ("s", scale, 1), ("z", zero, 1)):
-                    slot[base + suffix][i][tail_page[:, None], rows] = \
-                        t.reshape(B, ppr, width)
             kpages = tuple(slot[n][i] for n in ("kp", "ks", "kz"))
             vpages = tuple(slot[n][i] for n in ("vp", "vs", "vz"))
+            ops.kv_quant_append(k, v, kpages, vpages, pt, lengths,
+                                page_size=ps, backend=backend)
         else:
             kpages, vpages = slot["k"][i], slot["v"][i]
             kpages[tail_page, tail_off] = k[:, 0].to(kpages.dtype)

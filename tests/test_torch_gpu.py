@@ -47,12 +47,28 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
+def _at_offset(t, offset):
+    """A copy of ``t`` starting ``offset`` elements into a fresh buffer
+    (offset 1 is off the vector bodies' grain: the scalar bodies run)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.parametrize("N", [1, 17, 300, 100_003])
-@pytest.mark.parametrize("G", [2, 16, 64, 128])
+@pytest.mark.parametrize("G", [2, 4, 8, 16, 64, 128])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_kv_quant_kernel_bit_exact(cuda, N, G, dtype):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kv_quant_kernel_bit_exact(cuda, N, G, dtype, offset):
+    """Both bodies of kv_quant and of kv_dequant, bit for bit: aligned
+    operands take the vector bodies where the shape allows (G % 8 == 0),
+    operands one element off the grain the scalar ones."""
     dt = getattr(torch, dtype)
-    x = (torch.randn((N, G), generator=_gen(N + G), device=cuda) * 3).to(dt)
+    x = _at_offset((torch.randn((N, G), generator=_gen(N + G), device=cuda)
+                    * 3).to(dt), offset)
+    body = "vector" if offset == 0 and G % 8 == 0 else "scalar"
+    assert kq.quant_body(x) == body
     before = kq.kv_quant.launches
     got = kq.kv_quant(x)
     want = ref.kv_quant_ref(x)
@@ -60,16 +76,85 @@ def test_kv_quant_kernel_bit_exact(cuda, N, G, dtype):
     assert kq.kv_quant.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    packed = _at_offset(got[0], offset)
+    assert kq.dequant_body(packed) == body
     for out_dt in (torch.bfloat16, torch.float32):
-        back = kq.kv_dequant(*got, out_dtype=out_dt)
+        back = kq.kv_dequant(packed, *got[1:], out_dtype=out_dt)
         assert torch.equal(back, ref.kv_dequant_ref(*want, dtype=out_dt))
 
 
-def test_kv_quant_constant_rows(cuda):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kv_quant_constant_rows(cuda, offset):
     """max == min: the 1e-8 floor on the scale, every nibble 0."""
-    x = torch.full((5, 64), 2.5, device=cuda)
+    x = _at_offset(torch.full((5, 64), 2.5, device=cuda), offset)
     for a, b in zip(kq.kv_quant(x), ref.kv_quant_ref(x)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kv_quant_rounds_ties_to_even(cuda, dtype, offset):
+    """Rows whose quotients land exactly on half-integers (min 0, max 15:
+    scale 1) and a hair either side of them: rint's half-to-even and the
+    true division decide every nibble, as in the plain version (these are
+    the quotients where the vector body's reciprocal product falls back to
+    the true division)."""
+    half = torch.arange(15, dtype=torch.float32, device=cuda) + 0.5
+    ends = torch.tensor([0.0, 15.0], device=cuda)
+    rows = []
+    for scale in (1.0, 0.1, 3.0, 1e-3):
+        for nudge in (0.0, 2.0 ** -20, -2.0 ** -20):
+            mid = (half + nudge) * scale
+            rows.append(torch.cat([ends * scale, mid, mid]).repeat(4))
+    x = _at_offset(torch.stack(rows).to(getattr(torch, dtype)), offset)
+    got = kq.kv_quant(x)
+    for a, b in zip(got, ref.kv_quant_ref(x)):
+        assert torch.equal(a, b)
+    # row 0, elements 2 and 3: 0.5 -> 0 and 1.5 -> 2 (ties to even)
+    assert int(got[0][0, 1]) == 0x20
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_quant_vector_body_near_half_integers(cuda, dtype):
+    """Rows over 40 binades of scale and offset whose quotients sit within
+    a few ulp of half-integers, on both sides, and some a little further
+    out: the vector body's reciprocal product, with its fallback to the
+    true division, gives the plain version's bytes (and so does the
+    scalar body)."""
+    N, G = 4096, 128
+    gen = _gen(17)
+    scale = torch.exp2(torch.rand((N, 1), generator=gen, device=cuda) * 40
+                       - 20)
+    mn = torch.randn((N, 1), generator=gen, device=cuda) * scale * 4
+    k = torch.randint(0, 15, (N, G), generator=gen, device=cuda).float()
+    wiggle = torch.randint(-64, 65, (N, G), generator=gen, device=cuda)
+    q = k + 0.5 + wiggle.float() * 2.0 ** -22
+    q[:, 0], q[:, 1] = 0.0, 15.0
+    x = (mn + q * scale).to(getattr(torch, dtype))
+    want = ref.kv_quant_ref(x)
+    assert kq.quant_body(x) == "vector"
+    for offset in (0, 1):
+        for a, b in zip(kq.kv_quant(_at_offset(x, offset)), want):
+            assert torch.equal(a, b)
+
+
+def test_kv_quant_misaligned_views(cuda):
+    """Views off one body's grain: x 8 bytes off the 16-byte grain takes
+    the scalar quant body; a row slice of one packed tensor (as
+    ``_dequantize`` passes) keeps the vector dequant body however its scale
+    and zero are aligned. Both stay exact."""
+    N, G = 300, 128
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((N, G), generator=_gen(3), device=cuda).to(dt)
+        x = _at_offset(x, 8 // x.element_size())
+        assert kq.quant_body(x) == "scalar"
+        got, want = kq.kv_quant(x), ref.kv_quant_ref(x)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        p, sc, z = (t[3:] for t in got)    # scale/zero 12 bytes in
+        assert kq.dequant_body(p) == "vector" and sc.data_ptr() % 16
+        assert torch.equal(kq.kv_dequant(p, sc, z, out_dtype=dt),
+                           ref.kv_dequant_ref(p, sc, z, dtype=dt))
 
 
 def _random_pages(B, Hkv, gq, hd, ps, W, kv_len, dtype, seed):
@@ -465,6 +550,182 @@ def test_decode_kernels_launch_without_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()
+
+
+# -- kv_quant_append: the paged decode step's append ---------------------------------
+
+
+def _append_operands(B, Hkv, hd, ps, W, lens, dtype, seed, layout="bshd"):
+    """Random int4 pages of K and V, a table giving each active slot the
+    pages its next token needs (shuffled; -1 in ``lens`` = an inactive slot
+    on the trash page), and this step's k/v (B, 1, Hkv, hd): contiguous
+    (``"bshd"``) or the two halves of one (B, 1, 2*Hkv, hd) tensor
+    (``"fused"``, strided views)."""
+    gen = _gen(seed)
+    g = next(c for c in (128, 64, 32, 16, 8) if (Hkv * hd) % c == 0)
+    ppr = Hkv * hd // g
+    R = ps * ppr
+    P = 1 + B * W
+
+    def triple():
+        return (torch.randint(0, 256, (P, R, g // 2), generator=gen,
+                              device="cuda", dtype=torch.uint8),
+                torch.rand((P, R, 1), generator=gen, device="cuda"),
+                torch.randn((P, R, 1), generator=gen, device="cuda"))
+
+    pt = torch.zeros((B, W), dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    n = 0
+    for b, ln in enumerate(lens):
+        if ln >= 0:
+            k = min(ln // ps + 1, W)
+            pt[b, :k] = perm[n:n + k]
+            n += k
+    if layout == "fused":
+        kv = torch.randn((B, 1, 2 * Hkv, hd), generator=gen, device="cuda")
+        kv = (kv * 2).to(dtype)
+        k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]
+    else:
+        k = (torch.randn((B, 1, Hkv, hd), generator=gen,
+                         device="cuda") * 2).to(dtype)
+        v = (torch.randn((B, 1, Hkv, hd), generator=gen,
+                         device="cuda") * 2).to(dtype)
+    lengths = torch.tensor([max(ln, 0) for ln in lens], dtype=torch.int32,
+                           device="cuda")
+    return k, v, triple(), triple(), pt.cuda(), lengths
+
+
+def _assert_pages_equal(got, want):
+    """Every page but the trash page 0, byte for byte."""
+    for a, b in zip(got, want):
+        assert torch.equal(a[1:], b[1:])
+
+
+APPEND_GPU_CASES = [
+    # (B, Hkv, hd, page_size, W, lengths, dtype, layout)
+    (4, 52, 128, 16, 16, [232, 123, 56, 17], "bfloat16", "bshd"),  # main
+    (4, 52, 128, 16, 16, [255, -1, 0, 16], "bfloat16", "fused"),
+    (4, 4, 16, 8, 8, [63, 5, -1, 0], "float32", "bshd"),   # reduced, f32
+    (3, 3, 32, 4, 2, [7, -1, 2], "float32", "fused"),      # ppr 3, g 32
+    (3, 2, 8, 4, 2, [8, 3, -1], "bfloat16", "bshd"),       # g 16, clamped
+    (2, 64, 64, 16, 4, [40, 1], "bfloat16", "bshd"),       # g 128 of 2 heads
+]
+
+
+@pytest.mark.parametrize("B,Hkv,hd,ps,W,lens,dtype,layout", APPEND_GPU_CASES)
+def test_kv_quant_append_matches_plain(cuda, B, Hkv, hd, ps, W, lens, dtype,
+                                       layout):
+    """One launch writes the bytes the plain version writes (kv_quant_ref
+    and six index_puts) on every page but the trash page."""
+    k, v, kpg, vpg, pt, lengths = _append_operands(
+        B, Hkv, hd, ps, W, lens, getattr(torch, dtype), seed=B + hd,
+        layout=layout)
+    want_k = tuple(t.clone() for t in kpg)
+    want_v = tuple(t.clone() for t in vpg)
+    ref.kv_quant_append_ref(k, v, want_k, want_v, pt, lengths, page_size=ps)
+    before = ops.launch_counts()
+    ops.kv_quant_append(k, v, kpg, vpg, pt, lengths, page_size=ps)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["kv_quant_append"] == before["kv_quant_append"] + 1
+    assert after["kv_quant"] == before["kv_quant"]
+    _assert_pages_equal(kpg, want_k)
+    _assert_pages_equal(vpg, want_v)
+
+
+def test_kv_quant_append_refuses_a_copy(cuda):
+    """Operands it would have to copy or cannot address raise: a k view
+    off the 16-byte grain, int64 lengths, a sequence axis of 2."""
+    k, v, kpg, vpg, pt, lengths = _append_operands(
+        2, 4, 16, 8, 2, [3, 9], torch.bfloat16, seed=7)
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    k_off = buf[1:].view(k.shape)
+    with pytest.raises(ValueError, match="no copy"):
+        kq.kv_quant_append(k_off, v, kpg, vpg, pt, lengths, page_size=8)
+    with pytest.raises(ValueError, match="bad operands"):
+        kq.kv_quant_append(k, v, kpg, vpg, pt, lengths.long(), page_size=8)
+    k2 = torch.cat([k, k], dim=1)
+    with pytest.raises(ValueError, match="bad operands"):
+        kq.kv_quant_append(k2, k2, kpg, vpg, pt, lengths, page_size=8)
+
+
+def test_kv_quant_append_graph_replay_follows_lengths(cuda):
+    """The append captured once in a CUDA graph, replayed after lengths,
+    the page table and k/v were overwritten in place: each replay writes
+    what the plain version writes on the new contents (nothing about the
+    lengths was decided on the host)."""
+    B, Hkv, hd, ps, W = 4, 52, 128, 16, 16
+    k, v, kpg, vpg, pt, lengths = _append_operands(
+        B, Hkv, hd, ps, W, [232, 123, 56, 17], torch.bfloat16, seed=31)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # build, warm-up
+        kq.kv_quant_append(k, v, kpg, vpg, pt, lengths, page_size=ps)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kq.kv_quant_append(k, v, kpg, vpg, pt, lengths, page_size=ps)
+    for i, lens in enumerate(([0, 15, 16, 255], [233, 124, 57, 18],
+                              [100, 0, 200, 31])):
+        k.copy_(torch.randn(k.shape, generator=_gen(40 + i), device=cuda))
+        v.copy_(torch.randn(v.shape, generator=_gen(50 + i), device=cuda))
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        pt.copy_(pt.roll(1, dims=0))
+        want_k = tuple(t.clone() for t in kpg)
+        want_v = tuple(t.clone() for t in vpg)
+        ref.kv_quant_append_ref(k, v, want_k, want_v, pt, lengths,
+                                page_size=ps)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_pages_equal(kpg, want_k)
+        _assert_pages_equal(vpg, want_v)
+
+
+def test_decode_chunk_appends_once_per_layer_without_host_sync(cuda):
+    """A paged int4 decode engine on the card (reduced LLaMA-30B): every
+    chunk runs under ``set_sync_debug_mode("error")`` (``sync_check``),
+    launches ``kv_quant_append`` once per layer per step and ``kv_quant``
+    never, and decodes the tokens the same engine decodes on the CPU."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    cfg = get_reduced("llama-30b").replace(dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _tree_to(params, dev)
+        pre = E.PrefillEngine(cfg, p, max_seq=64, device=dev)
+        dec = E.DecodeEngine(cfg, p, max_slots=4, max_seq=64, page_size=8,
+                             chunk_size=4, device=dev)
+        rng = np.random.default_rng(0)
+        reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n), 10)
+                for i, n in enumerate((7, 19, 33))]
+        out = pre.run(reqs)
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w) for r, w, f in out]))
+        while dec.active:
+            before, steps = ops.launch_counts(), dec.steps_run
+            dec.step(sync_check=True)
+            after = ops.launch_counts()
+            if dev == "cuda":
+                n = (dec.steps_run - steps) * cfg.num_layers
+                assert after["kv_quant_append"] - \
+                    before["kv_quant_append"] == n
+                assert after["kv_quant"] == before["kv_quant"]
+        assert dec.page_stats()["leaked_pages"] == 0
+        streams[dev] = [r.out_tokens for r in reqs]
+    assert dec.host_syncs * dec.chunk_size == dec.steps_run
+    assert streams["cuda"] == streams["cpu"]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 # -- the redesigned kernels under CUDA-graph replay -------------------------------

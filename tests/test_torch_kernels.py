@@ -353,6 +353,136 @@ def test_paged_attention_bf16_ignores_trash_page_and_tail():
     assert torch.equal(a, b)
 
 
+# -- kv_quant_append: the paged decode step's append ----------------------------------
+
+APPEND_CASES = [
+    # (B, Hkv, hd, page_size, W, lengths); -1 = an inactive slot (length 0,
+    # its table row all trash)
+    (4, 4, 16, 8, 3, [23, 5, -1, 0]),    # reduced llama: g = 64, ppr = 1;
+                                         # slot 0 at its last position
+    (3, 3, 32, 4, 2, [7, -1, 2]),        # g = 32, ppr = 3, last position
+    (3, 2, 8, 4, 2, [8, 3, -1]),         # g = 16; slot 0 past its table:
+                                         # clamped to entry W - 1
+]
+
+
+def _append_inputs(B, Hkv, hd, ps, W, lens, seed):
+    """Random int4 pages of both K and V (numpy), a page table with each
+    active slot's entries on shuffled pages (enough to hold its next token,
+    at most W), this step's k/v (B, 1, Hkv, hd) and the lengths."""
+    rng = np.random.default_rng(seed)
+    g = j_layout.pick_group(Hkv * hd)
+    ppr = Hkv * hd // g
+    R = ps * ppr
+    P = 1 + B * W
+    perm = rng.permutation(np.arange(1, P))
+    pt = np.zeros((B, W), np.int32)
+    n = 0
+    for b, ln in enumerate(lens):
+        if ln >= 0:
+            k = min(ln // ps + 1, W)
+            pt[b, :k] = perm[n:n + k]
+            n += k
+
+    def triple():
+        return (rng.integers(0, 256, (P, R, g // 2)).astype(np.uint8),
+                (rng.random((P, R, 1)) * 0.3).astype(np.float32),
+                rng.standard_normal((P, R, 1)).astype(np.float32))
+
+    k = (rng.standard_normal((B, 1, Hkv, hd)) * 2).astype(np.float32)
+    v = (rng.standard_normal((B, 1, Hkv, hd)) * 2).astype(np.float32)
+    lengths = np.maximum(np.asarray(lens, np.int32), 0)
+    return k, v, triple(), triple(), pt, lengths
+
+
+def _append_reference(k, v, kpages, vpages, pt, lengths, ps, dtype):
+    """The reference's append in numpy: ``repro.kernels.ref.kv_quant_ref``
+    on each slot's groups, scattered as ``repro.models.paged``'s decode
+    step does (tail page clamped into the table and at 0)."""
+    B, W = pt.shape
+    g = kpages[0].shape[-1] * 2
+    ppr = k[0].size // g
+    pos0 = lengths.astype(np.int64)
+    tail_pi = np.minimum(pos0 // ps, W - 1)
+    tail_page = np.maximum(
+        np.take_along_axis(pt, tail_pi[:, None], axis=1)[:, 0], 0)
+    rows = (pos0 % ps)[:, None] * ppr + np.arange(ppr)[None]
+    out = []
+    for val, pages in ((k, kpages), (v, vpages)):
+        pages = [a.copy() for a in pages]
+        xj, _ = _both(val.reshape(B * ppr, g), dtype)
+        for buf, t in zip(pages, j_ref.kv_quant_ref(xj)):
+            buf[tail_page[:, None], rows] = np.asarray(t).reshape(B, ppr, -1)
+        out.append(pages)
+    return out
+
+
+@pytest.mark.parametrize("B,Hkv,hd,ps,W,lens", APPEND_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_quant_append_ref_matches_reference_append(B, Hkv, hd, ps, W, lens,
+                                                      dtype):
+    """``ops.kv_quant_append`` on CPU tensors runs the plain version
+    (uncounted), which writes the bytes the reference's append writes on
+    every page but the trash page (inactive slots' writes race there)."""
+    k, v, kp, vp, pt, lengths = _append_inputs(B, Hkv, hd, ps, W, lens,
+                                               seed=B + hd)
+    want_k, want_v = _append_reference(k, v, kp, vp, pt, lengths, ps, dtype)
+    _, kt = _both(k, dtype)
+    _, vt = _both(v, dtype)
+    got_k = tuple(torch.from_numpy(a.copy()) for a in kp)
+    got_v = tuple(torch.from_numpy(a.copy()) for a in vp)
+    before = t_ops.launch_counts()
+    t_ops.kv_quant_append(kt, vt, got_k, got_v, torch.from_numpy(pt),
+                          torch.from_numpy(lengths), page_size=ps)
+    assert t_ops.launch_counts() == before
+    for got, want in ((got_k, want_k), (got_v, want_v)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a[1:].numpy(), b[1:])
+    # the append changed no more than the active slots' rows on pages 1+
+    ppr = Hkv * hd // j_layout.pick_group(Hkv * hd)
+    changed = (got_k[0][1:].numpy() != kp[0][1:]).any(axis=-1).sum()
+    assert 0 < changed <= sum(ln >= 0 for ln in lens) * ppr
+
+
+def test_kv_quant_append_refuses_cpu_and_unknown_devices():
+    """The append's wrapper takes CUDA tensors only; ``ops`` sends CPU
+    tensors to the plain version and refuses any other device."""
+    k, v, kp, vp, pt, lengths = _append_inputs(2, 2, 8, 4, 2, [3, 5],
+                                               seed=1)
+    args = (torch.from_numpy(k), torch.from_numpy(v),
+            tuple(map(torch.from_numpy, kp)),
+            tuple(map(torch.from_numpy, vp)), torch.from_numpy(pt),
+            torch.from_numpy(lengths))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_kq.kv_quant_append(*args, page_size=4)
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor)
+                 else tuple(t.to("meta") for t in a) for a in args)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        t_ops.kv_quant_append(*meta, page_size=4)
+
+
+@pytest.mark.parametrize("G,offset,want", [
+    (128, 0, "vector"), (8, 0, "vector"), (256, 0, "vector"),
+    (24, 0, "vector"), (4, 0, "scalar"), (2, 0, "scalar"),
+    (264, 0, "scalar"), (128, 1, "scalar"), (128, 4, "scalar"),
+    (128, 8, "vector"), (1032, 0, "scalar")])
+def test_kv_quant_bodies_follow_shape_and_alignment(G, offset, want):
+    """The wrapper picks the body from the shape and the address alone
+    (bf16 rows here; ``offset`` elements into a fresh buffer): the vector
+    body takes rows of G % 8 == 0 up to 256 from a 16-byte aligned
+    address; the packed bytes' body wants G % 8 == 0 up to 1024 and 4-byte
+    alignment."""
+    N = 3
+    buf = torch.zeros(N * G + offset, dtype=torch.bfloat16)
+    x = buf[offset:].view(N, G)
+    assert buf.data_ptr() % 64 == 0
+    assert t_kq.quant_body(x) == want
+    pbuf = torch.zeros(N * G // 2 + offset, dtype=torch.uint8)
+    packed = pbuf[offset:].view(N, G // 2)
+    vector = G % 8 == 0 and G <= 1024 and offset % 4 == 0
+    assert t_kq.dequant_body(packed) == ("vector" if vector else "scalar")
+
+
 # -- the wrappers take CUDA tensors only ----------------------------------------------
 
 
