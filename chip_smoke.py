@@ -21,7 +21,13 @@ before the last line:
    decode append (``kv_quant_append``, K and V of 4 slots in one launch)
    is checked on every page but the trash page and timed beside the path
    it replaced (two ``kv_quant`` launches and six ``index_put``s); flash
-   attention is also timed at a 32-token chunked-prefill tick;
+   attention is also timed at a 32-token chunked-prefill tick; the
+   residual add fused with the norm (``add_rmsnorm``) is checked at a
+   decode step's 4 rows, the prefill bucket's 1024, 37 f32 rows, a small
+   odd width and rows off the 16-byte grain (h byte for byte PyTorch's
+   ``x + r``, y within one ulp) and timed four ways (graph replay, eager,
+   plain, and ``x + r`` then ``F.rms_norm``), and both norms must give a
+   row the same bytes in a 4-row and a 1024-row launch;
 4. reference: the reduced LLaMA-30B served in float32 through the
    engines on the card and on the CPU (plain versions), once for each
    decode cache (int4 pages, the dense cache, bf16 pages): greedy tokens
@@ -35,11 +41,15 @@ before the last line:
    just before this phase and read just after it; then one decode chunk
    (which must launch ``kv_quant_append`` once per layer per step and
    ``kv_quant`` never) and one prefill call of the 256-token bucket at
-   batch 4 run under the profiler. Then, each with its own launch counts,
-   the dense cache (``DecodeEngine(paged=False)``) and the bf16 pages
-   (``kv_resident="bf16"``) serve fresh prompts and a chunked prefill the
-   same way, each with one profiled chunk; on the dense engine
-   ``step_reference()`` must decode what ``step()`` decodes;
+   batch 4 run under the profiler, each with its launches and device
+   time, its norm launches (a decode step: 1 ``rmsnorm`` and 2
+   ``add_rmsnorm`` a layer; a prefill call 2 and 2L - 1) and its bf16 add
+   kernels (the residual adds, fused away). Then, each with its own
+   launch counts, the dense cache (``DecodeEngine(paged=False)``) and the
+   bf16 pages (``kv_resident="bf16"``) serve fresh prompts and a chunked
+   prefill the same way, each with one profiled chunk checked the same
+   way; on the dense engine ``step_reference()`` must decode what
+   ``step()`` decodes;
 6. gateway: the system's entry point, ``repro_torch.launch.serve.run``,
    at full width on phase 5's weights, three times: (a) default flags
    with a 32-token chunked-prefill budget over a short open-loop trace,
@@ -451,6 +461,76 @@ def check_rmsnorm(torch, ref, rn, N, d, dtype, *, timed):
     return r
 
 
+def norm_inputs(torch, N, d, dtype, offset=0):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * N + d)
+    x = (torch.randn((N, d), generator=gen, device="cuda") * 2).to(dtype)
+    r = (torch.randn((N, d), generator=gen, device="cuda") * 2).to(dtype)
+    scale = torch.randn((d,), generator=gen, device="cuda") * 0.1
+    return at_offset(torch, x, offset), at_offset(torch, r, offset), scale
+
+
+def check_add_rmsnorm(torch, ref, rn, N, d, dtype, *, timed, offset=0):
+    """The residual add fused with the norm: h must be PyTorch's x + r
+    byte for byte, y within one ulp of the plain version. Timed four ways
+    (graph replay, eager, plain, and the library's x + r then
+    F.rms_norm)."""
+    import torch.nn.functional as F
+    x, r, scale = norm_inputs(torch, N, d, dtype, offset)
+    (h, y), (wh, wy) = rn.add_rmsnorm(x, r, scale), \
+        ref.add_rmsnorm_ref(x, r, scale)
+    err = float((y.float() - wy.float()).abs().max())
+    n_h = int((h != wh).sum())
+    rtol = NORM_RTOL[str(dtype)[6:]]
+    ok = n_h == 0 and torch.allclose(y.float(), wy.float(), atol=1e-6,
+                                     rtol=rtol)
+    body = "vector" if rn.vector_width(d, x.element_size(), x, r) > 1 \
+        else "scalar"
+    log(f"  add_rmsnorm N={N} d={d} {str(dtype)[6:]} offset {offset} "
+        f"({body} body): h differing values {n_h}, y max |err| {err:.3e} "
+        f"(rtol {rtol:.3g})")
+    if not ok:
+        raise AssertionError("add_rmsnorm differs from x + r and the plain "
+                             "norm")
+    if not timed:
+        return None
+    esz = x.element_size()
+    gain = (1.0 + scale).to(dtype)
+    lib = lambda a, b, w: (a + b, F.rms_norm(a + b, (d,), weight=w,
+                                              eps=1e-6))
+    iters = 50 if N > 64 else 200
+    r_ = {"err": err,
+          "ms": cuda_ms(torch, rn.add_rmsnorm, [(x, r, scale)], iters),
+          "plain_ms": cuda_ms(torch, ref.add_rmsnorm_ref, [(x, r, scale)],
+                              iters),
+          "library_ms": cuda_ms(torch, lib, [(x, r, gain)], iters),
+          "bound": bound(4 * N * d * esz + 4 * d, 6 * N * d,
+                         peak_of(torch, dtype))}
+    r_["eager_ms"] = eager_ms(torch, rn.add_rmsnorm, [(x, r, scale)], iters)
+    log(f"  add_rmsnorm {N}x{d}: {r_['ms']:.4f} ms ({r_['eager_ms']:.4f} ms "
+        f"launched eagerly), plain {r_['plain_ms']:.4f} ms, library "
+        f"{r_['library_ms']:.4f} ms (x + r, F.rms_norm), bound "
+        f"{r_['bound'][0]:.5f} ms ({r_['bound'][1]})")
+    return r_
+
+
+def check_norm_rows(torch, ops, d, dtype):
+    """Rows normed in a 4-row launch equal the same rows inside a 1024-row
+    launch, byte for byte (rmsnorm and add_rmsnorm): a row's summation
+    order must not depend on the row count."""
+    x, r, scale = norm_inputs(torch, 1024, d, dtype)
+    rows = [0, 1, 511, 1023]
+    few = lambda t: t[rows].contiguous()
+    h, y = ops.add_rmsnorm(x, r, scale)
+    h4, y4 = ops.add_rmsnorm(few(x), few(r), scale)
+    same = (torch.equal(h[rows], h4) and torch.equal(y[rows], y4)
+            and torch.equal(ops.rmsnorm(x, scale)[rows],
+                            ops.rmsnorm(few(x), scale)))
+    log(f"  norm rows {rows} of a 1024-row launch == the same rows in a "
+        f"4-row launch (d={d} {str(dtype)[6:]}): {same}")
+    if not same:
+        raise AssertionError("a norm row's bytes depend on the row count")
+
+
 def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
                  timed):
     """Dense decode attention on one layer of an (L, B, S, Hkv, hd) cache,
@@ -503,6 +583,30 @@ def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
         f"{r['bound'][0]:.5f} ms ({r['bound'][1]}, {nbytes} B); layers "
         f"cycled, L2 cold")
     return r
+
+
+def decode_split_anatomy(torch, da, L, B, Hkv, hd, S):
+    """Graph-replay times of the split bf16 body (dense view, bf16, L2
+    cold) over kv_len patterns that take its cost apart: one key a slot
+    (launch, kv_len, early exits), one full 64-key split a slot (a round
+    of loads, no merge), 65 keys (two splits and the in-launch merge),
+    and every key."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    K = torch.randn((L, B, S, Hkv, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    V = torch.randn_like(K)
+    q = torch.randn((B, Hkv, 1, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    out = {}
+    for n in (1, 64, 65, S):
+        kl = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        layer = [(q, K[i].permute(0, 2, 1, 3), V[i].permute(0, 2, 1, 3), kl)
+                 for i in range(L)]
+        out[n] = cuda_ms(torch, da.decode_attention, layer, 3 * L)
+    log("  decode_attention split anatomy (B=4, S=256, every slot at one "
+        "kv_len): " + ", ".join(f"kv_len {n}: {ms * 1e3:.2f} us"
+                                for n, ms in out.items()))
+    return out
 
 
 def check_paged_bf16(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len, qdt,
@@ -597,10 +701,15 @@ def serve_small(torch, device, mode="int4"):
     return [r.out_tokens for r in reqs]
 
 
+ADD_KERNELS = ("AddFunctor", "CUDAFunctor_add")   # PyTorch's add, by name
+
+
 def profile_chunk(torch, run, n_steps, what="chunk", per="step"):
     """Device time of one decode chunk (or of ``what``: ``n_steps`` units
     of ``per``) by kernel (torch.profiler, CUDA activity only) against its
-    wall time on the host clock."""
+    wall time on the host clock, and PyTorch's add kernels per unit: those
+    on bf16 tensors are, in a bf16 model, the residual adds that
+    ``add_rmsnorm`` fuses."""
     from torch.profiler import ProfilerActivity, profile
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -620,6 +729,29 @@ def profile_chunk(torch, run, n_steps, what="chunk", per="step"):
                                    if "(anonymous namespace)::" in r[2]
                                    and "at::" not in r[2]]:
         log(f"    {ms:9.3f} ms  x{n:<6d} {name[:70]}")
+    adds = [(n, name) for _, n, name in rows
+            if any(a in name for a in ADD_KERNELS)]
+    n_bf16 = sum(n for n, name in adds if "BFloat16" in name)
+    log(f"    add kernels per {per}: {n_bf16 / n_steps:g} on bf16 tensors "
+        f"(residual adds), {sum(n for n, _ in adds) / n_steps:g} of any "
+        f"type")
+
+
+def check_norm_launches(cfg, before, after, n, what, prefill=False):
+    """The norm wrappers' launches over ``n`` decode steps (or prefill
+    calls): each residual add is fused with the norm after it, so a step
+    launches 1 rmsnorm and 2 add_rmsnorm a layer; a prefill call 2 and
+    2L - 1 (its last add stays unfused; the final norm sees the kept rows
+    only)."""
+    L = cfg.num_layers
+    got = {k: after[k] - before[k] for k in ("rmsnorm", "add_rmsnorm")}
+    want = ({"rmsnorm": 2 * n, "add_rmsnorm": (2 * L - 1) * n} if prefill
+            else {"rmsnorm": n, "add_rmsnorm": 2 * L * n})
+    per = "call" if prefill else "step"
+    log(f"  {what}: per {per} rmsnorm {got['rmsnorm'] / n:g}, add_rmsnorm "
+        f"{got['add_rmsnorm'] / n:g} launches ({n} {per}s)")
+    if got != want:
+        raise AssertionError(f"{what}: norm launches {got}, want {want}")
 
 
 class Clock:
@@ -788,6 +920,8 @@ def serve_full(torch, cfg, device="cuda"):
         before, steps = ops.launch_counts(), dec.steps_run
         profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
         after = ops.launch_counts()
+        check_norm_launches(cfg, before, after, dec.steps_run - steps,
+                            "profiled int4 chunk")
         n_app = after["kv_quant_append"] - before["kv_quant_append"]
         n_quant = after["kv_quant"] - before["kv_quant"]
         per = (dec.steps_run - steps) * cfg.num_layers
@@ -803,8 +937,11 @@ def serve_full(torch, cfg, device="cuda"):
         bucket = [E.GenRequest(7 + i, prompt(256), 1) for i in range(4)]
         pre.run(bucket)
         sync()
+        before = ops.launch_counts()
         profile_chunk(torch, lambda: (pre.run(bucket), sync()), 1,
                       what="prefill call (4 x 256 tokens)", per="call")
+        check_norm_launches(cfg, before, ops.launch_counts(), 1,
+                            "profiled prefill call", prefill=True)
     return launches, params
 
 
@@ -901,7 +1038,10 @@ def serve_variant(torch, cfg, params, mode, device="cuda"):
         (_, w5, f5), = pre.run([r5])
         admit([E.AdmissionItem(r5, f5, wire=w5)])
         step_all(1)
+        before, steps = ops.launch_counts(), dec.steps_run
         profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
+        check_norm_launches(cfg, before, ops.launch_counts(),
+                            dec.steps_run - steps, f"profiled {mode} chunk")
     if mode == "dense":
         # the seed path on the same admissions decodes the same tokens
         pair = [E.GenRequest(10 + i, rng.integers(1, V, n), 9)
@@ -1054,11 +1194,25 @@ def main() -> int:
                            timed=True)
     check_rmsnorm(torch, ref, rn, 37, cfg.d_model, torch.float32,
                   timed=False)
+    # the residual add fused with the norm: a decode step's rows, the
+    # prefill bucket's, f32 rows, and a small odd width off the grain
+    radd_dec = check_add_rmsnorm(torch, ref, rn, 4, cfg.d_model,
+                                 torch.bfloat16, timed=True)
+    radd_pre = check_add_rmsnorm(torch, ref, rn, 1024, cfg.d_model,
+                                 torch.bfloat16, timed=True)
+    check_add_rmsnorm(torch, ref, rn, 37, cfg.d_model, torch.float32,
+                      timed=False)
+    check_add_rmsnorm(torch, ref, rn, 5, 77, torch.bfloat16, timed=False)
+    check_add_rmsnorm(torch, ref, rn, 4, cfg.d_model, torch.bfloat16,
+                      timed=False, offset=1)
+    for dt in (torch.bfloat16, torch.float32):
+        check_norm_rows(torch, ops, cfg.d_model, dt)
     # the dense decode step: one layer of the (60, 4, 256, 52, 128) cache
     # of 4 slots, kv lengths as the paged step's
     rdec = check_decode(torch, ref, da, L, 4, Hkv, 1, hd, 256,
                         [232, 123, 56, 17], torch.bfloat16, torch.bfloat16,
                         timed=True)
+    decode_split_anatomy(torch, da, L, 4, Hkv, hd, 256)
     check_decode(torch, ref, da, 2, 3, 2, 4, 16, 40, [1, 40, 23],
                  torch.float32, torch.float32, timed=False)
     check_decode(torch, ref, da, 2, 3, 2, 4, 16, 40, [1, 40, 23],
@@ -1126,7 +1280,9 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:96", rdec),
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:24", rn_pre)]
+             "src/repro/kernels/rmsnorm.py:24", rn_pre),
+            ("add_rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:24", radd_dec)]
     log(f"  kv_quant at the bucket: vector body {rq['ms']:.4f} ms, scalar "
         f"body {rq_s['ms']:.4f} ms; kv_dequant: vector {rd['ms']:.4f} ms, "
         f"scalar {rd_s['ms']:.4f} ms; bounds {rq['bound'][0]:.4f} / "
@@ -1145,6 +1301,11 @@ def main() -> int:
         f"eagerly), plain {rn_dec['plain_ms']:.4f} ms, "
         f"library {rn_dec['library_ms']:.4f} ms, bound "
         f"{rn_dec['bound'][0]:.5f} ms")
+    log(f"  add_rmsnorm at the prefill bucket's 1024 x {cfg.d_model}: "
+        f"{radd_pre['ms']:.4f} ms ({radd_pre['eager_ms']:.4f} ms launched "
+        f"eagerly), plain {radd_pre['plain_ms']:.4f} ms, library "
+        f"{radd_pre['library_ms']:.4f} ms, bound "
+        f"{radd_pre['bound'][0]:.4f} ms")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -45,11 +45,12 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _F, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
-    "rmsnorm_launch": (_P, _P, _P, _I, _LL, _I, _F, _P),
-    "decode_attention_launch": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                                _I, _LL, _LL, _LL, _F, _P),
-    "paged_attention_bf16_launch": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _F, _P),
+    "rmsnorm_launch": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _F,
+                       _P),
+    "decode_attention_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _LL, _LL, _LL, _I, _I, _F, _P),
+    "paged_attention_bf16_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

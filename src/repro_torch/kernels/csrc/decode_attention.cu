@@ -23,19 +23,34 @@
 // cached tokens reads 428 * 52 * 128 * 2 * 2 = 11.4 MB per layer, 3.4 us at
 // 3.35 TB/s.
 //
-// Design: one CTA of 256 threads per (sequence, KV head, query row), so 208
-// CTAs at LLaMA-30B width and batch 4 (g = 1). The CTA's 16 half-warps
-// stride over keys: a half-warp owns U = 4 keys per iteration, and each of
-// its 16 lanes loads its hd/16 contiguous elements of every one of those
-// keys' K and V rows before using any (one 16-byte load per lane and row
-// at hd = 128 in bf16), so 8 independent loads per thread are in flight.
-// Dot products are reduced with 4 shuffles inside the half-warp; each
-// half-warp keeps its own running (max, sum, accumulator) in registers,
-// and the 16 partial states are merged through shared memory at the end.
-// The loop trip count is the same for every thread (keys past kv_len are
-// masked, not branched around), so the shuffles never see a diverged warp.
-// Nothing is read back to the host. Later work: split the sequence across
-// CTAs (flash-decoding) and prefetch with cp.async/TMA.
+// Design: flash-decoding, as the int4 kernel (csrc/paged_attention.cu). The
+// grid is (split, sequence x KV head, query row). A split is a fixed run of
+// keys (kernels/decode_attention.py: split_plan and launch_shape, functions
+// of host shapes only: S for the dense view, seen as S pages of one key,
+// and W x page_size for pages), 64 keys at page sizes up to 64; CTAs whose
+// split starts at or past kv_len exit at once, so the grid needs nothing
+// read on the host and the launch is capturable in a CUDA graph. A CTA of
+// 256 threads covers 64 keys an iteration, one round of loads: its 16
+// half-warps own U = 4 keys each, and each of a half-warp's 16 lanes loads
+// its hd/16 contiguous elements of every one of those keys' K and V rows
+// before using any (one 16-byte load per lane and row at hd = 128 in
+// bf16), so 8 independent loads per thread are in flight, kept as raw
+// words until used (RawRow: 58 registers at hd 128 in bf16 where f32
+// copies took ~105, which let only two CTAs share an SM). Dot products are
+// reduced with 4 shuffles inside the half-warp; each half-warp keeps its
+// own running (max, sum, accumulator) in registers, and the 16 states are
+// merged through shared memory. The loop trip count is the same for every
+// thread (keys past the split's end are masked, not branched around), so
+// the shuffles never see a diverged warp. A CTA whose row has one active
+// split writes `out` directly; otherwise it writes its partial state (m,
+// l, acc) in f32 to scratch, and the last CTA of the row to finish, found
+// with __threadfence and an atomic counter that it resets to 0 itself,
+// merges the partial states and writes `out`. One launch per call. The
+// first design ran one CTA per row over all of its keys: the longest
+// slot's CTAs set the time while the short slots' SMs idled. What is left
+// is a chain of latencies (chip_smoke.py phase 3, "split anatomy"): the
+// launch, kv_len, one round of loads, and for a row of several splits the
+// merge (partial store, fence, counter, reload).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,48 +67,46 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Up to 16 raw bytes, read back as f32 or bf16 elements.
-union Raw16 {
-  uint4 u16;
-  uint2 u8;
-  unsigned u4;
-  unsigned short u2;
-  unsigned short h[8];
-  float f[4];
-};
-__device__ __forceinline__ float elem(const Raw16& r, int j, const float*) {
-  return r.f[j];
-}
-__device__ __forceinline__ float elem(const Raw16& r, int j,
-                                      const __nv_bfloat16*) {
-  return __bfloat162float(__ushort_as_bfloat16(r.h[j]));
-}
-
-// N contiguous elements at p (aligned to min(16, N * sizeof(T)) bytes) into
-// f32, in loads of up to 16 bytes.
+// N contiguous elements of T (bf16 or f32) kept as raw 32-bit words until
+// they are used: a bf16 row takes half the registers of its f32 values.
+// Loaded from p (aligned to min(16, N * sizeof(T)) bytes) in loads of up
+// to 16 bytes.
 template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  constexpr int kBytes = N * (int)sizeof(T);
-  constexpr int kVec = kBytes >= 16 ? 16 : kBytes;
-  constexpr int kPer = kVec / (int)sizeof(T);
+struct RawRow {
+  static constexpr int kBytes = N * (int)sizeof(T);
+  static constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
+  unsigned w[kWords];
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+    if constexpr (kBytes >= 16) {
 #pragma unroll
-  for (int c = 0; c < kBytes / kVec; ++c) {
-    Raw16 buf;
-    if constexpr (kVec == 16) {
-      buf.u16 = reinterpret_cast<const uint4*>(p)[c];
-    } else if constexpr (kVec == 8) {
-      buf.u8 = reinterpret_cast<const uint2*>(p)[c];
-    } else if constexpr (kVec == 4) {
-      buf.u4 = reinterpret_cast<const unsigned*>(p)[c];
+      for (int c = 0; c < kBytes / 16; ++c) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[c];
+        w[4 * c] = v.x, w[4 * c + 1] = v.y, w[4 * c + 2] = v.z,
+                  w[4 * c + 3] = v.w;
+      }
+    } else if constexpr (kBytes == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x, w[1] = v.y;
+    } else if constexpr (kBytes == 4) {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
     } else {
-      buf.u2 = reinterpret_cast<const unsigned short*>(p)[c];
+      w[0] = *reinterpret_cast<const unsigned short*>(p);
     }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      out[c * kPer + j] = elem(buf, j, (const T*)nullptr);
   }
-}
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = 0u;
+  }
+  // element e as f32 (a bf16 is the high half of its f32)
+  __device__ __forceinline__ float get(int e) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[e]);
+    } else {
+      return __uint_as_float((e & 1) ? (w[e >> 1] & 0xffff0000u)
+                                     : (w[e >> 1] << 16));
+    }
+  }
+};
 
 // Dense cache: key t of (b, h) at b*sb + t*ss + h*sh (elements).
 template <typename T>
@@ -127,41 +140,52 @@ template <int HD, typename Tq, typename Keys>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const Tq* __restrict__ q, Keys keys,
                   const int* __restrict__ kv_len, Tq* __restrict__ out,
-                  int Hkv, int g, float sm_scale) {
+                  float* __restrict__ part, int* __restrict__ counters,
+                  int Hkv, int g, int split_len, float sm_scale) {
   using Tkv = typename Keys::Elem;
   constexpr int EPL = HD / 16;  // elements per lane of a half-warp
   __shared__ float s_m[kHalfWarps], s_l[kHalfWarps];
   __shared__ float s_acc[kHalfWarps][HD];
+  __shared__ int s_last;
 
-  const int bh = blockIdx.x, j = blockIdx.y;
-  const int b = bh / Hkv, h = bh % Hkv;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int bh = blockIdx.y, b = bh / Hkv, h = bh % Hkv;
   const int tid = threadIdx.x, hw = tid >> 4, l16 = tid & 15;
   int len = kv_len[b];
   if (len > keys.max_len) len = keys.max_len;
   if (len < 0) len = 0;
+  const int n_active = (len + split_len - 1) / split_len;
+  // split 0 also serves kv_len = 0 (it writes zeros)
+  if (split >= (n_active > 0 ? n_active : 1)) return;
+  const int t0 = split * split_len;
+  const int t_end = min(len, t0 + split_len);
 
-  const size_t qoff = ((size_t)bh * g + j) * HD;
+  const size_t row = (size_t)bh * g + blockIdx.z;  // the query row
   float qf[EPL];
-  load_row<Tq, EPL>(q + qoff + l16 * EPL, qf);
+  {
+    RawRow<Tq, EPL> qr;
+    qr.load(q + row * HD + l16 * EPL);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qf[e] = qr.get(e);
+  }
 
   float m = kNegInf, l = 0.0f, acc[EPL];
 #pragma unroll
   for (int e = 0; e < EPL; ++e) acc[e] = 0.0f;
 
-  for (int base = 0; base < len; base += kHalfWarps * kUnroll) {
-    float kf[kUnroll][EPL], vf[kUnroll][EPL];
+  for (int base = t0; base < t_end; base += kHalfWarps * kUnroll) {
+    RawRow<Tkv, EPL> kr[kUnroll], vr[kUnroll];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + hw + u * kHalfWarps;
-      ok[u] = t < len;
+      ok[u] = t < t_end;
       if (ok[u]) {
         const size_t o = keys.off(b, h, t) + l16 * EPL;
-        load_row<Tkv, EPL>(keys.k + o, kf[u]);
-        load_row<Tkv, EPL>(keys.v + o, vf[u]);
+        kr[u].load(keys.k + o);
+        vr[u].load(keys.v + o);
       } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.0f;
+        kr[u].zero(), vr[u].zero();
       }
     }
     float s[kUnroll];
@@ -170,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       float d = 0.0f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) d += qf[e] * kf[u][e];
+      for (int e = 0; e < EPL; ++e) d += qf[e] * kr[u].get(e);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -186,11 +210,12 @@ __global__ void __launch_bounds__(kThreads)
       const float p = ok[u] ? expf(s[u] - m_new) : 0.0f;
       l += p;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[e] += p * vf[u][e];
+      for (int e = 0; e < EPL; ++e) acc[e] += p * vr[u].get(e);
     }
     m = m_new;
   }
 
+  // merge the half-warps: thread d < HD sums column d
   if (l16 == 0) {
     s_m[hw] = m;
     s_l[hw] = l;
@@ -198,64 +223,103 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int e = 0; e < EPL; ++e) s_acc[hw][l16 * EPL + e] = acc[e];
   __syncthreads();
+  float M = kNegInf, L = 0.0f, o = 0.0f;
   if (tid < HD) {
-    float M = kNegInf;
 #pragma unroll
     for (int i = 0; i < kHalfWarps; ++i) M = fmaxf(M, s_m[i]);
-    float L = 0.0f, o = 0.0f;
 #pragma unroll
     for (int i = 0; i < kHalfWarps; ++i) {
       const float w = expf(s_m[i] - M);
       L += s_l[i] * w;
       o += s_acc[i][tid] * w;
     }
-    from_f(&out[qoff + tid], o / fmaxf(L, 1e-30f));
+  }
+  if (n_active <= 1) {
+    if (tid < HD) from_f(&out[row * HD + tid], o / fmaxf(L, 1e-30f));
+    return;
+  }
+  const int stride = HD + 2;  // (m, l, acc)
+  if (tid < HD) {
+    float* pr = part + (row * n_split + split) * stride;
+    pr[2 + tid] = o;
+    if (tid == 0) pr[0] = M, pr[1] = L;
+  }
+  __threadfence();  // partial state visible before the count
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(counters + row, 1) == n_active - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (tid == 0) counters[row] = 0;  // ready for the next launch
+  if (tid < HD) {
+    const float* pr = part + row * n_split * stride;
+    // one pass over the splits, rescaling as the max grows (loads through
+    // the L2, past the L1)
+    float mx = kNegInf, sum = 0.0f, acc_o = 0.0f;
+#pragma unroll 4
+    for (int sp = 0; sp < n_active; ++sp) {
+      const float m_s = __ldcg(pr + sp * stride);
+      const float l_s = __ldcg(pr + sp * stride + 1);
+      const float o_s = __ldcg(pr + sp * stride + 2 + tid);
+      const float m_new = fmaxf(mx, m_s);
+      const float a = expf(mx - m_new), w = expf(m_s - m_new);
+      sum = sum * a + l_s * w;
+      acc_o = acc_o * a + o_s * w;
+      mx = m_new;
+    }
+    from_f(&out[row * HD + tid], acc_o / fmaxf(sum, 1e-30f));
   }
 }
 
+// split_len/n_split: kernels/decode_attention.py launch_shape; part: (B*Hkv*g,
+// n_split, hd + 2) f32 scratch; counters: B*Hkv*g i32, all 0 between
+// launches (each launch leaves them at 0).
 template <typename Tq, typename Keys>
 cudaError_t launch(int hd, const void* q, const Keys& keys,
-                   const void* kv_len, void* out, int B, int Hkv, int g,
+                   const void* kv_len, void* out, void* part, void* counters,
+                   int B, int Hkv, int g, int split_len, int n_split,
                    float sm_scale, cudaStream_t st) {
-  const dim3 grid(B * Hkv, g);
+  if (split_len <= 0 || keys.max_len <= 0 ||
+      n_split != (keys.max_len + split_len - 1) / split_len ||
+      (long long)B * Hkv > 65535 || g > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(n_split, B * Hkv, g);
   const Tq* qp = (const Tq*)q;
   const int* lp = (const int*)kv_len;
   Tq* op = (Tq*)out;
+  float* pp = (float*)part;
+  int* cp = (int*)counters;
+#define DECODE_HD(HD)                                                      \
+  case HD:                                                                 \
+    decode_kernel<HD, Tq, Keys><<<grid, kThreads, 0, st>>>(                \
+        qp, keys, lp, op, pp, cp, Hkv, g, split_len, sm_scale);            \
+    break;
   switch (hd) {
-    case 16:
-      decode_kernel<16, Tq, Keys><<<grid, kThreads, 0, st>>>(
-          qp, keys, lp, op, Hkv, g, sm_scale);
-      break;
-    case 32:
-      decode_kernel<32, Tq, Keys><<<grid, kThreads, 0, st>>>(
-          qp, keys, lp, op, Hkv, g, sm_scale);
-      break;
-    case 64:
-      decode_kernel<64, Tq, Keys><<<grid, kThreads, 0, st>>>(
-          qp, keys, lp, op, Hkv, g, sm_scale);
-      break;
-    case 128:
-      decode_kernel<128, Tq, Keys><<<grid, kThreads, 0, st>>>(
-          qp, keys, lp, op, Hkv, g, sm_scale);
-      break;
+    DECODE_HD(16)
+    DECODE_HD(32)
+    DECODE_HD(64)
+    DECODE_HD(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef DECODE_HD
   return cudaGetLastError();
 }
 
 template <typename Tkv>
 cudaError_t launch_dense(int q_is_bf16, const void* q, const void* k,
                          const void* v, const void* kv_len, void* out,
-                         int B, int Hkv, int g, int hd, int S, long long sb,
-                         long long ss, long long sh, float sm_scale,
-                         cudaStream_t st) {
+                         void* part, void* counters, int B, int Hkv, int g,
+                         int hd, int S, long long sb, long long ss,
+                         long long sh, int split_len, int n_split,
+                         float sm_scale, cudaStream_t st) {
   DenseKeys<Tkv> keys{(const Tkv*)k, (const Tkv*)v, sb, ss, sh, S};
   return q_is_bf16
-             ? launch<__nv_bfloat16>(hd, q, keys, kv_len, out, B, Hkv, g,
+             ? launch<__nv_bfloat16>(hd, q, keys, kv_len, out, part,
+                                     counters, B, Hkv, g, split_len, n_split,
                                      sm_scale, st)
-             : launch<float>(hd, q, keys, kv_len, out, B, Hkv, g, sm_scale,
-                             st);
+             : launch<float>(hd, q, keys, kv_len, out, part, counters, B,
+                             Hkv, g, split_len, n_split, sm_scale, st);
 }
 
 }  // namespace
@@ -264,33 +328,40 @@ cudaError_t launch_dense(int q_is_bf16, const void* q, const void* k,
 // strides in elements (the head dimension is contiguous).
 extern "C" int decode_attention_launch(
     const void* q, int q_is_bf16, const void* k, const void* v,
-    int kv_is_bf16, const void* kv_len, void* out, int B, int Hkv, int g,
-    int hd, int S, long long sb, long long ss, long long sh, float sm_scale,
+    int kv_is_bf16, const void* kv_len, void* out, void* part,
+    void* counters, int B, int Hkv, int g, int hd, int S, long long sb,
+    long long ss, long long sh, int split_len, int n_split, float sm_scale,
     void* stream) {
   if (B <= 0 || Hkv <= 0 || g <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(kv_is_bf16
-                   ? launch_dense<__nv_bfloat16>(q_is_bf16, q, k, v, kv_len,
-                                                 out, B, Hkv, g, hd, S, sb,
-                                                 ss, sh, sm_scale, st)
-                   : launch_dense<float>(q_is_bf16, q, k, v, kv_len, out, B,
-                                         Hkv, g, hd, S, sb, ss, sh, sm_scale,
-                                         st));
+                   ? launch_dense<__nv_bfloat16>(
+                         q_is_bf16, q, k, v, kv_len, out, part, counters, B,
+                         Hkv, g, hd, S, sb, ss, sh, split_len, n_split,
+                         sm_scale, st)
+                   : launch_dense<float>(q_is_bf16, q, k, v, kv_len, out,
+                                         part, counters, B, Hkv, g, hd, S,
+                                         sb, ss, sh, split_len, n_split,
+                                         sm_scale, st));
 }
 
 // Paged decode attention over bf16 pages (P, ps, Hkv, hd).
 extern "C" int paged_attention_bf16_launch(
     const void* q, int q_is_bf16, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* kv_len, void* out, int B, int Hkv,
-    int g, int hd, int W, int ps, float sm_scale, void* stream) {
+    const void* page_table, const void* kv_len, void* out, void* part,
+    void* counters, int B, int Hkv, int g, int hd, int W, int ps,
+    int split_len, int n_split, float sm_scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || g <= 0) return (int)cudaGetLastError();
+  if (ps <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   PagedKeys keys{(const __nv_bfloat16*)k_pages,
                  (const __nv_bfloat16*)v_pages,
                  (const int*)page_table, W, ps, Hkv, hd, W * ps};
   return (int)(q_is_bf16
-                   ? launch<__nv_bfloat16>(hd, q, keys, kv_len, out, B, Hkv,
-                                           g, sm_scale, st)
-                   : launch<float>(hd, q, keys, kv_len, out, B, Hkv, g,
-                                   sm_scale, st));
+                   ? launch<__nv_bfloat16>(hd, q, keys, kv_len, out, part,
+                                           counters, B, Hkv, g, split_len,
+                                           n_split, sm_scale, st)
+                   : launch<float>(hd, q, keys, kv_len, out, part, counters,
+                                   B, Hkv, g, split_len, n_split, sm_scale,
+                                   st));
 }

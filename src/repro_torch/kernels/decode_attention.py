@@ -15,6 +15,12 @@ The reference's model does not call its Pallas ``decode_attention``: its
 dense decode step attends in plain jnp (``layers.attention`` with
 ``kv_len``/``q_offset``). The port's dense step calls this kernel, which
 computes the same function: keys at or past ``kv_len[b]`` are masked.
+
+The kernel splits the sequence across CTAs (flash-decoding): the split
+plan (:func:`split_plan`, :func:`launch_shape`) is shared with the bf16
+page residency (``paged_attention.paged_decode_attention_bf16``, the same
+CUDA body) and with the int4 kernel, and so are the merge counters
+(:func:`_counters`).
 """
 from __future__ import annotations
 
@@ -27,6 +33,56 @@ from repro_torch.kernels.kv_quant import _require_cuda
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 _TYPES = (torch.bfloat16, torch.float32)
+SPLIT_TOKENS = 64     # keys a split covers (a whole number of pages)
+
+
+def split_plan(W: int, page_size: int):
+    """``(pages_per_split, n_split)`` for a page table of width ``W``: split
+    s covers pages ``[s * pages_per_split, min((s + 1) * pages_per_split,
+    W))``; a dense view of S keys is S pages of one key. A function of host
+    shapes only, never of ``kv_len``: the decode chunk runs under
+    ``set_sync_debug_mode("error")`` and the launch must stay capturable in
+    a CUDA graph; the kernels' CTAs whose split starts at or past
+    ``kv_len`` exit at once."""
+    pages = max(1, SPLIT_TOKENS // page_size)
+    return pages, -(-W // pages)
+
+
+def launch_shape(B: int, Hkv: int, g: int, hd: int, W: int,
+                 page_size: int = 1):
+    """The bf16 decode body's grid ``(n_split, B * Hkv, g)``, keys per
+    split, f32 scratch elements (one ``(m, l, acc[hd])`` per query row and
+    split) and merge counters (one per query row), from host shapes: ``W``
+    pages of ``page_size`` keys (a dense view: ``W = S``, ``page_size =
+    1``)."""
+    pages, n_split = split_plan(W, page_size)
+    return ((n_split, B * Hkv, g), pages * page_size,
+            B * Hkv * g * n_split * (hd + 2), B * Hkv * g)
+
+
+_COUNTERS = {}        # device index -> [int32 zeros], newest last
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The merge counters of ``device``, shared by the split decode kernels
+    (the int4 pages' and the bf16 body, dense or paged): zeroed once,
+    reset to 0 by each launch's last CTA, so no launch pays a memset.
+    Because the buffer is shared, launches on one device run in stream
+    order and must not overlap. A buffer that grows keeps its predecessor
+    alive: a captured CUDA graph may still point at it."""
+    bufs = _COUNTERS.setdefault(device.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros((max(n, 1 << 14),), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
+def split_operands(q, B, Hkv, g, hd, W, page_size=1):
+    """``(split_len, n_split, part, counters)`` of one bf16-body launch."""
+    grid, split_len, n_part, n_count = launch_shape(B, Hkv, g, hd, W,
+                                                    page_size)
+    part = torch.empty((n_part,), dtype=torch.float32, device=q.device)
+    return split_len, grid[0], part, _counters(q.device, n_count)
 
 
 def decode_attention(q, k, v, kv_len, *, sm_scale=None):
@@ -50,7 +106,7 @@ def decode_attention(q, k, v, kv_len, *, sm_scale=None):
           and k.stride() == v.stride() and k.stride(3) == 1
           and hd in HEAD_DIMS
           and all(s % epl == 0 for s in k.stride()[:3])
-          and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+          and all(t.data_ptr() % 16 == 0 for t in (q, k, v)) and S > 0
           and kv_len.dtype == torch.int32 and tuple(kv_len.shape) == (B,))
     if not ok:
         raise ValueError(
@@ -61,11 +117,12 @@ def decode_attention(q, k, v, kv_len, *, sm_scale=None):
             f"dimension in {HEAD_DIMS}, 16-byte aligned rows, and no copy")
     sb, sh, ss, _ = k.stride()
     out = torch.empty_like(q)
+    split_len, n_split, part, counters = split_operands(q, B, Hkv, g, hd, S)
     status = build.library().decode_attention_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
         v.data_ptr(), int(k.dtype == torch.bfloat16), kv_len.data_ptr(),
-        out.data_ptr(), B, Hkv, g, hd, S, sb, ss, sh,
-        sm_scale or 1.0 / math.sqrt(hd),
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, Hkv, g, hd,
+        S, sb, ss, sh, split_len, n_split, sm_scale or 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "decode_attention")
     decode_attention.launches += 1

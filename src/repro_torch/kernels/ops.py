@@ -28,6 +28,7 @@ KERNELS = {
     "flash_attention": _fa.flash_attention,
     "decode_attention": _da.decode_attention,
     "rmsnorm": _rn.rmsnorm,
+    "add_rmsnorm": _rn.add_rmsnorm,
 }
 
 
@@ -122,3 +123,12 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, backend: str = "auto"):
         return _ref.rmsnorm_ref(x, scale, eps=eps)
     return _rn.rmsnorm(x.contiguous(),
                        scale.to(torch.float32).contiguous(), eps=eps)
+
+
+def add_rmsnorm(x, r, scale, *, eps: float = 1e-6, backend: str = "auto"):
+    """The residual add fused with the norm after it: returns ``(h, y)``,
+    ``h = x + r`` in ``x.dtype`` and ``y = rmsnorm(h, scale)``."""
+    if _on_cpu(x):
+        return _ref.add_rmsnorm_ref(x, r, scale, eps=eps)
+    return _rn.add_rmsnorm(x.contiguous(), r.contiguous(),
+                           scale.to(torch.float32).contiguous(), eps=eps)

@@ -6,7 +6,8 @@ residency of ``repro/kernels/paged_attention.py``:
   :func:`split_plan`;
 * bf16 pages (``_kernel_bf16``): the bf16 decode body of
   ``csrc/decode_attention.cu``, the dense decode kernel with key t read
-  from row ``t % page_size`` of page ``page_table[b, t // page_size]``.
+  from row ``t % page_size`` of page ``page_table[b, t // page_size]``,
+  split across the sequence the same way.
 
 CUDA tensors only (``kernels/ops.py`` sends CPU tensors to
 ``ref.paged_decode_attention_ref``); the launch counts are
@@ -20,21 +21,9 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import HEAD_DIMS
+from repro_torch.kernels.decode_attention import (
+    HEAD_DIMS, _counters, split_operands, split_plan)
 from repro_torch.kernels.kv_quant import _require_cuda
-
-SPLIT_TOKENS = 64     # keys a split covers (a whole number of pages)
-
-
-def split_plan(W: int, page_size: int):
-    """``(pages_per_split, n_split)`` for a page table of width ``W``: split
-    s covers pages ``[s * pages_per_split, min((s + 1) * pages_per_split,
-    W))``. A function of host shapes only, never of ``kv_len``: the decode
-    chunk runs under ``set_sync_debug_mode("error")`` and the launch must
-    stay capturable in a CUDA graph; the kernel's CTAs whose split starts
-    at or past ``kv_len`` exit at once."""
-    pages = max(1, SPLIT_TOKENS // page_size)
-    return pages, -(-W // pages)
 
 
 def rows_per_cta(gq: int) -> int:
@@ -53,22 +42,6 @@ def launch_shape(B: int, Hkv: int, gq: int, hd: int, W: int,
     blocks = -(-gq // rows)
     return ((n_split, B * Hkv, blocks),
             B * Hkv * blocks * rows * n_split * (hd + 2), B * Hkv * blocks)
-
-
-_COUNTERS = {}        # device index -> [int32 zeros], newest last
-
-
-def _counters(device, n: int) -> torch.Tensor:
-    """The merge counters of ``device``: zeroed once, reset to 0 by the
-    kernel's last CTA in every launch, so no launch pays a memset. Launches
-    on one device run in stream order and must not overlap. A buffer that
-    grows keeps its predecessor alive: a captured CUDA graph may still
-    point at it."""
-    bufs = _COUNTERS.setdefault(device.index, [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros((max(n, 1 << 14),), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
 
 
 def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
@@ -144,7 +117,7 @@ def paged_decode_attention_bf16(q, k_pages, v_pages, page_table, kv_len, *,
           and hd in HEAD_DIMS
           and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages))
           and page_table.dtype == kv_len.dtype == torch.int32
-          and tuple(page_table.shape) == (B, W)
+          and tuple(page_table.shape) == (B, W) and W > 0
           and tuple(kv_len.shape) == (B,))
     if not ok:
         raise ValueError(
@@ -154,10 +127,13 @@ def paged_decode_attention_bf16(q, k_pages, v_pages, page_table, kv_len, *,
             f"kv_len {tuple(kv_len.shape)} {kv_len.dtype}, page_size "
             f"{page_size}; head_dim must be one of {HEAD_DIMS}")
     out = torch.empty_like(q)
+    split_len, n_split, part, counters = split_operands(q, B, Hkv, gq, hd, W,
+                                                        page_size)
     status = build.library().paged_attention_bf16_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, Hkv, gq, hd, W, page_size,
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, Hkv, gq,
+        hd, W, page_size, split_len, n_split,
         sm_scale or 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_decode_attention")

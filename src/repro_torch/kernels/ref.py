@@ -138,6 +138,13 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6):
     return (xf * (1.0 + scale.float())).to(dt)
 
 
+def add_rmsnorm_ref(x, r, scale, eps: float = 1e-6):
+    """The residual add and the norm after it: ``h = x + r``, then
+    ``(h, rmsnorm_ref(h, scale))``."""
+    h = x + r
+    return h, rmsnorm_ref(h, scale, eps=eps)
+
+
 def _mask_bias(qpos, kpos, *, causal, window):
     """(B, Sq, Sk) additive f32 bias from causal / window masks."""
     qp = qpos[..., :, None]

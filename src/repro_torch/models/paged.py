@@ -32,7 +32,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kv_layout import pick_group
 from repro_torch.models import layers
 from repro_torch.models.layers import dense
-from repro_torch.models.transformer import _ffn, unembed_matrix
+from repro_torch.models.transformer import run_layers, unembed_matrix
 
 DEFAULT_PAGE_SIZE = 16
 PAGE_KEYS = ("kp", "ks", "kz", "vp", "vs", "vz")
@@ -119,8 +119,8 @@ def decode_step_paged(cfg, params, cache, tokens, *,
         tail_page, tail_off = ref.append_coords(pt, lengths, ps)
     kv_len = (lengths + 1).to(torch.int32)
     slot = cache["slot0"]
-    for i, p in enumerate(params["layers"]):
-        h = ops.rmsnorm(x, p["norm1"], backend=backend)
+
+    def attend(i, p, h):
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
         if int4:
             kpages = tuple(slot[n][i] for n in ("kp", "ks", "kz"))
@@ -134,11 +134,10 @@ def decode_step_paged(cfg, params, cache, tokens, *,
         qr = q[:, 0].reshape(B, Hkv, gq, hd).contiguous()
         o = ops.paged_decode_attention(qr, kpages, vpages, pt, kv_len,
                                        page_size=ps, backend=backend)
-        x = x + dense(p["attn"]["wo"],
-                      o.reshape(B, 1, cfg.q_dim).to(x.dtype))
-        x = _ffn(cfg, p, x)
-    x = ops.rmsnorm(x, params["final_norm"], backend=backend)
-    logits = (x @ unembed_matrix(cfg, params)).float()
+        return dense(p["attn"]["wo"], o.reshape(B, 1, cfg.q_dim).to(h.dtype))
+
+    _, h = run_layers(cfg, params, x, attend, backend=backend)
+    logits = (h @ unembed_matrix(cfg, params)).float()
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1
     return logits, new_cache

@@ -92,8 +92,34 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
                                    device=device)}
 
 
-def _ffn(cfg, p, x):
-    return x + layers.mlp_apply(cfg, p["mlp"], ops.rmsnorm(x, p["norm2"]))
+def run_layers(cfg, params, x, attend, *, final_norm=True,
+               backend: str = "auto"):
+    """The residual stream ``x`` through every layer: ``attend(i, p, h)``
+    returns layer i's attention output, projected back to d_model, for the
+    normed input ``h``. Each residual add is fused with the norm after it
+    (``ops.add_rmsnorm``, one launch on the card): the attention residual
+    with ``norm2``, the MLP residual with the next layer's ``norm1`` or,
+    after the last layer, with the final norm. Returns ``(x, h)``: the
+    stream and its final norm; with ``final_norm=False`` the last add stays
+    unfused and ``h`` is None (prefill norms only the rows it keeps).
+
+    On the CPU the arithmetic is the reference's exactly: an add, then
+    ``rmsnorm_ref``."""
+    blocks = params["layers"]
+    h = ops.rmsnorm(x, blocks[0]["norm1"], backend=backend)
+    for i, p in enumerate(blocks):
+        x, h = ops.add_rmsnorm(x, attend(i, p, h), p["norm2"],
+                               backend=backend)
+        m = layers.mlp_apply(cfg, p["mlp"], h)
+        if i + 1 < len(blocks):
+            x, h = ops.add_rmsnorm(x, m, blocks[i + 1]["norm1"],
+                                   backend=backend)
+        elif final_norm:
+            x, h = ops.add_rmsnorm(x, m, params["final_norm"],
+                                   backend=backend)
+        else:
+            x, h = x + m, None
+    return x, h
 
 
 def _last_logits(cfg, params, x, last_pos):
@@ -126,15 +152,16 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
     x = params["embed"][tokens]
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
-    for i, p in enumerate(params["layers"]):
-        h = ops.rmsnorm(x, p["norm1"])
+
+    def attend(i, p, h):
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
         o = ops.flash_attention(q, k, v, causal=True,
                                 window=cfg.sliding_window)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
-        x = x + dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
-        x = _ffn(cfg, p, x)
+        return dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
+
+    x, _ = run_layers(cfg, params, x, attend, final_norm=False)
     cache["lengths"] = _lengths(true_len, B, S, dev)
     return _last_logits(cfg, params, x, last_pos), cache
 
@@ -155,16 +182,17 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     x = params["embed"][tokens]
     positions = prefix_len[:, None].long() + torch.arange(S, device=dev)[None]
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
-    for i, p in enumerate(params["layers"]):
-        h = ops.rmsnorm(x, p["norm1"])
+
+    def attend(i, p, h):
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
         K = torch.cat([pk_all[i].to(k.dtype), k], dim=1)
         V = torch.cat([pv_all[i].to(v.dtype), v], dim=1)
         o = ops.flash_attention(q, K, V, prefix_len=prefix_len)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
-        x = x + dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
-        x = _ffn(cfg, p, x)
+        return dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
+
+    x, _ = run_layers(cfg, params, x, attend, final_norm=False)
     cache["lengths"] = _lengths(true_len, B, S, dev)
     return _last_logits(cfg, params, x, last_pos), cache
 
@@ -202,8 +230,8 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
     bidx = torch.arange(B, device=x.device)
     w_pos = torch.clamp(lengths.long(), max=K.shape[2] - 1)
     kv_len = (lengths + 1).to(torch.int32)
-    for i, p in enumerate(params["layers"]):
-        h = ops.rmsnorm(x, p["norm1"], backend=backend)
+
+    def attend(i, p, h):
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
         K[i][bidx, w_pos] = k[:, 0].to(K.dtype)
         V[i][bidx, w_pos] = v[:, 0].to(V.dtype)
@@ -211,11 +239,10 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
             q[:, 0].reshape(B, Hkv, g, hd).contiguous(),
             K[i].permute(0, 2, 1, 3), V[i].permute(0, 2, 1, 3), kv_len,
             backend=backend)
-        x = x + dense(p["attn"]["wo"],
-                      o.reshape(B, 1, cfg.q_dim).to(x.dtype))
-        x = _ffn(cfg, p, x)
-    x = ops.rmsnorm(x, params["final_norm"], backend=backend)
-    logits = (x @ unembed_matrix(cfg, params)).float()
+        return dense(p["attn"]["wo"], o.reshape(B, 1, cfg.q_dim).to(h.dtype))
+
+    _, h = run_layers(cfg, params, x, attend, backend=backend)
+    logits = (h @ unembed_matrix(cfg, params)).float()
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1
     return logits, new_cache

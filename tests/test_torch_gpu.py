@@ -14,7 +14,9 @@ body rounds them to bf16 before P.V as the plain version does, but before
 normalising), so they are held to 1e-5 when q is f32 (K/V f32 or bf16:
 the plain version reads the same bf16 values) and to 2e-2 (a few bf16
 ulps at |out| <= 4) when q is bf16. RMSNorm sums its row in another order:
-1e-5 relative in f32, one bf16 ulp (2**-7 relative) in bf16.
+1e-5 relative in f32, one bf16 ulp (2**-7 relative) in bf16; the residual
+add fused in front of it (``add_rmsnorm``) must give PyTorch's ``x + r``
+byte for byte.
 """
 import math
 
@@ -366,6 +368,100 @@ def test_norm_and_attention_launch_without_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()
+
+
+# -- add_rmsnorm: the residual add fused with the norm ----------------------------
+
+
+def _norm_inputs(shape, dt, seed, offset=0):
+    gen = _gen(seed)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dt)
+    r = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dt)
+    scale = torch.randn((shape[-1],), generator=gen, device="cuda") * 0.1
+    return _at_offset(x, offset), _at_offset(r, offset), scale
+
+
+def _assert_norm_close(got, want):
+    rtol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("shape", [(1024, 6656), (4, 1, 6656), (37, 6656),
+                                   (3, 5, 64), (2, 1)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_add_rmsnorm_kernel_matches_plain(cuda, shape, dtype, offset):
+    """h byte-identical to PyTorch's x + r, y within one ulp of the plain
+    version; offset 1 puts every row off the 16-byte grain (the scalar
+    body)."""
+    dt = getattr(torch, dtype)
+    x, r, scale = _norm_inputs(shape, dt, sum(shape) + offset, offset)
+    before = rn.add_rmsnorm.launches
+    h, y = ops.add_rmsnorm(x, r, scale)
+    want_h, want_y = ref.add_rmsnorm_ref(x, r, scale)
+    torch.cuda.synchronize()
+    assert rn.add_rmsnorm.launches == before + 1
+    assert h.dtype == y.dtype == dt and h.shape == y.shape == x.shape
+    assert torch.equal(h, want_h)
+    _assert_norm_close(y, want_y)
+    if offset:
+        assert rn.vector_width(shape[-1], x.element_size(), x, r) == 1
+
+
+@pytest.mark.parametrize("d", [6656, 64, 1])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_norm_rows_do_not_depend_on_the_row_count(cuda, d, dtype):
+    """Rows normed in a 4-row launch have the bytes of the same rows in a
+    1024-row launch, for rmsnorm and add_rmsnorm (chunked vs one-shot
+    prefill and step vs step_reference are held bit for bit)."""
+    x, r, scale = _norm_inputs((1024, d), getattr(torch, dtype), d)
+    rows = [0, 17, 500, 1023]
+    h_all, y_all = ops.add_rmsnorm(x, r, scale)
+    h_few, y_few = ops.add_rmsnorm(x[rows].contiguous(),
+                                   r[rows].contiguous(), scale)
+    assert torch.equal(h_all[rows], h_few) and torch.equal(y_all[rows], y_few)
+    assert torch.equal(ops.rmsnorm(x, scale)[rows],
+                       ops.rmsnorm(x[rows].contiguous(), scale))
+
+
+def test_add_rmsnorm_without_host_sync_and_in_a_graph(cuda):
+    """The launch reads nothing back (the decode chunk's sync-debug guard),
+    and a CUDA graph of it replays on new contents of its inputs."""
+    x, r, scale = _norm_inputs((4, 1, 6656), torch.bfloat16, 7)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.add_rmsnorm(x, r, scale)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.add_rmsnorm(x, r, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h, y = ops.add_rmsnorm(x, r, scale)
+    for seed in (8, 9):
+        nx, nr, ns = _norm_inputs((4, 1, 6656), torch.bfloat16, seed)
+        x.copy_(nx), r.copy_(nr), scale.copy_(ns)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_h, want_y = ref.add_rmsnorm_ref(nx, nr, ns)
+        assert torch.equal(h, want_h)
+        _assert_norm_close(y, want_y)
+
+
+def test_add_rmsnorm_refuses_bad_operands(cuda):
+    x = torch.zeros((4, 64), device=cuda)
+    with pytest.raises(ValueError, match="r like x"):
+        rn.add_rmsnorm(x, x.to(torch.bfloat16), torch.zeros((64,),
+                                                            device=cuda))
+    with pytest.raises(ValueError, match="registers"):
+        big = torch.zeros((1, rn.MAX_D + 8), device=cuda)
+        rn.add_rmsnorm(big, big, torch.zeros((rn.MAX_D + 8,), device=cuda))
 
 
 # -- dense decode attention and the bf16 paged body ------------------------------
@@ -778,3 +874,90 @@ def test_graph_replay_follows_kv_len_and_prefix_len(cuda):
         torch.testing.assert_close(po[live].float(), want_p[live].float(),
                                    atol=2e-2, rtol=2e-2)
         assert torch.equal(po[~live], torch.zeros_like(po[~live]))
+
+
+# -- the split bf16 decode body: dense strides and bf16 pages --------------------
+
+SPLIT_EDGES = [0, 1, 63, 64, 65, 256]   # kv_len around the 64-key splits
+
+
+@pytest.mark.parametrize("qdt,kvdt", DTYPE_PAIRS)
+def test_split_decode_attention_at_split_edges(cuda, qdt, kvdt):
+    """kv_len 0, 1, 63, 64, 65 and the maximum (S = 256, 4 splits) in one
+    launch: the live rows match the plain version, kv_len 0 gives 0."""
+    B = len(SPLIT_EDGES)
+    q, k, v, kv_len, _ = _decode_inputs(B, 4, 2, 128, 256, SPLIT_EDGES,
+                                        getattr(torch, qdt),
+                                        getattr(torch, kvdt), "cache",
+                                        seed=31)
+    got = ops.decode_attention(q, k, v, kv_len)
+    want = ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    tol = 2e-2 if qdt == "bfloat16" else 1e-5
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("qdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("ps", [16, 8])
+def test_split_paged_bf16_at_split_edges(cuda, qdt, ps):
+    B = len(SPLIT_EDGES)
+    W = 256 // ps
+    q, kp, vp, pt, kv_len = _bf16_pages(B, 4, 2, 128, ps, W, SPLIT_EDGES,
+                                        getattr(torch, qdt), seed=32 + ps)
+    got = ops.paged_decode_attention(q, kp, vp, pt, kv_len, page_size=ps)
+    want = ref.paged_decode_attention_ref(q, kp, vp, pt, kv_len,
+                                          page_size=ps)
+    torch.cuda.synchronize()
+    tol = 2e-2 if qdt == "bfloat16" else 1e-5
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+def test_split_bf16_body_graph_replay_follows_kv_len_and_page_table(cuda):
+    """The dense and the paged launch captured once in a CUDA graph, then
+    replayed after kv_len and the page table were overwritten in place:
+    each replay matches the plain version on the new contents (the split
+    plan and the early exits are decided on the card)."""
+    B, Hkv, g, hd, ps, W = 4, 8, 1, 128, 16, 16
+    bf = torch.bfloat16
+    q, k, v, kv_len, _ = _decode_inputs(B, Hkv, g, hd, W * ps,
+                                        [17, 232, 64, 1], bf, bf, "cache",
+                                        seed=33)
+    pq, kp, vp, pt, pl = _bf16_pages(B, Hkv, g, hd, ps, W,
+                                     [256, 256, 256, 256], bf, seed=34)
+
+    def run():
+        return (ops.decode_attention(q, k, v, kv_len),
+                ops.paged_decode_attention(pq, kp, vp, pt, pl, page_size=ps))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        do, po = run()
+    perm = torch.randperm(kp.shape[0] - 1,
+                          generator=torch.Generator().manual_seed(35)) + 1
+    for step, lens in enumerate(([17, 232, 64, 1], [256, 0, 65, 63],
+                                 [129, 64, 256, 200])):
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        pl.copy_(torch.tensor(lens, dtype=torch.int32))
+        if step:                                  # new pages for every slot
+            pt.copy_(torch.roll(perm, step)[:B * W].reshape(B, W).to(
+                torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want_d = ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+        want_p = ref.paged_decode_attention_ref(pq, kp, vp, pt, pl,
+                                                page_size=ps)
+        live = kv_len > 0
+        for got, want in ((do, want_d), (po, want_p)):
+            torch.testing.assert_close(got[live].float(),
+                                       want[live].float(), atol=2e-2,
+                                       rtol=2e-2)
+            assert torch.equal(got[~live], torch.zeros_like(got[~live]))

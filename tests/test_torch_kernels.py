@@ -675,3 +675,125 @@ def test_rmsnorm_ref_vs_jax(N, d, dtype, against):
     # results round to the same bf16 value or to a neighbour (one ulp)
     rtol = 2 ** -7 if dtype == "bfloat16" else 1e-6
     np.testing.assert_allclose(_np(want), _np(got), rtol=rtol, atol=1e-6)
+
+
+# -- add_rmsnorm: the residual add fused with the norm after it ------------------------
+
+
+@pytest.mark.parametrize("N,d", [(1, 8), (7, 64), (256, 96), (3, 6656)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("against", ["ref", "interpret"])
+def test_add_rmsnorm_ref_vs_jax(N, d, dtype, against):
+    """``add_rmsnorm_ref`` against the JAX package's ``x + r`` followed by
+    its rmsnorm (plain or the Pallas kernel interpreted): h exactly (both
+    add in f32 and round once to the working type), y as
+    ``test_rmsnorm_ref_vs_jax`` holds the norm alone."""
+    rng = np.random.default_rng(N * d + 1)
+    x = (rng.standard_normal((N, d)) * 2).astype(np.float32)
+    r = (rng.standard_normal((N, d)) * 2).astype(np.float32)
+    scale = (rng.standard_normal((d,)) * 0.1).astype(np.float32)
+    (xj, xt), (rj, rt) = _both(x, dtype), _both(r, dtype)
+    h, y = t_ops.add_rmsnorm(xt, rt, torch.from_numpy(scale))
+    assert h.dtype == y.dtype == xt.dtype
+    hj = xj + rj
+    if against == "ref":
+        want = j_ref.rmsnorm_ref(hj, jnp.asarray(scale))
+    else:
+        want = j_ops.rmsnorm(hj, jnp.asarray(scale), backend="interpret",
+                             block_n=min(N, 256))
+    np.testing.assert_array_equal(_np(hj), _np(h))
+    rtol = 2 ** -7 if dtype == "bfloat16" else 1e-6
+    np.testing.assert_allclose(_np(want), _np(y), rtol=rtol, atol=1e-6)
+
+
+def test_add_rmsnorm_on_cpu_is_the_plain_version():
+    """On a CPU tensor ``ops.add_rmsnorm`` is ``x + r`` then
+    ``rmsnorm_ref``, bit for bit, and counts no launch; the kernel wrapper
+    refuses CPU tensors."""
+    rng = np.random.default_rng(3)
+    x, r = (torch.from_numpy(rng.standard_normal((2, 5, 64)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    scale = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    before = t_ops.launch_counts()
+    h, y = t_ops.add_rmsnorm(x, r, scale)
+    assert t_ops.launch_counts() == before
+    assert torch.equal(h, x + r)
+    assert torch.equal(y, t_ref.rmsnorm_ref(x + r, scale))
+    assert "add_rmsnorm" in t_ops.KERNELS
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_rn.add_rmsnorm(x, r, scale)
+
+
+def test_norm_plan_reads_only_the_row_width():
+    """The launch configuration fixes a row's summation order, so it is a
+    function of d and the body alone (a row normed in a 4-row launch has
+    the bytes it has in a 1024-row one); it covers the row with whole
+    warps, at most 512 threads, and refuses rows past the registers."""
+    import inspect
+    assert list(inspect.signature(t_rn.norm_plan).parameters) == ["d", "vec"]
+    assert t_rn.norm_plan(6656, 8) == (2, 416)      # LLaMA-30B, bf16
+    assert t_rn.norm_plan(6656, 4) == (4, 416)      # f32
+    assert t_rn.norm_plan(1, 1) == (1, 32)
+    for d in (1, 2, 63, 64, 65, 1000, 6656, 6657, 16384):
+        for vec in (1, 4, 8):
+            if vec > 1 and d % vec:
+                continue
+            vpt, threads = t_rn.norm_plan(d, vec)
+            assert threads % 32 == 0 and 32 <= threads <= t_rn.MAX_THREADS
+            assert vpt * vec <= t_rn.ELEMS_PER_THREAD
+            assert vpt * vec * threads >= d
+            assert vpt == 1 or -(-d // vec) > (vpt // 2) * t_rn.MAX_THREADS
+    with pytest.raises(ValueError, match="registers"):
+        t_rn.norm_plan(t_rn.MAX_D + 8, 8)
+
+
+def test_vector_width_follows_row_width_and_alignment():
+    x = torch.zeros((4, 6656), dtype=torch.bfloat16)
+    assert t_rn.vector_width(6656, 2, x) == 8
+    assert t_rn.vector_width(6656, 4, x.float()) == 4
+    assert t_rn.vector_width(6657, 2, x) == 1       # rows off the grain
+    assert t_rn.vector_width(6655, 2, x[:, 1:]) == 1
+
+
+# -- the bf16 decode body's split plan (dense strides and bf16 pages) ----------------
+
+
+@pytest.mark.parametrize("S,W,ps", [(256, 16, 16), (40, 5, 8), (1, 1, 1),
+                                    (65, 3, 32), (512, 4, 128), (70, 17, 5),
+                                    (64, 64, 1)])
+def test_decode_split_plan_covers_every_key_once(S, W, ps):
+    """For a dense view of S keys (pages of one key) and for W pages of ps
+    keys: the splits tile the keys, none empty, and for every kv_len the
+    splits the kernel keeps (those starting below kv_len, and split 0 for
+    kv_len 0) hold exactly the keys it must read, min(kv_len, max) of
+    them."""
+    for max_len, (n_pages, size) in ((S, (S, 1)), (W * ps, (W, ps))):
+        grid, split_len, n_part, n_count = t_da.launch_shape(
+            4, 3, 2, 64, n_pages, size)
+        n_split = grid[0]
+        spans = [range(s * split_len, min((s + 1) * split_len, max_len))
+                 for s in range(n_split)]
+        assert all(len(r) > 0 for r in spans)
+        assert [t for r in spans for t in r] == list(range(max_len))
+        assert split_len == max(1, t_da.SPLIT_TOKENS // size) * size
+        assert grid == (n_split, 4 * 3, 2) and n_count == 4 * 3 * 2
+        assert n_part == 4 * 3 * 2 * n_split * (64 + 2)
+        for kv_len in range(max_len + 5):
+            n = min(kv_len, max_len)
+            live = [r for s, r in enumerate(spans)
+                    if s * split_len < n or s == 0]
+            assert [t for r in live for t in r if t < n] == list(range(n))
+            assert len(live) == max(1, -(-n // split_len))
+
+
+def test_decode_launch_shape_reads_only_host_shapes():
+    """The dense and bf16-page launches of the main path's decode step (4
+    slots, 52 KV heads, 256 keys: dense S = 256 or W = 16 pages of 16)
+    have the same grid, 4 splits of 64 keys, from shapes alone."""
+    import inspect
+    assert "kv_len" not in inspect.signature(t_da.launch_shape).parameters
+    dense = t_da.launch_shape(4, 52, 1, 128, 256)
+    paged = t_da.launch_shape(4, 52, 1, 128, 16, 16)
+    assert dense == paged == ((4, 4 * 52, 1), 64, 4 * 52 * 4 * 130, 4 * 52)
+    assert t_pa.split_plan is t_da.split_plan
+    assert t_pa._counters is t_da._counters

@@ -232,3 +232,45 @@ def test_unported_families_raise():
         cache = t_tf.init_cache(cfg, 1, 16, device="cpu")
         with pytest.raises(NotImplementedError, match="A.8"):
             api.decode(params, cache, torch.ones((1, 1), dtype=torch.long))
+
+
+@pytest.mark.parametrize("path", ["prefill", "suffix", "dense", "int4",
+                                  "bf16"])
+def test_residual_adds_fused_with_the_norms(model, monkeypatch, path):
+    """Every residual add but prefill's last is fused with the norm after
+    it: a decode step calls ``rmsnorm`` once (layer 0's norm1) and
+    ``add_rmsnorm`` twice a layer (norm2; the next norm1 or the final
+    norm); a prefill call norms layer 0 and its kept rows, and leaves the
+    last layer's add unfused (2 rmsnorm, 2L - 1 add_rmsnorm)."""
+    from repro_torch.kernels import ops as t_ops
+    _, _, tcfg, tp = model
+    L = tcfg.num_layers
+    calls = {"rmsnorm": 0, "add_rmsnorm": 0}
+    for name in calls:
+        fn = getattr(t_ops, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(t_ops, name, counted)
+    toks = torch.from_numpy(_tokens(2, 8, seed=11)).long()
+    if path == "prefill":
+        t_tf.prefill(tcfg, tp, toks, max_seq=8)
+    elif path == "suffix":
+        shape = (L, 2, 4, tcfg.num_kv_heads, tcfg.head_dim)
+        t_tf.prefill_suffix(tcfg, tp, toks,
+                            {"slot0": (torch.zeros(shape),
+                                       torch.zeros(shape))},
+                            torch.tensor([4, 2], dtype=torch.int32),
+                            max_seq=8)
+    elif path == "dense":
+        cache = t_tf.init_cache(tcfg, 2, 16, torch.float32, device="cpu")
+        t_tf.decode_step(tcfg, tp, cache, toks[:, :1])
+    else:
+        cache = t_paged.init_paged_cache(tcfg, 2, 16, 5, page_size=8,
+                                         resident=path, device="cpu")
+        t_paged.decode_step_paged(tcfg, tp, cache, toks[:, :1], page_size=8)
+    if path in ("prefill", "suffix"):
+        assert calls == {"rmsnorm": 2, "add_rmsnorm": 2 * L - 1}
+    else:
+        assert calls == {"rmsnorm": 1, "add_rmsnorm": 2 * L}
