@@ -30,34 +30,43 @@ before the last line:
    row the same bytes in a 4-row and a 1024-row launch;
 4. reference: the reduced LLaMA-30B served in float32 through the
    engines on the card and on the CPU (plain versions), once for each
-   decode cache (int4 pages, the dense cache, bf16 pages): greedy tokens
-   must agree;
+   decode cache (int4 pages, the dense cache, bf16 pages), the card's
+   decode chunks as CUDA graph replays: greedy tokens must agree;
 5. serve: full-width LLaMA-30B (random bf16 weights from a seed) through
-   ``PrefillEngine`` and ``DecodeEngine(paged=True, prefix_sharing=True)``,
-   called in the order the gateway's local clients call them: fresh
-   prefills, a full prefix hit, a partial prefix hit, and a chunked
-   prefill with a 64-token budget; every decode chunk runs under
-   ``torch.cuda.set_sync_debug_mode("error")``. Launch counts are reset
-   just before this phase and read just after it; then one decode chunk
-   (which must launch ``kv_quant_append`` once per layer per step and
-   ``kv_quant`` never) and one prefill call of the 256-token bucket at
-   batch 4 run under the profiler, each with its launches and device
-   time, its norm launches (a decode step: 1 ``rmsnorm`` and 2
-   ``add_rmsnorm`` a layer; a prefill call 2 and 2L - 1) and its bf16 add
-   kernels (the residual adds, fused away). Then, each with its own
-   launch counts, the dense cache (``DecodeEngine(paged=False)``) and the
-   bf16 pages (``kv_resident="bf16"``) serve fresh prompts and a chunked
-   prefill the same way, each with one profiled chunk checked the same
-   way; on the dense engine ``step_reference()`` must decode what
-   ``step()`` decodes;
+   ``PrefillEngine`` and, for each decode cache (int4 pages, the main
+   path, first; the dense cache; bf16 pages), a graphed and an eager
+   ``DecodeEngine`` (``cuda_graph=True``: each chunk one CUDA graph
+   replay; ``cuda_graph=False``: the eager loop) on the same weights,
+   driven in lockstep with the same requests, in the order the gateway's
+   local clients call them: fresh prefills decoding alone, then (page
+   residencies) a full prefix hit, a partial prefix hit and a chunked
+   prefill with a 64-token budget over a 16-token hit, one decode chunk
+   between ticks (dense: a fresh prompt and a chunked prefill). After
+   every admission and chunk both arms must hold the same tokens, state,
+   lengths, page table and page bytes; every chunk runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, and the graphed engine
+   captures one graph. Host time per decode step is taken for each arm,
+   the arm that goes first alternating chunk by chunk. Launch counts are
+   reset before each cache's run and read after it; then one chunk of
+   each arm runs under the profiler (launches and device time a step;
+   1 ``rmsnorm`` and 2 ``add_rmsnorm`` a layer a step; the int4 chunk
+   launches ``kv_quant_append`` once per layer per step and ``kv_quant``
+   never), one replay of the graphed chunk is timed between CUDA events,
+   the graphed dense engine's ``step_reference()`` must decode what its
+   ``step()`` decodes, and one prefill call of the 256-token bucket at
+   batch 4 runs under the profiler (2 ``rmsnorm`` and 2L - 1
+   ``add_rmsnorm``);
 6. gateway: the system's entry point, ``repro_torch.launch.serve.run``,
-   at full width on phase 5's weights, three times: (a) default flags
-   with a 32-token chunked-prefill budget over a short open-loop trace,
-   (b) ``--live-reschedule`` over a short shifted trace, (c)
-   ``--no-paged`` (dense decode engines). Every request must be DONE with
-   0 leaked pages, (a) must chunk, and every engine must still hold phase
-   5's parameters. Launch counts are reset before and read after, and
-   summed with phase 5's.
+   at full width on phase 5's weights, three times: (a) with a 32-token
+   chunked-prefill budget over a short open-loop trace under
+   ``REPRO_SANITIZE=1`` (the runtime sanitizers audit every request's
+   transitions and the pools at the drain, and no decode replica may
+   capture a graph after the warm-up), (b) ``--live-reschedule`` over a
+   short shifted trace, (c) ``--no-paged`` (dense decode engines), all
+   with graphed decode chunks. Every request must be DONE with 0 leaked
+   pages, (a) must chunk, and every engine must still hold phase 5's
+   parameters. Launch counts are reset before and read after, and summed
+   with phase 5's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -762,11 +771,138 @@ class Clock:
         return time.perf_counter() - self.t0
 
 
-def serve_full(torch, cfg, device="cuda"):
-    """Full-width LLaMA-30B through the engines in the gateway's order
-    (``device="cpu"`` rehearses the control flow on a reduced config)."""
-    from repro_torch.kernels import ops
+ARMS = ("graph", "eager")
+
+
+class Pair:
+    """Phase 5's A/B: a graphed and an eager ``DecodeEngine`` of one decode
+    cache on one set of weights, driven in lockstep. Each arm has its own
+    requests (same ids, prompts and budgets) and takes the same
+    admissions; after every admission and every chunk the arms must hold
+    the same slots, tokens, current tokens, lengths, page table and pool,
+    and every byte attention can read (every page but the trash page,
+    where idle slots' writes race; dense: each occupied slot's rows below
+    its length). Chunks alternate which arm goes first; each arm's chunk
+    is timed on the host clock (``step()`` ends in the chunk's one
+    device -> host copy)."""
+
+    def __init__(self, torch, cfg, params, mode, device):
+        from repro_torch.serving import engine as E
+        self.torch, self.E, self.mode = torch, E, mode
+        kw = dict(max_slots=4, max_seq=256, page_size=16, chunk_size=8,
+                  prefix_sharing=mode != "dense", device=device,
+                  **DECODE_MODES[mode])
+        self.dec = {arm: E.DecodeEngine(cfg, params,
+                                        cuda_graph=arm == "graph", **kw)
+                    for arm in ARMS}
+        self.reqs = {arm: {} for arm in ARMS}
+        self.host_ms = {arm: [] for arm in ARMS}    # (round, ms per step)
+        self.round = 1
+        self.n_chunks = 0
+        self.on_card = device == "cuda"
+
+    def request(self, rid, tokens, max_new):
+        for arm in ARMS:
+            self.reqs[arm][rid] = self.E.GenRequest(rid, tokens.copy(),
+                                                    max_new)
+        return self.reqs["graph"][rid]
+
+    def admit(self, items_of):
+        """``items_of(arm)``: that arm's AdmissionItems."""
+        for arm in ARMS:
+            if self.dec[arm].admit(self.E.AdmissionBatch(items_of(arm))):
+                raise AssertionError(f"{self.mode} {arm}: admission "
+                                     f"rejected")
+        self.check()
+
+    def step(self, n_chunks_max=None):
+        k = 0
+        while any(d.active for d in self.dec.values()) and (
+                n_chunks_max is None or k < n_chunks_max):
+            finished = {}
+            for arm in (ARMS if self.n_chunks % 2 == 0 else ARMS[::-1]):
+                dec = self.dec[arm]
+                t = time.perf_counter()
+                done = dec.step(sync_check=True)
+                if self.on_card:
+                    self.torch.cuda.synchronize()
+                self.host_ms[arm].append(
+                    (self.round, (time.perf_counter() - t) * 1e3
+                     / dec.chunk_size))
+                finished[arm] = [r.rid for r in done]
+            if finished["graph"] != finished["eager"]:
+                raise AssertionError(f"{self.mode}: finished {finished}")
+            self.check()
+            self.n_chunks += 1
+            k += 1
+
+    def check(self):
+        torch = self.torch
+        a, b = self.dec["graph"], self.dec["eager"]
+        same = ([None if r is None else (r.rid, r.out_tokens)
+                 for r in a.slots]
+                == [None if r is None else (r.rid, r.out_tokens)
+                    for r in b.slots]
+                and a.cur_token.tolist() == b.cur_token.tolist()
+                and torch.equal(a.cache["lengths"], b.cache["lengths"]))
+        if a.paged:
+            same = same and torch.equal(a.cache["page_table"],
+                                        b.cache["page_table"]) \
+                and a.pool.state_key() == b.pool.state_key() \
+                and all(torch.equal(x[:, 1:], y[:, 1:]) for x, y in zip(
+                    a.cache["slot0"].values(), b.cache["slot0"].values()))
+        else:
+            lengths = a.cache["lengths"].tolist()
+            same = same and all(
+                torch.equal(a.cache["slot0"][key][:, slot, :lengths[slot]],
+                            b.cache["slot0"][key][:, slot, :lengths[slot]])
+                for slot, r in enumerate(a.slots) if r is not None
+                for key in ("k", "v"))
+        if not same:
+            raise AssertionError(f"{self.mode}: the graphed and the eager "
+                                 f"engine parted after chunk "
+                                 f"{self.n_chunks}")
+
+    def host_summary(self, arm, rnd=None):
+        """min / median / max host ms per decode step over the chunks of
+        round ``rnd`` (every chunk if None)."""
+        v = sorted(ms for r, ms in self.host_ms[arm]
+                   if rnd is None or r == rnd)
+        return v[0], float(np.median(v)), v[-1], len(v)
+
+
+def full_model(torch, cfg, device="cuda"):
+    """Random bf16 weights of ``cfg`` made on ``device`` from ``SEED``, and
+    the prefill engine phase 5 shares between its decode engines."""
     from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"  weights: {cfg.param_count():,} params, bf16, made on "
+        f"{device} from seed {SEED} in {time.perf_counter() - t:.1f} s")
+    return params, E.PrefillEngine(cfg, params, max_seq=256, max_batch=4,
+                                   device=device)
+
+
+def serve_ab(torch, cfg, params, pre, mode, device="cuda"):
+    """Phase 5 for the decode cache of ``mode``: the same requests through
+    a graphed and an eager engine (:class:`Pair`). Round 1: three fresh
+    prompts sharing a 16-token prefix decode alone. Round 2, on the page
+    residencies: a full prefix hit, a partial hit (64 tokens) and a
+    chunked prefill over a 16-token hit (64-token budget, one decode chunk
+    between ticks); on the dense cache a fresh prompt and a chunked
+    prefill. Checks every request's tokens, the full hit against its
+    donor, zero-copy inserts (int4), 0 leaked pages, one host sync per
+    chunk, released lengths and one graph captured. Returns the kernels'
+    launch counts of the run (both arms). On the card it then profiles a
+    chunk of each arm (launches, device time, norms, the int4 append) and
+    times one replay of the graphed chunk between CUDA events; on the
+    dense cache ``step_reference()`` must decode what ``step()`` decodes;
+    on the int4 pages one prefill call of the 256-token bucket at batch 4
+    is profiled."""
+    from repro_torch.kernels import ops
     from repro_torch.serving import engine as E
     on_card = device == "cuda"
 
@@ -774,20 +910,13 @@ def serve_full(torch, cfg, device="cuda"):
         if on_card:
             torch.cuda.synchronize()
 
-    t = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device=device)
-    sync()
-    log(f"  weights: {cfg.param_count():,} params, bf16, made on "
-        f"{device} from seed {SEED} in {time.perf_counter() - t:.1f} s")
-    pre = E.PrefillEngine(cfg, params, max_seq=256, max_batch=4,
-                          device=device)
-    dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=256,
-                         page_size=16, chunk_size=8, prefix_sharing=True,
-                         device=device)
-    pool_bytes = sum(a.numel() * a.element_size()
-                     for a in dec.cache["slot0"].values())
-    log(f"  decode pool: {dec.pool.capacity} pages of 16 tokens (+ trash), "
-        f"{pool_bytes / 1e9:.3f} GB")
+    pair = Pair(torch, cfg, params, mode, device)
+    graph_dec = pair.dec["graph"]
+    if mode != "dense":
+        pool_bytes = sum(a.numel() * a.element_size()
+                         for a in graph_dec.cache["slot0"].values())
+        log(f"  {mode} decode pool: {graph_dec.pool.capacity} pages of 16 "
+            f"tokens (+ trash), {pool_bytes / 1e9:.3f} GB an engine")
     V = cfg.vocab_size
     rng = np.random.default_rng(SEED)
     system = rng.integers(1, V, 16)                  # page-aligned prefix
@@ -799,141 +928,221 @@ def serve_full(torch, cfg, device="cuda"):
     ops.reset_launches()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    done, n_chunks = [], 0
 
-    def step_all(n_chunks_max=None):
-        nonlocal n_chunks
-        k = 0
-        while dec.active and (n_chunks_max is None or k < n_chunks_max):
-            fin = dec.step(sync_check=True)
-            sync()
-            for r in fin:
-                r.t_done = clock()
-            done.extend(fin)
-            n_chunks += 1
-            k += 1
-
-    def admit(items):
-        rest = dec.admit(E.AdmissionBatch(items))
-        if rest:
-            raise AssertionError(f"admission rejected {len(rest)} item(s)")
+    def fresh(reqs):
+        for r in reqs:
+            r.t_submit = clock()
+        out = pre.run(reqs)
+        for r in reqs:
+            r.t_first = clock()
+        pair.admit(lambda arm: [E.AdmissionItem(pair.reqs[arm][r.rid], f,
+                                                wire=w)
+                                for r, w, f in out])
 
     # round 1: three fresh prompts, one prefill call per length bucket
-    r0 = E.GenRequest(0, prompt(40), 16)
-    r1 = E.GenRequest(1, prompt(100), 24)
-    r2 = E.GenRequest(2, prompt(200), 32)
-    for r in (r0, r1, r2):
-        r.t_submit = clock()
-    out = pre.run([r0, r1, r2])
-    for r, _, _ in out:
-        r.t_first = clock()
-    admit([E.AdmissionItem(r, f, wire=w) for r, w, f in out])
-    step_all()
-
+    r0 = pair.request(0, prompt(40), 16)
+    r1 = pair.request(1, prompt(100), 24)
+    r2 = pair.request(2, prompt(200), 32)
+    fresh([r0, r1, r2])
+    pair.step()
     # round 2: matched against the prefix index first, like the gateway
-    r3 = E.GenRequest(3, r0.tokens.copy(), 16)       # repeat: full hit
-    r4 = E.GenRequest(4, prompt(120, head=r1.tokens[:64]), 20)  # partial
-    r5 = E.GenRequest(5, prompt(150), 24)            # chunked, 16-token hit
-    hits = {}
-    for r in (r3, r4, r5):
-        r.t_submit = clock()
-        m = dec.prefix_match(r.tokens)
-        if m is None or not dec.prefix_pin(m.pages, ("pin", r.rid)):
-            raise AssertionError(f"request {r.rid}: no prefix hit")
-        hits[r.rid] = m
-        if not m.full:
-            r.start_pos = m.length
-            r.prefix_pages = list(m.pages)
-            r.prefix_wire = dec.extract_prefix(m.pages, m.length)
-    if not (hits[3].full and not hits[4].full and hits[4].length == 64
-            and not hits[5].full and hits[5].length == 16):
-        got = {k: (m.full, m.length) for k, m in hits.items()}
-        raise AssertionError(f"unexpected prefix matches: {got}")
-    log(f"  prefix hits: r3 full ({hits[3].length} tokens), r4 partial "
-        f"({hits[4].length}), r5 partial ({hits[5].length})")
-    admit([E.AdmissionItem(r3, hits[3].next_token, E.ADMIT_PREFIX_HIT,
-                           pages=list(hits[3].pages))])
-    r3.t_first = clock()
-    (_, w4, f4), = pre.run([r4])
-    r4.t_first = clock()
-    admit([E.AdmissionItem(r4, f4, wire=w4)])
+    pair.round = 2
+    paged = graph_dec.paged
+    if paged:
+        r3 = pair.request(3, r0.tokens, 16)               # repeat: full hit
+        pair.request(4, prompt(120, head=r1.tokens[:64]), 20)   # partial
+        r5 = pair.request(5, prompt(150), 24)   # chunked, 16-token hit
+        hits = {arm: {} for arm in ARMS}
+        for arm in ARMS:
+            dec = pair.dec[arm]
+            for rid in (3, 4, 5):
+                r = pair.reqs[arm][rid]
+                r.t_submit = clock()
+                m = dec.prefix_match(r.tokens)
+                if m is None or not dec.prefix_pin(m.pages, ("pin", rid)):
+                    raise AssertionError(f"{mode} {arm} request {rid}: no "
+                                         f"prefix hit")
+                hits[arm][rid] = m
+                if not m.full:
+                    r.start_pos = m.length
+                    r.prefix_pages = list(m.pages)
+                    r.prefix_wire = dec.extract_prefix(m.pages, m.length)
+        got = {arm: {k: (m.full, m.length, m.pages)
+                     for k, m in hits[arm].items()} for arm in ARMS}
+        h = hits["graph"]
+        if got["graph"] != got["eager"] or not (
+                h[3].full and not h[4].full and h[4].length == 64
+                and not h[5].full and h[5].length == 16):
+            raise AssertionError(f"{mode}: unexpected prefix matches {got}")
+        log(f"  {mode} prefix hits: r3 full ({h[3].length} tokens), r4 "
+            f"partial ({h[4].length}), r5 partial ({h[5].length})")
+        pair.admit(lambda arm: [E.AdmissionItem(
+            pair.reqs[arm][3], hits[arm][3].next_token, E.ADMIT_PREFIX_HIT,
+            pages=list(hits[arm][3].pages))])
+        r3.t_first = clock()
+        fresh([pair.reqs["graph"][4]])
+    else:
+        r3 = pair.request(3, rng.integers(1, V, 60), 20)
+        r5 = pair.request(5, rng.integers(1, V, 150), 24)
+        fresh([r3])
+        r5.t_submit = clock()
     job = E.PartialPrefill(r5)
     ticks = 0
     while not job.done:                              # continuous batching
         pre.prefill_chunk([job], 64)
         ticks += 1
-        step_all(1)
+        pair.step(1)
     r5.t_first = clock()
-    admit([E.AdmissionItem(r5, job.first, E.ADMIT_CHUNKED,
-                           wire=job.wire())])
-    for r in (r3, r4, r5):
-        dec.prefix_unpin(("pin", r.rid))
-    step_all()
+    pair.admit(lambda arm: [E.AdmissionItem(pair.reqs[arm][5], job.first,
+                                            E.ADMIT_CHUNKED,
+                                            wire=job.wire())])
+    if paged:
+        for arm in ARMS:
+            for rid in (3, 4, 5):
+                pair.dec[arm].prefix_unpin(("pin", rid))
+    pair.step()
     sync()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
-    reqs = [r0, r1, r2, r3, r4, r5]
-    if len(done) != len(reqs):
-        raise AssertionError(f"{len(done)}/{len(reqs)} requests done")
-    for r in reqs:
-        toks = np.asarray(r.out_tokens)
-        if len(toks) != r.max_new_tokens or toks.min() < 0 or \
-                toks.max() >= V:
-            raise AssertionError(f"request {r.rid}: bad tokens {toks}")
-    stats = dec.page_stats()
-    log(f"  requests done: {len(done)}/{len(reqs)}; tokens out: "
-        f"{sum(len(r.out_tokens) for r in reqs)}; chunked prefill ticks: "
-        f"{ticks}")
-    for r in reqs:
-        n = len(r.out_tokens)
-        tpot = (r.t_done - r.t_first) / max(n - 1, 1) * 1e3
-        log(f"  r{r.rid}: prompt {len(r.tokens)}, out {n}, TTFT "
-            f"{(r.t_first - r.t_submit) * 1e3:.1f} ms, TPOT {tpot:.2f} ms")
-    same = r3.out_tokens == r0.out_tokens
-    log(f"  full prefix hit r3 repeats r0's tokens: {same}")
-    log(f"  host_syncs {dec.host_syncs} for steps_run {dec.steps_run} "
-        f"({n_chunks} chunks, each under sync_debug_mode=error)")
-    log("  page_stats: " + json.dumps(
-        {k: stats[k] for k in ("zero_copy_inserts", "reencoded_inserts",
-                               "cow_copies", "prefix_admits",
-                               "leaked_pages", "in_use", "free",
-                               "peak_in_use", "prefix_entries")}))
-    log(f"  peak device memory {peak / 1e9:.2f} GB "
-        f"(allocated, torch.cuda.max_memory_allocated)")
-    if stats["leaked_pages"] != 0:
-        raise AssertionError("leaked pages")
-    if stats["zero_copy_inserts"] == 0 or stats["prefix_admits"] == 0:
-        raise AssertionError("no zero-copy insert or no full prefix hit")
-    if dec.host_syncs * dec.chunk_size != dec.steps_run:
-        raise AssertionError("more than one host sync per chunk")
-    if not same:
-        raise AssertionError("full prefix hit decoded other tokens than "
-                             "the run it repeats")
-    if on_card:
-        # where a decode chunk's time goes, after the counted run: one
-        # more request, one chunk under the profiler (which slows the host)
-        r6 = E.GenRequest(6, prompt(64), 17)
-        (_, w6, f6), = pre.run([r6])
-        admit([E.AdmissionItem(r6, f6, wire=w6)])
-        step_all(1)
+    reqs = pair.reqs["graph"]
+    for arm in ARMS:
+        dec = pair.dec[arm]
+        for r in pair.reqs[arm].values():
+            toks = np.asarray(r.out_tokens)
+            if len(toks) != r.max_new_tokens or toks.min() < 0 or \
+                    toks.max() >= V:
+                raise AssertionError(f"{mode} {arm} r{r.rid}: bad tokens "
+                                     f"{toks}")
+        if dec.host_syncs * dec.chunk_size != dec.steps_run:
+            raise AssertionError(f"{mode} {arm}: more than one host sync "
+                                 f"per chunk")
+        if int(dec.cache["lengths"].abs().sum()) != 0:
+            raise AssertionError(f"{mode} {arm}: finished slots kept their "
+                                 f"lengths")
+        if paged:
+            st = dec.page_stats()
+            if st["leaked_pages"] or st["prefix_admits"] == 0:
+                raise AssertionError(f"{mode} {arm}: leaked pages or no "
+                                     f"full prefix hit: {st}")
+            if mode == "int4" and st["zero_copy_inserts"] == 0:
+                raise AssertionError(f"{mode} {arm}: no zero-copy insert")
+            if pair.reqs[arm][3].out_tokens != pair.reqs[arm][0].out_tokens:
+                raise AssertionError(f"{mode} {arm}: the full prefix hit "
+                                     f"decoded other tokens than its donor")
+    log(f"  {mode}: {len(reqs)}/{len(reqs)} requests done on each arm, "
+        f"{sum(len(r.out_tokens) for r in reqs.values())} tokens each, "
+        f"equal on both arms after every admission and chunk "
+        f"({pair.n_chunks} chunks, each under sync_debug_mode=error; "
+        f"chunked prefill ticks {ticks})")
+    for r in reqs.values():
+        log(f"  {mode} r{r.rid}: prompt {len(r.tokens)}, out "
+            f"{len(r.out_tokens)}, TTFT {(r.t_first - r.t_submit) * 1e3:.1f}"
+            f" ms")
+    if paged:
+        st = graph_dec.page_stats()
+        log(f"  {mode} full prefix hit r3 repeats r0's tokens: True; "
+            f"page_stats (graphed arm): " + json.dumps(
+                {k: st[k] for k in ("zero_copy_inserts", "reencoded_inserts",
+                                    "cow_copies", "prefix_admits",
+                                    "leaked_pages", "in_use", "free",
+                                    "peak_in_use", "prefix_entries")}))
+    n_graphs = graph_dec.jit_cache_size
+    log(f"  {mode}: graphs captured {n_graphs} (eager arm "
+        f"{pair.dec['eager'].jit_cache_size}); host_syncs "
+        f"{graph_dec.host_syncs} for steps_run {graph_dec.steps_run} an arm;"
+        f" peak device memory {peak / 1e9:.2f} GB; launches "
+        f"{json.dumps(launches)}")
+    if on_card and n_graphs != 1:
+        raise AssertionError(f"{mode}: {n_graphs} graphs for one chunk "
+                             f"length")
+    kernel = {"int4": "paged_decode_attention_int4", "dense":
+              "decode_attention", "bf16": "paged_decode_attention_bf16"}[mode]
+    if on_card and launches[kernel] == 0:
+        raise AssertionError(f"{mode}: {kernel} never launched")
+    for rnd, what in ((1, "round 1, decoding alone"), (None, "all chunks")):
+        g, e = pair.host_summary("graph", rnd), pair.host_summary("eager",
+                                                                  rnd)
+        log(f"  {mode} host ms per decode step, {what} (chunks alternate "
+            f"the arm that goes first): graph min/median/max "
+            f"{g[0]:.2f}/{g[1]:.2f}/{g[2]:.2f}, eager "
+            f"{e[0]:.2f}/{e[1]:.2f}/{e[2]:.2f} ({g[3]} chunks each)")
+    if not on_card:
+        return launches
+    # where a chunk's time goes, after the counted run: one more request,
+    # one chunk of each arm under the profiler (which slows the host)
+    r6 = pair.request(6, prompt(64), 41)
+    fresh([r6])
+    pair.step(1)
+    for arm in ARMS:
+        dec = pair.dec[arm]
         before, steps = ops.launch_counts(), dec.steps_run
-        profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
+        profile_chunk(torch, lambda: (dec.step(sync_check=True), sync()),
+                      dec.chunk_size, what=f"{mode} {arm} chunk")
         after = ops.launch_counts()
-        check_norm_launches(cfg, before, after, dec.steps_run - steps,
-                            "profiled int4 chunk")
-        n_app = after["kv_quant_append"] - before["kv_quant_append"]
-        n_quant = after["kv_quant"] - before["kv_quant"]
-        per = (dec.steps_run - steps) * cfg.num_layers
-        log(f"  profiled int4 chunk: kv_quant_append {n_app} launches "
-            f"({per} = steps x layers), kv_quant {n_quant}")
-        if n_app != per or n_quant:
-            raise AssertionError("the int4 chunk's append is not one "
-                                 "kv_quant_append launch per layer per step")
-        if dec.active or dec.page_stats()["leaked_pages"]:
-            raise AssertionError("profiled request did not finish cleanly")
-        # and one prefill call of the 256-token bucket at batch 4 (the
-        # flash kernel's main-path shape); its wires are not admitted
+        n_steps = dec.steps_run - steps
+        check_norm_launches(cfg, before, after, n_steps,
+                            f"profiled {mode} {arm} chunk")
+        if mode == "int4":
+            n_app = after["kv_quant_append"] - before["kv_quant_append"]
+            n_quant = after["kv_quant"] - before["kv_quant"]
+            log(f"  profiled int4 {arm} chunk: kv_quant_append {n_app} "
+                f"launches ({n_steps * cfg.num_layers} = steps x layers), "
+                f"kv_quant {n_quant}")
+            if n_app != n_steps * cfg.num_layers or n_quant:
+                raise AssertionError("the int4 chunk's append is not one "
+                                     "kv_quant_append launch per layer per "
+                                     "step")
+    pair.check()
+    graph, per_replay = graph_dec.graphs.captured(
+        graph_dec.chunk_size, graph_dec.eos_id, graph_dec.max_seq)
+    log(f"  {mode} graphed chunk: kernel launches a replay makes, by "
+        f"wrapper (counted at capture): {json.dumps(per_replay)}")
+    # one replay between CUDA events, its state buffers as the last chunk
+    # left them (r6 still decoding), then r6 is released on both arms
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    kv_len = int(graph_dec.cache["lengths"].max()) + 1
+    a.record()
+    graph.replay()
+    b.record()
+    sync()
+    replay_ms = a.elapsed_time(b)
+    log(f"  {mode} one replay of the graphed chunk (CUDA events): "
+        f"{replay_ms:.3f} ms, {replay_ms / graph_dec.chunk_size:.3f} ms of "
+        f"device time per step (1 slot decoding from kv_len {kv_len})")
+    for arm in ARMS:
+        dec = pair.dec[arm]
+        dec.release(dec.slots.index(pair.reqs[arm][6]))
+        if dec.paged and dec.page_stats()["leaked_pages"]:
+            raise AssertionError(f"{mode} {arm}: leaked pages after the "
+                                 f"profiled request")
+    if mode == "dense":
+        # the seed path on the same admissions decodes the same tokens, on
+        # the graphed engine
+        pair_reqs = [E.GenRequest(10 + i, rng.integers(1, V, n), 9)
+                     for i, n in enumerate((30, 70))]
+        out = pre.run(pair_reqs)
+        streams = []
+        for use_ref in (False, True):
+            copies = [E.GenRequest(r.rid, r.tokens, r.max_new_tokens)
+                      for r in pair_reqs]
+            if graph_dec.admit(E.AdmissionBatch(
+                    [E.AdmissionItem(c, f, wire=w)
+                     for c, (_, w, f) in zip(copies, out)])):
+                raise AssertionError("dense: admission rejected")
+            while graph_dec.active:
+                graph_dec.step_reference() if use_ref else graph_dec.step()
+            sync()
+            streams.append([c.out_tokens for c in copies])
+        log(f"  dense step_reference() == step() on the graphed engine: "
+            f"{streams[0] == streams[1]} ({sum(map(len, streams[0]))} "
+            f"tokens)")
+        if streams[0] != streams[1]:
+            raise AssertionError(f"step_reference {streams[1]} != step "
+                                 f"{streams[0]}")
+    if mode == "int4":
+        # one prefill call of the 256-token bucket at batch 4 (the flash
+        # kernel's main-path shape); its wires are not admitted
         bucket = [E.GenRequest(7 + i, prompt(256), 1) for i in range(4)]
         pre.run(bucket)
         sync()
@@ -942,142 +1151,27 @@ def serve_full(torch, cfg, device="cuda"):
                       what="prefill call (4 x 256 tokens)", per="call")
         check_norm_launches(cfg, before, ops.launch_counts(), 1,
                             "profiled prefill call", prefill=True)
-    return launches, params
-
-
-def serve_variant(torch, cfg, params, mode, device="cuda"):
-    """Phase 5, after the int4 engine: the decode cache of ``mode`` ("dense"
-    or "bf16") at full width, fresh prompts and a chunked prefill, every
-    chunk under ``sync_check=True``; returns the kernels' launch counts of
-    that run. On the dense engine ``step_reference()`` then decodes the
-    same admissions as ``step()``, token for token."""
-    from repro_torch.kernels import ops
-    from repro_torch.serving import engine as E
-    on_card = device == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    pre = E.PrefillEngine(cfg, params, max_seq=256, max_batch=4,
-                          device=device)
-    dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=256,
-                         page_size=16, chunk_size=8, device=device,
-                         **DECODE_MODES[mode])
-    kv_bytes = sum(a.numel() * a.element_size()
-                   for a in dec.cache["slot0"].values())
-    log(f"  {mode} decode cache: {kv_bytes / 1e9:.3f} GB")
-    V = cfg.vocab_size
-    rng = np.random.default_rng(SEED + 1)
-    clock = Clock()
-
-    def step_all(n_chunks_max=None):
-        k = 0
-        while dec.active and (n_chunks_max is None or k < n_chunks_max):
-            for r in dec.step(sync_check=True):
-                sync()
-                r.t_done = clock()
-            k += 1
-        sync()
-
-    def admit(items):
-        if dec.admit(E.AdmissionBatch(items)):
-            raise AssertionError(f"{mode}: admission rejected")
-
-    ops.reset_launches()
-    reqs = [E.GenRequest(i, rng.integers(1, V, n), m)
-            for i, (n, m) in enumerate(((40, 16), (100, 24), (200, 32)))]
-    for r in reqs:
-        r.t_submit = clock()
-    out = pre.run(reqs)
-    for r in reqs:
-        r.t_first = clock()
-    admit([E.AdmissionItem(r, f, wire=w) for r, w, f in out])
-    step_all()       # round 1 decodes alone, as phase 5's int4 round 1
-    # round 2: a fresh prompt decodes while another is prefilled in chunks
-    r3 = E.GenRequest(3, rng.integers(1, V, 60), 20)
-    r4 = E.GenRequest(4, rng.integers(1, V, 150), 24)
-    r3.t_submit = r4.t_submit = clock()
-    (_, w3, f3), = pre.run([r3])
-    r3.t_first = clock()
-    admit([E.AdmissionItem(r3, f3, wire=w3)])
-    job = E.PartialPrefill(r4)
-    while not job.done:                              # continuous batching
-        pre.prefill_chunk([job], 64)
-        step_all(1)
-    r4.t_first = clock()
-    admit([E.AdmissionItem(r4, job.first, E.ADMIT_CHUNKED,
-                           wire=job.wire())])
-    step_all()
-    launches = ops.launch_counts()
-    reqs += [r3, r4]
-    for r in reqs:
-        toks = np.asarray(r.out_tokens)
-        if len(toks) != r.max_new_tokens or toks.min() < 0 or \
-                toks.max() >= V:
-            raise AssertionError(f"{mode} r{r.rid}: bad tokens {toks}")
-        n = len(toks)
-        log(f"  {mode} r{r.rid}: prompt {len(r.tokens)}, out {n}, TTFT "
-            f"{(r.t_first - r.t_submit) * 1e3:.1f} ms, TPOT "
-            f"{(r.t_done - r.t_first) / max(n - 1, 1) * 1e3:.2f} ms")
-    log(f"  {mode}: host_syncs {dec.host_syncs} for steps_run "
-        f"{dec.steps_run} (each chunk under sync_debug_mode=error); "
-        f"launches {json.dumps(launches)}")
-    if dec.host_syncs * dec.chunk_size != dec.steps_run:
-        raise AssertionError(f"{mode}: more than one host sync per chunk")
-    if dec.paged and dec.page_stats()["leaked_pages"]:
-        raise AssertionError(f"{mode}: leaked pages")
-    if int(dec.cache["lengths"].abs().sum()) != 0:
-        raise AssertionError(f"{mode}: finished slots kept their lengths")
-    kernel = {"dense": "decode_attention",
-              "bf16": "paged_decode_attention_bf16"}[mode]
-    if on_card and launches[kernel] == 0:
-        raise AssertionError(f"{mode}: {kernel} never launched")
-    if on_card:
-        r5 = E.GenRequest(5, rng.integers(1, V, 64), 17)
-        (_, w5, f5), = pre.run([r5])
-        admit([E.AdmissionItem(r5, f5, wire=w5)])
-        step_all(1)
-        before, steps = ops.launch_counts(), dec.steps_run
-        profile_chunk(torch, lambda: step_all(1), dec.chunk_size)
-        check_norm_launches(cfg, before, ops.launch_counts(),
-                            dec.steps_run - steps, f"profiled {mode} chunk")
-    if mode == "dense":
-        # the seed path on the same admissions decodes the same tokens
-        pair = [E.GenRequest(10 + i, rng.integers(1, V, n), 9)
-                for i, n in enumerate((30, 70))]
-        out = pre.run(pair)
-        streams = []
-        for use_ref in (False, True):
-            copies = [E.GenRequest(r.rid, r.tokens, r.max_new_tokens)
-                      for r in pair]
-            admit([E.AdmissionItem(c, f, wire=w)
-                   for c, (_, w, f) in zip(copies, out)])
-            while dec.active:
-                dec.step_reference() if use_ref else dec.step()
-            sync()
-            streams.append([c.out_tokens for c in copies])
-        log(f"  dense step_reference() == step(): "
-            f"{streams[0] == streams[1]} ({sum(map(len, streams[0]))} "
-            f"tokens)")
-        if streams[0] != streams[1]:
-            raise AssertionError(f"step_reference {streams[1]} != step "
-                                 f"{streams[0]}")
     return launches
 
 
 def serve_gateway(torch, params, *, device="cuda", reduced=False):
     """Phase 6: the entry point ``launch.serve.run`` on ``params``, one
-    plain run with a 32-token chunk budget, one live-rescheduled run and
-    one on dense decode engines (``--no-paged``); returns the kernels'
-    launch counts over the three."""
+    run with a 32-token chunk budget under ``REPRO_SANITIZE=1`` (the
+    runtime sanitizers; no decode graph may be captured after the
+    warm-up), one live-rescheduled run and one on dense decode engines
+    (``--no-paged``); returns the kernels' launch counts over the three."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     base = ["--device", device, "--rate", "2"] + (["--reduced"] if reduced
                                                  else [])
     ops.reset_launches()
-    runs = {"a": serve.run(base + ["--duration", "8", "--chunk-tokens",
-                                   "32"], params=params),
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        sanitized = serve.run(base + ["--duration", "8", "--chunk-tokens",
+                                      "32"], params=params)
+    finally:
+        del os.environ["REPRO_SANITIZE"]
+    runs = {"a": sanitized,
             "b": serve.run(["--device", device, "--rate", "3"]
                            + (["--reduced"] if reduced else [])
                            + ["--duration", "10", "--live-reschedule",
@@ -1105,6 +1199,20 @@ def serve_gateway(torch, params, *, device="cuda", reduced=False):
                                  f"parameters than the ones passed in")
     if runs["a"]["stats"]["counters"]["chunked_prefills"] == 0:
         raise AssertionError("run a: no prompt was prefilled in chunks")
+    gw = runs["a"]["gateway"]
+    san = runs["a"]["stats"].get("sanitizer")
+    graphs = [h.client.jit_cache_size() for h in gw.dec]
+    log(f"  run a under REPRO_SANITIZE=1: {json.dumps(san)}; pool "
+        f"{type(gw.dec[0].engine.pool).__name__}; decode graphs per "
+        f"replica {graphs}, the same as after the warm-up (the drain's "
+        f"retrace check)")
+    if gw.sanitizer is None or not san or san["transition_violations"] or \
+            san["transitions_audited"] < runs["a"]["summary"]["n_done"]:
+        raise AssertionError(f"run a: the sanitizer did not audit the run: "
+                             f"{san}")
+    if device == "cuda" and graphs != [1] * len(gw.dec):
+        raise AssertionError(f"run a: decode graphs {graphs}, want one a "
+                             f"replica")
     if any(h.engine.paged for h in runs["c"]["gateway"].dec):
         raise AssertionError("run c: a decode engine pages its cache")
     return launches
@@ -1244,12 +1352,13 @@ def main() -> int:
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
-    launches5, params = serve_full(torch, cfg)
-    log(f"  phase-5 launches (int4 pages): {launches5}")
-    for mode in ("dense", "bf16"):
-        got = serve_variant(torch, cfg, params, mode)
-        launches5 = {k: launches5[k] + got[k] for k in launches5}
-        torch.cuda.empty_cache()            # the engine's cache is freed
+    params, pre = full_model(torch, cfg)
+    launches5 = {}
+    for mode in DECODE_MODES:              # int4 pages (main path) first
+        got = serve_ab(torch, cfg, params, pre, mode)
+        launches5 = {k: launches5.get(k, 0) + got[k] for k in got}
+        torch.cuda.empty_cache()            # the engines' caches are freed
+    log(f"  phase-5 launches: {launches5}")
 
     log(f"[6/6] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")

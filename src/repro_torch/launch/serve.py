@@ -16,7 +16,11 @@ defaults except:
 * ``--cluster`` offers ``paper_cloud`` and ``inhouse`` (the port keeps no
   TPU fleet profile) and ``--arch`` the configs the port has;
 * random weights come from ``init_params(cfg, seed=0)`` on the device;
-* ``backend=`` is left at its default: on the card the kernels run.
+* ``backend=`` is left at its default: on the card the kernels run, and
+  each decode chunk is one CUDA graph replay;
+* under ``REPRO_SANITIZE=1`` the gateway's sanitizer takes its retrace
+  baseline after the warm-up, so a decode graph captured later fails the
+  run's drain check.
 
 The deployment plan is computed for the FULL model on the requested
 cluster, the same split the paper deploys. With ``--transport sim`` the
@@ -194,6 +198,10 @@ def run(argv=None, params=None):
           f"{args.transport} transport)...")
     warmup_engines(pres, decs, cfg.vocab_size,
                    compress=not args.no_compress, prompt_lens=(16, 32, 48))
+    if gw.sanitizer is not None:
+        # REPRO_SANITIZE=1: every decode graph is captured by now, so the
+        # retrace monitor fails the run if one is captured later
+        gw.sanitizer.on_steady(gw)
     rng = np.random.default_rng(0)
 
     def to_serve(r, t_offset=0.0):
@@ -302,6 +310,10 @@ def run(argv=None, params=None):
         for r in st["replicas"]))
     if gw.events:
         print("  events:", gw.events[:5])
+    if gw.sanitizer is not None:
+        print(f"  sanitizer (REPRO_SANITIZE=1): {st['sanitizer']}, decode "
+              f"graphs captured per replica "
+              f"{[h.client.jit_cache_size() for h in gw.dec]}")
     return {"plan": plan, "gateway": gw, "handles": handles, "summary": s,
             "stats": st, "wall_s": wall, "params_resident": resident,
             "page_stats": [d.page_stats() for d in paged_decs]}

@@ -21,23 +21,39 @@ def rope_freqs(head_dim: int, rotary_pct: float, theta: float, device):
     return inv, rot_dim
 
 
-def apply_rope(x, positions, *, rotary_pct: float = 1.0,
+def rope_table(positions, head_dim: int, *, rotary_pct: float = 1.0,
                theta: float = 10000.0):
-    """x: (..., S, H, hd); positions: (..., S). Rotates the two HALVES of
-    the rotary dims (not interleaved pairs), like the reference."""
+    """``(sin, cos)`` of ``positions (..., S)``, each ``(..., S, 1, rot/2)``
+    f32: the part of :func:`apply_rope` that depends on the positions
+    alone. A model call computes it once and hands it to every layer's q
+    and k (``attn_qkv(..., rope=...)``); None where nothing rotates."""
     if theta <= 0.0:
-        return x
-    hd = x.shape[-1]
-    inv, rot_dim = rope_freqs(hd, rotary_pct, theta, x.device)
+        return None
+    inv, rot_dim = rope_freqs(head_dim, rotary_pct, theta, positions.device)
     if rot_dim == 0:
-        return x
+        return None
     ang = positions[..., None].float() * inv             # (..., S, rot/2)
-    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    return torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+
+
+def apply_rope(x, positions, *, rotary_pct: float = 1.0,
+               theta: float = 10000.0, table=None):
+    """x: (..., S, H, hd); positions: (..., S). Rotates the two HALVES of
+    the rotary dims (not interleaved pairs), like the reference. ``table``
+    is :func:`rope_table` of the same positions, computed once per model
+    call; without it the table is computed here."""
+    if table is None:
+        table = rope_table(positions, x.shape[-1], rotary_pct=rotary_pct,
+                           theta=theta)
+    if table is None:
+        return x
+    sin, cos = table
+    rot_dim = 2 * sin.shape[-1]
     xr, xp = x[..., :rot_dim], x[..., rot_dim:]
     x1, x2 = xr[..., :rot_dim // 2], xr[..., rot_dim // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                     dim=-1).to(x.dtype)
-    return torch.cat([out, xp], dim=-1) if rot_dim < hd else out
+    return torch.cat([out, xp], dim=-1) if rot_dim < x.shape[-1] else out
 
 
 def dense(w, x, b=None):
@@ -58,14 +74,22 @@ def mlp_apply(cfg, p, x):
     return dense(p["wo"], h)
 
 
-def attn_qkv(cfg, p, x, positions):
-    """Projections + RoPE. x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd)."""
+def model_rope(cfg, positions):
+    """The RoPE table of one model call (:func:`rope_table`)."""
+    return rope_table(positions, cfg.head_dim, rotary_pct=cfg.rotary_pct,
+                      theta=cfg.rope_theta)
+
+
+def attn_qkv(cfg, p, x, positions, rope=None):
+    """Projections + RoPE. x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd).
+    ``rope`` is the call's :func:`model_rope` table, shared by every layer;
+    without it each rotation builds its own."""
     B, S, _ = x.shape
     q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct,
-                   theta=cfg.rope_theta)
+                   theta=cfg.rope_theta, table=rope)
     k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct,
-                   theta=cfg.rope_theta)
+                   theta=cfg.rope_theta, table=rope)
     return q, k, v

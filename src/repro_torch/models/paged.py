@@ -120,8 +120,10 @@ def decode_step_paged(cfg, params, cache, tokens, *,
     kv_len = (lengths + 1).to(torch.int32)
     slot = cache["slot0"]
 
+    rope = layers.model_rope(cfg, positions)   # once for every layer
+
     def attend(i, p, h):
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
         if int4:
             kpages = tuple(slot[n][i] for n in ("kp", "ks", "kz"))
             vpages = tuple(slot[n][i] for n in ("vp", "vs", "vz"))

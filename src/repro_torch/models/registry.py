@@ -4,20 +4,23 @@
 one ported so far; other families raise ``NotImplementedError``. ``decode``
 and ``decode_chunk`` step the dense cache (``transformer.decode_step``),
 ``paged_decode_fns`` the page pool. ``make_decode_chunk`` turns a single
-decode step into the engine's
-multi-token greedy loop: the reference's device ``lax.scan`` becomes a
-Python loop over steps whose state (current tokens, active flags, token
-counts) stays in device tensors, so a chunk launches kernels back to back
-and never waits on the host.
+decode step into the engine's multi-token greedy loop: the reference's
+device ``lax.scan`` becomes a Python loop over steps whose state (current
+tokens, active flags, token counts) stays in device tensors, so a chunk
+launches kernels back to back and never waits on the host.
+:class:`GraphedDecodeChunk` is what ``jax.jit`` makes of the reference's
+chunk: the same loop captured once per ``n_steps`` as a CUDA graph and
+replayed, one host launch a chunk.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import paged, transformer
 
 
@@ -44,21 +47,24 @@ def make_decode_chunk(decode_fn: Callable) -> Callable:
     (B,) int32}. Returns (tokens (n_steps, B) int32 with -1 where a slot
     was inactive, valid (n_steps, B) bool, cache, state). Inactive slots
     keep their old lengths: the new lengths are computed out of place and
-    selected with ``torch.where``. Nothing in the loop reads a device
-    value on the host (no ``.item()``, ``int()``, ``.cpu()`` or boolean
-    masks)."""
+    selected with ``torch.where``. The chunk ends by copying its final
+    lengths into ``cache["lengths"]``, so the cache returned is the one
+    passed in, every tensor where it was (what a CUDA graph of the chunk
+    needs). Nothing in the loop reads a device value on the host (no
+    ``.item()``, ``int()``, ``.cpu()`` or boolean masks)."""
 
     def decode_chunk(params, cache, state, *, n_steps: int, eos_id: int,
                      max_seq: int):
         cur, active, n_out = state["cur"], state["active"], state["n_out"]
         max_new = state["max_new"]
         toks, valid = [], []
+        step_cache = cache
         for _ in range(n_steps):
-            logits, new_cache = decode_fn(params, cache, cur[:, None])
+            logits, new_cache = decode_fn(params, step_cache, cur[:, None])
             nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             n_out = n_out + active.to(torch.int32)
             lengths = torch.where(active, new_cache["lengths"],
-                                  cache["lengths"])
+                                  step_cache["lengths"])
             new_cache["lengths"] = lengths
             done = active & ((nxt == eos_id) | (n_out >= max_new)
                              | (lengths >= max_seq - 1))
@@ -66,12 +72,144 @@ def make_decode_chunk(decode_fn: Callable) -> Callable:
             valid.append(active)
             cur = torch.where(active, nxt, cur)
             active = active & ~done
-            cache = new_cache
+            step_cache = new_cache
+        cache["lengths"].copy_(step_cache["lengths"])
         return (torch.stack(toks), torch.stack(valid), cache,
                 {"cur": cur, "active": active, "n_out": n_out,
                  "max_new": max_new})
 
     return decode_chunk
+
+
+STATE_KEYS = ("cur", "active", "n_out", "max_new")
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}  # by device index
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream a device for every engine's warm-up and captures:
+    cuBLAS keeps a workspace for each stream it has run on, so a stream an
+    engine would leave one behind."""
+    if device.index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device.index]
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """Every tensor of a nest of dicts, lists and tuples, in a fixed
+    order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+class GraphedDecodeChunk:
+    """The decode chunk as CUDA graphs: one ``torch.cuda.CUDAGraph`` per
+    ``(n_steps, eos_id, max_seq)`` around ``chunk_fn`` (a
+    :func:`make_decode_chunk` loop, which stays the eager arm), called
+    like it. The counterpart of the reference's ``jax.jit`` of its
+    ``lax.scan`` chunk, and of its compile cache: ``len()`` is the number
+    of graphs captured.
+
+    A call copies the state into static device buffers, replays, and
+    returns the static outputs (valid until the next call). The first call
+    with a new ``n_steps`` captures first (:meth:`capture`; a capture runs
+    nothing), so the first chunk already replays. A graph reads the
+    params, the cache and the state buffers at the addresses they had at
+    capture: the engine edits its cache in place, this object keeps a
+    reference to every captured tensor, and each call checks that the
+    params and the cache passed in are still those tensors and raises if
+    one moved, so no replay reads or writes stale memory. A failed capture
+    raises too: nothing falls back to the eager loop.
+
+    Whatever a kernel wrapper allocates lazily (the kernel library, the
+    split decode kernels' merge counters, cuBLAS's handle and workspace
+    for the capture stream) must exist before a capture, or it would land
+    in the graph's pool. So construction runs one eager decode step
+    (``step_fn``) on the capture stream and discards it. The cache must be
+    idle then: its slots' writes go to the trash page (paged) or to row 0
+    of each slot (dense), which admission overwrites before anything
+    reads it, and ``lengths`` is not touched.
+
+    The wrappers count their launches in Python, which a replay does not
+    run: the counts a capture adds are taken back, and added again at
+    every replay. Replays run on the current stream, in order, like the
+    eager launches they replace (the split decode kernels share one merge
+    counter buffer per device and must not overlap)."""
+
+    def __init__(self, step_fn: Callable, chunk_fn: Callable, params,
+                 cache, max_slots: int):
+        device = cache["lengths"].device
+        self._chunk_fn = chunk_fn
+        self._stream = _capture_stream(device)
+        self._state = {k: torch.zeros(
+            (max_slots,), dtype=torch.bool if k == "active" else torch.int32,
+            device=device) for k in STATE_KEYS}
+        self._captured = _tensors((params, cache, self._state))
+        self._graphs: Dict[Tuple[int, int, int], tuple] = {}
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self._stream):
+            step_fn(params, cache, self._state["cur"][:, None])
+        torch.cuda.current_stream(device).wait_stream(self._stream)
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def _check(self, params, cache):
+        now = _tensors((params, cache, self._state))
+        if len(now) != len(self._captured) or any(
+                a.data_ptr() != b.data_ptr()
+                for a, b in zip(now, self._captured)):
+            raise RuntimeError(
+                "decode chunk graph: a captured tensor was replaced (the "
+                "params or a cache tensor moved); replaying would read and "
+                "write stale memory")
+
+    def capture(self, params, cache, *, n_steps: int, eos_id: int,
+                max_seq: int):
+        """Capture the graph of ``n_steps`` unless it exists. A capture
+        synchronizes the device (``torch.cuda.graph``), so callers that
+        forbid host syncs around the replay capture first."""
+        key = (n_steps, eos_id, max_seq)
+        if key in self._graphs:
+            return
+        self._check(params, cache)
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            out = self._chunk_fn(params, cache, self._state, n_steps=n_steps,
+                                 eos_id=eos_id, max_seq=max_seq)
+        after = ops.launch_counts()
+        for name, n in before.items():          # the capture ran nothing
+            ops.KERNELS[name].launches = n
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        self._graphs[key] = (graph, out, launches)
+
+    def captured(self, n_steps: int, eos_id: int, max_seq: int):
+        """``(graph, launches)`` of a captured chunk: the
+        ``torch.cuda.CUDAGraph`` (a replay with the state buffers as they
+        are runs the chunk again, for timing) and the kernel launches one
+        replay makes, by wrapper, as counted while it was captured."""
+        graph, _, launches = self._graphs[(n_steps, eos_id, max_seq)]
+        return graph, dict(launches)
+
+    def __call__(self, params, cache, state, *, n_steps: int, eos_id: int,
+                 max_seq: int):
+        self.capture(params, cache, n_steps=n_steps, eos_id=eos_id,
+                     max_seq=max_seq)
+        self._check(params, cache)
+        graph, (toks, valid, _, st), launches = \
+            self._graphs[(n_steps, eos_id, max_seq)]
+        for k in STATE_KEYS:
+            self._state[k].copy_(state[k])
+        graph.replay()
+        for name, n in launches.items():
+            ops.KERNELS[name].launches += n
+        return toks, valid, cache, st
 
 
 def build(cfg: ModelConfig) -> ModelApi:

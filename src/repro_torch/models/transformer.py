@@ -153,8 +153,10 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
 
+    rope = layers.model_rope(cfg, positions)   # once for every layer
+
     def attend(i, p, h):
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
         o = ops.flash_attention(q, k, v, causal=True,
                                 window=cfg.sliding_window)
         cache["slot0"]["k"][i] = k
@@ -183,8 +185,10 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     positions = prefix_len[:, None].long() + torch.arange(S, device=dev)[None]
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
 
+    rope = layers.model_rope(cfg, positions)   # once for every layer
+
     def attend(i, p, h):
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
         K = torch.cat([pk_all[i].to(k.dtype), k], dim=1)
         V = torch.cat([pv_all[i].to(v.dtype), v], dim=1)
         o = ops.flash_attention(q, K, V, prefix_len=prefix_len)
@@ -231,8 +235,10 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
     w_pos = torch.clamp(lengths.long(), max=K.shape[2] - 1)
     kv_len = (lengths + 1).to(torch.int32)
 
+    rope = layers.model_rope(cfg, positions)   # once for every layer
+
     def attend(i, p, h):
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions)
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
         K[i][bidx, w_pos] = k[:, 0].to(K.dtype)
         V[i][bidx, w_pos] = v[:, 0].to(V.dtype)
         o = ops.decode_attention(

@@ -5,9 +5,12 @@ engine around one set of weights each (the port of
 The decode hot loop is DEVICE-RESIDENT: ``DecodeEngine.step()`` runs
 ``chunk_size`` decode steps back to back (``registry.make_decode_chunk``)
 with the current tokens, done-flags and emitted tokens in device tensors,
-and brings the chunk's results to the host in ONE copy. Prefill pads
-prompts to power-of-two length buckets and quantizes a whole bucket's KV
-in one kernel launch.
+and brings the chunk's results to the host in ONE copy. On the card the
+chunk is a CUDA graph, captured once per ``n_steps`` and replayed
+(``registry.GraphedDecodeChunk``, the reference's ``jax.jit``);
+``cuda_graph=False`` keeps the eager loop. Prefill pads prompts to
+power-of-two length buckets and quantizes a whole bucket's KV in one
+kernel launch.
 
 Ported: ``PrefillEngine`` (bucketed, with the suffix path of partial
 prefix hits and chunked prefill); ``DecodeEngine`` over the page pool
@@ -27,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitizers
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import paged as paged_fmt
 from repro_torch.models import registry, transformer
@@ -163,6 +167,12 @@ class PrefillEngine:
     @property
     def supports_suffix(self) -> bool:
         return self.api.prefill_suffix is not None
+
+    @property
+    def jit_cache_size(self) -> int:
+        """Compiled variants (the sanitizer's retrace monitor reads it):
+        prefill runs eagerly, so none."""
+        return 0
 
     def _bucket_of(self, n: int) -> int:
         return min(max(_next_pow2(n), self.min_bucket), self.max_seq)
@@ -350,7 +360,14 @@ class DecodeEngine:
     shared pages. With ``paged=False`` (or an arch that cannot page:
     ``paged_fallback`` says why) each slot owns a ``max_seq`` column of a
     dense bf16 cache, wires are dequantized into it on admission, and
-    attention runs through the ``decode_attention`` kernel."""
+    attention runs through the ``decode_attention`` kernel.
+
+    On a CUDA device each chunk is one CUDA graph replay
+    (``registry.GraphedDecodeChunk``), captured the first time ``step()``
+    runs a chunk of that length; ``cuda_graph=False`` runs the eager loop
+    (the A/B arm). The cache's tensors stay the same objects for the life
+    of the engine: every host-side edit (admission, release, the chunk's
+    final lengths) writes into them in place."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
                  max_seq: int = 512, eos_id: int = -1, chunk_size: int = 8,
@@ -358,7 +375,8 @@ class DecodeEngine:
                  page_size: int = paged_fmt.DEFAULT_PAGE_SIZE,
                  num_pages: Optional[int] = None,
                  kv_resident: str = "int4", paged_backend: str = "auto",
-                 prefix_sharing: bool = False, device="cuda"):
+                 prefix_sharing: bool = False, cuda_graph: bool = True,
+                 device="cuda"):
         self.cfg = cfg
         self.params = params
         self.device = _params_device(params, device)
@@ -380,7 +398,12 @@ class DecodeEngine:
                 # parity with a dense max_slots x max_seq budget (+ trash)
                 num_pages = max_slots * self.table_w + 1
             self.kv_resident = kv_resident
-            self.pool = PagePool(num_pages, page_size)
+            if sanitizers.sanitize_enabled():
+                # REPRO_SANITIZE=1: the pool records allocation/free sites
+                self.pool = sanitizers.make_sanitized_pool(num_pages,
+                                                           page_size)
+            else:
+                self.pool = PagePool(num_pages, page_size)
             self.cache = paged_fmt.init_paged_cache(
                 cfg, max_slots, max_seq, num_pages, page_size=page_size,
                 resident=kv_resident, device=self.device)
@@ -402,6 +425,9 @@ class DecodeEngine:
                                                 device=self.device)
             self._decode, self._chunk = self.api.decode, \
                 self.api.decode_chunk
+        self.graphs = (registry.GraphedDecodeChunk(
+            self._decode, self._chunk, params, self.cache, max_slots)
+            if cuda_graph and self.device.type == "cuda" else None)
         self.slots: List[Optional[GenRequest]] = [None] * max_slots
         self.cur_token = np.zeros((max_slots,), np.int32)
         # host-sync accounting: one per chunk (one per step_reference step)
@@ -449,6 +475,16 @@ class DecodeEngine:
         if not isinstance(batch, AdmissionBatch):
             raise TypeError("admit() takes an AdmissionBatch")
         items = list(batch.items)
+        if sanitizers.sanitize_enabled() and self.paged \
+                and self.kv_resident == "int4":
+            # a migrated wire re-encoding (instead of zero-copy page
+            # scatter) means extract_slot_wire/insert_wires drifted apart;
+            # bf16 pages ship raw wires by design
+            for it in items:
+                if it.source == ADMIT_MIGRATED:
+                    sanitizers.check_wire_alignment(
+                        it.wire, self.cfg,
+                        context=f"admit MIGRATED rid={it.req.rid}")
         if self.paged:
             n = self._admit_paged(items, backend=backend)
         else:
@@ -676,19 +712,25 @@ class DecodeEngine:
     def active(self) -> int:
         return sum(s is not None for s in self.slots)
 
+    @property
+    def jit_cache_size(self) -> int:
+        """Decode chunk graphs captured (the sanitizer's retrace monitor
+        flags growth after warm-up); 0 for the eager loop."""
+        return len(self.graphs) if self.graphs is not None else 0
+
     # -- stepping -----------------------------------------------------------
 
     def _host_state(self):
-        active = np.array([s is not None for s in self.slots], bool)
-        n_out = np.array([len(s.out_tokens) if s else 0 for s in self.slots],
-                         np.int32)
-        max_new = np.array([s.max_new_tokens if s else 0 for s in self.slots],
-                           np.int32)
-        dev = self.device
-        return {"cur": torch.as_tensor(self.cur_token, device=dev),
-                "active": torch.as_tensor(active, device=dev),
-                "n_out": torch.as_tensor(n_out, device=dev),
-                "max_new": torch.as_tensor(max_new, device=dev)}
+        """The chunk's state in device tensors, from ONE host -> device
+        copy of a (4, max_slots) int32 block."""
+        host = np.zeros((4, self.max_slots), np.int32)
+        host[0] = self.cur_token
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                host[1:, i] = (1, len(s.out_tokens), s.max_new_tokens)
+        dev = torch.as_tensor(host, device=self.device)
+        return {"cur": dev[0], "active": dev[1].bool(), "n_out": dev[2],
+                "max_new": dev[3]}
 
     def step(self, n_steps: Optional[int] = None, *,
              sync_check: bool = False) -> List[GenRequest]:
@@ -696,13 +738,19 @@ class DecodeEngine:
         finished requests. ONE device -> host copy for the whole chunk.
         ``sync_check=True`` runs the chunk's device loop under
         ``torch.cuda.set_sync_debug_mode("error")``, so a hidden host
-        synchronization inside the loop raises."""
+        synchronization inside the loop (or the graph replay) raises."""
         if self.active == 0:
             return []
         n = n_steps or self.chunk_size
         state = self._host_state()
+        chunk = self._chunk
+        if self.graphs is not None:
+            # a capture synchronizes the device: it runs before the guard
+            self.graphs.capture(self.params, self.cache, n_steps=n,
+                                eos_id=self.eos_id, max_seq=self.max_seq)
+            chunk = self.graphs
         with _sync_errors(self.device, sync_check):
-            toks_d, valid_d, self.cache, st = self._chunk(
+            toks_d, valid_d, self.cache, st = chunk(
                 self.params, self.cache, state, n_steps=n,
                 eos_id=self.eos_id, max_seq=self.max_seq)
         B = self.max_slots
@@ -750,7 +798,8 @@ class DecodeEngine:
         if self.active == 0:
             return []
         tokens = torch.as_tensor(self.cur_token[:, None], device=self.device)
-        logits, self.cache = self._decode(self.params, self.cache, tokens)
+        logits, stepped = self._decode(self.params, self.cache, tokens)
+        self.cache["lengths"].copy_(stepped["lengths"])
         host = torch.cat([torch.argmax(logits[:, -1], dim=-1).to(
             torch.int32), self.cache["lengths"]]).cpu().numpy()
         nxt, lengths = host[:self.max_slots], host[self.max_slots:]

@@ -43,10 +43,10 @@ the chunk boundary in between.
 
 The port's copy of ``repro.serving.gateway``;
 ``tests/test_torch_isolation.py`` holds its code to the reference's,
-definition by definition. Its differences: ``REPRO_SANITIZE`` raises (the
-sanitizers are not ported), the replica clients have no ``jit_cache_size``,
-and ``gateway_from_plan`` takes ``device=`` where the reference takes a
-runtime.
+definition by definition. Its one difference: ``gateway_from_plan`` takes
+``device=`` where the reference takes a runtime. The replica clients'
+``jit_cache_size`` counts the decode engines' captured CUDA graphs, which
+the sanitizer's retrace monitor reads under ``REPRO_SANITIZE=1``.
 """
 from __future__ import annotations
 
@@ -354,6 +354,9 @@ class LocalPrefillClient:
     def supports_suffix(self) -> bool:
         return self.engine.supports_suffix
 
+    def jit_cache_size(self) -> int:
+        return self.engine.jit_cache_size
+
 
 class LocalDecodeClient:
     """In-process realization around a :class:`DecodeEngine`."""
@@ -405,6 +408,9 @@ class LocalDecodeClient:
 
     def extract_prefix(self, pages, length):
         return self.engine.extract_prefix(pages, length)
+
+    def jit_cache_size(self) -> int:
+        return self.engine.jit_cache_size
 
 
 class LocalReplicaClient:
@@ -500,6 +506,9 @@ class LocalReplicaClient:
 
     def extract_prefix(self, pages, length):
         return self._require("decode").extract_prefix(pages, length)
+
+    def jit_cache_size(self) -> int:
+        return self.replica.engine.jit_cache_size
 
 
 def _as_prefill_client(obj) -> PrefillClient:
@@ -722,14 +731,13 @@ class Gateway:
         self.n_prefix_miss = 0
         self.n_prefix_tokens_hit = 0    # prompt tokens whose KV was reused
         self._pins: Dict[int, Tuple[ReplicaHandle, object]] = {}  # rid ->
-        # runtime sanitizers (REPRO_SANITIZE=1) are not ported yet: asking
-        # for them is an error, never a silent run without them
+        # runtime sanitizers (REPRO_SANITIZE=1): lazy import keeps the
+        # analysis package out of the hot path when disabled
         self.sanitizer = None
         if os.environ.get("REPRO_SANITIZE", "").strip() not in (
                 "", "0", "false", "no"):
-            raise NotImplementedError(
-                "REPRO_SANITIZE: the runtime sanitizers are not ported yet "
-                "(ROADMAP A.5)")
+            from repro_torch.analysis.sanitizers import GatewaySanitizer
+            self.sanitizer = GatewaySanitizer()
 
     def _bind_plan_groups(self, plan):
         """Tag live replica handles with their plan device groups (matched

@@ -14,7 +14,7 @@ gateway contracts re-pinned inside the port (CPU, reduced LLaMA-30B, f32).
   the same parameter tensors and loses no request; a chaos crash loses no
   request; a preemption drain migrates resident KV and the streams are
   bit-identical to an undisturbed run; ``launch.serve.run`` serves a trace
-  end to end; ``REPRO_SANITIZE=1`` raises instead of running unsanitized.
+  end to end; ``REPRO_SANITIZE=1`` installs the port's sanitizer.
 * The reference's fault cases on DENSE decode engines
   (``tests/test_faults.py``, whose engines are dense by default) re-pinned
   on the port with a ``VirtualClock`` and no wall-clock threshold: a
@@ -288,9 +288,20 @@ def test_launch_serve_refuses_the_tpu_fleet():
 
 
 def test_repro_sanitize_raises(models, monkeypatch):
+    """``REPRO_SANITIZE=1`` installs the port's sanitizer, whose drain
+    check raises on a request whose history skips the state machine;
+    ``REPRO_SANITIZE=0`` installs none."""
+    from repro_torch.analysis.sanitizers import (GatewaySanitizer,
+                                                 SanitizerError)
     monkeypatch.setenv("REPRO_SANITIZE", "1")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        _gw(models["tcfg"], models["tparams"])
+    gw = _gw(models["tcfg"], models["tparams"], n_dec=1)
+    assert isinstance(gw.sanitizer, GatewaySanitizer)
+    h = gw.submit(_reqs(models["tcfg"], 1, max_new=3)[0])
+    gw.run_until_drained()
+    assert h.state == TG.DONE
+    h.history = [h.history[0], h.history[-1]]       # QUEUED -> DONE
+    with pytest.raises(SanitizerError, match="illegal transition"):
+        gw.sanitize_check("tampered")
     monkeypatch.setenv("REPRO_SANITIZE", "0")
     assert _gw(models["tcfg"], models["tparams"]).sanitizer is None
 

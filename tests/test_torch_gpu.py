@@ -961,3 +961,252 @@ def test_split_bf16_body_graph_replay_follows_kv_len_and_page_table(cuda):
                                        want[live].float(), atol=2e-2,
                                        rtol=2e-2)
             assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+
+
+# -- the decode chunk as a CUDA graph (registry.GraphedDecodeChunk) -------------
+
+GRAPH_MODES = {"int4": {"page_size": 8, "prefix_sharing": True},
+               "dense": {"paged": False},
+               "bf16": {"page_size": 8, "prefix_sharing": True,
+                        "kv_resident": "bf16"}}
+
+
+def _graph_engines(mode, dtype="bfloat16"):
+    """A prefill engine and two decode engines of ``mode`` on one set of
+    weights: ``{True: graphed, False: eager}``."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    cfg = get_reduced("llama-30b").replace(dtype=dtype)
+    params = _tree_to(init_params(cfg, seed=0, device="cpu",
+                                  dtype=getattr(torch, dtype)), "cuda")
+    pre = E.PrefillEngine(cfg, params, max_seq=64, device="cuda")
+    decs = {g: E.DecodeEngine(cfg, params, max_slots=4, max_seq=64,
+                              chunk_size=4, cuda_graph=g, device="cuda",
+                              **GRAPH_MODES[mode]) for g in (True, False)}
+    return cfg, pre, decs
+
+
+def _assert_same_decode_state(a, b):
+    """The same slots, tokens and current tokens, the same lengths and page
+    table, and every byte attention can read equal: every page but the
+    trash page (idle slots' writes race there) or, dense, each occupied
+    slot's rows below its length."""
+    assert [None if r is None else (r.rid, r.out_tokens) for r in a.slots] \
+        == [None if r is None else (r.rid, r.out_tokens) for r in b.slots]
+    assert a.cur_token.tolist() == b.cur_token.tolist()
+    assert torch.equal(a.cache["lengths"], b.cache["lengths"])
+    if a.paged:
+        assert torch.equal(a.cache["page_table"], b.cache["page_table"])
+        assert a.pool.state_key() == b.pool.state_key()
+        for x, y in zip(a.cache["slot0"].values(),
+                        b.cache["slot0"].values()):
+            assert torch.equal(x[:, 1:], y[:, 1:])
+        return
+    lengths = a.cache["lengths"].tolist()
+    for slot, req in enumerate(a.slots):
+        if req is not None:
+            for key in ("k", "v"):
+                n = lengths[slot]
+                assert torch.equal(a.cache["slot0"][key][:, slot, :n],
+                                   b.cache["slot0"][key][:, slot, :n])
+
+
+def _step_both(decs, n_steps=None):
+    """One chunk on each engine under the sync-debug guard; the wrappers'
+    launch counts must move the same on both (the graphed one adds back
+    what its capture counted)."""
+    launched, finished = {}, {}
+    for g in (True, False):
+        before = ops.launch_counts()
+        finished[g] = [r.rid for r in decs[g].step(n_steps, sync_check=True)]
+        after = ops.launch_counts()
+        launched[g] = {k: after[k] - before[k] for k in after}
+    torch.cuda.synchronize()
+    assert finished[True] == finished[False]
+    assert launched[True] == launched[False]
+    _assert_same_decode_state(decs[True], decs[False])
+    return launched[True]
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_graphed_chunk_matches_eager_chunk(cuda, mode):
+    """The graphed and the eager chunk on one card, in lockstep over
+    several chunks with admissions, a migration, a cancellation, a fresh
+    admission into a released slot and (paged) a full prefix hit with
+    copy-on-write between them: equal tokens, state, lengths and page
+    bytes after every chunk, equal launch counts, 0 leaked pages, one
+    graph per chunk length."""
+    import numpy as np
+    from repro_torch.serving import engine as E
+    cfg, pre, decs = _graph_engines(mode)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(1)
+    system = rng.integers(1, V, 8)
+    prompts = [np.concatenate([system, rng.integers(1, V, n)])
+               for n in (5, 13, 22, 9)]
+    reqs = {g: [E.GenRequest(i, p, m) for i, (p, m) in
+                enumerate(zip(prompts, (3, 14, 11, 6)))] for g in decs}
+    wires = pre.run(reqs[True][:3])
+
+    def admit(g, items):
+        assert not decs[g].admit(E.AdmissionBatch(items))
+
+    for g in decs:
+        admit(g, [E.AdmissionItem(reqs[g][i], f, wire=w)
+                  for i, (_, w, f) in enumerate(wires)])
+    n_graph = decs[True].jit_cache_size
+    assert n_graph == 0                      # captured on the first chunk
+    _step_both(decs)
+    assert decs[True].jit_cache_size == 1
+    for g, dec in decs.items():              # migrate request 1 home
+        (slot, req, wire, cur), = [s for s in dec.extract_resident()
+                                   if s[1].rid == 1]
+        dec.release(slot)
+        admit(g, [E.AdmissionItem(req, cur, E.ADMIT_MIGRATED, wire=wire)])
+    _assert_same_decode_state(decs[True], decs[False])
+    _step_both(decs)
+    for g, dec in decs.items():              # cancel request 2
+        dec.release(dec.slots.index(reqs[g][2]))
+    (_, w3, f3), = pre.run([reqs[True][3]])
+    for g in decs:                           # a fresh request in its slot
+        admit(g, [E.AdmissionItem(reqs[g][3], f3, wire=w3)])
+    if decs[True].paged:                     # request 0 finished: full hit
+        for g, dec in decs.items():
+            hit = dec.prefix_match(prompts[0])
+            assert hit is not None and hit.full
+            reqs[g].append(E.GenRequest(4, prompts[0], 3))
+            admit(g, [E.AdmissionItem(reqs[g][4], hit.next_token,
+                                      E.ADMIT_PREFIX_HIT,
+                                      pages=list(hit.pages))])
+            assert dec.cow_copies == 1
+    while decs[True].active or decs[False].active:
+        per_chunk = _step_both(decs)
+        assert decs[True].jit_cache_size == 1
+    attn = {"int4": "paged_decode_attention_int4",
+            "bf16": "paged_decode_attention_bf16",
+            "dense": "decode_attention"}[mode]
+    assert per_chunk[attn] == per_chunk["add_rmsnorm"] // 2 == \
+        4 * cfg.num_layers
+    for g in decs:
+        assert [len(r.out_tokens) for r in reqs[g]][3:] == \
+            [r.max_new_tokens for r in reqs[g]][3:]
+    assert [r.out_tokens for r in reqs[True]] == \
+        [r.out_tokens for r in reqs[False]]
+    if decs[True].paged:
+        assert reqs[True][4].out_tokens == reqs[True][0].out_tokens
+        assert decs[True].page_stats()["leaked_pages"] == 0
+    # a second chunk length captures exactly one more graph
+    for g in decs:
+        reqs[g].append(E.GenRequest(5, prompts[3], 7))
+        admit(g, [E.AdmissionItem(reqs[g][-1], f3, wire=w3)])
+    _step_both(decs, n_steps=2)
+    assert decs[True].jit_cache_size == 2 and decs[False].jit_cache_size == 0
+    while decs[True].active or decs[False].active:
+        _step_both(decs, n_steps=2)
+    assert decs[True].jit_cache_size == 2
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_graphed_step_reference_matches_step(cuda, mode):
+    """On a graphed engine, one host round trip per token decodes what the
+    replayed chunks decode, bit for bit."""
+    import numpy as np
+    from repro_torch.serving import engine as E
+    cfg, pre, decs = _graph_engines(mode)
+    dec = decs[True]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (7, 19, 33)]
+    streams = []
+    for use_ref in (False, True):
+        reqs = [E.GenRequest(i, p, m)
+                for i, (p, m) in enumerate(zip(prompts, (9, 6, 8)))]
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w) for r, w, f in pre.run(reqs)]))
+        while dec.active:
+            dec.step_reference() if use_ref else dec.step(sync_check=True)
+        streams.append([r.out_tokens for r in reqs])
+    assert streams[0] == streams[1]
+    assert dec.jit_cache_size == 1
+    if dec.paged:
+        assert dec.page_stats()["leaked_pages"] == 0
+
+
+def test_graph_guard_raises_when_a_captured_tensor_moves(cuda):
+    """A replay never reads or writes a tensor that is no longer the
+    engine's: replacing a cache tensor or a parameter makes the next chunk
+    raise instead of replaying."""
+    import numpy as np
+    from repro_torch.serving import engine as E
+    cfg, pre, decs = _graph_engines("int4")
+    dec = decs[True]
+    req = E.GenRequest(0, np.arange(1, 12), 20)
+    assert not dec.admit(E.AdmissionBatch(
+        [E.AdmissionItem(r, f, wire=w) for r, w, f in pre.run([req])]))
+    dec.step()
+    kept = dec.cache["lengths"]
+    dec.cache["lengths"] = kept.clone()
+    with pytest.raises(RuntimeError, match="captured tensor was replaced"):
+        dec.step()
+    dec.cache["lengths"] = kept
+    dec.step()                                   # the same tensors: fine
+    dec.params["layers"][0]["mlp"]["wo"] = \
+        dec.params["layers"][0]["mlp"]["wo"].clone()
+    with pytest.raises(RuntimeError, match="captured tensor was replaced"):
+        dec.step()
+
+
+def test_graphs_are_released_with_their_engine(cuda):
+    """A retired engine's graphs and the memory of their pools go with
+    it: nothing else holds them."""
+    import gc
+    import weakref
+    import numpy as np
+    from repro_torch.serving import engine as E
+    cfg, pre, decs = _graph_engines("int4")
+    del decs[True]
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    dec = E.DecodeEngine(cfg, pre.params, max_slots=4, max_seq=64,
+                         page_size=8, chunk_size=4, device="cuda")
+    req = E.GenRequest(0, np.arange(1, 12), 9)
+    assert not dec.admit(E.AdmissionBatch(
+        [E.AdmissionItem(r, f, wire=w) for r, w, f in pre.run([req])]))
+    while dec.active:
+        dec.step()
+    assert dec.jit_cache_size == 1
+    graphs = weakref.ref(dec.graphs)
+    del dec
+    gc.collect()
+    torch.cuda.synchronize()
+    assert graphs() is None
+    assert torch.cuda.memory_allocated() <= base
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_reduced_f32_graphed_tokens_equal_cpu(cuda, mode):
+    """The reduced float32 model decodes the same tokens on the card with
+    graphs as on the CPU with the plain versions, on each decode cache."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    cfg = get_reduced("llama-30b").replace(dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _tree_to(params, dev)
+        pre = E.PrefillEngine(cfg, p, max_seq=64, device=dev)
+        dec = E.DecodeEngine(cfg, p, max_slots=4, max_seq=64, chunk_size=4,
+                             device=dev, **GRAPH_MODES[mode])
+        rng = np.random.default_rng(0)
+        reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n), 12)
+                for i, n in enumerate((7, 19, 33))]
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w) for r, w, f in pre.run(reqs)]))
+        while dec.active:
+            dec.step()
+        streams[dev] = [r.out_tokens for r in reqs]
+        assert dec.jit_cache_size == (1 if dev == "cuda" else 0)
+    assert streams["cuda"] == streams["cpu"]

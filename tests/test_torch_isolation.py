@@ -11,11 +11,11 @@ modules have not drifted.
   ``ModelConfig`` behave like the reference's, so the model checker's
   guarantees about the reference's hooks (DESIGN.md §12) hold for the
   copies too.
-* The copies of the gateway, transport, faults, profiler, the scheduler
-  core and the paper's GPU table are the reference's code: their ASTs are
-  equal, definition by definition, once imports and docstrings are set
-  aside, except for the definitions listed (with the reason) in
-  ``COPY_DIFFERENCES``.
+* The copies of the gateway, transport, faults, profiler, the runtime
+  sanitizers, the scheduler core and the paper's GPU table are the
+  reference's code: their ASTs are equal, definition by definition, once
+  imports and docstrings are set aside, except for the definitions listed
+  (with the reason) in ``COPY_DIFFERENCES``.
 """
 import ast
 import dataclasses
@@ -273,16 +273,12 @@ def _stmts(mine, theirs, *, args=False):
 
 COPY_DIFFERENCES = {
     "serving/gateway.py": {
-        # REPRO_SANITIZE raises NotImplementedError (the sanitizers are
-        # not ported: ROADMAP A.5) instead of importing them
-        "Gateway.__init__": _stmts("REPRO_SANITIZE", "REPRO_SANITIZE"),
-        # existed only for the sanitizer's jit-retrace monitor; PyTorch
-        # runs eagerly and has no jit cache
-        "LocalPrefillClient.jit_cache_size": ONE_SIDE,
-        "LocalDecodeClient.jit_cache_size": ONE_SIDE,
-        "LocalReplicaClient.jit_cache_size": ONE_SIDE,
         # Replica(rt=...) -> Replica(device=...)
         "gateway_from_plan": _stmts("device", "rt", args=True),
+    },
+    "analysis/sanitizers.py": {
+        # allocation sites leave out the port's own sanitizer frames
+        "_site": _stmts("repro_torch", "repro"),
     },
     "serving/transport.py": {},
     "serving/faults.py": {},
