@@ -66,7 +66,26 @@ before the last line:
    with graphed decode chunks. Every request must be DONE with 0 leaked
    pages, (a) must chunk, and every engine must still hold phase 5's
    parameters. Launch counts are reset before and read after, and summed
-   with phase 5's.
+   with phase 5's;
+7. chaos: phase 6's gateways dropped, the chaos entry point
+   ``repro_torch.launch.serve_e2e.run`` at full width on phase 5's
+   weights with graphed decode engines (one prefill and three decode
+   engines on the one card, one host thread), twice: (a) ``--chaos
+   --requests 12 --rate 3 --max-new 32`` on int4 pages under
+   ``REPRO_SANITIZE=1``, (b) ``--chaos --no-paged --requests 8 --rate 3
+   --max-new 32`` on the dense cache (the migration goes through the
+   wire's ``kv_quant``). In each run a decode replica crashes at 0.3 of
+   the trace's span and another is preempted (grace 0.75 s) at 0.55. Each
+   run must show: both events fired, each on a replica that held a
+   request; the two victims dead and one decode replica serving; at
+   least one migration with tokens; every request DONE with its full
+   budget; 0 leaked pages, and no slot or page left on a dead replica;
+   every engine on the weights it was given; one decode graph on every
+   replica (a migration captures none); (a) audited clean by the
+   sanitizers; and, once the run is dropped, the card's allocated memory
+   back at its level before the phase. It prints each run's TTFT and TPOT
+   p50/p99, E2E p99, wall time, counters and fired events. Its launch
+   counts are summed with phases 5 and 6.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -1218,6 +1237,123 @@ def serve_gateway(torch, params, *, device="cuda", reduced=False):
     return launches
 
 
+CHAOS_RUNS = {
+    # name: (extra flags, sanitized); every run: --chaos --rate 3
+    # --max-new 32 (32 tokens span four 8-step chunks, so both events find
+    # a busy victim)
+    "a": (["--requests", "12"], True),
+    "b": (["--no-paged", "--requests", "8"], False),
+}
+
+
+def check_chaos_run(name, out, device):
+    """Phase 7's assertions on one ``serve_e2e.run --chaos`` result."""
+    s, gw, c = out["summary"], out["gateway"], out["stats"]["counters"]
+    fired = out["fired"]
+    kinds = [f["kind"] for f in fired]
+    if kinds != ["crash", "preempt"]:
+        raise AssertionError(f"run {name}: chaos fired {kinds}, want a "
+                             f"crash then a preemption")
+    idle = [f["kind"] for f in fired if f["held"] < 1]
+    if idle:
+        raise AssertionError(f"run {name}: {idle} hit a replica that held "
+                             f"no request")
+    status = sorted(h.status for h in gw.dec)
+    if status != ["alive", "dead", "dead"] or \
+            sorted(out["dead"]) != sorted({f["idx"] for f in fired}):
+        raise AssertionError(f"run {name}: decode replicas {status}, dead "
+                             f"{out['dead']}, events on "
+                             f"{[f['idx'] for f in fired]}: want the two "
+                             f"victims dead and one serving")
+    if c["migrations"] < 1 or c["migrated_tokens"] <= 0:
+        raise AssertionError(f"run {name}: the preemption migrated nothing "
+                             f"({c})")
+    short = [h.request.rid for h in out["handles"]
+             if h.state != "DONE"
+             or len(h.tokens) != h.request.max_new_tokens]
+    if s["n_submitted"] == 0 or short:
+        raise AssertionError(f"run {name}: requests {short} are not DONE "
+                             f"with their full budget")
+    leaked = sum(p["leaked_pages"] for p in out["page_stats"])
+    if leaked:
+        raise AssertionError(f"run {name}: {leaked} leaked pages")
+    held = [h.idx for h in gw.dec if h.status == "dead"
+            and (h.engine.active or (h.engine.paged and h.engine.page_stats()
+                                     ["reserved_tokens"]))]
+    if held:
+        raise AssertionError(f"run {name}: dead replicas {held} still hold "
+                             f"slots or pages")
+    if not out["params_resident"]:
+        raise AssertionError(f"run {name}: an engine holds other parameters "
+                             f"than the ones passed in")
+    graphs = [h.client.jit_cache_size() for h in gw.dec]
+    if device == "cuda" and graphs != [1] * len(gw.dec):
+        raise AssertionError(f"run {name}: decode graphs {graphs}, want one "
+                             f"a replica (a migration recaptures nothing)")
+    return graphs
+
+
+def serve_chaos(torch, params, *, device="cuda", reduced=False):
+    """Phase 7: the chaos entry point ``launch.serve_e2e.run --chaos`` on
+    ``params`` with graphed decode engines, on int4 pages under
+    ``REPRO_SANITIZE=1`` (a) and on the dense cache (b); after each run is
+    dropped, the card's allocated memory must be back at its level before
+    the phase. Returns the kernels' launch counts over both runs."""
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_e2e
+    cuda = device == "cuda"
+
+    def settled():
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    base_mem = settled()
+    ops.reset_launches()
+    for name, (extra, sanitized) in CHAOS_RUNS.items():
+        argv = ["--device", device, "--chaos", "--rate", "3", "--max-new",
+                "32"] + extra + (["--reduced"] if reduced else [])
+        if sanitized:
+            os.environ["REPRO_SANITIZE"] = "1"
+        try:
+            out = serve_e2e.run(argv, params=params)
+        finally:
+            os.environ.pop("REPRO_SANITIZE", None)
+        s, c = out["summary"], out["stats"]["counters"]
+        log(f"  run {name} ({' '.join(extra)}): {s['n_done']}/"
+            f"{s['n_submitted']} done, TTFT p50/p99 "
+            f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p99_s'] * 1e3:.1f} ms, "
+            f"TPOT p50/p99 {s['tpot_p50_s'] * 1e3:.1f}/"
+            f"{s['tpot_p99_s'] * 1e3:.1f} ms, E2E p99 "
+            f"{s['e2e_p99_s'] * 1e3:.1f} ms, wall {out['wall_s']:.2f} s, "
+            f"counters {json.dumps(c)}")
+        log(f"  run {name} fired: " + json.dumps(
+            [{k: (round(v, 3) if isinstance(v, float) else v)
+              for k, v in f.items()} for f in out["fired"]]))
+        graphs = check_chaos_run(name, out, device)
+        san = out["stats"].get("sanitizer")
+        if sanitized and (not san or san["transition_violations"]
+                          or san["transitions_audited"] < s["n_done"]):
+            raise AssertionError(f"run {name}: the sanitizer did not audit "
+                                 f"the run: {san}")
+        log(f"  run {name}: decode replicas "
+            f"{[h.status for h in out['gateway'].dec]}, graphs {graphs}, "
+            f"leaked pages 0" + (f", sanitizer {json.dumps(san)}"
+                                 if sanitized else ""))
+        del out
+        mem = settled()
+        log(f"  run {name} dropped: {mem} bytes allocated, {base_mem} "
+            f"before the phase")
+        if mem > base_mem:
+            raise AssertionError(f"run {name}: {mem - base_mem} bytes still "
+                                 f"allocated after the run was dropped")
+    return ops.launch_counts()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1237,7 +1373,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/6] device")
+    log("[1/7] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -1245,7 +1381,7 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[2/6] build")
+    log("[2/7] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -1253,7 +1389,7 @@ def main() -> int:
     for name, regs, spill in kernel_resources(build.build_log()):
         log(f"  {name}: {regs} registers, {spill}")
 
-    log("[3/6] kernels against their plain versions on the card")
+    log("[3/7] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -1339,7 +1475,7 @@ def main() -> int:
                      torch.float32, timed=False)
     torch.cuda.empty_cache()
 
-    log("[4/6] reduced llama-30b, float32: card vs plain versions on the CPU")
+    log("[4/7] reduced llama-30b, float32: card vs plain versions on the CPU")
     for mode in DECODE_MODES:
         on_card = serve_small(torch, "cuda", mode)
         on_cpu = serve_small(torch, "cpu", mode)
@@ -1348,7 +1484,7 @@ def main() -> int:
         if on_card != on_cpu:
             raise AssertionError(f"{mode}: card {on_card} != cpu {on_cpu}")
 
-    log(f"[5/6] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/7] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
@@ -1360,11 +1496,19 @@ def main() -> int:
         torch.cuda.empty_cache()            # the engines' caches are freed
     log(f"  phase-5 launches: {launches5}")
 
-    log(f"[6/6] the gateway entry point (repro_torch.launch.serve) at full "
+    log(f"[6/7] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
     launches6 = serve_gateway(torch, params)
     log(f"  phase-6 launches: {launches6}")
-    launches = {k: launches5[k] + launches6[k] for k in launches5}
+
+    log(f"[7/7] the chaos entry point (repro_torch.launch.serve_e2e "
+        f"--chaos) at full width on phase 5's weights: a decode crash and "
+        f"a spot preemption with graphed decode chunks")
+    log(smi.splitlines()[0])
+    launches7 = serve_chaos(torch, params)
+    log(f"  phase-7 launches: {launches7}")
+    launches = {k: launches5[k] + launches6[k] + launches7[k]
+                for k in launches5}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -14,6 +14,7 @@ replayed, one host launch a chunk.
 """
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -172,16 +173,30 @@ class GraphedDecodeChunk:
                 max_seq: int):
         """Capture the graph of ``n_steps`` unless it exists. A capture
         synchronizes the device (``torch.cuda.graph``), so callers that
-        forbid host syncs around the replay capture first."""
+        forbid host syncs around the replay capture first.
+
+        Garbage is collected before the capture and not during it: a
+        collection inside would destroy the graphs of engines that died
+        in a reference cycle (a dropped gateway), and CUDA refuses to
+        destroy a graph while a stream captures, which spoils the
+        capture."""
         key = (n_steps, eos_id, max_seq)
         if key in self._graphs:
             return
         self._check(params, cache)
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
-            out = self._chunk_fn(params, cache, self._state, n_steps=n_steps,
-                                 eos_id=eos_id, max_seq=max_seq)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                out = self._chunk_fn(params, cache, self._state,
+                                     n_steps=n_steps, eos_id=eos_id,
+                                     max_seq=max_seq)
+        finally:
+            if collecting:
+                gc.enable()
         after = ops.launch_counts()
         for name, n in before.items():          # the capture ran nothing
             ops.KERNELS[name].launches = n

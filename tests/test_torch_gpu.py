@@ -1184,6 +1184,52 @@ def test_graphs_are_released_with_their_engine(cuda):
     assert torch.cuda.memory_allocated() <= base
 
 
+def test_capture_is_not_spoiled_by_a_dead_engines_graph(cuda):
+    """A graphed engine that died in a reference cycle (as a dropped
+    gateway's engines do) must not spoil another engine's capture: CUDA
+    refuses to destroy a graph while a stream captures, so a garbage
+    collection that lands inside the capture would invalidate it. The
+    capture collects first and suspends automatic collection; here a
+    collection is forced inside the capture, with automatic collection
+    off so the dead graph survives until then."""
+    import gc
+    import numpy as np
+    from repro_torch.serving import engine as E
+    cfg, pre, decs = _graph_engines("int4")
+    old = decs.pop(True)
+
+    def serve(dec, rid):
+        req = E.GenRequest(rid, np.arange(1, 12), 9)
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w) for r, w, f in pre.run([req])]))
+        while dec.active:
+            dec.step()
+        return req.out_tokens
+
+    want = serve(old, 0)
+    assert old.jit_cache_size == 1
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        cycle = [old]
+        cycle.append(cycle)
+        del old, cycle                 # garbage holding a captured graph
+        new = E.DecodeEngine(cfg, pre.params, max_slots=4, max_seq=64,
+                             page_size=8, chunk_size=4, device="cuda")
+        chunk = new.graphs._chunk_fn
+
+        def collect_inside(*a, **kw):
+            gc.collect()
+            return chunk(*a, **kw)
+
+        new.graphs._chunk_fn = collect_inside
+        assert serve(new, 1) == want
+    finally:
+        if collecting:
+            gc.enable()
+    assert new.jit_cache_size == 1
+
+
 @pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
 def test_reduced_f32_graphed_tokens_equal_cpu(cuda, mode):
     """The reduced float32 model decodes the same tokens on the card with
@@ -1210,3 +1256,62 @@ def test_reduced_f32_graphed_tokens_equal_cpu(cuda, mode):
         streams[dev] = [r.out_tokens for r in reqs]
         assert dec.jit_cache_size == (1 if dev == "cuda" else 0)
     assert streams["cuda"] == streams["cpu"]
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_graphed_preemption_migrates_bit_identical_streams(cuda, mode):
+    """A spot preemption between graphed decode engines (the reduced
+    float32 model on the card): the victim's resident KV is written into
+    the survivor's cache while the survivor's graph is live, and every
+    stream equals an undisturbed run's byte for byte, with no restart, no
+    second graph on either engine and no leaked page. The dense engines
+    ship raw wires, as the reference's bit-identity test does."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import gateway as G
+    cfg = get_reduced("llama-30b").replace(dtype="float32")
+    params = _tree_to(init_params(cfg, seed=0, device="cpu",
+                                  dtype=torch.float32), "cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, 12).astype(np.int32)
+               for _ in range(3)]
+
+    def gateway():
+        pre = E.PrefillEngine(cfg, params, max_seq=64, device="cuda")
+        decs = [E.DecodeEngine(cfg, params, max_slots=4, max_seq=64,
+                               chunk_size=2, device="cuda",
+                               **GRAPH_MODES[mode]) for _ in range(2)]
+        gw = G.Gateway([pre], decs, compress=mode != "dense")
+        G.warmup_gateway(gw, cfg.vocab_size, prompt_lens=(12,))
+        assert [d.jit_cache_size for d in decs] == [1, 1]
+        return gw, [gw.submit(G.ServeRequest(i, p, 20))
+                    for i, p in enumerate(prompts)]
+
+    base, bh = gateway()
+    base.run_until_drained()
+    want = {h.request.rid: list(h.tokens) for h in bh}
+    assert all(h.state == G.DONE and len(h.tokens) == 20 for h in bh)
+
+    gw, hs = gateway()
+    for _ in range(60):
+        gw.pump()
+        if (all(h.state == G.DECODING for h in hs)
+                and min(len(h.tokens) for h in hs) >= 2):
+            break
+    assert all(h.state == G.DECODING for h in hs)
+    vic = max(range(2), key=lambda j: len(gw.dec[j].client.resident()))
+    n_vic = len(gw.dec[vic].client.resident())
+    rep = gw.handle_preemption("decode", vic, grace_s=60.0)
+    assert n_vic >= 1 and rep["migrated"] == n_vic
+    assert rep["requeued"] == 0
+    gw.run_until_drained()
+    assert all(h.state == G.DONE and h.restarts == 0 for h in hs)
+    assert {h.request.rid: list(h.tokens) for h in hs} == want
+    assert gw.stats()["counters"]["migrations"] == n_vic
+    assert [h.engine.jit_cache_size for h in gw.dec] == [1, 1]
+    for h in gw.dec:
+        if h.engine.paged:
+            st = h.engine.page_stats()
+            assert st["leaked_pages"] == 0 and st["reencoded_inserts"] == 0

@@ -1,8 +1,9 @@
 """The port stands alone, and its copies of the reference's jax-free
 modules have not drifted.
 
-* ``repro_torch`` imports and serves with ``jax`` and ``repro`` blocked in
-  ``sys.meta_path`` (a subprocess), and an AST scan finds no import of
+* ``repro_torch`` imports, serves (``launch.serve`` and
+  ``launch.serve_e2e``) and simulates with ``jax`` and ``repro`` blocked
+  in ``sys.meta_path`` (a subprocess), and an AST scan finds no import of
   either in ``src/repro_torch/`` or ``chip_smoke.py``; the kernel modules
   hold no ``try`` that could turn a failed build or launch into the plain
   version.
@@ -12,7 +13,8 @@ modules have not drifted.
   guarantees about the reference's hooks (DESIGN.md §12) hold for the
   copies too.
 * The copies of the gateway, transport, faults, profiler, the runtime
-  sanitizers, the scheduler core and the paper's GPU table are the
+  sanitizers, the scheduler core, the serving simulator, the paper's
+  baselines and the paper's GPU table are the
   reference's code: their ASTs are equal, definition by definition, once
   imports and docstrings are set aside, except for the definitions listed
   (with the reason) in ``COPY_DIFFERENCES``.
@@ -109,6 +111,22 @@ from repro_torch.launch import serve
 out = serve.run(["--device", "cpu", "--reduced", "--duration", "1",
                  "--steps", "4"])
 assert out["summary"]["n_done"] == out["summary"]["n_submitted"] > 0
+from repro_torch.configs import get_config
+from repro_torch.core import baselines, simulator
+from repro_torch.core.orchestrator import SloSpec
+from repro_torch.core.workload import CONVERSATION, generate
+slo = SloSpec(2.0, 0.15, 30.0)
+bl = baselines.distserve_like(get_config("llama-30b"), CONVERSATION, 2.0,
+                              slo)
+res = simulator.simulate(bl.cluster, get_config("llama-30b"), bl.replicas,
+                         bl.orchestration,
+                         generate(CONVERSATION, rate=2.0, duration=10,
+                                  seed=0), slo, compress=bl.compress,
+                         colocated=bl.colocated)
+assert res.requests
+from repro_torch.launch import serve_e2e
+out = serve_e2e.run(["--device", "cpu", "--reduced", "--requests", "3"])
+assert out["summary"]["n_done"] == 3
 assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
 print("OK")
 """
@@ -290,6 +308,8 @@ COPY_DIFFERENCES = {
     "core/tabu.py": {},
     "core/orchestrator.py": {},
     "core/scheduler.py": {},
+    "core/simulator.py": {},
+    "core/baselines.py": {},
     "core/cluster.py": {
         # the TPU fleet is left out: the port states no TPU figure
         "TPU_PROFILES": ONE_SIDE,
