@@ -1,14 +1,21 @@
 """Architecture config registry: ``get_config(arch)`` / ``get_reduced(arch)``.
 
-Only the paper's own LLaMA-30B is registered in the port so far; the other
-architectures of ``repro.configs`` arrive with their model families.
+The paper's own LLaMA-30B and the reference's other plain dense stacks
+(stablelm-3b, gemma-2b, h2o-danube-3-4b, command-r-35b) are registered;
+the MoE, VLM, hybrid, SSM and audio architectures of ``repro.configs``
+arrive with their model families.
 """
 from __future__ import annotations
 
-from repro_torch.configs import llama_30b
+from repro_torch.configs import (command_r_35b, gemma_2b, h2o_danube_3_4b,
+                                 llama_30b, stablelm_3b)
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 
 _MODULES = {
+    "stablelm-3b": stablelm_3b,
+    "gemma-2b": gemma_2b,
+    "h2o-danube-3-4b": h2o_danube_3_4b,
+    "command-r-35b": command_r_35b,
     "llama-30b": llama_30b,
 }
 

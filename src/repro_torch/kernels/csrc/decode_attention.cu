@@ -34,7 +34,9 @@
 // half-warps own U = 4 keys each, and each of a half-warp's 16 lanes loads
 // its hd/16 contiguous elements of every one of those keys' K and V rows
 // before using any (one 16-byte load per lane and row at hd = 128 in
-// bf16), so 8 independent loads per thread are in flight, kept as raw
+// bf16; at hd 80 and 120, where hd/16 is no whole vector, a lane reads 8
+// elements and only hd/8 lanes, 10 or 15, hold any: Lanes below), so 8
+// independent loads per thread are in flight, kept as raw
 // words until used (RawRow: 58 registers at hd 128 in bf16 where f32
 // copies took ~105, which let only two CTAs share an SM). Dot products are
 // reduced with 4 shuffles inside the half-warp; each half-warp keeps its
@@ -108,6 +110,19 @@ struct RawRow {
   }
 };
 
+// How a half-warp's 16 lanes cover a row of HD: EPL contiguous elements a
+// lane, hd/16 where that is a power of two (every lane busy: hd 16 to
+// 128, and 256), else 8 (one 16-byte bf16 chunk), with lanes NL..15 idle
+// (hd 80: 10 lanes, hd 120: 15). kernels/decode_attention.py: lane_elems.
+template <int HD>
+struct Lanes {
+  static constexpr int kQ = HD / 16;
+  static constexpr int EPL =
+      HD % 16 == 0 && (kQ & (kQ - 1)) == 0 ? kQ : 8;
+  static constexpr int NL = HD / EPL;
+  static_assert(HD % EPL == 0 && NL <= 16, "no lane map for this head dim");
+};
+
 // Dense cache: key t of (b, h) at b*sb + t*ss + h*sh (elements).
 template <typename T>
 struct DenseKeys {
@@ -143,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ part, int* __restrict__ counters,
                   int Hkv, int g, int split_len, float sm_scale) {
   using Tkv = typename Keys::Elem;
-  constexpr int EPL = HD / 16;  // elements per lane of a half-warp
+  constexpr int EPL = Lanes<HD>::EPL;  // elements per lane of a half-warp
   __shared__ float s_m[kHalfWarps], s_l[kHalfWarps];
   __shared__ float s_acc[kHalfWarps][HD];
   __shared__ int s_last;
@@ -151,6 +166,7 @@ __global__ void __launch_bounds__(kThreads)
   const int split = blockIdx.x, n_split = gridDim.x;
   const int bh = blockIdx.y, b = bh / Hkv, h = bh % Hkv;
   const int tid = threadIdx.x, hw = tid >> 4, l16 = tid & 15;
+  const bool lane_on = l16 < Lanes<HD>::NL;  // holds elements of a row
   int len = kv_len[b];
   if (len > keys.max_len) len = keys.max_len;
   if (len < 0) len = 0;
@@ -164,7 +180,10 @@ __global__ void __launch_bounds__(kThreads)
   float qf[EPL];
   {
     RawRow<Tq, EPL> qr;
-    qr.load(q + row * HD + l16 * EPL);
+    if (lane_on)
+      qr.load(q + row * HD + l16 * EPL);
+    else
+      qr.zero();
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qf[e] = qr.get(e);
   }
@@ -180,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + hw + u * kHalfWarps;
       ok[u] = t < t_end;
-      if (ok[u]) {
+      if (ok[u] && lane_on) {
         const size_t o = keys.off(b, h, t) + l16 * EPL;
         kr[u].load(keys.k + o);
         vr[u].load(keys.v + o);
@@ -220,8 +239,10 @@ __global__ void __launch_bounds__(kThreads)
     s_m[hw] = m;
     s_l[hw] = l;
   }
+  if (lane_on) {
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) s_acc[hw][l16 * EPL + e] = acc[e];
+    for (int e = 0; e < EPL; ++e) s_acc[hw][l16 * EPL + e] = acc[e];
+  }
   __syncthreads();
   float M = kNegInf, L = 0.0f, o = 0.0f;
   if (tid < HD) {
@@ -298,7 +319,10 @@ cudaError_t launch(int hd, const void* q, const Keys& keys,
     DECODE_HD(16)
     DECODE_HD(32)
     DECODE_HD(64)
+    DECODE_HD(80)
+    DECODE_HD(120)
     DECODE_HD(128)
+    DECODE_HD(256)
     default:
       return cudaErrorInvalidValue;
   }

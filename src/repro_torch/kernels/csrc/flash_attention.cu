@@ -46,6 +46,10 @@
 //   shuffles, its sum stays per thread until the end. P is rounded to
 //   bf16 in registers and fed straight back as the A fragment of P V (the
 //   plain version also rounds probabilities to bf16 before P V).
+//   Head dims 16, 32, 64, 80, 120, 128 and 256 (tc::Tile): hd 120 pads
+//   the Q K^T contraction to 128 with zero columns (P V has 15 column
+//   blocks, the last one loaded by ldmatrix .x2); hd 256 takes 32-key
+//   tiles and keeps Q in shared memory (99 KB: 2 CTAs per SM).
 // * f32 (the reduced float32 model): the first kernel's FMA body,
 //   unchanged, so its rounding (and the reduced model's tokens on the
 //   card) stay as they were. One CTA of 128 threads owns 64 query rows;
@@ -145,6 +149,11 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 template <int VW>
 struct Vec;
 template <>
+struct Vec<1> {
+  using type = float;
+  __device__ static float get(const float& v, int) { return v; }
+};
+template <>
 struct Vec<4> {
   using type = float4;
   __device__ static float get(const float4& v, int e) {
@@ -167,7 +176,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
     int window, float sm_scale) {
   constexpr int QS = HD + kPad;
   constexpr int kOut = HD / 8;            // output columns per thread
-  constexpr int VW = HD >= 32 ? 4 : 2;    // ... read VW at a time
+  // ... read VW at a time (the widest vector that divides kOut)
+  constexpr int VW = HD >= 32 && kOut % 4 == 0 ? 4 : kOut % 2 == 0 ? 2 : 1;
   constexpr int kGroups = kOut / VW;      // cols tx*VW + 8*VW*g + e
   using VT = typename Vec<VW>::type;
   const int q0 = blockIdx.x * kBQ;
@@ -341,20 +351,40 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 constexpr int kBQ = 64;      // query rows per CTA, 16 per warp
-constexpr int kBK = 64;      // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;   // K/V ring depth
 
-// shared rows of hd bf16 padded by 8 (16 bytes): cp.async destinations stay
-// 16-byte aligned, and the 8 rows an ldmatrix phase reads fall on 8
-// distinct 4-bank groups for every hd in {16, 32, 64, 128}
+// Tiling by head dim.
+// * HDP: the Q K^T contraction, hd rounded up to mma's depth of 16 (hd
+//   120 -> 128). The columns past hd are zeros: Q's fragments read 0
+//   there, and the K tile's last 16-byte chunk of a row is zero-filled by
+//   cp.async, so they add nothing to S. P V reads only the hd columns.
+// * S: shared rows of HDP bf16 padded by 8 (16 bytes), past those zero
+//   columns: cp.async destinations stay 16-byte aligned, and S / 8 is odd
+//   for every head dim, so the 8 rows an ldmatrix phase reads fall on 8
+//   distinct 4-bank groups.
+// * BK: keys per tile, 64; 32 at hd 256, where a 64-key K/V ring would
+//   take 135 KB (one CTA an SM) and S's accumulators with O's 128 would
+//   crowd the registers.
+// * QS: Q's A fragments live in registers (KD x 4 a thread) up to hd
+//   128; at hd 256 (64 registers) they are staged once in shared memory
+//   and read with ldmatrix at every key tile instead, which leaves the
+//   registers to O's 128 accumulators.
 template <int HD>
-constexpr int kStride = HD + 8;
+struct Tile {
+  static constexpr int HDP = (HD + 15) / 16 * 16;
+  static constexpr int S = HDP + 8;
+  static constexpr int BK = HD > 128 ? 32 : 64;
+  static constexpr bool QS = HD > 128;
+  static_assert(HD % 8 == 0 && (S / 8) % 2 == 1, "head dim off the grid");
+};
 
 template <int HD>
-constexpr size_t smem_bytes() {  // kStages K tiles, then kStages V tiles
-  return sizeof(bf16) * (size_t)(2 * kStages * kBK) * kStride<HD>;
+constexpr size_t smem_bytes() {  // kStages K tiles, kStages V tiles, [Q]
+  using T = Tile<HD>;
+  return sizeof(bf16) *
+         (size_t)(2 * kStages * T::BK + (T::QS ? kBQ : 0)) * T::S;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -381,6 +411,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   uint32_t a) {
   asm volatile(
@@ -405,19 +442,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [r0, r0 + kBK) of one head of a (rows, row_stride) bf16 matrix into
-// a padded shared tile; rows at or past rend are zero-filled, never read
-template <int HD>
+// rows [r0, r0 + ROWS) of one head of a (rows, row_stride) bf16 matrix
+// into a padded shared tile of HDP columns; rows at or past rend, and the
+// columns past hd, are zero-filled
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
                                           size_t row_stride, int r0,
                                           int rend, int tid) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  constexpr int kChunks = Tile<HD>::HDP / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int i = tid; i < kBK * kChunks; i += kThreads) {
+  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
-    const bool valid = r0 + r < rend;
+    const bool valid = r0 + r < rend && (kChunks == HD / 8 || c < HD / 8);
     const bf16* g = src + (size_t)(valid ? r0 + r : 0) * row_stride + c * 8;
-    cp_async16(smem_addr(tile + r * kStride<HD> + c * 8), g, valid);
+    cp_async16(smem_addr(tile + r * Tile<HD>::S + c * 8), g, valid);
   }
 }
 
@@ -428,10 +466,11 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ prefix_len,
                       bf16* __restrict__ out, int Sq, int Sk, int H, int Hkv,
                       int P, int causal, int window, float scale_log2) {
-  constexpr int S = kStride<HD>;
-  constexpr int KD = HD / 16;   // k steps of Q K^T
-  constexpr int ND = HD / 8;    // 8-wide column blocks of O
-  constexpr int NK = kBK / 8;   // 8-key column blocks of S
+  using T = Tile<HD>;
+  constexpr int S = T::S, BK = T::BK;
+  constexpr int KD = T::HDP / 16;  // k steps of Q K^T
+  constexpr int ND = HD / 8;       // 8-wide column blocks of O
+  constexpr int NK = BK / 8;       // 8-key column blocks of S
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
   const int hk = h / (H / Hkv);
@@ -439,21 +478,25 @@ __global__ void __launch_bounds__(kThreads)
 
   extern __shared__ uint4 smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // kStages tiles
-  bf16* sV = sK + kStages * kBK * S;             // kStages tiles
+  bf16* sV = sK + kStages * BK * S;              // kStages tiles
+  bf16* sQ = sV + kStages * BK * S;              // QS: kBQ rows of Q
 
-  const Segments seg(prefix_len, P, Sk, causal, window, b, q0, kBQ, kBK);
+  const Segments seg(prefix_len, P, Sk, causal, window, b, q0, kBQ, BK);
   const size_t kv_stride = (size_t)Hkv * HD;
   const bf16* kb = k + (size_t)b * Sk * kv_stride + (size_t)hk * HD;
   const bf16* vb = v + (size_t)b * Sk * kv_stride + (size_t)hk * HD;
   auto load_kv = [&](int t) {
     const int st = t % kStages;
-    const int k0 = seg.k0(t, P, kBK), kend = seg.kend(t, P);
-    load_tile<HD>(sK + st * kBK * S, kb, kv_stride, k0, kend, tid);
-    load_tile<HD>(sV + st * kBK * S, vb, kv_stride, k0, kend, tid);
+    const int k0 = seg.k0(t, P, BK), kend = seg.kend(t, P);
+    load_tile<HD, BK>(sK + st * BK * S, kb, kv_stride, k0, kend, tid);
+    load_tile<HD, BK>(sV + st * BK * S, vb, kv_stride, k0, kend, tid);
   };
 
   // group s: tile s (groups are committed even when empty, so "all but
-  // the newest kStages-1 groups" is tile t)
+  // the newest kStages-1 groups" is tile t); QS: group 0 also holds Q
+  if constexpr (T::QS)
+    load_tile<HD, kBQ>(sQ, q + ((size_t)b * Sq * H + h) * HD,
+                       (size_t)H * HD, q0, Sq, tid);
 #pragma unroll
   for (int t = 0; t < kStages; ++t) {
     if (t < seg.n_tiles) load_kv(t);
@@ -461,22 +504,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // thread (lane) holds rows r_lo = lane/4 and r_lo + 8 of its warp's 16,
-  // and columns 2*(lane%4) + {0, 1} of every 8-wide block. Q's A fragments
-  // come straight from global memory (rows past Sq are 0): read once, they
-  // need no shared tile, which leaves room for 3 CTAs per SM at hd 128
+  // and columns 2*(lane%4) + {0, 1} of every 8-wide block. Up to hd 128
+  // Q's A fragments come straight from global memory (rows past Sq and
+  // columns past hd are 0): read once, they need no shared tile, which
+  // leaves room for 3 CTAs per SM at hd 128
   const int r_lo = q0 + warp * 16 + (lane >> 2);
-  uint32_t qf[KD][4];
+  uint32_t qf[T::QS ? 1 : KD][4];
+  if constexpr (!T::QS) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r_lo + (i & 1) * 8;
-      const int col = kk * 16 + (i >> 1) * 8 + (lane & 3) * 2;
-      qf[kk][i] = row < Sq ? *reinterpret_cast<const uint32_t*>(
-                                 q + (((size_t)b * Sq + row) * H + h) * HD +
-                                 col)
-                           : 0u;
-    }
+      for (int i = 0; i < 4; ++i) {
+        const int row = r_lo + (i & 1) * 8;
+        const int col = kk * 16 + (i >> 1) * 8 + (lane & 3) * 2;
+        qf[kk][i] = row < Sq && (T::HDP == HD || col < HD)
+                        ? *reinterpret_cast<const uint32_t*>(
+                              q + (((size_t)b * Sq + row) * H + h) * HD +
+                              col)
+                        : 0u;
+      }
+  }
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
@@ -485,8 +532,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < seg.n_tiles; ++t) {
     cp_async_wait<kStages - 1>();
     __syncthreads();
-    const bf16* cK = sK + (t % kStages) * kBK * S;
-    const bf16* cV = sV + (t % kStages) * kBK * S;
+    const bf16* cK = sK + (t % kStages) * BK * S;
+    const bf16* cV = sV + (t % kStages) * BK * S;
 
     // S = Q K^T: B fragments of two 8-key blocks per ldmatrix
     float s[NK][4];
@@ -494,24 +541,32 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (T::QS) {
+        ldmatrix_x4(qa, smem_addr(sQ + (warp * 16 + (lane & 15)) * S +
+                                  kk * 16 + (lane >> 4) * 8));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+      }
 #pragma unroll
       for (int np = 0; np < NK / 2; ++np) {
         uint32_t r[4];
         ldmatrix_x4(r, smem_addr(cK + (np * 16 + (lane & 7) +
                                        (lane >> 4) * 8) * S +
                                  kk * 16 + ((lane >> 3) & 1) * 8));
-        mma(s[2 * np], qf[kk], r[0], r[1]);
-        mma(s[2 * np + 1], qf[kk], r[2], r[3]);
+        mma(s[2 * np], qa, r[0], r[1]);
+        mma(s[2 * np + 1], qa, r[2], r[3]);
       }
     }
 
     // scale into the log2 domain and mask; a tile every row of this CTA
     // sees in full skips the per-element test
     const bool pre = t < seg.n_pre;
-    const int k0 = seg.k0(t, P, kBK), kend = seg.kend(t, P);
+    const int k0 = seg.k0(t, P, BK), kend = seg.kend(t, P);
     const bool full =
-        k0 + kBK <= kend &&
-        (pre || ((!causal || k0 + kBK - 1 - P <= q0) &&
+        k0 + BK <= kend &&
+        (pre || ((!causal || k0 + BK - 1 - P <= q0) &&
                  (window <= 0 || k0 - P > q0 + kBQ - 1 - window)));
 #pragma unroll
     for (int n = 0; n < NK; ++n)
@@ -565,9 +620,10 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // O += P V: P (bf16) is the A fragment straight from S's accumulator
-    // layout; V's B fragments of two 8-wide column blocks per ldmatrix.trans
+    // layout; V's B fragments of two 8-wide column blocks per
+    // ldmatrix.trans (an odd last block, hd 120's 15th, through .x2)
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {
           pack_bf16(s[2 * kk][0], s[2 * kk][1]),
           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
@@ -581,6 +637,13 @@ __global__ void __launch_bounds__(kThreads)
                                        np * 16 + (lane >> 4) * 8));
         mma(o[2 * np], a, r[0], r[1]);
         mma(o[2 * np + 1], a, r[2], r[3]);
+      }
+      if constexpr (ND % 2 == 1) {
+        uint32_t r[2];
+        ldmatrix_x2_trans(r, smem_addr(cV + (kk * 16 + (lane & 7) +
+                                             ((lane >> 3) & 1) * 8) * S +
+                                       (ND - 1) * 8));
+        mma(o[ND - 1], a, r[0], r[1]);
       }
     }
 
@@ -637,8 +700,14 @@ cudaError_t launch_hd(int hd, const Args& a, cudaStream_t st) {
       return Body<32>::run(a, st);
     case 64:
       return Body<64>::run(a, st);
+    case 80:
+      return Body<80>::run(a, st);
+    case 120:
+      return Body<120>::run(a, st);
     case 128:
       return Body<128>::run(a, st);
+    case 256:
+      return Body<256>::run(a, st);
     default:
       return cudaErrorInvalidValue;
   }

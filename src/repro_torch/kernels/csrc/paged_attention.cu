@@ -8,14 +8,19 @@
 // 0), pages at or past min(ceil(kv_len/ps), W) never read, table entries
 // clamped at 0 (the trash page).
 //
-// Shapes: q (B, Hkv, gq, hd) bf16 or f32, hd in {16, 32, 64, 128}; kp/vp
+// Shapes: q (B, Hkv, gq, hd) bf16 or f32, hd in {16, 32, 64, 80, 128,
+// 256}; kp/vp
 // (P, ps*ppr, g/2) u8; ks/kz/vs/vz (P, ps*ppr, 1) f32; page_table (B, W)
 // i32; kv_len (B,) i32; out (B, Hkv, gq, hd) in q's type. Element (t, h, d)
 // of a page sits at the flat index f = h*hd + d of token t: row t*ppr +
 // f/g, byte (f%g)/2, nibble (f%g)&1. The group g may span several heads
-// (reduced configs: g = 64 over heads of 32) or equal hd (LLaMA-30B: g =
-// hd = 128); a lane's chunk of EPC elements never crosses a row, because
-// EPC divides both hd and g.
+// (reduced configs: g = 64 over heads of 32), equal hd (LLaMA-30B: g =
+// hd = 128), or end inside a head (stablelm-3b: g = 128 over heads of 80,
+// a group and a half a head); a lane's chunk of EPC elements never
+// crosses a row, because EPC divides both hd and g. Where hd / EPC lanes
+// are not a power of two, a token takes the next power of two and the
+// lanes past hd / EPC hold nothing (hd 80: 5 of 8 lanes at one query row,
+// 10 of 16 at four).
 //
 // Bound on the H100: memory. Per cached token and layer the kernel must
 // read 2*ppr*(g/2 + 8) bytes of pages (plus q and out once): at the main
@@ -66,13 +71,23 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Lane geometry for head dim HD and GQ query rows per CTA.
+constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+
+// Lane geometry for head dim HD and GQ query rows per CTA
+// (kernels/paged_attention.py: lane_elems).
 template <int HD, int GQ>
 struct Geo {
-  // elements per lane: 32 (16 packed bytes) for one query row; 8 when a
-  // lane keeps GQ rows of q and accumulator in registers
-  static constexpr int EPC = GQ == 1 ? (HD < 32 ? HD : 32) : 8;
-  static constexpr int LPT = HD / EPC;        // lanes per token
+  // elements per lane: 32 (16 packed bytes) for one query row, or the
+  // widest of 16 and 8 that divides hd; 8 when a lane keeps GQ rows of q
+  // and accumulator in registers
+  static constexpr int EPC =
+      GQ == 1 ? (HD < 32 ? HD : HD % 32 == 0 ? 32 : HD % 16 == 0 ? 16 : 8)
+              : 8;
+  static constexpr int NLA = HD / EPC;        // lanes that hold elements
+  static constexpr int LPT = pow2_ceil(NLA);  // lanes per token
+  static_assert(HD % EPC == 0 && LPT <= 32, "no lane map for this head dim");
   static constexpr int TPW = 32 / LPT;        // tokens per warp step
   static constexpr int G = kWarps * TPW;      // token groups (and tokens)
                                               // per step of a CTA
@@ -122,6 +137,7 @@ __global__ void __launch_bounds__(kThreads) paged_int4_kernel(
   const int rb = blockIdx.z, n_rb = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = lane % LPT;                   // chunk of the head
+  const bool lane_on = c < Gm::NLA;           // holds elements of a head
   const int grp = warp * TPW + lane / LPT;    // token group
 
   int len = kv_len[b];
@@ -153,7 +169,8 @@ __global__ void __launch_bounds__(kThreads) paged_int4_kernel(
     const int row = rb * GQ + j;
     const Tq* qr = q + ((size_t)bh * gq + (row < gq ? row : 0)) * HD + c * EPC;
 #pragma unroll
-    for (int e = 0; e < EPC; ++e) qf[j][e] = row < gq ? to_f(qr[e]) : 0.0f;
+    for (int e = 0; e < EPC; ++e)
+      qf[j][e] = row < gq && lane_on ? to_f(qr[e]) : 0.0f;
   }
   __syncthreads();
 
@@ -181,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) paged_int4_kernel(
     for (int u = 0; u < kU; ++u) {
       const int t = base + u * G + grp;
       ok[u] = t < t_end;
-      if (ok[u]) {
+      if (ok[u] && lane_on) {
         const int tl = t - t0;
         const size_t row = (size_t)s_page[tl / ps] * R + (tl % ps) * ppr +
                            rrow;
@@ -361,7 +378,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* kp, const void* ks,
     PAGED_INT4_HD(16)
     PAGED_INT4_HD(32)
     PAGED_INT4_HD(64)
+    PAGED_INT4_HD(80)
     PAGED_INT4_HD(128)
+    PAGED_INT4_HD(256)
     default:
       return cudaErrorInvalidValue;
   }

@@ -31,9 +31,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.kv_quant import _require_cuda
 
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)   # the instantiations
 _TYPES = (torch.bfloat16, torch.float32)
 SPLIT_TOKENS = 64     # keys a split covers (a whole number of pages)
+
+
+def lane_elems(hd: int) -> int:
+    """Contiguous elements of a K/V row each lane of a half-warp reads
+    (``Lanes`` in ``csrc/decode_attention.cu``): ``hd // 16`` where that
+    is a power of two, else 8 (hd 80 and 120: 10 or 15 lanes busy). K/V
+    strides must be whole multiples of it."""
+    q = hd // 16
+    return q if hd % 16 == 0 and q & (q - 1) == 0 else 8
 
 
 def split_plan(W: int, page_size: int):
@@ -99,7 +108,7 @@ def decode_attention(q, k, v, kv_len, *, sm_scale=None):
                              f"tensor, got {t.device}")
     B, Hkv, g, hd = q.shape
     S = k.shape[2]
-    epl = hd // 16                  # elements a lane reads per row
+    epl = lane_elems(hd) if hd in HEAD_DIMS else 1
     ok = (q.dtype in _TYPES and k.dtype in _TYPES and v.dtype == k.dtype
           and k.dim() == 4 and tuple(k.shape) == (B, Hkv, S, hd)
           and tuple(v.shape) == tuple(k.shape)

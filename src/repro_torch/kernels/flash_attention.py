@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.kv_quant import _require_cuda
 
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)   # the instantiations
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):

@@ -25,11 +25,25 @@ from repro_torch.kernels.decode_attention import (
     HEAD_DIMS, _counters, split_operands, split_plan)
 from repro_torch.kernels.kv_quant import _require_cuda
 
+INT4_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the int4 instantiations
+
 
 def rows_per_cta(gq: int) -> int:
     """Query rows a CTA keeps in registers: 1, or 4 under GQA (a block of
     4 rows, the last one padded)."""
     return 1 if gq == 1 else 4
+
+
+def lane_elems(hd: int, rows: int) -> int:
+    """Elements of a head each lane of the int4 kernel reads (``Geo`` in
+    ``csrc/paged_attention.cu``): at one query row 32 (16 packed bytes),
+    or the widest of 16 and 8 that divides hd (hd itself below 32); at
+    several rows 8. It must divide the quantization group too."""
+    if rows > 1:
+        return 8
+    if hd < 32:
+        return hd
+    return next(e for e in (32, 16, 8) if hd % e == 0)
 
 
 def launch_shape(B: int, Hkv: int, gq: int, hd: int, W: int,
@@ -46,7 +60,7 @@ def launch_shape(B: int, Hkv: int, gq: int, hd: int, W: int,
 
 def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
                                 page_size, sm_scale=None):
-    """q: (B, Hkv, gq, hd) bf16/f32, hd in ``HEAD_DIMS``;
+    """q: (B, Hkv, gq, hd) bf16/f32, hd in ``INT4_HEAD_DIMS``;
     ``k_pages``/``v_pages`` the int4 triples ``(packed (P, page_size*ppr,
     g//2) u8, scale (P, ..., 1) f32, zero)``, packed pages 16-byte aligned;
     page_table (B, W) int32 (0 = trash page); kv_len (B,) int32. Returns
@@ -67,7 +81,8 @@ def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
           and page_table.dtype == kv_len.dtype == torch.int32
           and tuple(page_table.shape) == (B, W)
           and tuple(kv_len.shape) == (B,)
-          and hd in HEAD_DIMS and g % min(hd, 32) == 0
+          and hd in INT4_HEAD_DIMS
+          and g % lane_elems(hd, rows_per_cta(gq)) == 0
           and kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0
           and R % page_size == 0
           and (Hkv * hd) == (R // page_size) * g)
@@ -77,7 +92,8 @@ def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
             f"{q.dtype}, pages {tuple(kp.shape)}/{tuple(ks.shape)}, "
             f"page_table {tuple(page_table.shape)} {page_table.dtype}, "
             f"kv_len {tuple(kv_len.shape)} {kv_len.dtype}, "
-            f"page_size {page_size}; head_dim must be one of {HEAD_DIMS}")
+            f"page_size {page_size}; head_dim must be one of "
+            f"{INT4_HEAD_DIMS}, the group a multiple of a lane's elements")
     sm_scale = sm_scale or 1.0 / math.sqrt(hd)
     pages, n_split = split_plan(W, page_size)
     _, n_part, n_count = launch_shape(B, Hkv, gq, hd, W, page_size)

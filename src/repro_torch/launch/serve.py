@@ -14,7 +14,10 @@ defaults except:
   replica shares); ``--reduced`` runs the reduced config instead (the CPU
   tests use ``--device cpu --reduced``);
 * ``--cluster`` offers ``paper_cloud`` and ``inhouse`` (the port keeps no
-  TPU fleet profile) and ``--arch`` the configs the port has;
+  TPU fleet profile) and ``--arch`` the configs the port has: LLaMA-30B
+  and the dense stablelm-3b, gemma-2b, h2o-danube-3-4b and command-r-35b
+  (``--arch gemma-2b --reduced --device cpu`` on the CPU, ``--arch
+  gemma-2b`` at full width on the card);
 * random weights come from ``init_params(cfg, seed=0)`` on the device;
 * ``backend=`` is left at its default: on the card the kernels run, and
   each decode chunk is one CUDA graph replay;

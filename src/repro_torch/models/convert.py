@@ -20,7 +20,18 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _norm(tree, cfg, device, i=None):
+    """An RMSNorm's scale tensor, or a LayerNorm's ``{"scale", "bias"}``
+    (``layers.norm_apply``); ``i`` picks a layer of a stacked norm."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    if cfg.norm_type == "rmsnorm":
+        return _tensor(pick(tree["scale"]), device)
+    return {k: _tensor(pick(tree[k]), device) for k in ("scale", "bias")}
+
+
 def params_from_numpy(tree, cfg, device="cuda"):
+    """A parallel block's stack has no ``norm2``, and tied embeddings no
+    ``unembed``: neither appears in the result."""
     if set(tree["blocks"]) != {"slot0"}:
         raise NotImplementedError(
             f"{cfg.name}: only single-slot (dense) stacks convert")
@@ -28,15 +39,17 @@ def params_from_numpy(tree, cfg, device="cuda"):
     attn, mlp = blk["attn"], blk["mlp"]
     layers = []
     for i in range(cfg.num_layers):
-        layers.append({
-            "norm1": _tensor(blk["norm1"]["scale"][i], device),
+        layer = {
+            "norm1": _norm(blk["norm1"], cfg, device, i),
             "attn": {n: _tensor(attn[n]["w"][i], device)
                      for n in ("wq", "wk", "wv", "wo")},
-            "norm2": _tensor(blk["norm2"]["scale"][i], device),
             "mlp": {n: _tensor(mlp[n]["w"][i], device) for n in ("wi", "wo")},
-        })
+        }
+        if "norm2" in blk:
+            layer["norm2"] = _norm(blk["norm2"], cfg, device, i)
+        layers.append(layer)
     params = {"embed": _tensor(tree["embed"], device), "layers": layers,
-              "final_norm": _tensor(tree["final_norm"]["scale"], device)}
+              "final_norm": _norm(tree["final_norm"], cfg, device)}
     if "unembed" in tree:
         params["unembed"] = _tensor(tree["unembed"], device)
     return params

@@ -5,12 +5,48 @@ with weights stored ``(d_in, d_out)`` as in the JAX package, so ``x @ w``
 reads the same in both. The reference's ``rmsnorm`` and prefill
 ``attention`` are kernels in the port (``kernels/ops.py``: ``rmsnorm`` and
 ``flash_attention``, whose plain versions in ``kernels/ref.py`` are the
-reference's jnp code).
+reference's jnp code). LayerNorm is plain jnp in the reference and plain
+PyTorch here.
+
+A norm's parameters follow ``cfg.norm_type``: an RMSNorm is its ``(d,)``
+f32 scale tensor, a LayerNorm the dict ``{"scale", "bias"}`` of two.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def layernorm(x, scale, bias=None, eps: float = 1e-5):
+    """The reference's LayerNorm: f32 mean and variance over the last
+    axis, ``rsqrt(var + eps)``, scale and bias, cast back to x's type."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dt)
+
+
+def norm_apply(cfg, p, x, *, backend: str = "auto"):
+    """The norm of ``cfg.norm_type`` with parameters ``p``."""
+    if cfg.norm_type == "rmsnorm":
+        return ops.rmsnorm(x, p, backend=backend)
+    return layernorm(x, p["scale"], p.get("bias"))
+
+
+def add_norm(cfg, x, r, p, *, backend: str = "auto"):
+    """A residual add and the norm after it: ``(h, norm(h))`` with
+    ``h = x + r``. RMSNorm fuses the two (``ops.add_rmsnorm``, one launch
+    on the card); LayerNorm adds, then norms."""
+    if cfg.norm_type == "rmsnorm":
+        return ops.add_rmsnorm(x, r, p, backend=backend)
+    h = x + r
+    return h, norm_apply(cfg, p, h)
 
 
 def rope_freqs(head_dim: int, rotary_pct: float, theta: float, device):

@@ -32,7 +32,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kv_layout import pick_group
 from repro_torch.models import layers
 from repro_torch.models.layers import dense
-from repro_torch.models.transformer import run_layers, unembed_matrix
+from repro_torch.models.transformer import (embed, run_layers,
+                                           unembed_matrix)
 
 DEFAULT_PAGE_SIZE = 16
 PAGE_KEYS = ("kp", "ks", "kz", "vp", "vs", "vz")
@@ -106,7 +107,7 @@ def decode_step_paged(cfg, params, cache, tokens, *,
     ``ops.paged_decode_attention``, whose kernel follows the residency.
     Returns (logits (B, 1, V) f32, cache) with ``lengths + 1``; the page
     table is host business."""
-    x = params["embed"][tokens]
+    x = embed(cfg, params, tokens)
     B = x.shape[0]
     lengths = cache["lengths"]
     positions = lengths[:, None]

@@ -1,7 +1,11 @@
 """Model API over the ported families (``repro.models.registry``).
 
 ``build(cfg)`` returns a :class:`ModelApi` for the dense family, the only
-one ported so far; other families raise ``NotImplementedError``. ``decode``
+one ported so far: the LLaMA-style stack and its variants in the
+registered configs (LayerNorm, a parallel block, an embedding scale, tied
+embeddings, partial rotary, a sliding window). Other families, and dense
+options no registered config uses (q/k norms, biases), raise
+``NotImplementedError``. ``decode``
 and ``decode_chunk`` step the dense cache (``transformer.decode_step``),
 ``paged_decode_fns`` the page pool. ``make_decode_chunk`` turns a single
 decode step into the engine's multi-token greedy loop: the reference's
@@ -228,12 +232,12 @@ class GraphedDecodeChunk:
 
 
 def build(cfg: ModelConfig) -> ModelApi:
-    if cfg.family != "dense" or cfg.norm_type != "rmsnorm" or \
-            cfg.qk_norm or cfg.attn_bias or cfg.mlp_bias or \
-            cfg.parallel_block or cfg.embed_scale:
+    if cfg.family != "dense" or \
+            cfg.norm_type not in ("rmsnorm", "layernorm") or \
+            cfg.qk_norm or cfg.attn_bias or cfg.mlp_bias:
         raise NotImplementedError(
-            f"{cfg.name}: only the plain dense family (LLaMA-style) is "
-            f"ported; see ROADMAP queue A for the others")
+            f"{cfg.name}: only the plain dense family is ported; see "
+            f"ROADMAP queue A for the others")
 
     def prefill_fn(params, batch, *, max_seq=None):
         S = batch["tokens"].shape[1]

@@ -5,22 +5,31 @@ Parameters are plain dicts of tensors, one dict per layer instead of the
 reference's layer-stacked pytree (``models/convert.py`` maps one onto the
 other):
 
-    {"embed": (V, d), "final_norm": (d,), "unembed": (d, V),
-     "layers": [{"norm1": (d,), "norm2": (d,),
+    {"embed": (V, d), "final_norm": N, "unembed": (d, V),
+     "layers": [{"norm1": N, "norm2": N,
                  "attn": {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd),
                           "wo": (qd, d)},
                  "mlp": {"wi": (d, 2*d_ff), "wo": (d_ff, d)}}, ...]}
 
-A prefill cache is ``{"slot0": {"k", "v": (L, B, S, Hkv, hd)},
-"lengths": (B,)}``, the reference's layout. The port's prefill cache
-holds the S computed positions; the reference pads it to ``max_seq``
-with zeros that the wire extraction never reads. The cache is written in
-place, layer by layer.
+where a norm ``N`` is an RMSNorm's ``(d,)`` scale or a LayerNorm's
+``{"scale", "bias"}`` (``layers.norm_apply``). A parallel block
+(``cfg.parallel_block``: attention and MLP read one shared norm) has no
+``norm2``; tied embeddings (``cfg.tie_embeddings``) no ``unembed``.
 
-A decode cache has the same layout at ``max_seq`` positions
-(``init_cache``). ``decode_step`` is the reference's ``decode_step`` /
-``decode_step_inplace`` for the plain dense family: it scatters the new
-token's K/V into the stacked cache IN PLACE and attends through the
+A prefill cache is ``{"slot0": {"k", "v": (L, B, S, Hkv, hd)}, "lengths":
+(B,)}``, the reference's layout. The port's prefill cache holds the S
+computed positions; the reference pads it to ``max_seq`` with zeros that
+the wire extraction never reads. A sliding-window stack holds at most
+``window`` rows (:func:`cache_rows`): a longer prompt keeps its last
+``window`` positions, rolled so that position p sits at row p % window,
+the ring the decode step writes. The cache is written in place, layer by
+layer.
+
+A decode cache has the same layout at ``cache_rows(cfg, max_seq)``
+positions (``init_cache``). ``decode_step`` is the reference's
+``decode_step`` / ``decode_step_inplace`` for the plain dense family: it
+scatters the new token's K/V into the stacked cache IN PLACE (at
+``lengths % window`` on a ring) and attends through the
 ``decode_attention`` kernel, which reads one layer of the cache where it
 lies. The reference's dense step attends with plain jnp
 (``layers.attention`` with ``kv_len``/``q_offset``, or
@@ -29,6 +38,7 @@ kernel computes the same function.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -41,35 +51,41 @@ from repro_torch.models.layers import dense
 def init_params(cfg, *, seed: int = 0, device="cuda",
                 dtype=torch.bfloat16):
     """Random weights with the reference's scales (normal * 1/sqrt(d_in),
-    embed * 0.02, norms zero). Each tensor is drawn directly in ``dtype``
-    on ``device`` from one ``torch.Generator``: LLaMA-30B's 65 GB of bf16
-    weights never pass through an f32 temporary. The numbers differ from
-    ``jax.random``'s; parity tests convert the JAX weights instead."""
+    embed * 0.02; RMSNorm scales zero, LayerNorm scales one and biases
+    zero). Each tensor is drawn directly in ``dtype`` on ``device`` from
+    one ``torch.Generator``: LLaMA-30B's 65 GB of bf16 weights never pass
+    through an f32 temporary. The numbers differ from ``jax.random``'s;
+    parity tests convert the JAX weights instead."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    gated = cfg.mlp_type in ("silu", "geglu")
 
     def normal(shape, scale):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=dtype).mul_(scale)
 
-    def zeros(n):
-        return torch.zeros((n,), dtype=torch.float32, device=dev)
+    def norm():
+        zeros = torch.zeros((d,), dtype=torch.float32, device=dev)
+        if cfg.norm_type == "rmsnorm":
+            return zeros
+        return {"scale": torch.ones_like(zeros), "bias": zeros}
 
     blocks = []
     for _ in range(cfg.num_layers):
-        blocks.append({
-            "norm1": zeros(d),
-            "attn": {"wq": normal((d, qd), 1 / math.sqrt(d)),
-                     "wk": normal((d, kvd), 1 / math.sqrt(d)),
-                     "wv": normal((d, kvd), 1 / math.sqrt(d)),
-                     "wo": normal((qd, d), 1 / math.sqrt(qd))},
-            "norm2": zeros(d),
-            "mlp": {"wi": normal((d, 2 * f), 1 / math.sqrt(d)),
-                    "wo": normal((f, d), 1 / math.sqrt(f))},
-        })
+        blk = {"norm1": norm(),
+               "attn": {"wq": normal((d, qd), 1 / math.sqrt(d)),
+                        "wk": normal((d, kvd), 1 / math.sqrt(d)),
+                        "wv": normal((d, kvd), 1 / math.sqrt(d)),
+                        "wo": normal((qd, d), 1 / math.sqrt(qd))},
+               "mlp": {"wi": normal((d, 2 * f if gated else f),
+                                    1 / math.sqrt(d)),
+                       "wo": normal((f, d), 1 / math.sqrt(f))}}
+        if not cfg.parallel_block:
+            blk["norm2"] = norm()
+        blocks.append(blk)
     params = {"embed": normal((cfg.vocab_size, d), 0.02), "layers": blocks,
-              "final_norm": zeros(d)}
+              "final_norm": norm()}
     if not cfg.tie_embeddings:
         params["unembed"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
     return params
@@ -79,13 +95,38 @@ def unembed_matrix(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype) -> float:
+    """``sqrt(d_model)`` rounded to ``dtype`` first, as the reference
+    multiplies by ``jnp.asarray(sqrt(d), x.dtype)``."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
+
+
+def embed(cfg, params, tokens):
+    """Token embeddings, times the rounded ``sqrt(d_model)`` where
+    ``cfg.embed_scale`` (gemma)."""
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * _embed_scale(cfg.d_model, x.dtype)
+    return x
+
+
 def cache_dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def cache_rows(cfg, max_seq: int) -> int:
+    """Positions an attention cache of ``max_seq`` holds: a sliding-window
+    stack only ever needs ``window`` of them (the reference's
+    ``_mix_cache_init``). A cache of exactly ``window`` rows is a ring."""
+    return min(max_seq, cfg.sliding_window) if cfg.sliding_window \
+        else max_seq
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
                device="cuda"):
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, cache_rows(cfg, max_seq),
+             cfg.num_kv_heads, cfg.head_dim)
     return {"slot0": {"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)},
             "lengths": torch.zeros((batch,), dtype=torch.int32,
@@ -96,26 +137,34 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
                backend: str = "auto"):
     """The residual stream ``x`` through every layer: ``attend(i, p, h)``
     returns layer i's attention output, projected back to d_model, for the
-    normed input ``h``. Each residual add is fused with the norm after it
-    (``ops.add_rmsnorm``, one launch on the card): the attention residual
-    with ``norm2``, the MLP residual with the next layer's ``norm1`` or,
-    after the last layer, with the final norm. Returns ``(x, h)``: the
-    stream and its final norm; with ``final_norm=False`` the last add stays
+    normed input ``h``. Each residual add goes with the norm after it
+    (``layers.add_norm``: one ``ops.add_rmsnorm`` launch on the card for
+    RMSNorm): the attention residual with ``norm2``, the MLP residual with
+    the next layer's ``norm1`` or, after the last layer, with the final
+    norm. A parallel block feeds attention and MLP the same ``h`` and adds
+    ``(x + attn) + mlp``, in that order on every path (the reference's
+    ``prefill_suffix``, ``decode_step_inplace`` and paged step do; its
+    ``forward`` adds ``x + (attn + mlp)``). Returns ``(x, h)``: the stream
+    and its final norm; with ``final_norm=False`` the last add stays
     unfused and ``h`` is None (prefill norms only the rows it keeps).
 
     On the CPU the arithmetic is the reference's exactly: an add, then
-    ``rmsnorm_ref``."""
+    the norm's plain version."""
     blocks = params["layers"]
-    h = ops.rmsnorm(x, blocks[0]["norm1"], backend=backend)
+    h = layers.norm_apply(cfg, blocks[0]["norm1"], x, backend=backend)
     for i, p in enumerate(blocks):
-        x, h = ops.add_rmsnorm(x, attend(i, p, h), p["norm2"],
-                               backend=backend)
-        m = layers.mlp_apply(cfg, p["mlp"], h)
+        o = attend(i, p, h)
+        if cfg.parallel_block:
+            m = layers.mlp_apply(cfg, p["mlp"], h)
+            x = x + o
+        else:
+            x, h = layers.add_norm(cfg, x, o, p["norm2"], backend=backend)
+            m = layers.mlp_apply(cfg, p["mlp"], h)
         if i + 1 < len(blocks):
-            x, h = ops.add_rmsnorm(x, m, blocks[i + 1]["norm1"],
+            x, h = layers.add_norm(cfg, x, m, blocks[i + 1]["norm1"],
                                    backend=backend)
         elif final_norm:
-            x, h = ops.add_rmsnorm(x, m, params["final_norm"],
+            x, h = layers.add_norm(cfg, x, m, params["final_norm"],
                                    backend=backend)
         else:
             x, h = x + m, None
@@ -130,7 +179,7 @@ def _last_logits(cfg, params, x, last_pos):
         h_last = x[:, -1:]
     else:
         h_last = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
-    h_last = ops.rmsnorm(h_last, params["final_norm"])
+    h_last = layers.norm_apply(cfg, params["final_norm"], h_last)
     return (h_last @ unembed_matrix(cfg, params)).float()
 
 
@@ -144,14 +193,19 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
             true_len=None):
     """Process right-padded prompts ``tokens (B, S)``; returns
     (logits at ``last_pos`` (B, 1, V) f32, cache). Causal attention makes
-    the right padding invisible to the real positions."""
+    the right padding invisible to the real positions; a sliding window
+    (flash attention's ``window``) is not, so sliding-window stacks are
+    prefilled at their exact lengths (``PrefillEngine``), and their cache
+    keeps the last ``window`` positions as a ring (:func:`cache_rows`)."""
+    _unported(cfg, "prefill", layout=False)
     B, S = tokens.shape
     if S > max_seq:
         raise ValueError(f"prompt bucket {S} exceeds max_seq={max_seq}")
     dev = tokens.device
-    x = params["embed"][tokens]
+    x = embed(cfg, params, tokens)
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
+    rows = cache["slot0"]["k"].shape[2]
 
     rope = layers.model_rope(cfg, positions)   # once for every layer
 
@@ -159,6 +213,10 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
         o = ops.flash_attention(q, k, v, causal=True,
                                 window=cfg.sliding_window)
+        if rows < S:
+            # the last `rows` positions, position p at ring row p % rows
+            k = torch.roll(k[:, -rows:], S % rows, dims=1)
+            v = torch.roll(v[:, -rows:], S % rows, dims=1)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
         return dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
@@ -175,13 +233,18 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     is (k, v) of shape (L, B, P, Hkv, hd), right-padded to P;
     ``prefix_len (B,)`` the true prefix lengths. Suffix queries sit at
     absolute positions ``prefix_len + i``. The returned cache holds only
-    the suffix KV (lengths = suffix true lengths)."""
+    the suffix KV (lengths = suffix true lengths). Full attention only,
+    as the reference asserts."""
+    if cfg.sliding_window:
+        raise ValueError(f"{cfg.name}: suffix prefill assumes full "
+                         f"attention")
+    _unported(cfg, "suffix prefill", layout=False)
     B, S = tokens.shape
     if S > max_seq:
         raise ValueError(f"suffix bucket {S} exceeds max_seq={max_seq}")
     dev = tokens.device
     pk_all, pv_all = prefix_kv["slot0"]
-    x = params["embed"][tokens]
+    x = embed(cfg, params, tokens)
     positions = prefix_len[:, None].long() + torch.arange(S, device=dev)[None]
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
 
@@ -201,39 +264,51 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     return _last_logits(cfg, params, x, last_pos), cache
 
 
-def _dense_decode_unported(cfg):
+def _unported(cfg, what, *, layout=True):
+    """Options no registered config uses, which the kernels do not
+    compute: a logit softcap, and (for the dense decode step) the
+    reference's ``hkv_s`` cache layout."""
     why = [name for name, on in (
-        ("a sliding-window ring cache", cfg.sliding_window),
         ("a logit softcap", cfg.attn_logit_softcap),
-        ("the hkv_s cache layout", cfg.decode_cache_layout == "hkv_s"))
-        if on]
+        ("the hkv_s cache layout",
+         layout and cfg.decode_cache_layout == "hkv_s")) if on]
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: the dense decode step with {', '.join(why)} is not "
-            f"ported (ROADMAP A.8)")
+            f"{cfg.name}: {what} with {', '.join(why)} is not ported "
+            f"(ROADMAP A.15)")
 
 
 def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
     """One decode step against the dense cache. tokens: (B, 1).
 
-    Each slot's new K/V is written at position ``lengths`` of every layer
-    of ``cache["slot0"]`` ((L, B, max_seq, Hkv, hd), in place, device
-    indices only, so nothing waits on the host), then attention reads the
-    layer through ``ops.decode_attention`` with ``kv_len = lengths + 1``.
-    A write position past the cache is clamped to its last row (the
-    engines retire a slot at ``max_seq - 1``, so only an idle slot gets
-    there). Returns (logits (B, 1, V) f32, cache) with ``lengths + 1``."""
-    _dense_decode_unported(cfg)
-    x = params["embed"][tokens]
+    Each slot's new K/V is written into every layer of ``cache["slot0"]``
+    ((L, B, S_c, Hkv, hd), in place, device indices only, so nothing
+    waits on the host), then attention reads the layer through
+    ``ops.decode_attention``. On a full-length cache the write lands at
+    position ``lengths`` and ``kv_len = lengths + 1``; a write position
+    past the cache is clamped to its last row (the engines retire a slot
+    at ``max_seq - 1``, so only an idle slot gets there). On a
+    sliding-window ring (``S_c == window``) it lands at ``lengths %
+    window`` and ``kv_len = min(lengths + 1, window)``: softmax does not
+    care in which order the window's keys lie, and each key was rotated
+    at its own position before it was written. Returns (logits (B, 1, V)
+    f32, cache) with ``lengths + 1``."""
+    _unported(cfg, "the dense decode step")
+    x = embed(cfg, params, tokens)
     B = x.shape[0]
     lengths = cache["lengths"]
     positions = lengths[:, None]
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim
     g = cfg.num_heads // Hkv
     K, V = cache["slot0"]["k"], cache["slot0"]["v"]
+    rows = K.shape[2]
     bidx = torch.arange(B, device=x.device)
-    w_pos = torch.clamp(lengths.long(), max=K.shape[2] - 1)
-    kv_len = (lengths + 1).to(torch.int32)
+    if cfg.sliding_window and rows == cfg.sliding_window:
+        w_pos = torch.remainder(lengths.long(), rows)
+        kv_len = torch.clamp(lengths + 1, max=rows).to(torch.int32)
+    else:
+        w_pos = torch.clamp(lengths.long(), max=rows - 1)
+        kv_len = (lengths + 1).to(torch.int32)
 
     rope = layers.model_rope(cfg, positions)   # once for every layer
 

@@ -10,10 +10,12 @@ chunk is a CUDA graph, captured once per ``n_steps`` and replayed
 (``registry.GraphedDecodeChunk``, the reference's ``jax.jit``);
 ``cuda_graph=False`` keeps the eager loop. Prefill pads prompts to
 power-of-two length buckets and quantizes a whole bucket's KV in one
-kernel launch.
+kernel launch; sliding-window stacks are prefilled at their exact
+lengths instead.
 
 Ported: ``PrefillEngine`` (bucketed, with the suffix path of partial
-prefix hits and chunked prefill); ``DecodeEngine`` over the page pool
+prefix hits and chunked prefill, or exact-length); ``DecodeEngine`` over
+the page pool
 (``paged=True``, int4 pages by default or ``kv_resident="bf16"``, with
 prefix sharing) or over the dense ``(L, max_slots, max_seq, Hkv, hd)``
 cache (``paged=False``), each with ``step()`` and the one-token-per-host-
@@ -152,7 +154,13 @@ class PrefillEngine:
     """Latency-oriented: processes one prompt batch at a time, right-padded
     to power-of-two length buckets (at most ``max_batch`` rows per call,
     itself padded to a power of two). Logits are gathered at each
-    prompt's own last token."""
+    prompt's own last token.
+
+    A sliding-window stack is not ``bucketed`` (the reference's rule): its
+    prefill builds the ring cache from the true length, so padding would
+    shift the ring. Its prompts are grouped by exact length
+    (:meth:`_run_exact`: no padded row enters attention), and it cannot
+    prefill a suffix, so chunked prefill runs each prompt in one shot."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
                  max_batch: int = 4, min_bucket: int = 16, device="cuda"):
@@ -163,10 +171,11 @@ class PrefillEngine:
         self.max_seq = max_seq
         self.max_batch = max_batch
         self.min_bucket = min_bucket
+        self.bucketed = not cfg.sliding_window
 
     @property
     def supports_suffix(self) -> bool:
-        return self.api.prefill_suffix is not None
+        return self.bucketed and self.api.prefill_suffix is not None
 
     @property
     def jit_cache_size(self) -> int:
@@ -203,8 +212,8 @@ class PrefillEngine:
             out.extend(self._run_suffix(suffix, compress=compress,
                                         backend=backend))
         if normal:
-            out.extend(self._run_bucketed(normal, compress=compress,
-                                          backend=backend))
+            run = self._run_bucketed if self.bucketed else self._run_exact
+            out.extend(run(normal, compress=compress, backend=backend))
         return out
 
     def prefill_chunk(self, jobs: List[PartialPrefill], budget: int, *,
@@ -253,6 +262,31 @@ class PrefillEngine:
                 job.transport = (kv_transfer.compress_wire(
                     full, backend=backend) if compress else full)
         return jobs
+
+    def _run_exact(self, reqs, *, compress, backend):
+        """Group by exact prompt length (no padding ever enters attention),
+        at most ``max_batch`` prompts a call (the reference runs a whole
+        length group in one call; rows are independent, so the tokens and
+        wires are the same)."""
+        by_len: Dict[int, List[GenRequest]] = {}
+        for r in reqs:
+            by_len.setdefault(len(r.tokens), []).append(r)
+        out = []
+        for n, group in by_len.items():
+            for lo in range(0, len(group), self.max_batch):
+                sub = group[lo:lo + self.max_batch]
+                toks = np.stack([np.asarray(r.tokens) for r in sub]).astype(
+                    np.int64)
+                logits, cache = self.api.prefill(
+                    self.params, {"tokens": self._tensor(toks)},
+                    max_seq=self.max_seq)
+                first = _first_tokens(logits)
+                wires = kv_transfer.extract_batch(
+                    cache, [(i, n) for i in range(len(sub))],
+                    compress=compress, backend=backend)
+                out.extend((r, wires[i], int(first[i]))
+                           for i, r in enumerate(sub))
+        return out
 
     def _run_bucketed(self, reqs, *, compress, backend):
         by_bucket: Dict[int, List[GenRequest]] = {}
@@ -359,8 +393,10 @@ class DecodeEngine:
     donated to a radix index and later requests decode straight off the
     shared pages. With ``paged=False`` (or an arch that cannot page:
     ``paged_fallback`` says why) each slot owns a ``max_seq`` column of a
-    dense bf16 cache, wires are dequantized into it on admission, and
-    attention runs through the ``decode_attention`` kernel.
+    dense bf16 cache (``min(max_seq, window)`` rows for a sliding-window
+    stack: a ring once a slot passes the window), wires are dequantized
+    into it on admission, and attention runs through the
+    ``decode_attention`` kernel.
 
     On a CUDA device each chunk is one CUDA graph replay
     (``registry.GraphedDecodeChunk``), captured the first time ``step()``

@@ -196,6 +196,10 @@ PAGED_CASES = [
     (4, 8, 1, 128, 16, 16, [64, 65, 1, 300]),
     (4, 3, 4, 64, 16, 16, [128, 129, 1, 256]),    # GQA over several splits
     (2, 4, 2, 32, 8, 16, [64, 65]),               # g = 128 spans 4 heads
+    (3, 8, 1, 80, 16, 8, [100, 1, 65]),   # g = 128 over heads of 80
+    (2, 2, 4, 80, 8, 4, [5, 30]),         # 4 rows a CTA: 10 of 16 lanes
+    (3, 1, 8, 256, 16, 16, [200, 1, 256]),  # gemma-2b: 2 row blocks of 4
+    (2, 2, 1, 256, 16, 4, [64, 17]),
 ]
 
 
@@ -271,6 +275,17 @@ FLASH_CASES = [
     (1, 300, 0, 4, 2, 64, False, 0, None),
     (2, 300, 0, 4, 4, 32, True, 100, None),       # window across tiles
     (3, 32, 224, 8, 4, 128, True, 0, [0, 100, 224]),  # chunked tick
+    # the other dense configs' head dims: stablelm-3b 80 (MHA), h2o-danube
+    # 120 (GQA, its 4096 window over S > 4096: the zero-padded
+    # contraction), gemma-2b 256 (MQA: 32-key tiles, Q in shared memory)
+    (2, 130, 0, 4, 4, 80, True, 0, None),
+    (1, 64, 0, 2, 2, 80, False, 0, None),
+    (2, 16, 32, 4, 4, 80, True, 0, [32, 5]),
+    (2, 100, 0, 8, 2, 120, True, 0, None),
+    (1, 4200, 0, 2, 1, 120, True, 4096, None),
+    (2, 65, 0, 8, 1, 256, True, 0, None),
+    (1, 300, 0, 2, 1, 256, True, 0, None),
+    (2, 16, 32, 8, 1, 256, True, 0, [20, 32]),
 ]
 
 
@@ -472,6 +487,9 @@ DECODE_CASES = [
     (3, 2, 4, 16, 40, [1, 40, 23]),              # GQA, kv_len 1 and S
     (2, 4, 2, 64, 512, [300, 512]),              # two 256-key blocks
     (1, 3, 3, 32, 70, [69]),
+    (4, 32, 1, 80, 256, [232, 123, 56, 17]),     # stablelm-3b: 10 lanes
+    (3, 8, 4, 120, 300, [1, 300, 65]),           # h2o-danube-3-4b: 15
+    (2, 1, 8, 256, 200, [64, 199]),              # gemma-2b: MQA
 ]
 DTYPE_PAIRS = [("bfloat16", "bfloat16"), ("float32", "float32"),
                ("float32", "bfloat16")]          # (q, K/V)
@@ -596,6 +614,9 @@ BF16_PAGED_CASES = [
     (3, 2, 4, 32, 8, 4, [5, 16, 23]),             # GQA
     (2, 4, 1, 16, 16, 5, [70, 3]),                # reduced config
     (2, 4, 1, 16, 8, 2, [40, 9]),                 # kv_len past W * ps
+    (3, 8, 1, 80, 16, 8, [100, 1, 65]),           # stablelm-3b's hd
+    (2, 2, 4, 120, 8, 8, [5, 60]),                # h2o-danube-3-4b's
+    (3, 1, 8, 256, 16, 16, [200, 1, 256]),        # gemma-2b's
 ]
 
 
@@ -706,6 +727,9 @@ APPEND_GPU_CASES = [
     (3, 3, 32, 4, 2, [7, -1, 2], "float32", "fused"),      # ppr 3, g 32
     (3, 2, 8, 4, 2, [8, 3, -1], "bfloat16", "bshd"),       # g 16, clamped
     (2, 64, 64, 16, 4, [40, 1], "bfloat16", "bshd"),       # g 128 of 2 heads
+    (4, 32, 80, 16, 16, [232, 123, 56, 17], "bfloat16", "bshd"),  # stablelm
+    (4, 1, 256, 16, 16, [232, 123, 56, 17], "bfloat16", "bshd"),  # gemma
+    (3, 8, 80, 8, 4, [7, -1, 30], "float32", "fused"),
 ]
 
 
@@ -1315,3 +1339,65 @@ def test_graphed_preemption_migrates_bit_identical_streams(cuda, mode):
         if h.engine.paged:
             st = h.engine.page_stats()
             assert st["leaked_pages"] == 0 and st["reencoded_inserts"] == 0
+
+
+# -- the other dense configs (their head dims are cases above) ------------------
+
+
+def test_head_dims_without_an_instantiation_raise(cuda):
+    """hd 96 has no instantiation in any attention kernel, and the int4
+    pages none at hd 120 (no registered config pages at it): each wrapper
+    raises before a launch."""
+    q = torch.zeros((1, 8, 2, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    kv = torch.zeros((1, 2, 8, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bad operands"):
+        da.decode_attention(q[:, :1].reshape(1, 2, 1, 96).contiguous(), kv,
+                            kv, torch.ones((1,), dtype=torch.int32,
+                                           device=cuda))
+    q, kpg, vpg, pt, kv_len = _random_pages(1, 2, 1, 120, 8, 2, [9],
+                                            torch.bfloat16, seed=5)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_decode_attention_int4(q, kpg, vpg, pt, kv_len, page_size=8)
+
+
+DENSE_ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b")
+
+
+def _arch_modes(arch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.paged import paged_supported
+    if paged_supported(get_reduced(arch)):
+        return sorted(GRAPH_MODES)
+    return ["dense"]
+
+
+@pytest.mark.parametrize("arch,mode", [(a, m) for a in DENSE_ARCHS
+                                       for m in _arch_modes(a)])
+def test_reduced_archs_graphed_tokens_equal_cpu(cuda, arch, mode):
+    """Each other dense config's reduced float32 model decodes the same
+    tokens on the card (graphed chunks) as on the CPU, on every decode
+    cache it can take; h2o-danube's 32-token window wraps its ring."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    cfg = get_reduced(arch).replace(dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _tree_to(params, dev)
+        pre = E.PrefillEngine(cfg, p, max_seq=64, device=dev)
+        dec = E.DecodeEngine(cfg, p, max_slots=4, max_seq=64, chunk_size=4,
+                             device=dev, **GRAPH_MODES[mode])
+        rng = np.random.default_rng(0)
+        reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n), 20)
+                for i, n in enumerate((7, 19, 40))]
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w) for r, w, f in pre.run(reqs)]))
+        while dec.active:
+            dec.step()
+        streams[dev] = [r.out_tokens for r in reqs]
+        assert dec.jit_cache_size == (1 if dev == "cuda" else 0)
+    assert streams["cuda"] == streams["cpu"]

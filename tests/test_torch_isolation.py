@@ -14,7 +14,7 @@ modules have not drifted.
   copies too.
 * The copies of the gateway, transport, faults, profiler, the runtime
   sanitizers, the scheduler core, the serving simulator, the paper's
-  baselines and the paper's GPU table are the
+  baselines, the paper's GPU table and the registered configs are the
   reference's code: their ASTs are equal, definition by definition, once
   imports and docstrings are set aside, except for the definitions listed
   (with the reason) in ``COPY_DIFFERENCES``.
@@ -32,13 +32,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs import ALL_ARCHS as J_ALL_ARCHS  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import get_reduced as j_get_reduced  # noqa: E402
 from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
 from repro.serving import page_pool as j_pp  # noqa: E402
 from repro.serving import prefix_cache as j_pc  # noqa: E402
 from repro.serving import protocol as j_proto  # noqa: E402
-from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs import ALL_ARCHS, get_config  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.serving import page_pool as t_pp  # noqa: E402
 from repro_torch.serving import prefix_cache as t_pc  # noqa: E402
@@ -144,15 +146,19 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
 
 
 def test_model_config_copy_matches():
+    """Every arch the port registers, full and reduced: the reference's
+    fields, parameter count and layer kinds."""
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(JModelConfig)]
-    for mine, theirs in ((get_config("llama-30b"),
-                          j_get_config("llama-30b")),
-                         (get_reduced("llama-30b"),
-                          j_get_reduced("llama-30b"))):
-        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-        assert mine.param_count() == theirs.param_count()
-        assert mine.layer_kinds() == theirs.layer_kinds()
+    assert set(ALL_ARCHS) == {"llama-30b", "stablelm-3b", "gemma-2b",
+                              "h2o-danube-3-4b", "command-r-35b"}
+    assert set(ALL_ARCHS) <= set(J_ALL_ARCHS)
+    for arch in ALL_ARCHS:
+        for mine, theirs in ((get_config(arch), j_get_config(arch)),
+                             (get_reduced(arch), j_get_reduced(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+            assert mine.param_count() == theirs.param_count()
+            assert mine.layer_kinds() == theirs.layer_kinds()
 
 
 # -- protocol hooks ------------------------------------------------------------
@@ -318,6 +324,11 @@ COPY_DIFFERENCES = {
         "make_cluster": ONE_SIDE,          # "tpu_fleet" raises
     },
     "roofline/hw.py": {"TPU_V5E": ONE_SIDE},
+    "configs/llama_30b.py": {},
+    "configs/stablelm_3b.py": {},
+    "configs/gemma_2b.py": {},
+    "configs/h2o_danube_3_4b.py": {},
+    "configs/command_r_35b.py": {},
 }
 
 

@@ -181,6 +181,8 @@ PAGED_CASES = [
     (2, 1, 8, 32, 16, [17, 48]),         # MQA; g = 32 = hd
     (4, 4, 1, 16, 8, [1, 9, 24, 31]),    # reduced llama: g = 64 spans 4
     (2, 2, 2, 128, 4, [7, 13]),          # g = 128 = hd, GQA
+    (2, 2, 1, 80, 8, [5, 19]),           # stablelm-3b's hd: g = 32 (5 a pair)
+    (2, 1, 2, 256, 8, [5, 19]),          # gemma-2b's: g = 128, 2 a head
 ]
 
 
@@ -271,6 +273,9 @@ DECODE_CASES = [
     (3, 2, 4, 16, 40, [1, 40, 23]),      # GQA, one key block
     (2, 4, 1, 16, 512, [300, 512]),      # two 256-key blocks, MHA
     (2, 1, 8, 32, 40, [17, 2]),          # MQA
+    (2, 2, 1, 80, 40, [17, 40]),         # stablelm-3b's head dim
+    (2, 1, 2, 120, 40, [17, 40]),        # h2o-danube-3-4b's
+    (2, 1, 2, 256, 40, [17, 40]),        # gemma-2b's
 ]
 
 
@@ -548,6 +553,9 @@ FLASH_CASES = [
     (2, 32, 4, 1, 16, True, 8),          # MQA, sliding window
     (1, 48, 6, 3, 16, False, 0),         # not causal
     (1, 128, 2, 2, 16, True, 33),        # window across several blocks
+    (1, 32, 2, 2, 80, True, 0),          # stablelm-3b's head dim
+    (1, 32, 2, 2, 120, True, 9),         # h2o-danube-3-4b's, a window
+    (1, 32, 2, 2, 256, True, 0),         # gemma-2b's
 ]
 
 

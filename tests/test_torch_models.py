@@ -215,8 +215,10 @@ def test_full_width_config_is_llama_30b():
 
 def test_unported_families_raise():
     """What still refuses: a family the port lacks, a residency nobody
-    has, and a dense decode step the plain kernel cannot compute (ring
-    caches, softcap, the hkv_s layout: ROADMAP A.8)."""
+    has, and a dense decode step the plain kernel cannot compute (softcap,
+    the hkv_s layout: ROADMAP A.15). A sliding window, which refused
+    here until its ring cache was ported, now decodes: an 8-row ring of a
+    16-position cache, written at ``lengths % 8``."""
     cfg = get_reduced("llama-30b").replace(qk_norm=True)
     with pytest.raises(NotImplementedError):
         build(cfg)
@@ -230,8 +232,17 @@ def test_unported_families_raise():
         api = build(cfg)
         params = t_tf.init_params(cfg, device="cpu", dtype=torch.float32)
         cache = t_tf.init_cache(cfg, 1, 16, device="cpu")
-        with pytest.raises(NotImplementedError, match="A.8"):
-            api.decode(params, cache, torch.ones((1, 1), dtype=torch.long))
+        tok = torch.ones((1, 1), dtype=torch.long)
+        if not cfg.sliding_window:
+            with pytest.raises(NotImplementedError, match="A.15"):
+                api.decode(params, cache, tok)
+            continue
+        assert cache["slot0"]["k"].shape[2] == 8
+        cache["lengths"].fill_(11)
+        logits, cache = api.decode(params, cache, tok)
+        assert bool(torch.isfinite(logits).all())
+        assert int(cache["lengths"][0]) == 12
+        assert bool(cache["slot0"]["k"][:, 0, 11 % 8].abs().sum() > 0)
 
 
 @pytest.mark.parametrize("path", ["prefill", "suffix", "dense", "int4",

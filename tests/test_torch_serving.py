@@ -282,12 +282,14 @@ def test_extract_resident_migrates_without_changing_tokens(runs):
 
 
 def test_unported_engine_modes_raise(runs):
-    """What still refuses: an unknown page residency, and decoding an arch
-    that cannot page (it falls back to the dense cache, as the reference
-    does, whose step with a ring cache is not ported: ROADMAP A.8). The
-    dense engine and a dense ``Replica`` build. The phase-switching
-    ``Replica`` builds each phase's engine once around the same parameters
-    and refuses an undrained flip."""
+    """What still refuses: an unknown page residency, and an engine on the
+    wrong device. An arch that cannot page falls back to the dense cache,
+    as the reference does; with a sliding window (whose step refused here
+    until its ring cache was ported) that cache is an 8-row ring and the
+    engine decodes past it, while a softcap still refuses its first step
+    (ROADMAP A.15). The dense engine and a dense ``Replica`` build. The
+    phase-switching ``Replica`` builds each phase's engine once around the
+    same parameters and refuses an undrained flip."""
     cfg, params = runs["tcfg"], runs["tparams"]
     dense = TE.DecodeEngine(cfg, params, paged=False, device="cpu")
     assert not dense.paged and dense.paged_fallback is None
@@ -304,10 +306,27 @@ def test_unported_engine_modes_raise(runs):
     (_, w, f), = TE.PrefillEngine(swa, params, max_seq=64,
                                   device="cpu").run(
         [TE.GenRequest(0, np.arange(1, 12), 4)])
+    swa_req = TE.GenRequest(0, np.arange(1, 12), 4)
     assert not fb.admit(TE.AdmissionBatch([TE.AdmissionItem(
-        TE.GenRequest(0, np.arange(1, 12), 4), f, wire=w)]))
-    with pytest.raises(NotImplementedError, match="A.8"):
+        swa_req, f, wire=w)]))
+    assert fb.cache["slot0"]["k"].shape[2] == 8
+    while fb.active:
         fb.step()
+    assert len(swa_req.out_tokens) == 4
+    capped = cfg.replace(attn_logit_softcap=30.0)
+    fc = TE.DecodeEngine(capped, params, max_slots=2, max_seq=64,
+                         device="cpu")
+    assert not fc.paged and "cannot page" in fc.paged_fallback
+    with pytest.raises(NotImplementedError, match="A.15"):
+        TE.PrefillEngine(capped, params, max_seq=64, device="cpu").run(
+            [TE.GenRequest(0, np.arange(1, 12), 4)])
+    (_, w, f), = TE.PrefillEngine(cfg, params, max_seq=64,
+                                  device="cpu").run(
+        [TE.GenRequest(0, np.arange(1, 12), 4)])
+    assert not fc.admit(TE.AdmissionBatch([TE.AdmissionItem(
+        TE.GenRequest(0, np.arange(1, 12), 4), f, wire=w)]))
+    with pytest.raises(NotImplementedError, match="A.15"):
+        fc.step()
     with pytest.raises(ValueError, match="params live on"):
         TE.PrefillEngine(cfg, params, device="cuda")
     with pytest.raises(ValueError, match="params live on"):
