@@ -28,23 +28,29 @@ before the last line:
    ``x + r``, y within one ulp) and timed four ways (graph replay, eager,
    plain, and ``x + r`` then ``F.rms_norm``), and both norms must give a
    row the same bytes in a 4-row and a 1024-row launch; then the other
-   dense configs' shapes (stablelm-3b hd 80, h2o-danube-3-4b 120,
-   gemma-2b 256, command-r-35b 128 at 8 query heads a KV head) in every
-   attention kernel their path runs, at full width (flash at the prefill
-   bucket, or h2o-danube's 4200-token prompt over its 4096-token window;
-   the dense decode step, h2o-danube's over its full ring; int4 and bf16
-   pages and the int4 append where the arch pages), each checked, timed
-   beside its plain version, its bound and SDPA (flash, dense decode),
-   and the f32 bodies checked small. A bf16 attention output may differ
-   from its plain version by 2^-6 of its value plus 2^-5 of its row's
-   RMS (f32: 1e-5); negative controls (no window, a 64-key split
-   dropped, the keys' last 8 head-dim elements zeroed) must fail that
-   check;
+   configs' shapes (stablelm-3b hd 80, h2o-danube-3-4b 120, gemma-2b
+   256, command-r-35b 128 at 8 query heads a KV head; qwen3-moe 16,
+   llama4-maverick 5 and llava-next 4 query heads a KV head at hd 128)
+   in every attention kernel their path runs, at full width (flash at
+   the prefill bucket, h2o-danube's 4200-token prompt over its 4096-token
+   window, or llava-next's 616-token exact prompt; the dense decode step,
+   h2o-danube's over its full ring; int4 and bf16 pages and the int4
+   append where the arch pages; qwen3-moe's q/k norms, ``rmsnorm`` over
+   rows of 128), each checked, timed beside its plain version, its bound
+   and SDPA (flash, dense decode) or ``F.rms_norm``, and the f32 bodies
+   checked small. A bf16 attention output may differ from its plain
+   version by 2^-6 of its value plus 2^-5 of its row's RMS (f32: 1e-5);
+   negative controls (no window, a 64-key split dropped, the keys' last
+   8 head-dim elements zeroed, a KV head's query rows rolled by one; for
+   the norm, two rows normed as one) must fail the check;
 4. reference: each registered config reduced, served in float32 through
    the engines on the card and on the CPU (plain versions), once for
    each decode cache the arch takes (int4 pages, the dense cache, bf16
    pages; h2o-danube's sliding window only the dense ring), the card's
-   decode chunks as CUDA graph replays: greedy tokens must agree;
+   decode chunks as CUDA graph replays: greedy tokens must agree; each
+   reduced MoE config also prefills a 32-token prompt in one shot and in
+   16-token chunks on the card (nothing can drop): equal tokens, raw K/V
+   within ``CHUNK_REL_TOL``;
 5. serve: full-width LLaMA-30B (random bf16 weights from a seed) through
    ``PrefillEngine`` and, for each decode cache (int4 pages, the main
    path, first; the dense cache; bf16 pages), a graphed and an eager
@@ -66,9 +72,12 @@ before the last line:
    launches ``kv_quant_append`` once per layer per step and ``kv_quant``
    never), one replay of the graphed chunk is timed between CUDA events,
    the graphed dense engine's ``step_reference()`` must decode what its
-   ``step()`` decodes, and one prefill call of the 256-token bucket at
-   batch 4 runs under the profiler (2 ``rmsnorm`` and 2L - 1
-   ``add_rmsnorm``);
+   ``step()`` decodes, on the int4 pages a 32-token prompt prefilled in
+   one shot and in 16-token chunks (layer 0 taken apart stage by stage,
+   then every layer's raw K/V within ``CHUNK_REL_TOL`` of the one-shot
+   run's, rows one position off rejected), and one prefill call of the
+   256-token bucket at batch 4 runs under the profiler (2 ``rmsnorm`` and
+   2L - 1 ``add_rmsnorm``);
 6. gateway: the system's entry point, ``repro_torch.launch.serve.run``,
    at full width on phase 5's weights, three times: (a) with a 32-token
    chunked-prefill budget over a short open-loop trace under
@@ -114,7 +123,28 @@ before the last line:
    the dense caches ``step_reference()`` equal to ``step()``; then
    ``repro_torch.launch.serve.run --arch`` on a short trace: every request
    DONE, 0 leaked pages, one graph a decode replica. Its launch counts
-   are summed with phases 5-7.
+   are summed with phases 5-7;
+9. MoE and VLM: the same for llava-next-mistral-7b (32 layers, int4
+   pages), qwen3-moe-235b-a22b cut to 8 of its 94 layers and
+   llama4-maverick-400b-a17b cut to 2 of its 48 (one dense layer, one
+   MoE layer with its shared expert; int4 pages and the dense cache),
+   published widths, random bf16 weights, one at a time, each dropped
+   and the memory back at its level before phase 5. llava-next first
+   runs the model API with patches: a prefill of 576 seeded patch
+   embeddings and 40 text tokens (616 exact positions), then graphed and
+   eager decode chunks on a dense cache, equal after each chunk.
+   qwen3-moe runs phase 5's int4 run instead of the plain pair (a full
+   prefix hit equal to its donor, a partial hit, a 64-token-budget
+   chunked prefill, the profiled chunks and bucket prefill, the 32-token
+   chunked prefill), then a 150-token prompt in one shot and in 64-token
+   chunks: the dropped routes of each prefill call printed, and the raw
+   K/V held to ``CHUNK_REL_TOL`` up to the first layer that dropped a
+   route. Launch counts cover the int4 run, the Pair's runs and the entry
+   point, not the comparisons. Each logs a replay's device
+   time a step beside the bytes a step reads at 3.35 TB/s (all experts
+   included: the capacity buffer runs every expert) and its profiled
+   eager chunk; then ``launch.serve.run`` with the cut config
+   (``cfg=``). Its launch counts are summed with phases 5-8.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -424,8 +454,28 @@ def make_pages(torch, L, B, Hkv, gq, hd, ps, W, kv_len, dtype):
             torch.tensor(kv_len, dtype=torch.int32, device="cuda"), g, ppr)
 
 
+def decode_controls(torch, fn_ref, q, k, v, rest, kl):
+    """The wrong versions a decode attention check can be asked to
+    reject, each the plain version ``fn_ref(q, k, v, *rest, kv_len)`` on
+    altered inputs: "kv_len - 64" (a 64-key split dropped from every slot
+    longer than 64), "last 8 of hd" (the keys' last 8 head-dim elements
+    zeroed: the last lane chunk; dense keys only) and "rows rolled" (the
+    output rows of each KV head rolled by one: a query head's result
+    written to another head's row, which a padded row block of gq 5 could
+    get wrong)."""
+    short = torch.where(kl > 64, kl - 64, kl)
+    return {"kv_len - 64": lambda: fn_ref(q, k, v, *rest, short),
+            "last 8 of hd": lambda: fn_ref(q, last8_zeroed(k), v, *rest,
+                                           kl),
+            "rows rolled": lambda: fn_ref(q, k, v, *rest, kl).roll(
+                1, dims=2)}
+
+
 def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
-                    dtype, *, timed):
+                    dtype, *, controls=(), timed):
+    """The int4 paged kernel over L layers of random pages; ``controls``
+    names wrong versions the check must reject (:func:`decode_controls`,
+    not "last 8 of hd")."""
     q, kt, vt, pt, kl, g, ppr = make_pages(torch, L, B, Hkv, gq, hd, ps, W,
                                            kv_len, dtype)
     layer = [(q, tuple(t[i] for t in kt), tuple(t[i] for t in vt), pt, kl)
@@ -442,6 +492,9 @@ def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
     if not ok:
         raise AssertionError("paged attention differs from the plain "
                              "version beyond tolerance")
+    wrong = decode_controls(torch, fn_ref, q, layer[0][1], layer[0][2],
+                            (pt,), kl)
+    negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
     tokens = sum(kv_len)
@@ -539,7 +592,10 @@ def last8_zeroed(t):
     return t
 
 
-def check_rmsnorm(torch, ref, rn, N, d, dtype, *, timed):
+def check_rmsnorm(torch, ref, rn, N, d, dtype, *, control=False, timed):
+    """``control``: the check must reject the plain version over rows of
+    2d (two heads normed together, where q/k norms take one head's
+    ``head_dim``)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED + N + d)
     x = (torch.randn((N, d), generator=gen, device="cuda") * 2).to(dtype)
@@ -553,6 +609,17 @@ def check_rmsnorm(torch, ref, rn, N, d, dtype, *, timed):
     if not ok:
         raise AssertionError("rmsnorm differs from the plain version "
                              "beyond one ulp")
+    if control:
+        pairs = ref.rmsnorm_ref(x.view(N // 2, 2 * d),
+                                scale.repeat(2)).view(N, d)
+        bad = torch.allclose(got.float(), pairs.float(), atol=1e-6,
+                             rtol=rtol)
+        log(f"    negative control (two rows normed as one): max |err| "
+            f"{float((got.float() - pairs.float()).abs().max()):.3e}, "
+            f"rejected: {not bad}")
+        if bad:
+            raise AssertionError("the rmsnorm check cannot tell rows of d "
+                                 "from rows of 2d")
     if not timed:
         return None
     esz = x.element_size()
@@ -647,9 +714,7 @@ def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
     """Dense decode attention on one layer of an (L, B, S, Hkv, hd) cache,
     read through the permuted (B, Hkv, S, hd) view as the model does;
     layers cycled when timed, so the L2 is cold. ``controls`` names wrong
-    versions the check must reject: "kv_len - 64" (a 64-key split
-    dropped from every slot longer than 64), "last 8 of hd" (the keys'
-    last 8 head-dim elements zeroed: the last lane chunk)."""
+    versions the check must reject (:func:`decode_controls`)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED + B + S + hd)
     K = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda").to(kvdt)
@@ -670,9 +735,7 @@ def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
         raise AssertionError("decode attention differs from the plain "
                              "version beyond tolerance")
     q0, k0, v0, _ = layer[0]
-    short = torch.where(kl > 64, kl - 64, kl)
-    wrong = {"kv_len - 64": lambda: fn_ref(q0, k0, v0, short),
-             "last 8 of hd": lambda: fn_ref(q0, last8_zeroed(k0), v0, kl)}
+    wrong = decode_controls(torch, fn_ref, q0, k0, v0, (), kl)
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
@@ -729,9 +792,10 @@ def decode_split_anatomy(torch, da, L, B, Hkv, hd, S):
 
 
 def check_paged_bf16(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len, qdt,
-                     *, timed):
+                     *, controls=(), timed):
     """The bf16 paged body over L layers of (P, ps, Hkv, hd) bf16 pages
-    and a shuffled page table (unused entries: the trash page 0)."""
+    and a shuffled page table (unused entries: the trash page 0);
+    ``controls`` as :func:`decode_controls` names them."""
     P = B * W + 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + B + ps + hd)
     kp = torch.randn((L, P, ps, Hkv, hd), generator=gen,
@@ -761,6 +825,9 @@ def check_paged_bf16(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len, qdt,
     if not ok:
         raise AssertionError("bf16 paged attention differs from the plain "
                              "version beyond tolerance")
+    wrong = decode_controls(torch, fn_ref, q, kp[0], vp[0], (layer[0][3],),
+                            kl)
+    negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
     tokens = sum(kv_len)
@@ -781,36 +848,52 @@ def check_paged_bf16(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len, qdt,
 
 
 # hd 80, 120, 256, and hd 128 at 8 query heads a KV head (int4 pages take
-# their Geo<128, 4> body, flash its GQA at hd 128)
-ARCH_SHAPES = ("stablelm-3b", "h2o-danube-3-4b", "gemma-2b", "command-r-35b")
+# their Geo<128, 4> body, flash its GQA at hd 128); then the MoE and VLM
+# configs: 16 query heads a KV head (qwen3-moe: 4 row blocks of 4 in the
+# int4 kernel), 5 (llama4-maverick: 2 blocks, 3 rows padded) and 4
+# (llava-next, whose prefill is 576 patches + 40 text tokens, exact)
+ARCH_SHAPES = ("stablelm-3b", "h2o-danube-3-4b", "gemma-2b", "command-r-35b",
+               "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+               "llava-next-mistral-7b")
 DECODE_LENS = [232, 123, 56, 17]          # phase 5's decode step
+# arch -> (flash batch, prompt tokens), (dense cache rows, kv_len) where
+# they are not the bucket's 4 x 256 and DECODE_LENS over 256 rows
+FLASH_SHAPE = {"llava-next-mistral-7b": (1, 616)}
+DECODE_SHAPE = {"llava-next-mistral-7b": (640, [640, 630, 617, 300])}
 
 
-def check_arch_shapes(torch, ref, fa, da, pa, kq):
-    """The other dense configs' attention shapes (stablelm-3b hd 80,
+def check_arch_shapes(torch, ref, fa, da, pa, kq, rn):
+    """The other configs' attention shapes (stablelm-3b hd 80,
     h2o-danube-3-4b hd 120, gemma-2b hd 256, command-r-35b hd 128 with 8
-    query heads a KV head) in every attention kernel their path runs, at
+    query heads a KV head; qwen3-moe 16, llama4-maverick 5 and
+    llava-next 4 at hd 128) in every attention kernel their path runs, at
     their full width: flash attention at the prefill bucket (4 x 256;
-    h2o-danube: phase 8's 4200-token prompt over its 4096-token window),
-    the dense decode step (4 slots; h2o-danube: its full 4096-row ring
-    and two shorter slots), and where the arch pages the int4 and bf16
-    paged bodies and the int4 append at the same step. Each is checked
-    against its plain version and timed beside it, the bound and SDPA
-    (flash and dense decode); the f32 bodies are checked at small shapes.
-    Negative controls: the window's check must reject the plain version
-    without a window, and every dense decode check the plain versions
-    with a 64-key split dropped and with the keys' last 8 head-dim
-    elements zeroed. Returns ``[(kernel, arch, shape, result)]``."""
+    h2o-danube: phase 8's 4200-token prompt over its 4096-token window;
+    llava-next: its 616-token exact prompt), the dense decode step (4
+    slots; h2o-danube: its full 4096-row ring and two shorter slots;
+    llava-next: a 640-row cache past its 616-token prefill), and where
+    the arch pages the int4 and bf16 paged bodies and the int4 append at
+    the same step; qwen3-moe's q/k norms (``rmsnorm`` over rows of 128,
+    at the bucket's 65,536 q rows and a 4-slot step's 256). Each is
+    checked against its plain version and timed beside it, the bound and
+    SDPA (flash and dense decode) or ``F.rms_norm``; the f32 bodies are
+    checked at small shapes. Negative controls: the window's check must
+    reject the plain version without a window, flash and every dense
+    decode check the keys' last 8 head-dim elements zeroed, every decode
+    check (dense and paged) a 64-key split dropped, and where a KV head
+    has several query heads, their rows rolled by one; the norm check
+    two rows normed as one. Returns ``[(kernel, arch, shape, result)]``."""
     from repro_torch.configs import get_config
     from repro_torch.models.paged import paged_supported
     bf16 = torch.bfloat16
-    dec_controls = ("kv_len - 64", "last 8 of hd")
     rows = []
     for arch in ARCH_SHAPES:
         cfg = get_config(arch)
         L, H, Hkv, hd = (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim)
         g = H // Hkv
+        rolled = ("rows rolled",) if g > 1 else ()
+        dec_controls = ("kv_len - 64", "last 8 of hd") + rolled
         log(f"  {arch}: hd {hd}, {H} heads (kv {Hkv}), {L} layers")
         if cfg.sliding_window:
             W = cfg.sliding_window
@@ -822,11 +905,13 @@ def check_arch_shapes(torch, ref, fa, da, pa, kq):
                                      timed=True)))
             dec_S, dec_lens = W, [W, W, 300, 17]
         else:
-            rows.append(("flash_attention", arch, "bucket 4 x 256",
-                         check_flash(torch, ref, fa, 4, 256, 0, H, Hkv, hd,
+            B, S = FLASH_SHAPE.get(arch, (4, 256))
+            rows.append(("flash_attention", arch,
+                         f"{'exact' if B == 1 else 'bucket'} {B} x {S}",
+                         check_flash(torch, ref, fa, B, S, 0, H, Hkv, hd,
                                      bf16, controls=("last 8 of hd",),
                                      timed=True)))
-            dec_S, dec_lens = 256, DECODE_LENS
+            dec_S, dec_lens = DECODE_SHAPE.get(arch, (256, DECODE_LENS))
         check_flash(torch, ref, fa, 2, 100, 0, 4, 2, hd, torch.float32,
                     window=17 if cfg.sliding_window else 0, timed=False)
         rows.append(("decode_attention", arch,
@@ -836,20 +921,29 @@ def check_arch_shapes(torch, ref, fa, da, pa, kq):
                                   controls=dec_controls, timed=True)))
         check_decode(torch, ref, da, 2, 3, 2, 4, hd, 40, [1, 40, 23],
                      torch.float32, torch.float32, timed=False)
+        if cfg.qk_norm:
+            for n, what in ((4 * 256 * H, "q rows of the bucket"),
+                            (4 * H, "q rows of a 4-slot step")):
+                rows.append(("rmsnorm", arch, f"{n} x {hd} ({what})",
+                             check_rmsnorm(torch, ref, rn, n, hd, bf16,
+                                           control=True, timed=True)))
         if not paged_supported(cfg):
             continue
         step = f"decode 4 slots, kv_len {DECODE_LENS}"
+        page_controls = ("kv_len - 64",) + rolled
         rows.append(("paged_decode_attention_int4", arch, step,
                      check_attention(torch, ref, pa, L, 4, Hkv, g, hd, 16,
-                                     16, DECODE_LENS, bf16, timed=True)))
+                                     16, DECODE_LENS, bf16,
+                                     controls=page_controls, timed=True)))
         rows.append(("paged_decode_attention_bf16", arch, step,
                      check_paged_bf16(torch, ref, pa, L, 4, Hkv, g, hd, 16,
-                                      16, DECODE_LENS, bf16, timed=True)))
+                                      16, DECODE_LENS, bf16,
+                                      controls=page_controls, timed=True)))
         check_attention(torch, ref, pa, 2, 3, 2, 4, hd, 8, 4, [5, 16, 23],
                         torch.float32, timed=False)
         check_append(torch, ref, kq, 4, Hkv, hd, 16, 16, DECODE_LENS, bf16,
                      timed=False)
-    log("  the other dense configs' shapes: kernel, arch, shape: ms (plain, "
+    log("  the other configs' shapes: kernel, arch, shape: ms (plain, "
         "library, bound)")
     for name, arch, shape, r in rows:
         log(f"    {name} {arch} ({shape}): {r['ms']:.5f} ms (plain "
@@ -951,11 +1045,13 @@ def check_norm_launches(cfg, before, after, n, what, prefill=False):
     calls): each residual add is fused with the norm after it, so a step
     launches 1 rmsnorm and 2 add_rmsnorm a layer; a prefill call 2 and
     2L - 1 (its last add stays unfused; the final norm sees the kept rows
-    only)."""
+    only). q/k norms add 2 rmsnorm a layer."""
     L = cfg.num_layers
+    qk = 2 * L if cfg.qk_norm else 0
     got = {k: after[k] - before[k] for k in ("rmsnorm", "add_rmsnorm")}
-    want = ({"rmsnorm": 2 * n, "add_rmsnorm": (2 * L - 1) * n} if prefill
-            else {"rmsnorm": n, "add_rmsnorm": 2 * L * n})
+    want = ({"rmsnorm": (2 + qk) * n, "add_rmsnorm": (2 * L - 1) * n}
+            if prefill else {"rmsnorm": (1 + qk) * n,
+                             "add_rmsnorm": 2 * L * n})
     per = "call" if prefill else "step"
     log(f"  {what}: per {per} rmsnorm {got['rmsnorm'] / n:g}, add_rmsnorm "
         f"{got['add_rmsnorm'] / n:g} launches ({n} {per}s)")
@@ -1100,8 +1196,10 @@ def serve_ab(torch, cfg, params, pre, mode, device="cuda"):
     chunk of each arm (launches, device time, norms, the int4 append) and
     times one replay of the graphed chunk between CUDA events; on the
     dense cache ``step_reference()`` must decode what ``step()`` decodes;
-    on the int4 pages one prefill call of the 256-token bucket at batch 4
-    is profiled."""
+    on the int4 pages a 32-token prompt in one shot and in 16-token
+    chunks is compared (:func:`chunk_anatomy`, then
+    :func:`chunked_vs_one_shot`, held to rounding) and one prefill call
+    of the 256-token bucket at batch 4 is profiled."""
     from repro_torch.kernels import ops
     from repro_torch.serving import engine as E
     on_card = device == "cuda"
@@ -1341,6 +1439,13 @@ def serve_ab(torch, cfg, params, pre, mode, device="cuda"):
             raise AssertionError(f"step_reference {streams[1]} != step "
                                  f"{streams[0]}")
     if mode == "int4":
+        # a 32-token prompt in one shot and in 16-token chunks: which
+        # stage of layer 0 parts the second chunk's rows, then every
+        # layer's raw K/V held to rounding
+        if on_card:
+            chunk_anatomy(torch, cfg, params, device)
+        chunked_vs_one_shot(torch, cfg, params, pre, ((32, 16),),
+                            device=device)
         # one prefill call of the 256-token bucket at batch 4 (the flash
         # kernel's main-path shape); its wires are not admitted
         bucket = [E.GenRequest(7 + i, prompt(256), 1) for i in range(4)]
@@ -1569,22 +1674,355 @@ def tree_bytes(tree):
     return tree.numel(), tree.numel() * tree.element_size()
 
 
+# phase 9: arch -> (layers kept, decode caches, requests, max_seq, what
+# else runs first: "moe" the prefix hits, chunked prefill and profiles
+# of phase 5's int4 run plus chunked vs one-shot, "vlm" the model API
+# with patches); qwen3-moe's 94 layers and llama4-maverick's 48 do not
+# fit one card and are cut in depth, llama4 to one dense and one MoE layer
+PHASE9 = {
+    "llava-next-mistral-7b": (None, ("int4",),
+                              ((40, 16), (100, 24), (200, 32)), 256, "vlm"),
+    "qwen3-moe-235b-a22b": (8, (), (), 256, "moe"),
+    "llama4-maverick-400b-a17b": (2, ("int4", "dense"),
+                                  ((40, 16), (100, 24), (200, 32)), 256,
+                                  None),
+}
+
+
+def phase_cfg(arch, reduced=False):
+    """The config phases 8 and 9 serve: the full one, cut in depth where
+    ``PHASE9`` says so, or the reduced one."""
+    from repro_torch.configs import get_config, get_reduced
+    if reduced:
+        return get_reduced(arch)
+    cfg = get_config(arch)
+    keep = PHASE9[arch][0] if arch in PHASE9 else None
+    return cfg.replace(num_layers=keep) if keep else cfg
+
+
+def step_read_bytes(cfg, params):
+    """Bytes a decode step reads at least: every weight once, all
+    experts included (the capacity buffer runs every expert), but of an
+    untied embedding table only the rows it gathers (left out)."""
+    _, n = tree_bytes(params)
+    if not cfg.tie_embeddings:
+        n -= tree_bytes(params["embed"])[1]
+    return n
+
+
+def vlm_model_api(torch, cfg, params, device="cuda"):
+    """Phase 9's VLM through the model API, the only place the reference
+    takes patches: ``prefill`` of 2 prompts, each ``cfg.num_patches``
+    seeded patch embeddings in front of 40 text tokens (an exact-length
+    prompt of patches + text), then three 8-step decode chunks on a dense
+    cache, a graphed and an eager arm from the same prefill: tokens,
+    lengths and every cache row below the lengths equal after each
+    chunk; one replay of the graphed chunk timed between CUDA events."""
+    from repro_torch.models import registry, transformer
+    on_card = device == "cuda"
+    api = registry.build(cfg)
+    rng = np.random.default_rng(SEED)
+    B, n_text, P, chunk = 2, 40, cfg.num_patches, 8
+    S, max_seq = P + n_text, P + n_text + 3 * chunk + 8
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, n_text)),
+                           device=device)
+    pe = torch.as_tensor(rng.standard_normal(
+        (B, P, cfg.d_model)).astype(np.float32), device=device)
+    t = time.perf_counter()
+    logits, pre = api.prefill(params, {"tokens": toks, "patch_embeds": pe})
+    if on_card:
+        torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t) * 1e3
+    if tuple(logits.shape) != (B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()) or \
+            pre["lengths"].tolist() != [S] * B or \
+            pre["slot0"]["k"].shape[2] != S:
+        raise AssertionError(f"{cfg.name}: patch prefill gave logits "
+                             f"{tuple(logits.shape)}, lengths "
+                             f"{pre['lengths'].tolist()}")
+    first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    caches, runners, states, out = {}, {}, {}, {arm: [] for arm in ARMS}
+    for arm in ARMS:
+        cache = transformer.init_cache(cfg, B, max_seq,
+                                       transformer.cache_dtype(cfg),
+                                       device=device)
+        runners[arm] = (registry.GraphedDecodeChunk(
+            api.decode, api.decode_chunk, params, cache, B)
+            if arm == "graph" and on_card else api.decode_chunk)
+        for key in ("k", "v"):           # in place: a graph reads it there
+            cache["slot0"][key][:, :, :S].copy_(pre["slot0"][key])
+        cache["lengths"].copy_(pre["lengths"])
+        caches[arm] = cache
+        states[arm] = {"cur": first.clone(),
+                       "active": torch.ones(B, dtype=torch.bool,
+                                            device=device),
+                       "n_out": torch.ones(B, dtype=torch.int32,
+                                           device=device),
+                       "max_new": torch.full((B,), 3 * chunk + 1,
+                                             dtype=torch.int32,
+                                             device=device)}
+    for _ in range(3):
+        for arm in ARMS:
+            got, _, _, st = runners[arm](params, caches[arm], states[arm],
+                                         n_steps=chunk, eos_id=-1,
+                                         max_seq=max_seq)
+            out[arm].append(got.clone())
+            states[arm] = {k: v.clone() for k, v in st.items()}
+        a, b = caches["graph"], caches["eager"]
+        n = int(a["lengths"].max())
+        if not (torch.equal(out["graph"][-1], out["eager"][-1])
+                and torch.equal(a["lengths"], b["lengths"])
+                and all(torch.equal(a["slot0"][k][:, :, :n],
+                                    b["slot0"][k][:, :, :n])
+                        for k in ("k", "v"))):
+            raise AssertionError(f"{cfg.name}: graphed and eager decode "
+                                 f"after the patch prefill parted")
+    toks_out = torch.cat(out["eager"]).T.tolist()
+    log(f"  {cfg.name} model API: prefill of {B} x ({P} patches + "
+        f"{n_text} tokens) = {S} exact positions in {pre_ms:.1f} ms, "
+        f"logits finite, lengths {pre['lengths'].tolist()}; dense decode "
+        f"3 chunks of {chunk}: graphed == eager after each "
+        f"(tokens, lengths, cache rows); tokens {toks_out}")
+    if on_card:
+        graph, per_replay = runners["graph"].captured(chunk, -1, max_seq)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1)
+        log(f"  {cfg.name} model API: one replay of the graphed chunk "
+            f"(CUDA events, {B} slots from kv_len {S + 3 * chunk}) "
+            f"{ms:.3f} ms, {ms / chunk:.3f} ms a step; launches a replay "
+            f"{json.dumps(per_replay)}")
+        del graph
+
+
+# chunked vs one-shot prefill: the largest relative L2 distance of a
+# layer's raw K (or V) rows, ||chunked - one-shot|| / ||one-shot||, that
+# counts as rounding. The second chunk's rows part only by rounding
+# (:func:`chunk_anatomy` on the H100: one bf16 ulp out of the attention
+# kernel, which walks the prefix tile and then the aligned one where the
+# one-shot call walks one tile, and for LLaMA-30B out of its MLP at 16
+# rows against 32), and the distance grows with depth: at most 2.0e-7
+# (reduced f32 MoE configs), 0.0174 (qwen3-moe, 8 layers) and 0.0247
+# (LLaMA-30B, layer 59) measured. The same rows one position off (a
+# wrong offset or splice) are ~1.4 away, one wrong row in 32 ~0.25, and
+# every check must reject the first as its control.
+CHUNK_REL_TOL = {"float32": 1e-4, "bfloat16": 0.05}
+
+
+def rel_l2(torch, a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / a.norm().clamp_min(1e-30))
+
+
+def chunk_anatomy(torch, cfg, params, device="cuda"):
+    """Layer 0 of a 32-token prompt, one shot against two chunks of 16
+    tokens as the engine runs them (the second a suffix prefill over the
+    first's keys): where rows 16-31 part, and which stage parts them.
+    Each stage is fed the same input on both sides: the q/k/v
+    projections of the chunk's rows against all 32; the attention kernel
+    (the suffix call over the same keys against the causal call); the
+    output projection. Then the layer's output rows with the chunked
+    attention swapped in alone, the chunked FFN (residual, norm, MLP or
+    MoE over the chunk's rows) alone, and both. Logs and returns the max
+    |diff| of each."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, moe, transformer
+    if cfg.parallel_block or cfg.sliding_window:
+        raise ValueError(f"{cfg.name}: chunk_anatomy takes a sequential "
+                         f"block with full attention")
+    n, split = 32, 16
+    rng = np.random.default_rng(SEED + 32)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n)),
+                           device=device)
+    p = params["layers"][0]
+    x = transformer.embed(cfg, params, toks)
+    h = layers.norm_apply(cfg, p["norm1"], x)
+    pos = torch.arange(n, device=device)[None]
+    plen = torch.full((1,), split, dtype=torch.int32, device=device)
+
+    def qkv(lo, hi):
+        ps = pos[:, lo:hi]
+        return layers.attn_qkv(cfg, p["attn"], h[:, lo:hi], ps,
+                               layers.model_rope(cfg, ps))
+
+    def wo(o):
+        return layers.dense(p["attn"]["wo"],
+                            o.reshape(1, o.shape[1], cfg.q_dim))
+
+    def ffn(x_rows, att):
+        x2, h2 = layers.add_norm(cfg, x_rows, att, p["norm2"])
+        m = moe.moe_apply(cfg, p["moe"], h2)[0] if "moe" in p else \
+            layers.mlp_apply(cfg, p["mlp"], h2)
+        return x2 + m
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    q, k, v = qkv(0, n)
+    _, ka, va = qkv(0, split)
+    qb, kb, vb = qkv(split, n)
+    o_one = ops.flash_attention(q, k, v, causal=True)
+    o_two = ops.flash_attention(qb, torch.cat([ka, kb], 1),
+                                torch.cat([va, vb], 1), prefix_len=plen)
+    att_one = wo(o_one)                       # all n rows, one shot
+    att_two = wo(o_two)                       # the second chunk's rows
+    want = ffn(x, att_one)[:, split:]
+    got = {
+        "q/k/v projections": max(diff(a[:, split:], b) for a, b in
+                                 ((q, qb), (k, kb), (v, vb))),
+        "attention kernel": diff(o_one[:, split:], ops.flash_attention(
+            q[:, split:], k, v, prefix_len=plen)),
+        "output projection": diff(att_one[:, split:],
+                                  wo(o_one[:, split:])),
+        "layer, chunked attention alone": diff(want, ffn(
+            x, torch.cat([att_one[:, :split], att_two], 1))[:, split:]),
+        "layer, chunked FFN alone": diff(want, ffn(
+            x[:, split:], att_one[:, split:])),
+        "layer, both chunked": diff(want, ffn(x[:, split:], att_two)),
+    }
+    log(f"  {cfg.name} ({cfg.dtype}) layer 0 of a {n}-token prompt, rows "
+        f"{split}-{n - 1} one shot vs as a second {split}-token chunk, max "
+        f"|diff| by stage: " + ", ".join(f"{k} {v:.3g}"
+                                         for k, v in got.items()))
+    return got
+
+
+def chunked_vs_one_shot(torch, cfg, params, pre, pairs, device="cuda"):
+    """Prompts of ``pairs`` ``(tokens, budget)`` prefilled in one shot and
+    through chunks of ``budget`` tokens (the gateway's chunked prefill),
+    each decoded 16 tokens on one int4 decode engine. Held: every layer's
+    raw K and V rows within ``CHUNK_REL_TOL`` (relative L2) of the
+    one-shot run's, up to the first layer whose FFN dropped a route in
+    either run (``moe.count_drops``: the one-shot bucket's padding and a
+    chunk's own tokens share expert capacity, so past a drop the two may
+    part, as in the reference; a call of T <= 32 tokens has capacity T,
+    so nothing drops there); the one-shot rows one position off must
+    fail the same check in some layer (the control). In float32 the two
+    must also decode the same tokens wherever no route dropped; in bf16
+    the tokens are reported (a last-bit change can turn
+    an argmax or, in a MoE layer, a token's last expert)."""
+    from repro_torch.models import moe
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kv_transfer
+    V, L = cfg.vocab_size, cfg.num_layers
+    tol = CHUNK_REL_TOL[cfg.dtype]
+    moe_layers = [i for i, kind in enumerate(cfg.layer_kinds())
+                  if kind == "attn+moe"]
+    dec = E.DecodeEngine(cfg, params, max_slots=2, max_seq=256,
+                         page_size=16, chunk_size=8, prefix_sharing=False,
+                         device=device)
+    rng = np.random.default_rng(SEED + 150)
+    for n, budget in pairs:
+        prompt = rng.integers(1, V, n)
+        streams, firsts, drops, raw = [], [], [], []
+        for chunked in (False, True):
+            req = E.GenRequest(n + chunked, prompt.copy(), 16)
+            with moe.count_drops() as counted:
+                if chunked:
+                    job = E.PartialPrefill(req)
+                    while not job.done:
+                        pre.prefill_chunk([job], budget, compress=False)
+                    wire, first, src = job.transport, job.first, \
+                        E.ADMIT_CHUNKED
+                else:
+                    (_, wire, first), = pre.run([req], compress=False)
+                    src = E.ADMIT_FRESH
+            per_call = [int(x) for x in counted]
+            drops.append([per_call[i:i + len(moe_layers)]
+                          for i in range(0, len(per_call),
+                                         max(len(moe_layers), 1))])
+            raw.append({key: wire.slots["slot0"][key].payload["x"][:, :n]
+                        for key in ("k", "v")})
+            firsts.append(first)
+            if dec.admit(E.AdmissionBatch([E.AdmissionItem(
+                    req, first, src, wire=kv_transfer.compress_wire(
+                        wire))])):
+                raise AssertionError("chunked vs one-shot: admission "
+                                     "rejected")
+            while dec.active:
+                dec.step()
+            streams.append(req.out_tokens)
+        dropped_at = [moe_layers[j] for arm in drops for call in arm
+                      for j, c in enumerate(call) if c]
+        held = min(dropped_at) + 1 if dropped_at else L
+        rel = [max(rel_l2(torch, raw[0][key][i], raw[1][key][i])
+                   for key in ("k", "v")) for i in range(L)]
+        ctrl = [max(rel_l2(torch, raw[0][key][i],
+                           torch.roll(raw[0][key][i], 1, dims=0))
+                    for key in ("k", "v")) for i in range(held)]
+        parted = [i for i in range(L) if rel[i] > 0]
+        same = streams[0] == streams[1]
+        log(f"  {cfg.name} ({cfg.dtype}) {n}-token prompt, {budget}-token "
+            f"chunks: dropped routes per prefill call, one-shot "
+            f"{[sum(c) for c in drops[0]]}, chunked "
+            f"{[sum(c) for c in drops[1]]}; raw K/V "
+            + (f"part from layer {parted[0]}" if parted else
+               "equal in every layer")
+            + f", relative L2 by layer {[float(f'{r:.3g}') for r in rel]}, "
+            f"held in layers 0-{held - 1} to {tol:g} (max "
+            f"{max(rel[:held]):.3g}; rows one position off: max "
+            f"{max(ctrl):.3g}); first tokens equal: "
+            f"{firsts[0] == firsts[1]}; decoded tokens equal: {same}")
+        if max(ctrl) <= tol:
+            raise AssertionError(f"{cfg.name}: the chunked-prefill check "
+                                 f"passes rows one position off")
+        if max(rel[:held]) > tol:
+            raise AssertionError(f"{cfg.name}: chunked and one-shot raw "
+                                 f"K/V part by {max(rel[:held]):.3g} "
+                                 f"(relative L2) within layers 0-"
+                                 f"{held - 1}, past {tol:g}")
+        if cfg.dtype == "float32" and not dropped_at and not same:
+            raise AssertionError(f"{cfg.name}: chunked and one-shot "
+                                 f"prefill decode {streams[1]} and "
+                                 f"{streams[0]} with no route dropped")
+    if dec.page_stats()["leaked_pages"]:
+        raise AssertionError("chunked vs one-shot: leaked pages")
+
+
+def moe_chunked_f32(torch, arch, device="cuda"):
+    """The reduced config of a MoE arch in float32 on the card, chunked
+    against one-shot prefill (32 tokens in 16-token chunks: nothing can
+    drop), held strictly (phase 4)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    small = get_reduced(arch).replace(dtype="float32")
+    # drawn on the CPU and copied: a CUDA generator gives other numbers
+    p32 = to_device(init_params(small, seed=SEED, device="cpu",
+                                dtype=torch.float32), device)
+    chunked_vs_one_shot(torch, small, p32,
+                        E.PrefillEngine(small, p32, max_seq=256,
+                                        device=device),
+                        ((32, 16),), device=device)
+
+
 def serve_arch(torch, arch, device="cuda", reduced=False):
-    """Phase 8 for one of the other dense configs at full width: random
-    bf16 weights from ``SEED``; ``PrefillEngine`` and, on each decode cache
-    of ``PHASE8`` (int4 pages; gemma-2b also the dense cache and bf16
-    pages; h2o-danube its ring: ``DecodeEngine(paged=True)`` falls back to
+    """Phase 8 for one of the other dense configs at full width, and
+    phase 9 for the MoE and VLM configs (cut in depth as ``PHASE9``
+    says): random bf16 weights from ``SEED``; ``PrefillEngine`` and, on
+    each decode cache of ``PHASE8``/``PHASE9`` (int4 pages; gemma-2b also
+    the dense cache and bf16 pages; llama4-maverick also the dense
+    cache; h2o-danube its ring: ``DecodeEngine(paged=True)`` falls back to
     ``min(max_seq, window)`` rows), a graphed and an eager
     ``DecodeEngine`` in lockstep (:class:`Pair`: equal tokens, state and
     cache bytes after every admission and chunk); one replay of the
     graphed chunk between CUDA events (device time a step) beside each
-    arm's host time a step; on the dense caches ``step_reference()``
-    must decode what ``step()`` decodes. Then the entry point
-    ``launch.serve.run --arch`` on a short trace: every request DONE, 0
-    leaked pages, one graph a decode replica. Returns the kernels' launch
+    arm's host time a step and the bound (:func:`step_read_bytes` at
+    3.35 TB/s); on the dense caches ``step_reference()`` must decode what
+    ``step()`` decodes. Phase 9 first runs the VLM's model API with
+    patches (:func:`vlm_model_api`), or for qwen3-moe phase 5's int4 run
+    (:func:`serve_ab`: a full prefix hit equal to its donor, a partial
+    hit, a chunked prefill, profiles, a 32-token prompt in chunks
+    against one shot) and a 150-token :func:`chunked_vs_one_shot`.
+    Then the entry point ``launch.serve.run --arch`` with the config
+    served (``cfg=``) on a short trace: every request DONE, 0 leaked
+    pages, one graph a decode replica. Returns the kernels' launch
     counts. With ``reduced`` (on the CPU, a rehearsal) the reduced config
-    runs instead, with prompts capped at its 64-token window."""
-    from repro_torch.configs import get_config, get_reduced
+    runs instead, with the Pair's prompts capped at 60 tokens."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.transformer import init_params
@@ -1595,24 +2033,59 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
         if on_card:
             torch.cuda.synchronize()
 
-    cfg = get_reduced(arch) if reduced else get_config(arch)
-    modes, spec, max_seq = PHASE8[arch]
-    if reduced:
+    cfg = phase_cfg(arch, reduced)
+    extra = None
+    if arch in PHASE9:
+        _, modes, spec, max_seq, extra = PHASE9[arch]
+    else:
+        modes, spec, max_seq = PHASE8[arch]
+    if reduced and spec:
         spec, max_seq = tuple((min(n, 60), m) for n, m in spec), 128
     t = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=device)
     sync()
     n_el, n_bytes = tree_bytes(params)
-    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}), head_dim "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-        f"{n_el:,} parameters ({cfg.param_count():,} analytic, which "
-        f"leaves out the final norm and LayerNorm biases), {n_bytes:,} "
+    full = get_config(arch)
+    cut = "" if cfg.num_layers == full.num_layers or reduced else \
+        f" (cut from {full.num_layers} to fit one card)"
+    moe_text = (f", {cfg.moe_num_experts} experts of d_ff {cfg.moe_d_ff}, "
+                f"top-{cfg.moe_top_k}"
+                f"{' + a shared expert' if cfg.moe_shared_expert else ''}"
+                f", layer kinds {list(cfg.layer_kinds())}"
+                if cfg.moe_num_experts else "")
+    log(f"  {cfg.name}: {cfg.num_layers} layers{cut}, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads (kv {cfg.num_kv_heads}), "
+        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}{moe_text}; {n_el:,} parameters "
+        f"({cfg.param_count():,} analytic, which leaves out the final "
+        f"norm, LayerNorm biases, q/k norms and a projector), {n_bytes:,} "
         f"bytes, bf16 from seed {SEED} on the card in "
         f"{time.perf_counter() - t:.1f} s")
+    read = step_read_bytes(cfg, params)
+    log(f"  {cfg.name}: a decode step reads at least {read:,} bytes (every "
+        f"weight, all experts included, but the gathered embedding rows): "
+        f"bound {read / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
     pre = E.PrefillEngine(cfg, params, max_seq=max_seq, max_batch=4,
                           device=device)
     V = cfg.vocab_size
+    # the main path's launches: each run counted from 0 and read after it;
+    # serve_ab counts its own run (not its profiles and comparisons)
+    launches = {}
+
+    def add(got):
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+
+    if extra == "vlm":
+        ops.reset_launches()
+        vlm_model_api(torch, cfg, params, device)
+        add(ops.launch_counts())
+    elif extra == "moe":
+        add(serve_ab(torch, cfg, params, pre, "int4", device))
+        # a 150-token prompt in 64-token chunks, held up to the first
+        # layer that dropped a route (serve_ab holds a 32-token one)
+        chunked_vs_one_shot(torch, cfg, params, pre, ((150, 64),),
+                            device=device)
     ops.reset_launches()
     for mode in modes:
         pair = Pair(torch, cfg, params, "int4" if mode == "ring" else mode,
@@ -1726,8 +2199,7 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
         if on_card:
             torch.cuda.empty_cache()
     out = serve.run(["--arch", arch, "--device", device, "--rate", "2",
-                     "--duration", "5"] + (["--reduced"] if reduced else []),
-                    params=params)
+                     "--duration", "5"], params=params, cfg=cfg)
     s, gw = out["summary"], out["gateway"]
     leaked = sum(p["leaked_pages"] for p in out["page_stats"])
     graphs = [h.client.jit_cache_size() for h in gw.dec]
@@ -1743,7 +2215,8 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
         raise AssertionError(f"{cfg.name} launch.serve: not every request "
                              f"DONE, leaked pages, or graphs {graphs}")
     sync()
-    return ops.launch_counts()
+    add(ops.launch_counts())
+    return launches
 
 
 def main() -> int:
@@ -1765,7 +2238,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/8] device")
+    log("[1/9] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -1773,7 +2246,7 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[2/8] build")
+    log("[2/9] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -1781,7 +2254,7 @@ def main() -> int:
     for name, regs, spill in kernel_resources(build.build_log()):
         log(f"  {name}: {regs} registers, {spill}")
 
-    log("[3/8] kernels against their plain versions on the card")
+    log("[3/9] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -1865,10 +2338,10 @@ def main() -> int:
                      torch.bfloat16, timed=False)
     check_paged_bf16(torch, ref, pa, 2, 2, 4, 1, 16, 8, 2, [40, 9],
                      torch.float32, timed=False)
-    arch_rows = check_arch_shapes(torch, ref, fa, da, pa, kq)
+    arch_rows = check_arch_shapes(torch, ref, fa, da, pa, kq, rn)
     torch.cuda.empty_cache()
 
-    log("[4/8] reduced configs, float32: card vs plain versions on the CPU")
+    log("[4/9] reduced configs, float32: card vs plain versions on the CPU")
     from repro_torch.configs import ALL_ARCHS, get_reduced
     from repro_torch.models.paged import paged_supported
     for arch in ALL_ARCHS:
@@ -1882,9 +2355,11 @@ def main() -> int:
             if on_card != on_cpu:
                 raise AssertionError(f"{arch} {mode}: card {on_card} != "
                                      f"cpu {on_cpu}")
+        if get_reduced(arch).moe_num_experts:
+            moe_chunked_f32(torch, arch)
 
     base_mem = settled(torch)
-    log(f"[5/8] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/9] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
@@ -1896,12 +2371,12 @@ def main() -> int:
         torch.cuda.empty_cache()            # the engines' caches are freed
     log(f"  phase-5 launches: {launches5}")
 
-    log(f"[6/8] the gateway entry point (repro_torch.launch.serve) at full "
+    log(f"[6/9] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
     launches6 = serve_gateway(torch, params)
     log(f"  phase-6 launches: {launches6}")
 
-    log(f"[7/8] the chaos entry point (repro_torch.launch.serve_e2e "
+    log(f"[7/9] the chaos entry point (repro_torch.launch.serve_e2e "
         f"--chaos) at full width on phase 5's weights: a decode crash and "
         f"a spot preemption with graphed decode chunks")
     log(smi.splitlines()[0])
@@ -1910,7 +2385,7 @@ def main() -> int:
     launches = {k: launches5[k] + launches6[k] + launches7[k]
                 for k in launches5}
 
-    log("[8/8] the other dense configs at full width: stablelm-3b, "
+    log("[8/9] the other dense configs at full width: stablelm-3b, "
         "gemma-2b, h2o-danube-3-4b, command-r-35b")
     log(smi.splitlines()[0])
     del params, pre
@@ -1921,6 +2396,21 @@ def main() -> int:
         raise AssertionError(f"{mem - base_mem} bytes still allocated after "
                              f"{cfg.name}'s weights were dropped")
     for arch in PHASE8:
+        got = serve_arch(torch, arch)
+        log(f"  {arch} launches: {got}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        mem = settled(torch)
+        log(f"  {arch} dropped: {mem:,} bytes allocated, {base_mem:,} "
+            f"before phase 5")
+        if mem > base_mem:
+            raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
+                                 f"allocated after its run")
+
+    log("[9/9] the MoE and VLM configs at published widths: "
+        "llava-next-mistral-7b (32 layers), qwen3-moe-235b-a22b (8 of 94 "
+        "layers), llama4-maverick-400b-a17b (2 of 48 layers)")
+    log(smi.splitlines()[0])
+    for arch in PHASE9:
         got = serve_arch(torch, arch)
         log(f"  {arch} launches: {got}")
         launches = {k: launches[k] + got[k] for k in launches}

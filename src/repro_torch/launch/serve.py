@@ -14,10 +14,14 @@ defaults except:
   replica shares); ``--reduced`` runs the reduced config instead (the CPU
   tests use ``--device cpu --reduced``);
 * ``--cluster`` offers ``paper_cloud`` and ``inhouse`` (the port keeps no
-  TPU fleet profile) and ``--arch`` the configs the port has: LLaMA-30B
-  and the dense stablelm-3b, gemma-2b, h2o-danube-3-4b and command-r-35b
-  (``--arch gemma-2b --reduced --device cpu`` on the CPU, ``--arch
-  gemma-2b`` at full width on the card);
+  TPU fleet profile) and ``--arch`` the configs the port has: LLaMA-30B,
+  the dense stablelm-3b, gemma-2b, h2o-danube-3-4b and command-r-35b,
+  the MoE qwen3-moe-235b-a22b and llama4-maverick-400b-a17b, and the VLM
+  llava-next-mistral-7b, served on text prompts (``--arch gemma-2b
+  --reduced --device cpu`` on the CPU, ``--arch gemma-2b`` at full width
+  on the card). A config whose bf16 weights exceed the card's memory
+  (both MoE configs at full depth) is refused with the bytes it needs
+  before any weight is made;
 * random weights come from ``init_params(cfg, seed=0)`` on the device;
 * ``backend=`` is left at its default: on the card the kernels run, and
   each decode chunk is one CUDA graph replay;
@@ -29,8 +33,10 @@ The deployment plan is computed for the FULL model on the requested
 cluster, the same split the paper deploys. With ``--transport sim`` the
 prefill->decode KV hop pays the FULL model's wire bytes over the plan's
 inter-replica links (alpha-beta model from the cluster's bandwidth
-matrix). ``run(argv, params=...)`` is the body, for callers that already
-hold the weights on the card.
+matrix). ``run(argv, params=..., cfg=...)`` is the body, for callers that
+already hold the weights on the card or serve a config of their own
+(such as a MoE config cut in depth to fit one card); the plan is still
+computed for ``--arch``'s full config.
 """
 from __future__ import annotations
 
@@ -131,14 +137,39 @@ def device_line(device) -> str:
     return f"device: {smi.splitlines()[0]}"
 
 
-def run(argv=None, params=None):
+def check_fits(cfg, device):
+    """Refuse, before any weight is made, a config whose bf16 weights
+    exceed the card's memory."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return
+    need = 2 * cfg.param_count()
+    have = torch.cuda.get_device_properties(dev).total_memory
+    if need > have:
+        raise ValueError(
+            f"{cfg.name}: its bf16 weights take {need:,} bytes, more than "
+            f"the {have:,} bytes of {torch.cuda.get_device_name(dev)}; "
+            f"serve a config cut in depth through run(cfg=...)")
+
+
+def run(argv=None, params=None, cfg=None):
     """Schedule, build the engines, serve the trace and print the results;
-    returns them. ``params`` are weights already on ``--device`` for the
-    chosen config (made with ``init_params(cfg, seed=0)`` when None)."""
+    returns them. ``cfg`` is the config the engines serve (by default
+    ``--arch``'s, reduced with ``--reduced``); ``params`` are weights
+    already on ``--device`` for it (made with ``init_params(cfg, seed=0)``
+    when None)."""
     args = parse_args(argv)
     wl = WORKLOADS[args.workload]
     cluster = make_cluster(args.cluster)
     cfg_full = get_config(args.arch)
+    if cfg is not None:
+        size = "given"
+    elif args.reduced:
+        cfg, size = get_reduced(args.arch), "reduced"
+    else:
+        cfg, size = cfg_full, "full"
+    if params is None:
+        check_fits(cfg, args.device)
     slo = SloSpec(ttft_s=2.0, tpot_s=0.15, e2e_s=30.0)
 
     print(f"[1/4] scheduling {cfg_full.name} on {args.cluster} "
@@ -147,10 +178,9 @@ def run(argv=None, params=None):
                               n_step=args.steps, seed=0)
     print(plan.describe())
 
-    cfg = get_reduced(args.arch) if args.reduced else cfg_full
-    size = "reduced" if args.reduced else "full"
-    print(f"[2/4] instantiating engines ({size} config: {cfg.num_layers} "
-          f"layers, d_model {cfg.d_model}) on {args.device}...")
+    print(f"[2/4] instantiating engines ({size} config {cfg.name}: "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}) on "
+          f"{args.device}...")
     print(device_line(args.device))
     if params is None:
         params = init_params(cfg, seed=0, device=args.device,

@@ -117,13 +117,19 @@ def model_rope(cfg, positions):
 
 
 def attn_qkv(cfg, p, x, positions, rope=None):
-    """Projections + RoPE. x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd).
-    ``rope`` is the call's :func:`model_rope` table, shared by every layer;
-    without it each rotation builds its own."""
+    """Projections, the q/k norms where ``cfg.qk_norm`` (qwen3: an RMSNorm
+    over each head's ``head_dim``, ``p["qnorm"]``/``p["knorm"]`` its
+    ``(hd,)`` scales, through ``ops.rmsnorm`` on rows of ``head_dim``),
+    then RoPE. x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd). ``rope``
+    is the call's :func:`model_rope` table, shared by every layer; without
+    it each rotation builds its own."""
     B, S, _ = x.shape
     q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = ops.rmsnorm(q, p["qnorm"])
+        k = ops.rmsnorm(k, p["knorm"])
     q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct,
                    theta=cfg.rope_theta, table=rope)
     k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct,

@@ -1,11 +1,13 @@
 """Model API over the ported families (``repro.models.registry``).
 
-``build(cfg)`` returns a :class:`ModelApi` for the dense family, the only
-one ported so far: the LLaMA-style stack and its variants in the
-registered configs (LayerNorm, a parallel block, an embedding scale, tied
-embeddings, partial rotary, a sliding window). Other families, and dense
-options no registered config uses (q/k norms, biases), raise
-``NotImplementedError``. ``decode``
+``build(cfg)`` returns a :class:`ModelApi` for the pure-attention
+families ported so far: dense (the LLaMA-style stack and its variants in
+the registered configs: LayerNorm, a parallel block, an embedding scale,
+tied embeddings, partial rotary, a sliding window, q/k norms), MoE
+(``models/moe.py``) and the VLM (patch embeddings in front of the text,
+at the model API only, as the reference's engines never pass them).
+Other families, and options no registered config uses (biases), raise
+``NotImplementedError`` naming their ROADMAP item. ``decode``
 and ``decode_chunk`` step the dense cache (``transformer.decode_step``),
 ``paged_decode_fns`` the page pool. ``make_decode_chunk`` turns a single
 decode step into the engine's multi-token greedy loop: the reference's
@@ -231,19 +233,39 @@ class GraphedDecodeChunk:
         return toks, valid, cache, st
 
 
+# families the port has not reached, by the ROADMAP item that ports them
+_UNPORTED = {"hybrid": "A.8 (Mamba/jamba)", "ssm": "A.8 (xLSTM)",
+             "audio": "A.8 (whisper)"}
+
+
 def build(cfg: ModelConfig) -> ModelApi:
-    if cfg.family != "dense" or \
-            cfg.norm_type not in ("rmsnorm", "layernorm") or \
-            cfg.qk_norm or cfg.attn_bias or cfg.mlp_bias:
+    if cfg.family in _UNPORTED:
         raise NotImplementedError(
-            f"{cfg.name}: only the plain dense family is ported; see "
-            f"ROADMAP queue A for the others")
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            f"(ROADMAP {_UNPORTED[cfg.family]})")
+    if cfg.family not in ("dense", "moe", "vlm") or \
+            cfg.norm_type not in ("rmsnorm", "layernorm") or \
+            cfg.attn_bias or cfg.mlp_bias:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} with norm {cfg.norm_type!r}"
+            f" and biases (attn {cfg.attn_bias}, mlp {cfg.mlp_bias}) is "
+            f"not ported; see ROADMAP queue A")
 
     def prefill_fn(params, batch, *, max_seq=None):
         S = batch["tokens"].shape[1]
+        last_pos, true_len = batch.get("last_pos"), batch.get("true_len")
+        patches = batch.get("patch_embeds") if cfg.family == "vlm" else None
+        if patches is not None:
+            n_patch = patches.shape[1]
+            S += n_patch
+            # token-indexed positions shift past the patch prefix
+            if last_pos is not None:
+                last_pos = last_pos + n_patch
+            if true_len is not None:
+                true_len = true_len + n_patch
         return transformer.prefill(
             cfg, params, batch["tokens"], max_seq=max_seq or S,
-            last_pos=batch.get("last_pos"), true_len=batch.get("true_len"))
+            last_pos=last_pos, true_len=true_len, patch_embeds=patches)
 
     suffix_fn = paged_fns = None
     if paged.paged_supported(cfg):

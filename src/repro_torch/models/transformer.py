@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer: init, prefill, suffix prefill and the
-dense decode step (the dense-family parts of ``repro.models.transformer``).
+"""Decoder-only transformer of the pure-attention families (dense, MoE,
+VLM): init, prefill, suffix prefill and the dense decode step (those
+parts of ``repro.models.transformer``).
 
 Parameters are plain dicts of tensors, one dict per layer instead of the
 reference's layer-stacked pytree (``models/convert.py`` maps one onto the
@@ -14,7 +15,16 @@ other):
 where a norm ``N`` is an RMSNorm's ``(d,)`` scale or a LayerNorm's
 ``{"scale", "bias"}`` (``layers.norm_apply``). A parallel block
 (``cfg.parallel_block``: attention and MLP read one shared norm) has no
-``norm2``; tied embeddings (``cfg.tie_embeddings``) no ``unembed``.
+``norm2``; tied embeddings (``cfg.tie_embeddings``) no ``unembed``. A
+layer whose kind (``cfg.layer_kinds()``) is ``attn+moe`` holds ``"moe":
+{"router": (d, E) f32, "wi": (E, d, 2 f), "wo": (E, f, d)}`` (plus an
+MLP ``"shared"`` where ``cfg.moe_shared_expert``) in place of ``"mlp"``
+(``models/moe.py``); the reference stacks such a stack in
+``period_of(cfg)`` slots (llama4: a dense and a MoE layer), where layer
+i is slot ``i % period``, index ``i // period``. Under ``cfg.qk_norm``
+``attn`` also holds ``qnorm``/``knorm`` ``(hd,)`` f32 scales; a VLM has
+``mm_projector (d, d)``, applied to patch embeddings that prefill puts
+in front of the text.
 
 A prefill cache is ``{"slot0": {"k", "v": (L, B, S, Hkv, hd)}, "lengths":
 (B,)}``, the reference's layout. The port's prefill cache holds the S
@@ -44,50 +54,97 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.layers import dense
+
+
+def _lcm(a, b):
+    return a * b // math.gcd(a, b)
+
+
+def period_of(cfg) -> int:
+    """Layers in one period of the stack's kinds (the reference's slots):
+    the lcm of its interleave frequencies, or every layer where the
+    depth is no multiple of it."""
+    p = 1
+    if cfg.family == "hybrid" and cfg.attn_period:
+        p = _lcm(p, cfg.attn_period)
+    if cfg.moe_num_experts and cfg.moe_every > 1:
+        p = _lcm(p, cfg.moe_every)
+    if cfg.family == "ssm" and cfg.xlstm_slstm_every:
+        p = _lcm(p, cfg.xlstm_slstm_every)
+    if cfg.num_layers % p != 0:
+        p = cfg.num_layers  # irregular: unroll everything
+    return p
+
+
+def slot_kinds(cfg):
+    """Kinds of the first ``period_of(cfg)`` layers (they repeat)."""
+    kinds = cfg.layer_kinds()
+    p = period_of(cfg)
+    for i in range(p, cfg.num_layers):
+        assert kinds[i] == kinds[i % p], (i, kinds[i], kinds[i % p])
+    return kinds[:p]
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
                 dtype=torch.bfloat16):
     """Random weights with the reference's scales (normal * 1/sqrt(d_in),
     embed * 0.02; RMSNorm scales zero, LayerNorm scales one and biases
-    zero). Each tensor is drawn directly in ``dtype`` on ``device`` from
-    one ``torch.Generator``: LLaMA-30B's 65 GB of bf16 weights never pass
-    through an f32 temporary. The numbers differ from ``jax.random``'s;
-    parity tests convert the JAX weights instead."""
+    zero; a MoE router f32). Each tensor is drawn directly in its type on
+    ``device`` from one ``torch.Generator``, one tensor at a time:
+    LLaMA-30B's 65 GB of bf16 weights, or one llama4 expert ``wi`` of
+    21.5 GB, never pass through an f32 temporary. The numbers differ from
+    ``jax.random``'s; parity tests convert the JAX weights instead."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     gated = cfg.mlp_type in ("silu", "geglu")
 
-    def normal(shape, scale):
+    def normal(shape, scale, dt=dtype):
         return torch.randn(shape, generator=gen, device=dev,
-                           dtype=dtype).mul_(scale)
+                           dtype=dt).mul_(scale)
 
-    def norm():
-        zeros = torch.zeros((d,), dtype=torch.float32, device=dev)
+    def norm(n=d):
+        zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
         if cfg.norm_type == "rmsnorm":
             return zeros
         return {"scale": torch.ones_like(zeros), "bias": zeros}
 
+    def mlp(f):
+        return {"wi": normal((d, 2 * f if gated else f), 1 / math.sqrt(d)),
+                "wo": normal((f, d), 1 / math.sqrt(f))}
+
     blocks = []
-    for _ in range(cfg.num_layers):
-        blk = {"norm1": norm(),
-               "attn": {"wq": normal((d, qd), 1 / math.sqrt(d)),
-                        "wk": normal((d, kvd), 1 / math.sqrt(d)),
-                        "wv": normal((d, kvd), 1 / math.sqrt(d)),
-                        "wo": normal((qd, d), 1 / math.sqrt(qd))},
-               "mlp": {"wi": normal((d, 2 * f if gated else f),
-                                    1 / math.sqrt(d)),
-                       "wo": normal((f, d), 1 / math.sqrt(f))}}
-        if not cfg.parallel_block:
+    for kind in cfg.layer_kinds():
+        attn = {"wq": normal((d, qd), 1 / math.sqrt(d)),
+                "wk": normal((d, kvd), 1 / math.sqrt(d)),
+                "wv": normal((d, kvd), 1 / math.sqrt(d)),
+                "wo": normal((qd, d), 1 / math.sqrt(qd))}
+        if cfg.qk_norm:
+            attn["qnorm"] = norm(cfg.head_dim)
+            attn["knorm"] = norm(cfg.head_dim)
+        blk = {"norm1": norm(), "attn": attn}
+        if kind.endswith("+moe"):
+            E, f = cfg.moe_num_experts, cfg.moe_d_ff
+            blk["moe"] = {
+                "router": normal((d, E), 1 / math.sqrt(d), torch.float32),
+                "wi": normal((E, d, 2 * f if gated else f),
+                             1 / math.sqrt(d)),
+                "wo": normal((E, f, d), 1 / math.sqrt(f))}
+            if cfg.moe_shared_expert:
+                blk["moe"]["shared"] = mlp(f)
+        else:
+            blk["mlp"] = mlp(cfg.d_ff)
+        if not (cfg.parallel_block and "mlp" in blk):
             blk["norm2"] = norm()
         blocks.append(blk)
     params = {"embed": normal((cfg.vocab_size, d), 0.02), "layers": blocks,
               "final_norm": norm()}
     if not cfg.tie_embeddings:
         params["unembed"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
+    if cfg.family == "vlm":
+        params["mm_projector"] = normal((d, d), 1 / math.sqrt(d))
     return params
 
 
@@ -102,12 +159,17 @@ def _embed_scale(d_model: int, dtype) -> float:
     return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
-def embed(cfg, params, tokens):
+def embed(cfg, params, tokens, patch_embeds=None):
     """Token embeddings, times the rounded ``sqrt(d_model)`` where
-    ``cfg.embed_scale`` (gemma)."""
+    ``cfg.embed_scale`` (gemma). A VLM given ``patch_embeds (B, P, d)``
+    puts ``mm_projector`` of them (cast to the embeddings' type first)
+    in front of the text, as the reference's ``_embed_inputs``."""
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * _embed_scale(cfg.d_model, x.dtype)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        pe = dense(params["mm_projector"], patch_embeds.to(x.dtype))
+        x = torch.cat([pe, x], dim=1)
     return x
 
 
@@ -148,18 +210,23 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
     and its final norm; with ``final_norm=False`` the last add stays
     unfused and ``h`` is None (prefill norms only the rows it keeps).
 
+    The FFN follows the layer's kind: an MLP, or (a layer holding
+    ``moe``) ``moe.moe_apply`` over the call's tokens, as the reference's
+    ``_apply_ffn`` on every path; a MoE layer is never a parallel block.
+
     On the CPU the arithmetic is the reference's exactly: an add, then
     the norm's plain version."""
     blocks = params["layers"]
     h = layers.norm_apply(cfg, blocks[0]["norm1"], x, backend=backend)
     for i, p in enumerate(blocks):
         o = attend(i, p, h)
-        if cfg.parallel_block:
+        if cfg.parallel_block and "mlp" in p:
             m = layers.mlp_apply(cfg, p["mlp"], h)
             x = x + o
         else:
             x, h = layers.add_norm(cfg, x, o, p["norm2"], backend=backend)
-            m = layers.mlp_apply(cfg, p["mlp"], h)
+            m = moe.moe_apply(cfg, p["moe"], h)[0] if "moe" in p else \
+                layers.mlp_apply(cfg, p["mlp"], h)
         if i + 1 < len(blocks):
             x, h = layers.add_norm(cfg, x, m, blocks[i + 1]["norm1"],
                                    backend=backend)
@@ -190,19 +257,22 @@ def _lengths(true_len, B, S, device):
 
 
 def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
-            true_len=None):
+            true_len=None, patch_embeds=None):
     """Process right-padded prompts ``tokens (B, S)``; returns
     (logits at ``last_pos`` (B, 1, V) f32, cache). Causal attention makes
     the right padding invisible to the real positions; a sliding window
     (flash attention's ``window``) is not, so sliding-window stacks are
     prefilled at their exact lengths (``PrefillEngine``), and their cache
-    keeps the last ``window`` positions as a ring (:func:`cache_rows`)."""
+    keeps the last ``window`` positions as a ring (:func:`cache_rows`).
+    A VLM's ``patch_embeds (B, P, d)`` come first (:func:`embed`): the
+    sequence is P + S long, and ``last_pos``/``true_len`` count the
+    patches (``registry.build``'s prefill shifts them)."""
     _unported(cfg, "prefill", layout=False)
-    B, S = tokens.shape
+    dev = tokens.device
+    x = embed(cfg, params, tokens, patch_embeds)
+    B, S = x.shape[:2]
     if S > max_seq:
         raise ValueError(f"prompt bucket {S} exceeds max_seq={max_seq}")
-    dev = tokens.device
-    x = embed(cfg, params, tokens)
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
     rows = cache["slot0"]["k"].shape[2]

@@ -10,8 +10,8 @@ chunk is a CUDA graph, captured once per ``n_steps`` and replayed
 (``registry.GraphedDecodeChunk``, the reference's ``jax.jit``);
 ``cuda_graph=False`` keeps the eager loop. Prefill pads prompts to
 power-of-two length buckets and quantizes a whole bucket's KV in one
-kernel launch; sliding-window stacks are prefilled at their exact
-lengths instead.
+kernel launch; sliding-window stacks and VLMs are prefilled at their
+exact lengths instead.
 
 Ported: ``PrefillEngine`` (bucketed, with the suffix path of partial
 prefix hits and chunked prefill, or exact-length); ``DecodeEngine`` over
@@ -156,10 +156,11 @@ class PrefillEngine:
     itself padded to a power of two). Logits are gathered at each
     prompt's own last token.
 
-    A sliding-window stack is not ``bucketed`` (the reference's rule): its
-    prefill builds the ring cache from the true length, so padding would
-    shift the ring. Its prompts are grouped by exact length
-    (:meth:`_run_exact`: no padded row enters attention), and it cannot
+    A sliding-window stack or a VLM is not ``bucketed`` (the reference's
+    rule): a sliding window's prefill builds the ring cache from the true
+    length, so padding would shift the ring, and the reference prefills a
+    VLM at exact lengths. Their prompts are grouped by exact length
+    (:meth:`_run_exact`: no padded row enters attention), and they cannot
     prefill a suffix, so chunked prefill runs each prompt in one shot."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
@@ -171,7 +172,7 @@ class PrefillEngine:
         self.max_seq = max_seq
         self.max_batch = max_batch
         self.min_bucket = min_bucket
-        self.bucketed = not cfg.sliding_window
+        self.bucketed = not cfg.sliding_window and cfg.family != "vlm"
 
     @property
     def supports_suffix(self) -> bool:

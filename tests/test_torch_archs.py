@@ -1,13 +1,20 @@
-"""The other dense architectures (stablelm-3b, gemma-2b, h2o-danube-3-4b,
-command-r-35b) in the port against the JAX package on the same weights
-(CPU, reduced configs in float32).
+"""The other architectures (stablelm-3b, gemma-2b, h2o-danube-3-4b,
+command-r-35b; the MoE qwen3-moe-235b-a22b and llama4-maverick-400b-a17b;
+the VLM llava-next-mistral-7b) in the port against the JAX package on the
+same weights (CPU, reduced configs in float32).
 
 Each arch's JAX params pytree is cast to float32, converted with
 ``convert.params_from_numpy`` and fed to both sides. What each adds:
 stablelm LayerNorm and 25% partial rotary; gemma GeGLU, the embedding
 scale, tied embeddings and MQA; h2o-danube a 32-token sliding window (a
 ring cache in decode); command-r the parallel block, LayerNorm and tied
-embeddings.
+embeddings; qwen3-moe a MoE FFN on every layer (top-2 of 8 experts in
+the reduced config) and q/k norms; llama4-maverick a two-slot stack (a
+dense layer, then a top-1 MoE with a shared expert); llava-next the
+projected patch embeddings in front of the text. The reference keeps a
+two-slot stack's caches and pages per slot (layer i at slot ``i % 2``,
+index ``i // 2``); the port keeps one stack in layer order, and the
+comparisons interleave the reference's slots (:func:`_layers`).
 
 Tolerances are those of ``tests/test_torch_models.py``: logits and
 caches within 1e-4 absolute, page bytes identical (f32 scale/zero rows
@@ -42,8 +49,12 @@ from repro_torch.models import transformer as t_tf  # noqa: E402
 torch.set_num_threads(2)
 
 ATOL = 1e-4
-ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b")
-PAGED_ARCHS = ("stablelm-3b", "gemma-2b", "command-r-35b")
+MOE_VLM = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+           "llava-next-mistral-7b")
+ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b") \
+    + MOE_VLM
+PAGED_ARCHS = ("stablelm-3b", "gemma-2b", "command-r-35b") + MOE_VLM
+VLM = "llava-next-mistral-7b"
 _MODELS = {}
 
 
@@ -63,6 +74,17 @@ def _model(arch):
 def _tokens(B, S, seed, V=256):
     return np.random.default_rng(seed).integers(1, V, (B, S)).astype(
         np.int32)
+
+
+def _layers(cache, key):
+    """The reference's per-slot stacks of ``key`` (each (n_super, ...))
+    as one (L, ...) array in layer order: layer i is slot ``i % period``,
+    index ``i // period``."""
+    slots = sorted(k for k in cache if k.startswith("slot"))
+    stacks = [np.asarray(cache[s][key]) for s in slots]
+    L = sum(a.shape[0] for a in stacks)
+    return np.stack([stacks[i % len(slots)][i // len(slots)]
+                     for i in range(L)])
 
 
 def _leaves(tree):
@@ -89,7 +111,7 @@ def test_prefill_logits_and_cache_match(arch):
     rows = t_tf.cache_rows(tcfg, S)
     assert ct["slot0"]["k"].shape[2] == rows == (32 if window else S)
     for key in ("k", "v"):
-        np.testing.assert_allclose(np.asarray(cj["slot0"][key]),
+        np.testing.assert_allclose(_layers(cj, key),
                                    ct["slot0"][key].numpy(), atol=ATOL)
     np.testing.assert_array_equal(np.asarray(cj["lengths"]),
                                   ct["lengths"].numpy())
@@ -105,10 +127,11 @@ def _prefilled_caches(jcfg, jp, tcfg, toks, true_len, max_seq):
                            true_len=jnp.asarray(true_len))
     n = min(S, tc["slot0"]["k"].shape[2])
     for key in ("k", "v"):
-        jc["slot0"][key] = jc["slot0"][key].at[:, :, :n].set(
-            jpre["slot0"][key][:, :, :n])
+        for slot in (k for k in jc if k.startswith("slot")):
+            jc[slot][key] = jc[slot][key].at[:, :, :n].set(
+                jpre[slot][key][:, :, :n])
         tc["slot0"][key][:, :, :n] = torch.from_numpy(
-            np.array(jpre["slot0"][key][:, :, :n]))
+            _layers(jpre, key)[:, :, :n])
     jc["lengths"] = jnp.asarray(true_len)
     tc["lengths"] = torch.from_numpy(true_len)
     return jc, tc
@@ -125,9 +148,87 @@ def _decode_both(jcfg, jp, tcfg, tp, jc, tc, toks):
     np.testing.assert_array_equal(np.asarray(jc["lengths"]),
                                   tc["lengths"].numpy())
     for key in ("k", "v"):
-        np.testing.assert_allclose(np.asarray(jc["slot0"][key]),
+        np.testing.assert_allclose(_layers(jc, key),
                                    tc["slot0"][key].numpy(), atol=ATOL)
     return jc, tc
+
+
+@pytest.mark.parametrize("arch", MOE_VLM)
+def test_prefill_suffix_logits_and_cache_match(arch):
+    """A suffix over a right-padded prefix of random K/V (the partial hit
+    and chunked prefill), each layer's prefix handed to the reference in
+    its slot."""
+    jcfg, jp, tcfg, tp = _model(arch)
+    B, S, P, L = 2, 16, 32, tcfg.num_layers
+    rng = np.random.default_rng(7)
+    toks = _tokens(B, S, seed=8)
+    plen = np.array([32, 16], np.int32)
+    shape = (L, B, P, tcfg.num_kv_heads, tcfg.head_dim)
+    pk, pv = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    period = t_tf.period_of(tcfg)
+    jkv = {f"slot{s}": (jnp.asarray(pk[s::period]),
+                        jnp.asarray(pv[s::period])) for s in range(period)}
+    lp = np.array([15, 9], np.int32)
+    lj, cj = j_tf.prefill_suffix(
+        jcfg, jp, jnp.asarray(toks), jkv, jnp.asarray(plen), max_seq=S,
+        last_pos=jnp.asarray(lp), true_len=jnp.asarray(lp + 1))
+    lt, ct = t_tf.prefill_suffix(
+        tcfg, tp, torch.from_numpy(toks).long(),
+        {"slot0": (torch.from_numpy(pk), torch.from_numpy(pv))},
+        torch.from_numpy(plen), max_seq=S, last_pos=torch.from_numpy(lp),
+        true_len=torch.from_numpy(lp + 1))
+    np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_layers(cj, key),
+                                   ct["slot0"][key].numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("n_text", [9, 1])
+def test_vlm_prefill_with_patches_then_decode(n_text):
+    """llava-next through each package's model API: the prefill takes
+    ``patch_embeds`` (8 patches in the reduced config), projected and put
+    in front of the right-padded text, with ``last_pos``/``true_len`` in
+    text positions shifted by the patch count; the cache holds patches
+    plus text. Then ten dense decode steps on each side's own cache."""
+    jcfg, jp, tcfg, tp = _model(VLM)
+    from repro_torch.models import registry as t_reg
+    B, S, n_patch = 2, 12, tcfg.num_patches
+    rng = np.random.default_rng(n_text)
+    pe = rng.standard_normal((B, n_patch, tcfg.d_model)).astype(np.float32)
+    toks = _tokens(B, S + 10, seed=n_text)
+    lp = np.array([S - 1, n_text - 1], np.int32)
+    jl, jpre = j_build(jcfg).prefill(
+        jp, {"tokens": jnp.asarray(toks[:, :S]),
+             "patch_embeds": jnp.asarray(pe), "last_pos": jnp.asarray(lp),
+             "true_len": jnp.asarray(lp + 1)})
+    tl, tpre = t_reg.build(tcfg).prefill(
+        tp, {"tokens": torch.from_numpy(toks[:, :S]).long(),
+             "patch_embeds": torch.from_numpy(pe),
+             "last_pos": torch.from_numpy(lp),
+             "true_len": torch.from_numpy(lp + 1)})
+    np.testing.assert_allclose(np.asarray(jl), tl.numpy(), atol=ATOL)
+    assert tpre["slot0"]["k"].shape[2] == n_patch + S
+    np.testing.assert_array_equal(tpre["lengths"].numpy(),
+                                  lp + 1 + n_patch)
+    np.testing.assert_array_equal(np.asarray(jpre["lengths"]),
+                                  lp + 1 + n_patch)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(np.asarray(jpre["slot0"][key]),
+                                   tpre["slot0"][key].numpy(), atol=ATOL)
+    # each side's own prefill cache, in a decode cache of 40 rows; the
+    # first token fed is each slot's greedy one (text position lp + 1)
+    n = n_patch + S
+    jc = j_tf.init_cache(jcfg, B, 40, jnp.float32)
+    tc = t_tf.init_cache(tcfg, B, 40, torch.float32, device="cpu")
+    for key in ("k", "v"):
+        jc["slot0"][key] = jc["slot0"][key].at[:, :, :n].set(
+            jpre["slot0"][key][:, :, :n])
+        tc["slot0"][key][:, :, :n] = tpre["slot0"][key]
+    jc["lengths"], tc["lengths"] = jpre["lengths"], tpre["lengths"]
+    feed = np.asarray(jl[:, -1]).argmax(-1).astype(np.int32)[:, None]
+    _decode_both(jcfg, jp, tcfg, tp, jc, tc,
+                 np.concatenate([feed, toks[:, S:S + 9]], axis=1))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -184,15 +285,15 @@ def test_decode_step_paged_logits_and_pages_match(arch, resident):
     if resident == "bf16":
         for key in ("k", "v"):
             np.testing.assert_allclose(
-                np.asarray(jc["slot0"][key][:, 1:], np.float32),
+                _layers(jc, key)[:, 1:].astype(np.float32),
                 tc["slot0"][key][:, 1:].float().numpy(), rtol=2 ** -7,
                 atol=1e-6)
         return
     for name in ("kp", "vp"):
-        np.testing.assert_array_equal(np.asarray(jc["slot0"][name][:, 1:]),
+        np.testing.assert_array_equal(_layers(jc, name)[:, 1:],
                                       tc["slot0"][name][:, 1:].numpy())
     for name in ("ks", "kz", "vs", "vz"):
-        np.testing.assert_allclose(np.asarray(jc["slot0"][name][:, 1:]),
+        np.testing.assert_allclose(_layers(jc, name)[:, 1:],
                                    tc["slot0"][name][:, 1:].numpy(),
                                    rtol=1e-5, atol=1e-6)
 
@@ -201,7 +302,9 @@ def test_decode_step_paged_logits_and_pages_match(arch, resident):
 def test_init_params_match_the_converted_layout(arch):
     """``init_params`` builds the converted tree's layout: a LayerNorm's
     scale (ones) and bias (zeros), no ``norm2`` under the parallel block,
-    no ``unembed`` under tied embeddings; bf16 weights, f32 norms."""
+    no ``unembed`` under tied embeddings, ``moe`` (f32 router, shared
+    expert) on a MoE layer's kind, q/k norms, a VLM's projector; bf16
+    weights, f32 norms."""
     _, _, tcfg, tp = _model(arch)
     mine = t_tf.init_params(tcfg, seed=1, device="cpu")
     assert jax.tree.structure(mine, is_leaf=lambda x: isinstance(
@@ -212,17 +315,28 @@ def test_init_params_match_the_converted_layout(arch):
     blk = mine["layers"][0]
     assert ("norm2" in blk) == (not tcfg.parallel_block)
     assert ("unembed" in mine) == (not tcfg.tie_embeddings)
-    assert blk["mlp"]["wi"].dtype == torch.bfloat16
+    assert [("moe" in b, "mlp" in b) for b in mine["layers"]] == \
+        [(k == "attn+moe", k == "attn+mlp") for k in tcfg.layer_kinds()]
+    assert ("mm_projector" in mine) == (tcfg.family == "vlm")
+    assert ("qnorm" in blk["attn"]) == tcfg.qk_norm
+    ffn = blk["mlp"] if "mlp" in blk else blk["moe"]
+    assert ffn["wi"].dtype == torch.bfloat16
+    if "moe" in blk:
+        assert blk["moe"]["router"].dtype == torch.float32
     if tcfg.norm_type == "layernorm":
         assert torch.equal(blk["norm1"]["scale"], torch.ones(tcfg.d_model))
         assert torch.equal(blk["norm1"]["bias"], torch.zeros(tcfg.d_model))
     else:
         assert blk["norm1"].dtype == torch.float32
-    # the analytic count has 2 d of norms a layer, no final norm, no bias
+    # the analytic count has 2 d of norms a layer, no final norm, no bias,
+    # no q/k norm and no projector
     n_norm = sum(t.numel() for b in mine["layers"]
                  for k in ("norm1", "norm2") if k in b
                  for t in _leaves(b[k])) + sum(
-        t.numel() for t in _leaves(mine["final_norm"]))
+        t.numel() for t in _leaves(mine["final_norm"])) + sum(
+        b["attn"][k].numel() for b in mine["layers"]
+        for k in ("qnorm", "knorm") if k in b["attn"]) + sum(
+        t.numel() for t in _leaves(mine.get("mm_projector", [])))
     n = sum(t.numel() for t in _leaves(mine))
     assert n - n_norm == tcfg.param_count() - 2 * tcfg.d_model * \
         tcfg.num_layers

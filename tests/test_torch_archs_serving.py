@@ -1,6 +1,8 @@
-"""The other dense architectures through the port's engines, wire and
-entry point, against the JAX package's engines (CPU, reduced configs in
-float32).
+"""The other architectures (the dense stablelm-3b, gemma-2b,
+h2o-danube-3-4b and command-r-35b, the MoE qwen3-moe-235b-a22b and
+llama4-maverick-400b-a17b, and the VLM llava-next-mistral-7b on text
+prompts) through the port's engines, wire and entry point, against the
+JAX package's engines (CPU, reduced configs in float32).
 
 * Both packages' ``PrefillEngine`` and ``DecodeEngine`` on the same
   weights and prompts, stepped greedily on every decode cache the arch
@@ -11,6 +13,18 @@ float32).
   ``tests/test_torch_serving.py`` (2e-2 on the dense cache, whose jnp
   step rounds probabilities to bf16; 1e-3 on pages). Every stream must
   have its first step compared, and on pages half its steps.
+* The reference's jitted wire codec rounds where its plain definition
+  (``kernels/ref.py``, which the port follows byte for byte) does not:
+  ``ops.kv_quant`` divides by 15 as a multiply by 1/15 (XLA's rewrite of
+  a division by a constant), and ``ops.kv_dequant`` fuses ``q * scale +
+  zero`` into one multiply-add. On bf16 rows (the VLM's exact-length
+  wires re-encoded into int4 pages), whose values often sit on a rounding
+  tie, the first flips nibbles; the second moves a bf16 page element by
+  one ulp now and then, which qwen3's normed keys carry to ~1e-4 in the
+  logits over 12 steps. So every arch's run encodes and decodes wires
+  on the reference side through ``kv_quant_ref``/``kv_dequant_ref`` run
+  eagerly (:func:`_eager_reference_codec`): one plain codec on both
+  sides, whatever the arch.
 * The same engines fed the same tokens (the JAX run's greedy ones) give
   per-step logits within the model tests' 1e-4, whatever the margins: on
   int4 and bf16 pages against the JAX engine on the same pages; on the
@@ -27,6 +41,10 @@ float32).
   a ``min(max_seq, window)``-row ring, ``step_reference()`` decodes what
   ``step()`` decodes, and the wire carries the ring's rows byte for byte
   as the reference's extraction does.
+* The VLM's ``PrefillEngine`` is not bucketed (the reference's rule):
+  its prompts run at their exact lengths. A MoE prefill engine pads to
+  buckets, and its batch's padding takes expert capacity as the
+  reference's does.
 * ``launch.serve --arch <arch> --reduced --device cpu`` drains every
   request for each arch.
 """
@@ -51,7 +69,11 @@ from repro_torch.serving import kv_transfer as t_kvt  # noqa: E402
 # the port's CPU tests share the machine with latency-sensitive JAX tests
 torch.set_num_threads(2)
 
-ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b")
+ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b",
+         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+         "llava-next-mistral-7b")
+VLM = "llava-next-mistral-7b"
+NEW = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", VLM)
 MODES = {"int4": {"paged": True, "page_size": 8},
          "dense": {"paged": False},
          "bf16": {"paged": True, "page_size": 8, "kv_resident": "bf16"}}
@@ -112,6 +134,25 @@ def _greedy_steps(E, cfg, params, prompts, n_steps, *, jax_side,
             [order[i] for i in range(len(prompts))])
 
 
+def _eager_reference_codec(monkeypatch):
+    """The reference's wire codec as its eager plain versions (see the
+    module docstring)."""
+    from repro.kernels import ops as j_ops
+    from repro.kernels import ref as j_ref
+
+    def kv_quant(x, *, backend="auto", **_):
+        assert backend == "ref"
+        return j_ref.kv_quant_ref(x)
+
+    def kv_dequant(packed, scale, zero, *, out_dtype=jnp.bfloat16,
+                   backend="auto", **_):
+        assert backend == "ref"
+        return j_ref.kv_dequant_ref(packed, scale, zero, dtype=out_dtype)
+
+    monkeypatch.setattr(j_ops, "kv_quant", kv_quant)
+    monkeypatch.setattr(j_ops, "kv_dequant", kv_dequant)
+
+
 def _cases():
     out = []
     for arch in ARCHS:
@@ -127,7 +168,8 @@ def _run_prompts(arch):
 
 
 @pytest.mark.parametrize("arch,mode", _cases())
-def test_engines_match_jax(arch, mode):
+def test_engines_match_jax(arch, mode, monkeypatch):
+    _eager_reference_codec(monkeypatch)
     jcfg, jp, tcfg, tp = _model(arch)
     prompts, n = _run_prompts(arch)
     jt, jm, _, jf = _greedy_steps(JE, jcfg, jp, prompts, n, jax_side=True,
@@ -147,9 +189,10 @@ def test_engines_match_jax(arch, mode):
 
 
 @pytest.mark.parametrize("arch,mode", [c for c in _cases() if c[0] != SWA])
-def test_engine_logits_match_jax(arch, mode):
+def test_engine_logits_match_jax(arch, mode, monkeypatch):
     """Every step's logits for every stream, both engines fed the JAX
     run's greedy tokens."""
+    _eager_reference_codec(monkeypatch)
     jcfg, jp, tcfg, tp = _model(arch)
     prompts, n = _run_prompts(arch)
     jt, _, _, _ = _greedy_steps(JE, jcfg, jp, prompts, n, jax_side=True,
@@ -189,6 +232,89 @@ def test_sliding_window_prefill_runs_exact_lengths(monkeypatch):
     _, _, cfg, params = _model("stablelm-3b")
     full = TE.PrefillEngine(cfg, params, device="cpu")
     assert full.bucketed and full.supports_suffix
+
+
+def test_vlm_prefill_runs_exact_lengths(monkeypatch):
+    """The VLM engine, like the reference's, is not bucketed: each prompt
+    runs at its exact length (no padded row), and no suffix prefill."""
+    _, _, tcfg, tp = _model(VLM)
+    pre = TE.PrefillEngine(tcfg, tp, max_seq=64, device="cpu")
+    jpre = JE.PrefillEngine(_model(VLM)[0], _model(VLM)[1], max_seq=64)
+    assert not pre.bucketed and not pre.supports_suffix
+    assert not jpre.bucketed
+    shapes = []
+    prefill = pre.api.prefill
+
+    def spy(params, batch, **kw):
+        shapes.append(tuple(batch["tokens"].shape))
+        assert "last_pos" not in batch and "patch_embeds" not in batch
+        return prefill(params, batch, **kw)
+
+    monkeypatch.setattr(pre.api, "prefill", spy)
+    out = pre.run([TE.GenRequest(i, p, 4)
+                   for i, p in enumerate(_prompts((7, 19)))])
+    assert sorted(shapes) == [(1, 7), (1, 19)]
+    assert [w.request_len for _, w, _ in out] == [7, 19]
+
+
+def test_moe_bucket_padding_matches_the_reference_engine():
+    """qwen3-moe's prefill engine pads a 5-token and a 9-token prompt into
+    one 16-token bucket of batch 2, as the reference's does: the padded
+    batch's 32 tokens share each expert's capacity, and the first tokens
+    and int4 wires equal the reference engine's."""
+    arch = "qwen3-moe-235b-a22b"
+    jcfg, jp, tcfg, tp = _model(arch)
+    prompts = _prompts((5, 9))
+    jpre = JE.PrefillEngine(jcfg, jp, max_seq=64)
+    tpre = TE.PrefillEngine(tcfg, tp, max_seq=64, device="cpu")
+    assert jpre.bucketed and tpre.bucketed
+    jout = jpre.run([JE.GenRequest(i, p, 4) for i, p in enumerate(prompts)],
+                    backend="ref")
+    tout = tpre.run([TE.GenRequest(i, p, 4) for i, p in enumerate(prompts)])
+    assert [f for _, _, f in jout] == [f for _, _, f in tout]
+    for (_, wj, _), (_, wt, _) in zip(jout, tout):
+        a, b = wj.slots["slot0"]["k"], wt.slots["slot0"]["k"]
+        assert tuple(a.orig_shape) == tuple(b.orig_shape)
+        np.testing.assert_allclose(np.asarray(a.payload["scale"]),
+                                   b.payload["scale"].numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", NEW[:2])
+def test_moe_chunked_prefill_matches_one_shot_without_drops(arch):
+    """The in-port chunked = one-shot contract for a MoE config where no
+    route can drop (a 32-token prompt in 16-token chunks: a call of T <=
+    32 tokens has capacity T): no route dropped in either arm, the raw
+    K/V equal in every layer and the decoded tokens equal."""
+    from repro_torch.models import moe
+    _, _, tcfg, tp = _model(arch)
+    prompt = _prompts((32,))[0]
+    outs = []
+    for chunked in (False, True):
+        pre = TE.PrefillEngine(tcfg, tp, max_seq=64, device="cpu")
+        dec = TE.DecodeEngine(tcfg, tp, max_slots=2, max_seq=64,
+                              page_size=8, device="cpu")
+        req = TE.GenRequest(0, prompt, 10)
+        with moe.count_drops() as drops:
+            if chunked:
+                job = TE.PartialPrefill(req)
+                while not job.done:
+                    pre.prefill_chunk([job], 16, compress=False)
+                wire, first, src = job.transport, job.first, \
+                    TE.ADMIT_CHUNKED
+            else:
+                (_, wire, first), = pre.run([req], compress=False)
+                src = TE.ADMIT_FRESH
+        n_moe = sum(k == "attn+moe" for k in tcfg.layer_kinds())
+        assert len(drops) == n_moe * (1 + chunked)
+        assert sum(int(d) for d in drops) == 0
+        assert not dec.admit(TE.AdmissionBatch([TE.AdmissionItem(
+            req, first, src, wire=t_kvt.compress_wire(wire))]))
+        while dec.active:
+            dec.step()
+        outs.append((wire.slots["slot0"]["k"].payload["x"][:, :32],
+                     req.out_tokens))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1] and len(outs[0][1]) == 10
 
 
 def test_sliding_window_chunked_prefill_runs_in_one_shot():

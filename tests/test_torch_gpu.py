@@ -200,6 +200,12 @@ PAGED_CASES = [
     (2, 2, 4, 80, 8, 4, [5, 30]),         # 4 rows a CTA: 10 of 16 lanes
     (3, 1, 8, 256, 16, 16, [200, 1, 256]),  # gemma-2b: 2 row blocks of 4
     (2, 2, 1, 256, 16, 4, [64, 17]),
+    # the MoE and VLM configs' decode step: qwen3-moe 16 query heads a KV
+    # head (4 row blocks of 4), llama4-maverick 5 (2 blocks, 3 rows
+    # padded), llava-next 4
+    (4, 4, 16, 128, 16, 16, [232, 123, 56, 17]),
+    (4, 8, 5, 128, 16, 16, [232, 123, 56, 17]),
+    (3, 8, 4, 128, 16, 16, [200, 1, 65]),
 ]
 
 
@@ -286,6 +292,13 @@ FLASH_CASES = [
     (2, 65, 0, 8, 1, 256, True, 0, None),
     (1, 300, 0, 2, 1, 256, True, 0, None),
     (2, 16, 32, 8, 1, 256, True, 0, [20, 32]),
+    # the MoE and VLM configs: qwen3-moe's 64 heads over 4, llama4's 40
+    # over 8 (a prompt and a suffix), llava-next's 616-token exact prompt
+    # (576 patches + 40 text tokens) at 32 over 8
+    (1, 256, 0, 64, 4, 128, True, 0, None),
+    (2, 256, 0, 40, 8, 128, True, 0, None),
+    (2, 32, 96, 40, 8, 128, True, 0, [96, 30]),
+    (1, 616, 0, 32, 8, 128, True, 0, None),
 ]
 
 
@@ -348,7 +361,9 @@ def test_flash_attention_rejects_bad_operands(cuda):
 
 
 @pytest.mark.parametrize("shape", [(1024, 6656), (4, 6656), (4, 1, 6656),
-                                   (37, 6656), (3, 5, 64), (2, 1)])
+                                   (37, 6656), (3, 5, 64), (2, 1),
+                                   # qwen3-moe's q norm: a bucket, a step
+                                   (4, 256, 64, 128), (4, 1, 64, 128)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     dt = getattr(torch, dtype)
@@ -490,6 +505,9 @@ DECODE_CASES = [
     (4, 32, 1, 80, 256, [232, 123, 56, 17]),     # stablelm-3b: 10 lanes
     (3, 8, 4, 120, 300, [1, 300, 65]),           # h2o-danube-3-4b: 15
     (2, 1, 8, 256, 200, [64, 199]),              # gemma-2b: MQA
+    (4, 4, 16, 128, 256, [232, 123, 56, 17]),    # qwen3-moe: 16 a KV head
+    (4, 8, 5, 128, 256, [232, 123, 56, 17]),     # llama4-maverick: 5
+    (2, 8, 4, 128, 640, [640, 617]),             # llava-next past 616
 ]
 DTYPE_PAIRS = [("bfloat16", "bfloat16"), ("float32", "float32"),
                ("float32", "bfloat16")]          # (q, K/V)
@@ -617,6 +635,8 @@ BF16_PAGED_CASES = [
     (3, 8, 1, 80, 16, 8, [100, 1, 65]),           # stablelm-3b's hd
     (2, 2, 4, 120, 8, 8, [5, 60]),                # h2o-danube-3-4b's
     (3, 1, 8, 256, 16, 16, [200, 1, 256]),        # gemma-2b's
+    (4, 4, 16, 128, 16, 16, [232, 123, 56, 17]),  # qwen3-moe's gq 16
+    (4, 8, 5, 128, 16, 16, [232, 123, 56, 17]),   # llama4-maverick's gq 5
 ]
 
 
@@ -1363,6 +1383,8 @@ def test_head_dims_without_an_instantiation_raise(cuda):
 
 
 DENSE_ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b")
+MOE_VLM_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                 "llava-next-mistral-7b")
 
 
 def _arch_modes(arch):
@@ -1373,12 +1395,14 @@ def _arch_modes(arch):
     return ["dense"]
 
 
-@pytest.mark.parametrize("arch,mode", [(a, m) for a in DENSE_ARCHS
+@pytest.mark.parametrize("arch,mode", [(a, m)
+                                       for a in DENSE_ARCHS + MOE_VLM_ARCHS
                                        for m in _arch_modes(a)])
 def test_reduced_archs_graphed_tokens_equal_cpu(cuda, arch, mode):
-    """Each other dense config's reduced float32 model decodes the same
-    tokens on the card (graphed chunks) as on the CPU, on every decode
-    cache it can take; h2o-danube's 32-token window wraps its ring."""
+    """Each other config's reduced float32 model decodes the same tokens
+    on the card (graphed chunks) as on the CPU, on every decode cache it
+    can take; h2o-danube's 32-token window wraps its ring; the MoE
+    configs route in f32 (TF32 off) to the CPU's experts."""
     import numpy as np
     from repro_torch.configs import get_reduced
     from repro_torch.models.transformer import init_params
@@ -1401,3 +1425,51 @@ def test_reduced_archs_graphed_tokens_equal_cpu(cuda, arch, mode):
         streams[dev] = [r.out_tokens for r in reqs]
         assert dec.jit_cache_size == (1 if dev == "cuda" else 0)
     assert streams["cuda"] == streams["cpu"]
+
+
+def test_moe_apply_in_a_graph_without_host_sync(cuda):
+    """The MoE layer at a decode step's 4 tokens (bf16, reduced qwen3-moe
+    widths with 128 experts): no host sync (the decode chunk's guard),
+    captured in a CUDA graph whose replay on new tokens gives the eager
+    call's bytes (no atomics in the dispatch or the combine), and within
+    one bf16 ulp-scale tolerance of the CPU's f32 computation of the same
+    routes."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe
+    cfg = get_reduced("qwen3-moe-235b-a22b").replace(moe_num_experts=128,
+                                                     moe_top_k=8)
+    gen = _gen(77)
+    E, d, f = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff
+    p = {"router": torch.randn((d, E), generator=gen, device=cuda) / d ** .5,
+         "wi": (torch.randn((E, d, 2 * f), generator=gen, device=cuda)
+                / d ** .5).to(torch.bfloat16),
+         "wo": (torch.randn((E, f, d), generator=gen, device=cuda)
+                / f ** .5).to(torch.bfloat16)}
+    x = torch.randn((4, 1, d), generator=gen, device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager, _ = moe.moe_apply(cfg, p, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_apply(cfg, p, static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = moe.moe_apply(cfg, p, static)
+    x2 = torch.randn((4, 1, d), generator=gen, device=cuda).to(torch.bfloat16)
+    for inp in (x, x2):
+        static.copy_(inp)
+        graph.replay()
+        torch.cuda.synchronize()
+        want, _ = moe.moe_apply(cfg, p, inp)
+        assert torch.equal(out, want)
+    cpu = {k: v.cpu().float() for k, v in p.items()}
+    ref_out, _ = moe.moe_apply(cfg, cpu, x2.cpu().float())
+    torch.testing.assert_close(out.float().cpu(), ref_out, atol=2e-2,
+                               rtol=2e-2)

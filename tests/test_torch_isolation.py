@@ -151,7 +151,10 @@ def test_model_config_copy_matches():
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(JModelConfig)]
     assert set(ALL_ARCHS) == {"llama-30b", "stablelm-3b", "gemma-2b",
-                              "h2o-danube-3-4b", "command-r-35b"}
+                              "h2o-danube-3-4b", "command-r-35b",
+                              "qwen3-moe-235b-a22b",
+                              "llama4-maverick-400b-a17b",
+                              "llava-next-mistral-7b"}
     assert set(ALL_ARCHS) <= set(J_ALL_ARCHS)
     for arch in ALL_ARCHS:
         for mine, theirs in ((get_config(arch), j_get_config(arch)),
@@ -329,6 +332,9 @@ COPY_DIFFERENCES = {
     "configs/gemma_2b.py": {},
     "configs/h2o_danube_3_4b.py": {},
     "configs/command_r_35b.py": {},
+    "configs/qwen3_moe_235b_a22b.py": {},
+    "configs/llama4_maverick_400b_a17b.py": {},
+    "configs/llava_next_mistral_7b.py": {},
 }
 
 

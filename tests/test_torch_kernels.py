@@ -25,6 +25,7 @@ decode kernel needs S divisible by min(256, S): S = 40 is one key block,
 S = 512 two) and trash-page table entries.
 """
 import math
+import os
 
 import numpy as np
 import pytest
@@ -594,7 +595,34 @@ def test_flash_attention_ref_vs_jax(B, S, H, Hkv, hd, causal, window,
                                rtol=1e-5)
 
 
-def test_flash_attention_blocked_plain_path_matches_materialized():
+@pytest.fixture
+def process_state(request):
+    """What this process was left with when the test starts, for the
+    failure message of a test whose error has once gone past its
+    tolerance on a parallel run and not again: the f32 matmul precision,
+    the thread count, the oneDNN and determinism switches, whether
+    denormals flush to zero, the xdist worker and the test files it ran
+    before this one (from the worker's terminal reporter). Nothing is
+    set."""
+    tiny = torch.tensor([1e-40], dtype=torch.float32)
+    reporter = request.config.pluginmanager.getplugin("terminalreporter")
+    here = request.node.nodeid.split("::")[0]
+    earlier = [] if reporter is None else sorted(
+        {r.nodeid.split("::")[0] for reports in reporter.stats.values()
+         for r in reports if getattr(r, "nodeid", "")} - {here})
+    return (f"f32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}, "
+            f"{torch.get_num_threads()} threads "
+            f"({torch.get_num_interop_threads()} inter-op), mkldnn "
+            f"{torch.backends.mkldnn.enabled}, deterministic "
+            f"{torch.are_deterministic_algorithms_enabled()}, denormals "
+            f"flushed {bool((tiny * 1.0 == 0).item())}, worker "
+            f"{os.environ.get('PYTEST_XDIST_WORKER', 'none')}, earlier "
+            f"files in this process {earlier}")
+
+
+def test_flash_attention_blocked_plain_path_matches_materialized(
+        process_state):
     """Above 256 x 256 the plain version takes the online softmax over key
     chunks (the reference's blocked jnp path): same result to f32
     rounding."""
@@ -605,7 +633,9 @@ def test_flash_attention_blocked_plain_path_matches_materialized():
         blocked = t_ops.flash_attention(q, k, v, window=window)
         full = t_ref._attention_materialized(q, k, v, causal=True,
                                              window=window)
-        torch.testing.assert_close(blocked, full, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(
+            blocked, full, atol=1e-5, rtol=1e-5,
+            msg=lambda m: f"{m}\nwindow {window}; {process_state}")
 
 
 def _old_suffix_attention(q, K, V, prefix_len):
