@@ -42,13 +42,22 @@ before the last line:
    version by 2^-6 of its value plus 2^-5 of its row's RMS (f32: 1e-5);
    negative controls (no window, a 64-key split dropped, the keys' last
    8 head-dim elements zeroed, a KV head's query rows rolled by one; for
-   the norm, two rows normed as one) must fail the check;
+   the norm, two rows normed as one) must fail the check; then the
+   recurrent and encoder-decoder configs' shapes (whisper-base's encoder,
+   4 x 1500 frames, and its cross-attention prefill, 4 x 256 queries over
+   the 1500 frames, both bidirectional, where a causal mask applied must
+   fail the check too; its decoder's causal bucket; its self and cross
+   decode attentions; jamba's flash and dense decode at 32 heads over 8;
+   ``rmsnorm`` over the mLSTM's rows of 1536), each checked and timed
+   the same way;
 4. reference: each registered config reduced, served in float32 through
    the engines on the card and on the CPU (plain versions), once for
    each decode cache the arch takes (int4 pages, the dense cache, bf16
-   pages; h2o-danube's sliding window only the dense ring), the card's
-   decode chunks as CUDA graph replays: greedy tokens must agree; each
-   reduced MoE config also prefills a 32-token prompt in one shot and in
+   pages; h2o-danube's sliding window, the recurrent stacks and whisper
+   only the dense cache, whisper prefilled through the model API over
+   seeded frames), the card's decode chunks as CUDA graph replays: greedy
+   tokens must agree; each reduced MoE config but jamba's (a recurrent
+   stack never chunks) also prefills a 32-token prompt in one shot and in
    16-token chunks on the card (nothing can drop): equal tokens, raw K/V
    within ``CHUNK_REL_TOL``;
 5. serve: full-width LLaMA-30B (random bf16 weights from a seed) through
@@ -144,7 +153,26 @@ before the last line:
    time a step beside the bytes a step reads at 3.35 TB/s (all experts
    included: the capacity buffer runs every expert) and its profiled
    eager chunk; then ``launch.serve.run`` with the cut config
-   (``cfg=``). Its launch counts are summed with phases 5-8.
+   (``cfg=``). Its launch counts are summed with phases 5-8;
+10. the recurrent and encoder-decoder configs at published widths, one
+   at a time, each dropped and the memory back at its level before phase
+   5: xlstm-125m (12 layers), jamba-v0.1-52b cut to 16 of its 32 layers
+   (two 8-layer periods, attention at layers 4 and 12, 8 MoE layers of
+   16 experts: ~52 GB) and whisper-base, random bf16 weights. Each asks
+   ``DecodeEngine`` for pages and falls back to the dense cache (a
+   recurrent stack's slotted states, whisper's self and cross K/V); a
+   graphed and an eager engine in lockstep (equal tokens, states and
+   cache bytes after every admission and chunk), one graph, one replay
+   timed between CUDA events beside the bytes a step reads, a profiled
+   eager chunk, ``step_reference()`` = ``step()``. xlstm and jamba
+   prefill through ``PrefillEngine`` at exact lengths and then serve
+   through ``launch.serve.run --arch`` (jamba with ``cfg=``); xlstm then
+   runs ``launch.serve_e2e.run --chaos --requests 8 --rate 3 --max-new
+   32``: both events fire, a migration carries recurrent state, every
+   request DONE. Whisper prefills 4 prompts through the model API over
+   1500 seeded frame embeddings a prompt, the wires carry the caches into
+   the engines, and ``launch.serve`` must refuse it. Its launch counts
+   are summed with phases 5-9.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -511,45 +539,50 @@ def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
 
 
 def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
-                plen=None, controls=(), timed):
+                plen=None, causal=True, Sk=None, controls=(), timed):
     """Flash attention against its plain version; ``plen`` (B,) makes it
-    the suffix mask over a P-token padded prefix. ``controls`` names
-    wrong versions the check must reject: "window 0" (no window), "last 8
-    of hd" (the keys' last 8 head-dim elements zeroed)."""
+    the suffix mask over a P-token padded prefix; ``causal=False`` with
+    ``Sk`` keys is bidirectional attention over another sequence (an
+    encoder's frames). ``controls`` names wrong versions the check must
+    reject: "window 0" (no window), "last 8 of hd" (the keys' last 8
+    head-dim elements zeroed), "causal" (a causal mask applied)."""
     import torch.nn.functional as F
+    Sk = Sk or P + Sq
     gen = torch.Generator(device="cuda").manual_seed(SEED + B + Sq + P)
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, P + Sq, Hkv, hd), generator=gen,
-                    device="cuda").to(dtype)
-    v = torch.randn((B, P + Sq, Hkv, hd), generator=gen,
-                    device="cuda").to(dtype)
+    k = torch.randn((B, Sk, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, Hkv, hd), generator=gen, device="cuda").to(dtype)
     pl = None if plen is None else torch.tensor(plen, dtype=torch.int32,
                                                 device="cuda")
-    kw = dict(causal=True, window=window, prefix_len=pl)
+    kw = dict(causal=causal, window=window, prefix_len=pl)
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     err = float((got.float() - want.float()).abs().max())
     ok, worst = attn_close(torch, got, want)
-    log(f"  flash_attention B={B} S={Sq} P={P} H={H} Hkv={Hkv} hd={hd} "
-        f"window={window} prefix_len={plen} {str(dtype)[6:]}: max |err| "
-        f"{err:.3e}, worst |err| / tol {worst:.3g} "
-        f"({ATTN_TOL_TEXT[str(dtype)[6:]]})")
+    log(f"  flash_attention B={B} S={Sq} Sk={Sk} P={P} H={H} Hkv={Hkv} "
+        f"hd={hd} causal={causal} window={window} prefix_len={plen} "
+        f"{str(dtype)[6:]}: max |err| {err:.3e}, worst |err| / tol "
+        f"{worst:.3g} ({ATTN_TOL_TEXT[str(dtype)[6:]]})")
     if not ok:
         raise AssertionError("flash attention differs from the plain "
                              "version beyond tolerance")
     wrong = {"window 0": lambda: ref.flash_attention_ref(
                  q, k, v, **dict(kw, window=0)),
              "last 8 of hd": lambda: ref.flash_attention_ref(
-                 q, last8_zeroed(k), v, **kw)}
+                 q, last8_zeroed(k), v, **kw),
+             "causal": lambda: ref.flash_attention_ref(
+                 q, k, v, **dict(kw, causal=True))}
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
     # visible (query, key) pairs: what these inputs need
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(Sq))
-    if plen is not None:
-        pairs = B * pairs + Sq * sum(plen)
+    if not causal:
+        pairs = B * Sq * Sk
     else:
-        pairs *= B
+        pairs = sum(min(i + 1, window) if window else i + 1
+                    for i in range(Sq))
+        pairs = B * pairs + Sq * sum(plen) if plen is not None \
+            else pairs * B
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     fn = lambda a, b, c: fa.flash_attention(a, b, c, **kw)
     fn_ref = lambda a, b, c: ref.flash_attention_ref(a, b, c, **kw)
@@ -561,7 +594,7 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
     # through enable_gqa), with the suffix mask or the sliding window
     # as a boolean mask
     mask = None
-    j = torch.arange(P + Sq, device="cuda")[None, None, :]
+    j = torch.arange(Sk, device="cuda")[None, None, :]
     i = torch.arange(Sq, device="cuda")[None, :, None]
     if plen is not None:
         mask = torch.where(j < P, j < pl[:, None, None],
@@ -570,7 +603,8 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
         mask = ((j <= i) & (j > i - window))[:, None]
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(
         a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-        attn_mask=mask, is_causal=mask is None, enable_gqa=H != Hkv)
+        attn_mask=mask, is_causal=mask is None and causal,
+        enable_gqa=H != Hkv)
     lib = sdpa(q, k, v).transpose(1, 2)
     log(f"    SDPA vs plain max |err| "
         f"{float((lib.float() - want.float()).abs().max()):.3e}")
@@ -954,6 +988,90 @@ def check_arch_shapes(torch, ref, fa, da, pa, kq, rn):
     return rows
 
 
+def check_recurrent_shapes(torch, ref, fa, da, rn):
+    """The shapes the recurrent and encoder-decoder configs give the
+    kernels (phase 10's path), at their published widths: whisper-base's
+    encoder (flash, 4 x 1500 frames, 8 heads of 64, bidirectional), its
+    cross-attention prefill (flash, 4 x 256 queries over the 1500 frames,
+    bidirectional: ``Sk`` no multiple of the 64-key tile), its decoder's
+    causal self-attention at a 4 x 256 bucket, and its two decode
+    attentions (4 slots: self over a 256-row cache, cross over the 1500
+    frames); jamba's attention layers (flash at a 4 x 256 bucket and the
+    dense decode step, 32 heads over 8 at hd 128, two layers in the
+    16-layer cut); ``rmsnorm`` over the mLSTM's rows of 1536 (a 1024-row
+    prefill, a 4-slot step). Each checked against its plain version and
+    timed beside it, the bound and SDPA or ``F.rms_norm``; the
+    bidirectional flash checks must reject the plain version with a
+    causal mask applied, besides the earlier controls; the f32 bodies and
+    a ragged 70-key tail are checked small. Returns ``[(kernel, arch,
+    shape, result)]``."""
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    w, j = get_config("whisper-base"), get_config("jamba-v0.1-52b")
+    H, hd, L, E = w.num_heads, w.head_dim, w.num_layers, w.encoder_seq
+    bidir = ("causal", "last 8 of hd")
+    dec_controls = ("kv_len - 64", "last 8 of hd")
+    log(f"  whisper-base: hd {hd}, {H} heads, {L} decoder layers, {E} "
+        f"frames; jamba-v0.1-52b: hd {j.head_dim}, {j.num_heads} heads "
+        f"(kv {j.num_kv_heads})")
+    rows = [
+        ("flash_attention", "whisper-base",
+         f"encoder 4 x {E} frames, bidirectional",
+         check_flash(torch, ref, fa, 4, E, 0, H, H, hd, bf16, causal=False,
+                     controls=bidir, timed=True)),
+        ("flash_attention", "whisper-base",
+         f"cross-attention 4 x 256 tokens over {E} frames",
+         check_flash(torch, ref, fa, 4, 256, 0, H, H, hd, bf16,
+                     causal=False, Sk=E, controls=bidir, timed=True)),
+        ("flash_attention", "whisper-base",
+         "decoder self-attention, bucket 4 x 256",
+         check_flash(torch, ref, fa, 4, 256, 0, H, H, hd, bf16,
+                     controls=("last 8 of hd",), timed=True)),
+        ("flash_attention", "jamba-v0.1-52b", "bucket 4 x 256",
+         check_flash(torch, ref, fa, 4, 256, 0, j.num_heads,
+                     j.num_kv_heads, j.head_dim, bf16,
+                     controls=("last 8 of hd",), timed=True)),
+        ("decode_attention", "whisper-base",
+         f"self-attention, 4 slots, 256-row cache, kv_len {DECODE_LENS}",
+         check_decode(torch, ref, da, L, 4, H, 1, hd, 256, DECODE_LENS,
+                      bf16, bf16, controls=dec_controls, timed=True)),
+        ("decode_attention", "whisper-base",
+         f"cross-attention, 4 slots over {E} frames",
+         check_decode(torch, ref, da, L, 4, H, 1, hd, E, [E] * 4, bf16,
+                      bf16, controls=dec_controls, timed=True)),
+        ("decode_attention", "jamba-v0.1-52b",
+         f"decode 4 slots, 256-row cache, kv_len {DECODE_LENS}, 2 layers",
+         check_decode(torch, ref, da, 2, 4, j.num_kv_heads,
+                      j.num_heads // j.num_kv_heads, j.head_dim, 256,
+                      DECODE_LENS, bf16, bf16,
+                      controls=dec_controls + ("rows rolled",),
+                      timed=True)),
+        ("rmsnorm", "xlstm-125m", "1024 x 1536 (mLSTM prefill rows)",
+         check_rmsnorm(torch, ref, rn, 1024, 1536, bf16, control=True,
+                       timed=True)),
+        ("rmsnorm", "xlstm-125m", "4 x 1536 (mLSTM, a 4-slot step)",
+         check_rmsnorm(torch, ref, rn, 4, 1536, bf16, timed=True))]
+    # the reduced f32 bodies (phase 4's whisper), a ragged bf16 tail, the
+    # sLSTM's rows of 768 and jamba's fused norm at d 4096
+    check_flash(torch, ref, fa, 2, 24, 0, 4, 4, 16, f32, causal=False,
+                controls=("causal",), timed=False)
+    check_flash(torch, ref, fa, 2, 9, 0, 4, 4, 16, f32, causal=False, Sk=24,
+                controls=("causal",), timed=False)
+    check_flash(torch, ref, fa, 2, 33, 0, H, H, hd, bf16, causal=False,
+                Sk=70, controls=bidir, timed=False)
+    check_rmsnorm(torch, ref, rn, 4, 768, bf16, control=True, timed=False)
+    check_add_rmsnorm(torch, ref, rn, 4, j.d_model, bf16, timed=False)
+    log("  the recurrent and encoder-decoder configs' shapes: kernel, arch, "
+        "shape: ms (plain, library, bound)")
+    for name, arch, shape, r in rows:
+        log(f"    {name} {arch} ({shape}): {r['ms']:.5f} ms (plain "
+            f"{r['plain_ms']:.5f}, library "
+            f"{r.get('library_ms') or float('nan'):.5f}, bound "
+            f"{r['bound'][0]:.5f} by {r['bound'][1]}; "
+            f"{r['ms'] / r['bound'][0]:.1f}x the bound)")
+    return rows
+
+
 # -- phases 4, 5 and 8: serving ----------------------------------------------
 
 
@@ -969,18 +1087,78 @@ DECODE_MODES = {"int4": {}, "dense": {"paged": False},
                 "bf16": {"kv_resident": "bf16"}}
 
 
+def make_params(torch, cfg, *, seed=SEED, device="cuda", dtype=None):
+    """Random weights of ``cfg``: ``whisper.init_params`` for the audio
+    config, ``transformer.init_params`` for every other."""
+    from repro_torch.models import transformer, whisper
+    init = whisper.init_params if cfg.family == "audio" \
+        else transformer.init_params
+    return init(cfg, seed=seed, device=device,
+                dtype=dtype or torch.bfloat16)
+
+
+class FramePrefill:
+    """Whisper's prefill for the engines: the model API
+    (``registry.build(cfg).prefill``) over seeded frame embeddings, one
+    ``(encoder_seq, d_model)`` block a request drawn from ``SEED +
+    rid``, prompts grouped by exact length, wires extracted as
+    ``PrefillEngine._run_exact`` extracts them (the engine itself cannot
+    prefill audio: its batches hold tokens only, as the reference's
+    do)."""
+    bucketed = False
+
+    def __init__(self, torch, cfg, params, device="cuda"):
+        from repro_torch.models import registry
+        self.torch, self.cfg, self.params = torch, cfg, params
+        self.device = device
+        self.api = registry.build(cfg)
+
+    def frames(self, rid):
+        rng = np.random.default_rng(SEED + rid)
+        return rng.standard_normal(
+            (self.cfg.encoder_seq, self.cfg.d_model)).astype(np.float32)
+
+    def run(self, reqs):
+        from repro_torch.serving import kv_transfer
+        torch, out, by_len = self.torch, [], {}
+        for r in reqs:
+            by_len.setdefault(len(r.tokens), []).append(r)
+        for n, group in by_len.items():
+            batch = {"tokens": np.stack([np.asarray(r.tokens)
+                                         for r in group]).astype(np.int64),
+                     "frame_embeds": np.stack([self.frames(r.rid)
+                                               for r in group])}
+            logits, cache = self.api.prefill(
+                self.params, {k: torch.as_tensor(v, device=self.device)
+                              for k, v in batch.items()})
+            first = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            wires = kv_transfer.extract_batch(
+                cache, [(i, n) for i in range(len(group))])
+            out.extend((r, wires[i], int(first[i]))
+                       for i, r in enumerate(group))
+        return out
+
+
+def prefill_engine(torch, cfg, params, *, max_seq, device="cuda"):
+    from repro_torch.serving import engine as E
+    if cfg.family == "audio":
+        return FramePrefill(torch, cfg, params, device)
+    return E.PrefillEngine(cfg, params, max_seq=max_seq, max_batch=4,
+                           device=device)
+
+
 def serve_small(torch, device, mode="int4", arch="llama-30b"):
     """The reduced ``arch`` in float32 through the engines with the decode
     cache of ``mode`` (``DECODE_MODES``); returns tokens. Its prompts (7,
-    19 and 33 tokens, 12 new) overrun h2o-danube's 32-token window."""
+    19 and 33 tokens, 12 new) overrun h2o-danube's 32-token window.
+    Whisper prefills through the model API (:class:`FramePrefill`)."""
     from repro_torch.configs import get_reduced
-    from repro_torch.models.transformer import init_params
     from repro_torch.serving import engine as E
     cfg = get_reduced(arch).replace(dtype="float32")
     # drawn on the CPU and copied: a CUDA generator gives other numbers
-    params = to_device(init_params(cfg, seed=SEED, device="cpu",
+    params = to_device(make_params(torch, cfg, device="cpu",
                                    dtype=torch.float32), device)
-    pre = E.PrefillEngine(cfg, params, max_seq=64, device=device)
+    pre = prefill_engine(torch, cfg, params, max_seq=64, device=device)
     dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=64, page_size=8,
                          chunk_size=4, device=device, **DECODE_MODES[mode])
     rng = np.random.default_rng(SEED)
@@ -1070,6 +1248,29 @@ class Clock:
 ARMS = ("graph", "eager")
 
 
+def dense_cache_equal(torch, a, b, slots, lengths):
+    """Whether two dense decode caches hold the same bytes wherever the
+    occupied ``slots`` can read: attention rows below each slot's length,
+    a recurrent stack's whole states, whisper's self rows below the
+    length and its whole cross K/V."""
+    for name, x in a.items():
+        if name == "lengths":
+            continue
+        y = b[name]
+        if isinstance(x, dict) and "k" in x:
+            pairs = [(x[k][:, i, :lengths[i]], y[k][:, i, :lengths[i]])
+                     for k in ("k", "v") for i in slots]
+        elif isinstance(x, dict):
+            pairs = [(x[k][:, i], y[k][:, i]) for k in x for i in slots]
+        else:
+            n = (lambda i: lengths[i]) if name.startswith("self_") \
+                else (lambda i: x.shape[2])
+            pairs = [(x[:, i, :n(i)], y[:, i, :n(i)]) for i in slots]
+        if not all(torch.equal(p, q) for p, q in pairs):
+            return False
+    return True
+
+
 class Pair:
     """Phase 5's A/B: a graphed and an eager ``DecodeEngine`` of one decode
     cache on one set of weights, driven in lockstep. Each arm has its own
@@ -1077,8 +1278,8 @@ class Pair:
     admissions; after every admission and every chunk the arms must hold
     the same slots, tokens, current tokens, lengths, page table and pool,
     and every byte attention can read (every page but the trash page,
-    where idle slots' writes race; dense: each occupied slot's rows below
-    its length). Chunks alternate which arm goes first; each arm's chunk
+    where idle slots' writes race; dense: :func:`dense_cache_equal`).
+    Chunks alternate which arm goes first; each arm's chunk
     is timed on the host clock (``step()`` ends in the chunk's one
     device -> host copy)."""
 
@@ -1148,12 +1349,10 @@ class Pair:
                 and all(torch.equal(x[:, 1:], y[:, 1:]) for x, y in zip(
                     a.cache["slot0"].values(), b.cache["slot0"].values()))
         else:
-            lengths = a.cache["lengths"].tolist()
-            same = same and all(
-                torch.equal(a.cache["slot0"][key][:, slot, :lengths[slot]],
-                            b.cache["slot0"][key][:, slot, :lengths[slot]])
-                for slot, r in enumerate(a.slots) if r is not None
-                for key in ("k", "v"))
+            same = same and dense_cache_equal(
+                torch, a.cache, b.cache,
+                [i for i, r in enumerate(a.slots) if r is not None],
+                a.cache["lengths"].tolist())
         if not same:
             raise AssertionError(f"{self.mode}: the graphed and the eager "
                                  f"engine parted after chunk "
@@ -1689,24 +1888,57 @@ PHASE9 = {
 }
 
 
+# phase 10: arch -> (layers kept, decode caches, requests, max_seq, what
+# else runs: "chaos" serve_e2e --chaos; whisper prefills through the
+# model API over frames, FramePrefill); jamba's 32 layers (~103 GB of
+# bf16 weights) are cut to two 8-layer periods (~52 GB). "fallback": the
+# engines ask for pages and fall back to the dense cache
+PHASE10 = {
+    "xlstm-125m": (None, ("fallback",), ((40, 16), (100, 24), (200, 32)), 256,
+                   "chaos"),
+    "jamba-v0.1-52b": (16, ("fallback",), ((40, 16), (100, 24), (200, 32)),
+                       256, None),
+    "whisper-base": (None, ("fallback",),
+                     ((40, 16), (40, 24), (100, 24), (200, 32)), 256,
+                     None),
+}
+
+
 def phase_cfg(arch, reduced=False):
-    """The config phases 8 and 9 serve: the full one, cut in depth where
-    ``PHASE9`` says so, or the reduced one."""
+    """The config phases 8-10 serve: the full one, cut in depth where
+    ``PHASE9`` or ``PHASE10`` says so, or the reduced one."""
     from repro_torch.configs import get_config, get_reduced
     if reduced:
         return get_reduced(arch)
     cfg = get_config(arch)
-    keep = PHASE9[arch][0] if arch in PHASE9 else None
+    table = {**PHASE9, **PHASE10}
+    keep = table[arch][0] if arch in table else None
     return cfg.replace(num_layers=keep) if keep else cfg
 
 
-def step_read_bytes(cfg, params):
-    """Bytes a decode step reads at least: every weight once, all
-    experts included (the capacity buffer runs every expert), but of an
-    untied embedding table only the rows it gathers (left out)."""
+def step_read_bytes(cfg, params, max_slots=4, max_seq=256):
+    """Bytes a decode step reads at least: every weight of the decode
+    path once, all experts included (the capacity buffer runs every
+    expert), but of an untied embedding table only the rows it gathers
+    (left out), and the cache a step reads whatever the lengths: a
+    recurrent stack's states of every slot (each steps), read and
+    written; whisper's cross K/V of every slot (each attends over all
+    its frames). Whisper's encoder does not run in a decode step."""
+    from repro_torch.models import transformer
+    if cfg.family == "audio":
+        n = sum(tree_bytes(params[k])[1]
+                for k in ("dec_layers", "final_norm", "unembed"))
+        return n + (2 * cfg.num_layers * max_slots * cfg.encoder_seq
+                    * cfg.kv_dim * 2)
     _, n = tree_bytes(params)
     if not cfg.tie_embeddings:
         n -= tree_bytes(params["embed"])[1]
+    if transformer.recurrent(cfg):
+        cache = transformer.init_cache(cfg, max_slots, max_seq,
+                                       device="meta")
+        n += 2 * sum(tree_bytes(v)[1] for k, slot in cache.items()
+                     if k != "lengths" and "k" not in slot
+                     for v in slot.values())
     return n
 
 
@@ -2008,7 +2240,10 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
     cache; h2o-danube its ring: ``DecodeEngine(paged=True)`` falls back to
     ``min(max_seq, window)`` rows), a graphed and an eager
     ``DecodeEngine`` in lockstep (:class:`Pair`: equal tokens, state and
-    cache bytes after every admission and chunk); one replay of the
+    cache bytes after every admission and chunk; phase 10's recurrent and
+    audio configs ask for pages and fall back to the dense cache, whisper
+    prefilling through the model API over frames, :class:`FramePrefill`);
+    one replay of the
     graphed chunk between CUDA events (device time a step) beside each
     arm's host time a step and the bound (:func:`step_read_bytes` at
     3.35 TB/s); on the dense caches ``step_reference()`` must decode what
@@ -2019,13 +2254,15 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
     against one shot) and a 150-token :func:`chunked_vs_one_shot`.
     Then the entry point ``launch.serve.run --arch`` with the config
     served (``cfg=``) on a short trace: every request DONE, 0 leaked
-    pages, one graph a decode replica. Returns the kernels' launch
-    counts. With ``reduced`` (on the CPU, a rehearsal) the reduced config
+    pages, one graph a decode replica (whisper: the entry point must
+    refuse it); for xlstm-125m then ``launch.serve_e2e.run --chaos``
+    (:func:`xlstm_chaos`). Returns the kernels' launch counts. With
+    ``reduced`` (on the CPU, a rehearsal) the reduced config
     runs instead, with the Pair's prompts capped at 60 tokens."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models import transformer
     from repro_torch.serving import engine as E
     on_card = device == "cuda"
 
@@ -2037,17 +2274,28 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
     extra = None
     if arch in PHASE9:
         _, modes, spec, max_seq, extra = PHASE9[arch]
+    elif arch in PHASE10:
+        _, modes, spec, max_seq, extra = PHASE10[arch]
     else:
         modes, spec, max_seq = PHASE8[arch]
     if reduced and spec:
         spec, max_seq = tuple((min(n, 60), m) for n, m in spec), 128
-    t = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device=device)
-    sync()
-    n_el, n_bytes = tree_bytes(params)
     full = get_config(arch)
     cut = "" if cfg.num_layers == full.num_layers or reduced else \
         f" (cut from {full.num_layers} to fit one card)"
+    if cut and on_card:
+        # the entry point refuses the full depth before making a weight
+        try:
+            serve.check_fits(full, device)
+        except ValueError as e:
+            log(f"  {full.name}: check_fits refuses the full config: {e}")
+        else:
+            raise AssertionError(f"{full.name}: check_fits let the full "
+                                 f"config through")
+    t = time.perf_counter()
+    params = make_params(torch, cfg, device=device)
+    sync()
+    n_el, n_bytes = tree_bytes(params)
     moe_text = (f", {cfg.moe_num_experts} experts of d_ff {cfg.moe_d_ff}, "
                 f"top-{cfg.moe_top_k}"
                 f"{' + a shared expert' if cfg.moe_shared_expert else ''}"
@@ -2061,12 +2309,14 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
         f"norm, LayerNorm biases, q/k norms and a projector), {n_bytes:,} "
         f"bytes, bf16 from seed {SEED} on the card in "
         f"{time.perf_counter() - t:.1f} s")
-    read = step_read_bytes(cfg, params)
+    read = step_read_bytes(cfg, params, max_seq=max_seq)
     log(f"  {cfg.name}: a decode step reads at least {read:,} bytes (every "
-        f"weight, all experts included, but the gathered embedding rows): "
-        f"bound {read / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
-    pre = E.PrefillEngine(cfg, params, max_seq=max_seq, max_batch=4,
-                          device=device)
+        f"weight of the decode path, all experts included, but the "
+        f"gathered embedding rows; the recurrent states of 4 slots read "
+        f"and written, whisper's cross K/V of 4 slots): bound "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    pre = prefill_engine(torch, cfg, params, max_seq=max_seq,
+                         device=device)
     V = cfg.vocab_size
     # the main path's launches: each run counted from 0 and read after it;
     # serve_ab counts its own run (not its profiles and comparisons)
@@ -2088,9 +2338,16 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
                             device=device)
     ops.reset_launches()
     for mode in modes:
-        pair = Pair(torch, cfg, params, "int4" if mode == "ring" else mode,
+        pair = Pair(torch, cfg, params,
+                    "int4" if mode in ("ring", "fallback") else mode,
                     device, max_seq=max_seq)
         graph_dec = pair.dec["graph"]
+        if mode == "fallback":
+            log(f"  {cfg.name} DecodeEngine(paged=True): paged_fallback "
+                f"{graph_dec.paged_fallback!r}; cache "
+                f"{sorted(k for k in graph_dec.cache if k != 'lengths')}")
+            if graph_dec.paged or not graph_dec.paged_fallback:
+                raise AssertionError(f"{cfg.name}: no dense fallback")
         if mode == "ring":
             rows = graph_dec.cache["slot0"]["k"].shape[2]
             log(f"  {cfg.name} DecodeEngine(paged=True): paged_fallback "
@@ -2106,7 +2363,8 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
         out = pre.run(reqs)
         sync()
         pre_ms = (time.perf_counter() - t) * 1e3
-        if cfg.sliding_window and pre.bucketed:
+        if pre.bucketed and (cfg.sliding_window or cfg.family == "audio"
+                             or transformer.recurrent(cfg)):
             raise AssertionError(f"{cfg.name}: bucketed prefill")
         pair.admit(lambda arm: [E.AdmissionItem(pair.reqs[arm][r.rid], f,
                                                 wire=w) for r, w, f in out])
@@ -2198,8 +2456,19 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
         del pair, graph_dec
         if on_card:
             torch.cuda.empty_cache()
-    out = serve.run(["--arch", arch, "--device", device, "--rate", "2",
-                     "--duration", "5"], params=params, cfg=cfg)
+    argv = ["--arch", arch, "--device", device, "--rate", "2",
+            "--duration", "5"]
+    if cfg.family == "audio":
+        try:
+            serve.run(argv, params=params, cfg=cfg)
+        except ValueError as e:
+            log(f"  {cfg.name} launch.serve refuses: {e}")
+        else:
+            raise AssertionError(f"{cfg.name}: launch.serve served audio")
+        sync()
+        add(ops.launch_counts())
+        return launches
+    out = serve.run(argv, params=params, cfg=cfg)
     s, gw = out["summary"], out["gateway"]
     leaked = sum(p["leaked_pages"] for p in out["page_stats"])
     graphs = [h.client.jit_cache_size() for h in gw.dec]
@@ -2214,9 +2483,49 @@ def serve_arch(torch, arch, device="cuda", reduced=False):
             or not out["params_resident"]:
         raise AssertionError(f"{cfg.name} launch.serve: not every request "
                              f"DONE, leaked pages, or graphs {graphs}")
+    del out, gw
+    if extra == "chaos":
+        xlstm_chaos(torch, params, device, reduced)
     sync()
     add(ops.launch_counts())
     return launches
+
+
+def xlstm_chaos(torch, params, device="cuda", reduced=False):
+    """Phase 10's chaos run: ``launch.serve_e2e.run --arch xlstm-125m
+    --chaos --requests 8 --rate 3 --max-new 32`` on ``params`` (three
+    dense decode engines, graphed): both events fire, the preemption
+    migrates at least one request, whose wire carries nothing but the
+    recurrent states (xlstm has no attention), every request is DONE with
+    its full budget, one graph a decode replica, and the engines on the
+    weights they were given. The events may find one victim idle or hit
+    the same replica (a decode of 32 tokens lasts a few chunks): the run
+    prints which."""
+    from repro_torch.launch import serve_e2e
+    argv = ["--device", device, "--arch", "xlstm-125m", "--chaos",
+            "--requests", "8", "--rate", "3", "--max-new", "32"]
+    out = serve_e2e.run(argv + (["--reduced"] if reduced else []),
+                        params=params)
+    s, c, gw = out["summary"], out["stats"]["counters"], out["gateway"]
+    fired = out["fired"]
+    log(f"  xlstm-125m serve_e2e --chaos: {s['n_done']}/{s['n_submitted']} "
+        f"done, TTFT p50/p99 {s['ttft_p50_s'] * 1e3:.1f}/"
+        f"{s['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50/p99 "
+        f"{s['tpot_p50_s'] * 1e3:.1f}/{s['tpot_p99_s'] * 1e3:.1f} ms, wall "
+        f"{out['wall_s']:.2f} s, counters {json.dumps(c)}; fired "
+        + json.dumps([{k: (round(v, 3) if isinstance(v, float) else v)
+                       for k, v in f.items()} for f in fired])
+        + f"; decode replicas {[h.status for h in gw.dec]}")
+    graphs = [h.client.jit_cache_size() for h in gw.dec]
+    short = [h.request.rid for h in out["handles"]
+             if h.state != "DONE"
+             or len(h.tokens) != h.request.max_new_tokens]
+    if [f["kind"] for f in fired] != ["crash", "preempt"] or \
+            c["migrations"] < 1 or c["migrated_tokens"] <= 0 or short or \
+            s["n_submitted"] != 8 or not out["params_resident"] or \
+            (device == "cuda" and graphs != [1] * len(gw.dec)):
+        raise AssertionError(f"xlstm chaos: fired {fired}, counters {c}, "
+                             f"not DONE {short}, graphs {graphs}")
 
 
 def main() -> int:
@@ -2238,7 +2547,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/9] device")
+    log("[1/10] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -2246,7 +2555,7 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[2/9] build")
+    log("[2/10] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -2254,7 +2563,7 @@ def main() -> int:
     for name, regs, spill in kernel_resources(build.build_log()):
         log(f"  {name}: {regs} registers, {spill}")
 
-    log("[3/9] kernels against their plain versions on the card")
+    log("[3/10] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -2339,11 +2648,13 @@ def main() -> int:
     check_paged_bf16(torch, ref, pa, 2, 2, 4, 1, 16, 8, 2, [40, 9],
                      torch.float32, timed=False)
     arch_rows = check_arch_shapes(torch, ref, fa, da, pa, kq, rn)
+    arch_rows += check_recurrent_shapes(torch, ref, fa, da, rn)
     torch.cuda.empty_cache()
 
-    log("[4/9] reduced configs, float32: card vs plain versions on the CPU")
+    log("[4/10] reduced configs, float32: card vs plain versions on the CPU")
     from repro_torch.configs import ALL_ARCHS, get_reduced
     from repro_torch.models.paged import paged_supported
+    from repro_torch.models.transformer import recurrent
     for arch in ALL_ARCHS:
         modes = DECODE_MODES if paged_supported(get_reduced(arch)) \
             else ("dense",)
@@ -2355,11 +2666,13 @@ def main() -> int:
             if on_card != on_cpu:
                 raise AssertionError(f"{arch} {mode}: card {on_card} != "
                                      f"cpu {on_cpu}")
-        if get_reduced(arch).moe_num_experts:
+        # a recurrent stack never chunks its prefill (exact lengths)
+        if get_reduced(arch).moe_num_experts and \
+                not recurrent(get_reduced(arch)):
             moe_chunked_f32(torch, arch)
 
     base_mem = settled(torch)
-    log(f"[5/9] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/10] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
@@ -2371,12 +2684,12 @@ def main() -> int:
         torch.cuda.empty_cache()            # the engines' caches are freed
     log(f"  phase-5 launches: {launches5}")
 
-    log(f"[6/9] the gateway entry point (repro_torch.launch.serve) at full "
+    log(f"[6/10] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
     launches6 = serve_gateway(torch, params)
     log(f"  phase-6 launches: {launches6}")
 
-    log(f"[7/9] the chaos entry point (repro_torch.launch.serve_e2e "
+    log(f"[7/10] the chaos entry point (repro_torch.launch.serve_e2e "
         f"--chaos) at full width on phase 5's weights: a decode crash and "
         f"a spot preemption with graphed decode chunks")
     log(smi.splitlines()[0])
@@ -2385,7 +2698,7 @@ def main() -> int:
     launches = {k: launches5[k] + launches6[k] + launches7[k]
                 for k in launches5}
 
-    log("[8/9] the other dense configs at full width: stablelm-3b, "
+    log("[8/10] the other dense configs at full width: stablelm-3b, "
         "gemma-2b, h2o-danube-3-4b, command-r-35b")
     log(smi.splitlines()[0])
     del params, pre
@@ -2406,11 +2719,26 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[9/9] the MoE and VLM configs at published widths: "
+    log("[9/10] the MoE and VLM configs at published widths: "
         "llava-next-mistral-7b (32 layers), qwen3-moe-235b-a22b (8 of 94 "
         "layers), llama4-maverick-400b-a17b (2 of 48 layers)")
     log(smi.splitlines()[0])
     for arch in PHASE9:
+        got = serve_arch(torch, arch)
+        log(f"  {arch} launches: {got}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        mem = settled(torch)
+        log(f"  {arch} dropped: {mem:,} bytes allocated, {base_mem:,} "
+            f"before phase 5")
+        if mem > base_mem:
+            raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
+                                 f"allocated after its run")
+
+    log("[10/10] the recurrent and encoder-decoder configs at published "
+        "widths: xlstm-125m, jamba-v0.1-52b (16 of 32 layers), "
+        "whisper-base")
+    log(smi.splitlines()[0])
+    for arch in PHASE10:
         got = serve_arch(torch, arch)
         log(f"  {arch} launches: {got}")
         launches = {k: launches[k] + got[k] for k in launches}

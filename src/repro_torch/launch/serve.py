@@ -17,11 +17,13 @@ defaults except:
   TPU fleet profile) and ``--arch`` the configs the port has: LLaMA-30B,
   the dense stablelm-3b, gemma-2b, h2o-danube-3-4b and command-r-35b,
   the MoE qwen3-moe-235b-a22b and llama4-maverick-400b-a17b, and the VLM
-  llava-next-mistral-7b, served on text prompts (``--arch gemma-2b
-  --reduced --device cpu`` on the CPU, ``--arch gemma-2b`` at full width
-  on the card). A config whose bf16 weights exceed the card's memory
-  (both MoE configs at full depth) is refused with the bytes it needs
-  before any weight is made;
+  llava-next-mistral-7b, served on text prompts, the hybrid
+  jamba-v0.1-52b and the xLSTM xlstm-125m (``--arch gemma-2b --reduced
+  --device cpu`` on the CPU, ``--arch gemma-2b`` at full width on the
+  card). A config whose bf16 weights exceed the card's memory (both MoE
+  configs and jamba at full depth) is refused with the bytes it needs
+  before any weight is made; whisper-base is refused too, as its prompts
+  need frame embeddings the engines cannot take;
 * random weights come from ``init_params(cfg, seed=0)`` on the device;
 * ``backend=`` is left at its default: on the card the kernels run, and
   each decode chunk is one CUDA graph replay;
@@ -137,6 +139,18 @@ def device_line(device) -> str:
     return f"device: {smi.splitlines()[0]}"
 
 
+def check_servable(cfg):
+    """Refuse whisper-base: the engines build token-only prefill batches,
+    as the reference's do, and cannot prefill audio (its frames reach the
+    model only through ``registry.build(cfg).prefill``)."""
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the serving engines cannot prefill audio (their "
+            f"prefill batches hold tokens only, as the reference's do); "
+            f"run it through registry.build(cfg).prefill with "
+            f"frame_embeds, then DecodeEngine")
+
+
 def check_fits(cfg, device):
     """Refuse, before any weight is made, a config whose bf16 weights
     exceed the card's memory."""
@@ -168,6 +182,7 @@ def run(argv=None, params=None, cfg=None):
         cfg, size = get_reduced(args.arch), "reduced"
     else:
         cfg, size = cfg_full, "full"
+    check_servable(cfg)
     if params is None:
         check_fits(cfg, args.device)
     slo = SloSpec(ttft_s=2.0, tpot_s=0.15, e2e_s=30.0)

@@ -29,6 +29,9 @@ flags and trace, except:
   the reduced config, and by 1 at full width (the wire is the full
   model's already);
 * the chaos message prints the times the events are scheduled at;
+* ``--arch`` takes every config but whisper-base (its prompts need frame
+  embeddings the engines cannot take); ``--arch xlstm-125m`` migrates
+  recurrent state in the chaos run;
 * ``run`` returns the results, the chaos controller's ``fired`` list and
   the dead decode replicas.
 """
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config, get_reduced
-from repro_torch.launch.serve import device_line
+from repro_torch.launch.serve import check_servable, device_line
 from repro_torch.models.transformer import cache_dtype, init_params
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine
 from repro_torch.serving.faults import (CRASH, PREEMPT, FaultEvent,
@@ -152,6 +155,7 @@ def run(argv=None, params=None):
         raise RuntimeError("serve_e2e: no CUDA device; pass --device cpu "
                            "to run the plain versions on the CPU")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    check_servable(cfg)
     print(f"model {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab_size} on {args.device}")
     print(device_line(args.device))

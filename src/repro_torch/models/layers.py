@@ -9,9 +9,15 @@ reference's jnp code). LayerNorm is plain jnp in the reference and plain
 PyTorch here.
 
 A norm's parameters follow ``cfg.norm_type``: an RMSNorm is its ``(d,)``
-f32 scale tensor, a LayerNorm the dict ``{"scale", "bias"}`` of two.
+f32 scale tensor, a LayerNorm the dict ``{"scale", "bias"}`` of two. A
+projection ``w`` with a bias (``cfg.attn_bias``, ``cfg.mlp_bias``, and
+the gate projections of the recurrent blocks) keeps it beside it as
+``w_b``: ``{"wq": ..., "wq_b": ...}`` where the reference nests
+``{"wq": {"w", "b"}}``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -92,14 +98,51 @@ def apply_rope(x, positions, *, rotary_pct: float = 1.0,
     return torch.cat([out, xp], dim=-1) if rot_dim < x.shape[-1] else out
 
 
+def sinusoidal_pos(positions, d_model: int):
+    """The reference's absolute positions (whisper): ``sin`` then ``cos``
+    of ``positions (...)`` over ``d_model / 2`` frequencies, f32
+    ``(..., d_model)``."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def dense(w, x, b=None):
     y = x @ w
     return y if b is None else y + b
 
 
+def proj(p, name, x):
+    """``x @ p[name]``, plus its bias ``p[name + "_b"]`` where it has one."""
+    return dense(p[name], x, p.get(name + "_b"))
+
+
+def causal_conv1d(x, w, b=None, state=None):
+    """Depthwise causal conv over time (Mamba, mLSTM), the reference's:
+    x (B, S, C), taps w (K, C), optional bias b (C,), ``state (B, K-1,
+    C)`` the inputs carried from before (zeros if None). The taps are
+    summed in f32 in the reference's order and cast to x's type. Returns
+    ``(y, new_state)``: new_state is the last K-1 inputs, in the type
+    the state and x promote to (the decode cache casts it back to its
+    own)."""
+    B, S, C = x.shape
+    K = w.shape[0]
+    if state is None:
+        state = x.new_zeros((B, K - 1, C))
+    xx = torch.cat([state, x], dim=1)
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(K):
+        y = y + xx[:, i:i + S].float() * w[i].float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype), xx[:, S:]
+
+
 def mlp_apply(cfg, p, x):
     """SwiGLU / GeGLU / GELU MLP; ``wi``'s output splits as (gate, up)."""
-    h = dense(p["wi"], x)
+    h = proj(p, "wi", x)
     if cfg.mlp_type in ("silu", "geglu"):
         g, u = torch.chunk(h, 2, dim=-1)
         act = F.silu(g) if cfg.mlp_type == "silu" else \
@@ -107,7 +150,7 @@ def mlp_apply(cfg, p, x):
         h = act * u
     else:
         h = F.gelu(h, approximate="tanh")
-    return dense(p["wo"], h)
+    return proj(p, "wo", h)
 
 
 def model_rope(cfg, positions):
@@ -124,9 +167,9 @@ def attn_qkv(cfg, p, x, positions, rope=None):
     is the call's :func:`model_rope` table, shared by every layer; without
     it each rotation builds its own."""
     B, S, _ = x.shape
-    q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = proj(p, "wq", x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = proj(p, "wk", x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = proj(p, "wv", x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = ops.rmsnorm(q, p["qnorm"])
         k = ops.rmsnorm(k, p["knorm"])

@@ -1,0 +1,115 @@
+"""Mamba, the selective SSM of the jamba hybrid (the port of
+``repro.models.mamba``).
+
+Prefill runs the diagonal recurrence ``h_t = dA_t * h_(t-1) + dBx_t``
+over chunks of at most 512 steps. PyTorch has no ``associative_scan``:
+each chunk is a doubling (Hillis-Steele) scan in f32, log2(c + 1) rounds
+over the ``(B, c + 1, d_inner, d_state)`` pairs, with the carried state
+as an extra first step whose ``dA`` is 1 (the reference's form). It adds
+in another order than ``lax.associative_scan``, so the two agree to f32
+rounding. The scan is plain PyTorch because the reference's is jnp, not
+a Pallas kernel. Decode is one step of the recurrence over the carried
+``(conv_state, ssm_state)``.
+
+Parameters, one dict a layer: ``in_proj (d, 2 di)``, ``conv_w (d_conv,
+di)`` and ``conv_b (di,)`` bf16, ``x_proj (di, dt_rank + 2 d_state)``,
+``dt_proj (dt_rank, di)`` bf16 and its f32 bias ``dt_proj_b (di,)``,
+``A_log (di, d_state)`` and ``D (di,)`` f32, ``out_proj (di, d)``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import causal_conv1d, dense
+
+CHUNK = 512            # steps a prefill chunk scans at once
+
+
+def _selective_terms(cfg, p, xc):
+    """dA, dBx (B, S, di, ds) f32 and C (B, S, ds) f32 of the conv's
+    output xc (B, S, di)."""
+    ds, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
+    proj = dense(p["x_proj"], xc).float()
+    dt_r, Bm, Cm = torch.split(proj, [dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt_r @ p["dt_proj"].float() + p["dt_proj_b"])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[..., None] * A)
+    dBx = (dt * xc.float())[..., None] * Bm[..., None, :]
+    return dA, dBx, Cm
+
+
+def _front(cfg, p, x, conv_state):
+    """in_proj, the conv and its SiLU: (xc, z, conv_state)."""
+    x_, z = torch.chunk(dense(p["in_proj"], x), 2, dim=-1)
+    xc, conv_state = causal_conv1d(x_, p["conv_w"], p["conv_b"], conv_state)
+    return F.silu(xc.float()).to(x.dtype), z, conv_state
+
+
+def _back(p, y, xc, z, dtype):
+    y = y + p["D"] * xc.float()
+    y = y * F.silu(z.float())
+    return dense(p["out_proj"], y.to(dtype))
+
+
+def doubling_scan(a, b):
+    """Inclusive scan of the pairs (a, b) along dim 1 under
+    ``(a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2)``, in place in ``b``
+    (``a`` is overwritten too): after round r, step t holds the
+    composition of steps t - 2^r + 1 .. t. Returns ``b``, whose step t is
+    ``h_t``."""
+    n, d = a.shape[1], 1
+    while d < n:
+        t = a[:, d:] * b[:, :-d]
+        t += b[:, d:]
+        b[:, d:] = t
+        del t
+        if 2 * d < n:
+            a[:, d:] = a[:, d:] * a[:, :-d]
+        d *= 2
+    return b
+
+
+def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None):
+    """The full-sequence path over x (B, S, d); ``state`` an optional
+    carried (conv_state, ssm_state). Returns (out, new state)."""
+    B, S, _ = x.shape
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    conv_state = state[0] if state is not None else None
+    h = (state[1] if state is not None else
+         torch.zeros((B, di, ds), dtype=torch.float32, device=x.device))
+    xc, z, conv_state = _front(cfg, p, x, conv_state)
+    c = min(chunk, S)
+    n = -(-S // c)
+    xcp = F.pad(xc, (0, 0, 0, n * c - S))
+    ys = []
+    for i in range(n):
+        dA, dBx, Cm = _selective_terms(cfg, p, xcp[:, i * c:(i + 1) * c])
+        # the carried state enters as an extra first step with dA = 1
+        a = torch.cat([torch.ones_like(dA[:, :1]), dA], dim=1)
+        del dA
+        b = torch.cat([h[:, None], dBx], dim=1)
+        del dBx
+        hs = doubling_scan(a, b)
+        del a
+        h = hs[:, -1].clone()
+        ys.append(torch.einsum("bcns,bcs->bcn", hs[:, 1:], Cm))
+        del hs, b
+    y = torch.cat(ys, dim=1)[:, :S]
+    return _back(p, y, xc, z, x.dtype), (conv_state, h)
+
+
+def mamba_decode_step(cfg, p, x, state):
+    """One token, x (B, 1, d); state (conv_state, ssm_state)."""
+    conv_state, h = state
+    xc, z, conv_state = _front(cfg, p, x, conv_state)
+    dA, dBx, Cm = _selective_terms(cfg, p, xc)        # (B, 1, di, ds)
+    h = dA[:, 0] * h + dBx[:, 0]
+    y = torch.einsum("bns,bs->bn", h, Cm[:, 0])[:, None]
+    return _back(p, y, xc, z, x.dtype), (conv_state, h)
+
+
+def mamba_state_init(cfg, batch: int, dtype=torch.bfloat16, device="cuda"):
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    return (torch.zeros((batch, dc - 1, di), dtype=dtype, device=device),
+            torch.zeros((batch, di, ds), dtype=torch.float32, device=device))

@@ -31,7 +31,6 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kv_layout import pick_group
 from repro_torch.models import layers
-from repro_torch.models.layers import dense
 from repro_torch.models.transformer import (embed, run_layers,
                                            unembed_matrix)
 
@@ -137,7 +136,8 @@ def decode_step_paged(cfg, params, cache, tokens, *,
         qr = q[:, 0].reshape(B, Hkv, gq, hd).contiguous()
         o = ops.paged_decode_attention(qr, kpages, vpages, pt, kv_len,
                                        page_size=ps, backend=backend)
-        return dense(p["attn"]["wo"], o.reshape(B, 1, cfg.q_dim).to(h.dtype))
+        return layers.proj(p["attn"], "wo",
+                           o.reshape(B, 1, cfg.q_dim).to(h.dtype))
 
     _, h = run_layers(cfg, params, x, attend, backend=backend)
     logits = (h @ unembed_matrix(cfg, params)).float()

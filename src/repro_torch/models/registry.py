@@ -1,15 +1,18 @@
 """Model API over the ported families (``repro.models.registry``).
 
-``build(cfg)`` returns a :class:`ModelApi` for the pure-attention
-families ported so far: dense (the LLaMA-style stack and its variants in
-the registered configs: LayerNorm, a parallel block, an embedding scale,
-tied embeddings, partial rotary, a sliding window, q/k norms), MoE
-(``models/moe.py``) and the VLM (patch embeddings in front of the text,
-at the model API only, as the reference's engines never pass them).
-Other families, and options no registered config uses (biases), raise
-``NotImplementedError`` naming their ROADMAP item. ``decode``
-and ``decode_chunk`` step the dense cache (``transformer.decode_step``),
-``paged_decode_fns`` the page pool. ``make_decode_chunk`` turns a single
+``build(cfg)`` returns a :class:`ModelApi` for every family of the
+reference: dense (the LLaMA-style stack and its variants in the
+registered configs: LayerNorm, a parallel block, an embedding scale,
+tied embeddings, partial rotary, a sliding window, q/k norms, biases),
+MoE (``models/moe.py``), the VLM (patch embeddings in front of the text,
+at the model API only, as the reference's engines never pass them), the
+hybrid and SSM stacks (``models/mamba.py``, ``models/xlstm.py``: jamba,
+xlstm) and the audio encoder-decoder (``models/whisper.py``: its prefill
+takes ``frame_embeds`` beside the tokens). ``decode`` and
+``decode_chunk`` step the dense cache (``transformer.decode_step`` or
+``whisper.decode_step``), ``paged_decode_fns`` the page pool, where
+``paged.paged_supported`` (pure full-attention stacks); elsewhere it and
+``prefill_suffix`` are None. ``make_decode_chunk`` turns a single
 decode step into the engine's multi-token greedy loop: the reference's
 device ``lax.scan`` becomes a Python loop over steps whose state (current
 tokens, active flags, token counts) stays in device tensors, so a chunk
@@ -28,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import paged, transformer
+from repro_torch.models import paged, transformer, whisper
 
 
 @dataclass
@@ -54,10 +57,12 @@ def make_decode_chunk(decode_fn: Callable) -> Callable:
     (B,) int32}. Returns (tokens (n_steps, B) int32 with -1 where a slot
     was inactive, valid (n_steps, B) bool, cache, state). Inactive slots
     keep their old lengths: the new lengths are computed out of place and
-    selected with ``torch.where``. The chunk ends by copying its final
-    lengths into ``cache["lengths"]``, so the cache returned is the one
-    passed in, every tensor where it was (what a CUDA graph of the chunk
-    needs). Nothing in the loop reads a device value on the host (no
+    selected with ``torch.where``. Only the lengths are frozen, as in the
+    reference: an inactive slot's K/V row and recurrent states are still
+    written, and admission overwrites all of a slot's state. The chunk
+    ends by copying its final lengths into ``cache["lengths"]``, so the
+    cache returned is the one passed in, every tensor where it was (what
+    a CUDA graph of the chunk needs). Nothing in the loop reads a device value on the host (no
     ``.item()``, ``int()``, ``.cpu()`` or boolean masks)."""
 
     def decode_chunk(params, cache, state, *, n_steps: int, eos_id: int,
@@ -233,23 +238,20 @@ class GraphedDecodeChunk:
         return toks, valid, cache, st
 
 
-# families the port has not reached, by the ROADMAP item that ports them
-_UNPORTED = {"hybrid": "A.8 (Mamba/jamba)", "ssm": "A.8 (xLSTM)",
-             "audio": "A.8 (whisper)"}
-
-
 def build(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP {_UNPORTED[cfg.family]})")
-    if cfg.family not in ("dense", "moe", "vlm") or \
-            cfg.norm_type not in ("rmsnorm", "layernorm") or \
-            cfg.attn_bias or cfg.mlp_bias:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with norm {cfg.norm_type!r}"
-            f" and biases (attn {cfg.attn_bias}, mlp {cfg.mlp_bias}) is "
-            f"not ported; see ROADMAP queue A")
+    if cfg.family == "audio":
+        def prefill_fn(params, batch, *, max_seq=None):
+            return whisper.prefill(
+                cfg, params, batch["tokens"], batch["frame_embeds"],
+                max_seq=max_seq or batch["tokens"].shape[1],
+                last_pos=batch.get("last_pos"),
+                true_len=batch.get("true_len"))
+
+        def decode_fn(params, cache, tokens):
+            return whisper.decode_step(cfg, params, cache, tokens)
+
+        return ModelApi(cfg=cfg, prefill=prefill_fn, decode=decode_fn,
+                        decode_chunk=make_decode_chunk(decode_fn))
 
     def prefill_fn(params, batch, *, max_seq=None):
         S = batch["tokens"].shape[1]

@@ -54,7 +54,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, mamba, moe, xlstm
 from repro_torch.models.layers import dense
 
 
@@ -87,64 +87,149 @@ def slot_kinds(cfg):
     return kinds[:p]
 
 
+class ParamMaker:
+    """Random weights with the reference's scales, drawn directly in their
+    type on ``device`` from one ``torch.Generator``, one tensor at a time
+    (LLaMA-30B's 65 GB of bf16 weights, or one llama4 expert ``wi`` of
+    21.5 GB, never pass through an f32 temporary). Shared by the decoder
+    stacks here and ``models/whisper.py``."""
+
+    def __init__(self, cfg, seed: int, device, dtype):
+        self.cfg, self.dtype = cfg, dtype
+        self.dev = torch.device(device)
+        self.gen = torch.Generator(device=self.dev).manual_seed(seed)
+
+    def normal(self, shape, scale, dt=None):
+        return torch.randn(shape, generator=self.gen, device=self.dev,
+                           dtype=dt or self.dtype).mul_(scale)
+
+    def proj(self, name, d_in, d_out, *, bias=False, scale=None):
+        """``{name: (d_in, d_out)}`` (normal * 1/sqrt(d_in) unless
+        ``scale``), with a zero bias ``name_b`` where asked (the port's
+        layout of the reference's ``dense_init``)."""
+        out = {name: self.normal((d_in, d_out),
+                                 scale or 1 / math.sqrt(d_in))}
+        if bias:
+            out[name + "_b"] = self.zeros(d_out)
+        return out
+
+    def zeros(self, n, dt=None):
+        return torch.zeros((n,), dtype=dt or self.dtype, device=self.dev)
+
+    def norm(self, n=None):
+        """An RMSNorm's zero scale, or a LayerNorm's unit scale and zero
+        bias."""
+        zeros = self.zeros(n or self.cfg.d_model, torch.float32)
+        if self.cfg.norm_type == "rmsnorm":
+            return zeros
+        return {"scale": torch.ones_like(zeros), "bias": zeros}
+
+    def mlp(self, f=None):
+        cfg, d = self.cfg, self.cfg.d_model
+        f = f or cfg.d_ff
+        gated = cfg.mlp_type in ("silu", "geglu")
+        return {**self.proj("wi", d, 2 * f if gated else f,
+                            bias=cfg.mlp_bias),
+                **self.proj("wo", f, d, bias=cfg.mlp_bias)}
+
+    def attn(self):
+        cfg, d, b = self.cfg, self.cfg.d_model, self.cfg.attn_bias
+        attn = {**self.proj("wq", d, cfg.q_dim, bias=b),
+                **self.proj("wk", d, cfg.kv_dim, bias=b),
+                **self.proj("wv", d, cfg.kv_dim, bias=b),
+                **self.proj("wo", cfg.q_dim, d, bias=b)}
+        if cfg.qk_norm:
+            attn["qnorm"] = self.norm(cfg.head_dim)
+            attn["knorm"] = self.norm(cfg.head_dim)
+        return attn
+
+    def moe(self):
+        cfg, d = self.cfg, self.cfg.d_model
+        E, f = cfg.moe_num_experts, cfg.moe_d_ff
+        gated = cfg.mlp_type in ("silu", "geglu")
+        out = {"router": self.normal((d, E), 1 / math.sqrt(d),
+                                     torch.float32),
+               "wi": self.normal((E, d, 2 * f if gated else f),
+                                 1 / math.sqrt(d)),
+               "wo": self.normal((E, f, d), 1 / math.sqrt(f))}
+        if cfg.moe_shared_expert:
+            out["shared"] = self.mlp(f)
+        return out
+
+    def mamba(self):
+        cfg, d = self.cfg, self.cfg.d_model
+        di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+        dtr = cfg.mamba_dt_rank
+        f32 = dict(dtype=torch.float32, device=self.dev)
+        # S4D-real A, and dt's bias the inverse softplus of a dt drawn
+        # log-uniform in [0.001, 0.1]
+        A = torch.arange(1, ds + 1, **f32)[None, :].repeat(di, 1)
+        u = torch.rand((di,), generator=self.gen, **f32)
+        dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                       + math.log(0.001))
+        return {**self.proj("in_proj", d, 2 * di),
+                "conv_w": self.normal((dc, di), 1 / math.sqrt(dc)),
+                "conv_b": self.zeros(di),
+                **self.proj("x_proj", di, dtr + 2 * ds),
+                "dt_proj": self.normal((dtr, di), dtr ** -0.5),
+                "dt_proj_b": torch.log(torch.exp(dt) - 1.0 + 1e-9),
+                "A_log": torch.log(A), "D": torch.ones((di,), **f32),
+                **self.proj("out_proj", di, d)}
+
+    def mlstm(self):
+        cfg, d = self.cfg, self.cfg.d_model
+        di, H = 2 * d, cfg.num_heads
+        return {**self.proj("w_up", d, 2 * di),
+                "conv_w": self.normal((4, di), 0.5),
+                "conv_b": self.zeros(di),
+                **self.proj("wq", di, di), **self.proj("wk", di, di),
+                **self.proj("wv", di, di),
+                **self.proj("w_if", di, 2 * H, bias=True),
+                "skip": torch.ones((di,), dtype=torch.float32,
+                                   device=self.dev),
+                "gn": self.zeros(di, torch.float32),
+                **self.proj("w_down", di, d)}
+
+    def slstm(self):
+        cfg, d = self.cfg, self.cfg.d_model
+        H = cfg.num_heads
+        dh, f = d // H, xlstm.slstm_ffn_width(cfg)
+        return {**self.proj("w_in", d, 4 * d, bias=True),
+                "r": self.normal((4, H, dh, dh), 1 / math.sqrt(dh),
+                                 torch.float32),
+                "gn": self.zeros(d, torch.float32),
+                **self.proj("ffn_wi", d, f), **self.proj("ffn_wo", f // 2, d)}
+
+
 def init_params(cfg, *, seed: int = 0, device="cuda",
                 dtype=torch.bfloat16):
     """Random weights with the reference's scales (normal * 1/sqrt(d_in),
     embed * 0.02; RMSNorm scales zero, LayerNorm scales one and biases
-    zero; a MoE router f32). Each tensor is drawn directly in its type on
-    ``device`` from one ``torch.Generator``, one tensor at a time:
-    LLaMA-30B's 65 GB of bf16 weights, or one llama4 expert ``wi`` of
-    21.5 GB, never pass through an f32 temporary. The numbers differ from
-    ``jax.random``'s; parity tests convert the JAX weights instead."""
-    dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    gated = cfg.mlp_type in ("silu", "geglu")
-
-    def normal(shape, scale, dt=dtype):
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=dt).mul_(scale)
-
-    def norm(n=d):
-        zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
-        if cfg.norm_type == "rmsnorm":
-            return zeros
-        return {"scale": torch.ones_like(zeros), "bias": zeros}
-
-    def mlp(f):
-        return {"wi": normal((d, 2 * f if gated else f), 1 / math.sqrt(d)),
-                "wo": normal((f, d), 1 / math.sqrt(f))}
-
+    zero; a MoE router f32; the recurrent blocks' f32 states' parameters
+    as the reference's inits), made by :class:`ParamMaker`. A layer holds
+    its mixer under its kind (``attn``, ``mamba``, ``mlstm``, ``slstm``)
+    and its FFN (``mlp``, ``moe``, or none: an xLSTM block carries its
+    own). The numbers differ from ``jax.random``'s; parity tests convert
+    the JAX weights instead."""
+    mk = ParamMaker(cfg, seed, device, dtype)
+    d = cfg.d_model
     blocks = []
     for kind in cfg.layer_kinds():
-        attn = {"wq": normal((d, qd), 1 / math.sqrt(d)),
-                "wk": normal((d, kvd), 1 / math.sqrt(d)),
-                "wv": normal((d, kvd), 1 / math.sqrt(d)),
-                "wo": normal((qd, d), 1 / math.sqrt(qd))}
-        if cfg.qk_norm:
-            attn["qnorm"] = norm(cfg.head_dim)
-            attn["knorm"] = norm(cfg.head_dim)
-        blk = {"norm1": norm(), "attn": attn}
-        if kind.endswith("+moe"):
-            E, f = cfg.moe_num_experts, cfg.moe_d_ff
-            blk["moe"] = {
-                "router": normal((d, E), 1 / math.sqrt(d), torch.float32),
-                "wi": normal((E, d, 2 * f if gated else f),
-                             1 / math.sqrt(d)),
-                "wo": normal((E, f, d), 1 / math.sqrt(f))}
-            if cfg.moe_shared_expert:
-                blk["moe"]["shared"] = mlp(f)
-        else:
-            blk["mlp"] = mlp(cfg.d_ff)
-        if not (cfg.parallel_block and "mlp" in blk):
-            blk["norm2"] = norm()
+        mix, ffn = kind.split("+")
+        blk = {"norm1": mk.norm(), mix: getattr(mk, mix)()}
+        if ffn == "moe":
+            blk["moe"] = mk.moe()
+        elif ffn == "mlp":
+            blk["mlp"] = mk.mlp()
+        if ffn != "none" and not (cfg.parallel_block and "mlp" in blk):
+            blk["norm2"] = mk.norm()
         blocks.append(blk)
-    params = {"embed": normal((cfg.vocab_size, d), 0.02), "layers": blocks,
-              "final_norm": norm()}
+    params = {"embed": mk.normal((cfg.vocab_size, d), 0.02),
+              "layers": blocks, "final_norm": mk.norm()}
     if not cfg.tie_embeddings:
-        params["unembed"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
+        params["unembed"] = mk.normal((d, cfg.vocab_size), 1 / math.sqrt(d))
     if cfg.family == "vlm":
-        params["mm_projector"] = normal((d, d), 1 / math.sqrt(d))
+        params["mm_projector"] = mk.normal((d, d), 1 / math.sqrt(d))
     return params
 
 
@@ -185,26 +270,70 @@ def cache_rows(cfg, max_seq: int) -> int:
         else max_seq
 
 
+def recurrent(cfg) -> bool:
+    """Whether the stack holds a recurrent mixer (jamba's Mamba layers,
+    xLSTM's mLSTM and sLSTM blocks)."""
+    return any(k.split("+")[0] != "attn" for k in cfg.layer_kinds())
+
+
+def _slot_cache(cfg, mix, n, batch, max_seq, dtype, device):
+    """The cache of one slot of a recurrent stack: its ``n`` layers'
+    attention K/V (``dtype``) or recurrent states (the reference's
+    ``_mix_cache_init``: conv states in ``dtype``, the others f32, ``m``
+    at -1e30)."""
+    if mix == "attn":
+        shape = (n, batch, cache_rows(cfg, max_seq), cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {key: torch.zeros(shape, dtype=dtype, device=device)
+                for key in ("k", "v")}
+    if mix == "mamba":
+        st = dict(zip(("conv", "ssm"), mamba.mamba_state_init(
+            cfg, batch, dtype, device)))
+    elif mix == "mlstm":
+        st = dict(zip("Cnm", xlstm.mlstm_state_init(cfg, batch, device)))
+        st["conv"] = torch.zeros((batch, 3, 2 * cfg.d_model), dtype=dtype,
+                                 device=device)
+    else:
+        st = dict(zip("cnhm", xlstm.slstm_state_init(cfg, batch, device)))
+    return {key: torch.stack([t] * n) for key, t in st.items()}
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
                device="cuda"):
+    """The dense decode cache. A pure-attention stack's is ``{"slot0":
+    {"k", "v": (L, B, rows, Hkv, hd)}, "lengths"}``; a recurrent stack's
+    is the reference's slotted one: ``{"slot{s}": ...}`` for each slot s
+    of the period, stacked over its ``L / period`` layers (layer i is
+    slot ``i % period``, index ``i // period``), holding attention K/V or
+    the recurrent states (:func:`_slot_cache`)."""
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if recurrent(cfg):
+        kinds = slot_kinds(cfg)
+        n = cfg.num_layers // len(kinds)
+        cache = {f"slot{s}": _slot_cache(cfg, kind.split("+")[0], n, batch,
+                                         max_seq, dtype, device)
+                 for s, kind in enumerate(kinds)}
+        cache["lengths"] = lengths
+        return cache
     shape = (cfg.num_layers, batch, cache_rows(cfg, max_seq),
              cfg.num_kv_heads, cfg.head_dim)
     return {"slot0": {"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)},
-            "lengths": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device)}
+            "lengths": lengths}
 
 
 def run_layers(cfg, params, x, attend, *, final_norm=True,
                backend: str = "auto"):
     """The residual stream ``x`` through every layer: ``attend(i, p, h)``
-    returns layer i's attention output, projected back to d_model, for the
-    normed input ``h``. Each residual add goes with the norm after it
-    (``layers.add_norm``: one ``ops.add_rmsnorm`` launch on the card for
-    RMSNorm): the attention residual with ``norm2``, the MLP residual with
-    the next layer's ``norm1`` or, after the last layer, with the final
-    norm. A parallel block feeds attention and MLP the same ``h`` and adds
-    ``(x + attn) + mlp``, in that order on every path (the reference's
+    returns layer i's mixer output (attention projected back to d_model,
+    or a recurrent block's) for the normed input ``h``. Each residual add
+    goes with the norm after it (``layers.add_norm``: one
+    ``ops.add_rmsnorm`` launch on the card for RMSNorm): the mixer's
+    residual with ``norm2``, the FFN's with the next layer's ``norm1`` or,
+    after the last layer, with the final norm. A layer with no FFN (an
+    xLSTM block) adds its mixer's output with the next norm directly. A
+    parallel block feeds attention and MLP the same ``h`` and adds ``(x +
+    attn) + mlp``, in that order on every path (the reference's
     ``prefill_suffix``, ``decode_step_inplace`` and paged step do; its
     ``forward`` adds ``x + (attn + mlp)``). Returns ``(x, h)``: the stream
     and its final norm; with ``final_norm=False`` the last add stays
@@ -223,10 +352,12 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
         if cfg.parallel_block and "mlp" in p:
             m = layers.mlp_apply(cfg, p["mlp"], h)
             x = x + o
-        else:
+        elif "norm2" in p:
             x, h = layers.add_norm(cfg, x, o, p["norm2"], backend=backend)
             m = moe.moe_apply(cfg, p["moe"], h)[0] if "moe" in p else \
                 layers.mlp_apply(cfg, p["mlp"], h)
+        else:
+            m = o
         if i + 1 < len(blocks):
             x, h = layers.add_norm(cfg, x, m, blocks[i + 1]["norm1"],
                                    backend=backend)
@@ -268,6 +399,9 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
     sequence is P + S long, and ``last_pos``/``true_len`` count the
     patches (``registry.build``'s prefill shifts them)."""
     _unported(cfg, "prefill", layout=False)
+    if recurrent(cfg):
+        return _prefill_recurrent(cfg, params, tokens, max_seq=max_seq,
+                                  last_pos=last_pos, true_len=true_len)
     dev = tokens.device
     x = embed(cfg, params, tokens, patch_embeds)
     B, S = x.shape[:2]
@@ -289,7 +423,7 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
             v = torch.roll(v[:, -rows:], S % rows, dims=1)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
-        return dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
+        return layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
 
     x, _ = run_layers(cfg, params, x, attend, final_norm=False)
     cache["lengths"] = _lengths(true_len, B, S, dev)
@@ -305,9 +439,9 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     absolute positions ``prefix_len + i``. The returned cache holds only
     the suffix KV (lengths = suffix true lengths). Full attention only,
     as the reference asserts."""
-    if cfg.sliding_window:
-        raise ValueError(f"{cfg.name}: suffix prefill assumes full "
-                         f"attention")
+    if cfg.sliding_window or recurrent(cfg):
+        raise ValueError(f"{cfg.name}: suffix prefill assumes a stack of "
+                         f"full attention")
     _unported(cfg, "suffix prefill", layout=False)
     B, S = tokens.shape
     if S > max_seq:
@@ -327,7 +461,7 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
         o = ops.flash_attention(q, K, V, prefix_len=prefix_len)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
-        return dense(p["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
+        return layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
 
     x, _ = run_layers(cfg, params, x, attend, final_norm=False)
     cache["lengths"] = _lengths(true_len, B, S, dev)
@@ -336,10 +470,13 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
 
 def _unported(cfg, what, *, layout=True):
     """Options no registered config uses, which the kernels do not
-    compute: a logit softcap, and (for the dense decode step) the
-    reference's ``hkv_s`` cache layout."""
+    compute: a logit softcap, a sliding window in a recurrent stack (the
+    reference's jamba long_500k cell), and (for the dense decode step)
+    the reference's ``hkv_s`` cache layout."""
     why = [name for name, on in (
         ("a logit softcap", cfg.attn_logit_softcap),
+        ("a sliding window in a recurrent stack",
+         cfg.sliding_window and recurrent(cfg)),
         ("the hkv_s cache layout",
          layout and cfg.decode_cache_layout == "hkv_s")) if on]
     if why:
@@ -364,35 +501,158 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
     at its own position before it was written. Returns (logits (B, 1, V)
     f32, cache) with ``lengths + 1``."""
     _unported(cfg, "the dense decode step")
+    if recurrent(cfg):
+        return _decode_step_recurrent(cfg, params, cache, tokens,
+                                      backend=backend)
     x = embed(cfg, params, tokens)
-    B = x.shape[0]
     lengths = cache["lengths"]
     positions = lengths[:, None]
-    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // Hkv
     K, V = cache["slot0"]["k"], cache["slot0"]["v"]
-    rows = K.shape[2]
-    bidx = torch.arange(B, device=x.device)
-    if cfg.sliding_window and rows == cfg.sliding_window:
-        w_pos = torch.remainder(lengths.long(), rows)
-        kv_len = torch.clamp(lengths + 1, max=rows).to(torch.int32)
-    else:
-        w_pos = torch.clamp(lengths.long(), max=rows - 1)
-        kv_len = (lengths + 1).to(torch.int32)
-
-    rope = layers.model_rope(cfg, positions)   # once for every layer
+    # once for every layer: the write rows, kv_len and the RoPE table
+    w_pos, kv_len = write_pos(cfg, lengths, K.shape[2])
+    rope = layers.model_rope(cfg, positions)
 
     def attend(i, p, h):
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
-        K[i][bidx, w_pos] = k[:, 0].to(K.dtype)
-        V[i][bidx, w_pos] = v[:, 0].to(V.dtype)
-        o = ops.decode_attention(
-            q[:, 0].reshape(B, Hkv, g, hd).contiguous(),
-            K[i].permute(0, 2, 1, 3), V[i].permute(0, 2, 1, 3), kv_len,
-            backend=backend)
-        return dense(p["attn"]["wo"], o.reshape(B, 1, cfg.q_dim).to(h.dtype))
+        return _decode_attend(cfg, p, h, positions, rope, K[i], V[i],
+                              w_pos, kv_len, backend)
 
     _, h = run_layers(cfg, params, x, attend, backend=backend)
+    logits = (h @ unembed_matrix(cfg, params)).float()
+    new_cache = dict(cache)
+    new_cache["lengths"] = lengths + 1
+    return logits, new_cache
+
+
+def write_pos(cfg, lengths, rows):
+    """((slot index, row) each slot's new K/V lands in, kv_len) of a
+    decode step on a cache of ``rows`` rows (:func:`decode_step`)."""
+    bidx = torch.arange(lengths.shape[0], device=lengths.device)
+    if cfg.sliding_window and rows == cfg.sliding_window:
+        return ((bidx, torch.remainder(lengths.long(), rows)),
+                torch.clamp(lengths + 1, max=rows).to(torch.int32))
+    return ((bidx, torch.clamp(lengths.long(), max=rows - 1)),
+            (lengths + 1).to(torch.int32))
+
+
+def _decode_attend(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
+                   backend):
+    """One layer's decode attention over its cache ``K``/``V`` (B, rows,
+    Hkv, hd): this step's K/V written in place at ``w_pos`` (slot index,
+    row), then ``ops.decode_attention`` over the permuted views,
+    projected back."""
+    B = h.shape[0]
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
+    K[w_pos] = k[:, 0].to(K.dtype)
+    V[w_pos] = v[:, 0].to(V.dtype)
+    o = ops.decode_attention(
+        q[:, 0].reshape(B, Hkv, cfg.num_heads // Hkv, hd).contiguous(),
+        K.permute(0, 2, 1, 3), V.permute(0, 2, 1, 3), kv_len,
+        backend=backend)
+    return layers.proj(p["attn"], "wo",
+                       o.reshape(B, 1, cfg.q_dim).to(h.dtype))
+
+
+# -- recurrent stacks (jamba, xLSTM) ------------------------------------------
+
+
+def _mix_of(cfg, i):
+    """(mixer kind, cache slot, index in the slot) of layer i."""
+    kinds = slot_kinds(cfg)
+    return kinds[i % len(kinds)].split("+")[0], f"slot{i % len(kinds)}", \
+        i // len(kinds)
+
+
+def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len):
+    """:func:`prefill` of a recurrent stack, the reference's ``forward``
+    with ``collect_cache``: attention layers run causal flash attention
+    (jamba has no RoPE: ``model_rope`` is None) and keep their K/V in the
+    cache's type, Mamba and xLSTM layers run their full-sequence paths
+    and keep the states they end with, as those come out (a conv state
+    in the stream's type). The cache is slotted (:func:`init_cache`) and
+    holds the S computed positions. Right padding would run through the
+    recurrences: ``PrefillEngine`` prefills these stacks at exact
+    lengths."""
+    dev = tokens.device
+    x = embed(cfg, params, tokens)
+    B, S = x.shape[:2]
+    if S > max_seq:
+        raise ValueError(f"prompt {S} exceeds max_seq={max_seq}")
+    positions = torch.arange(S, device=dev).expand(B, S)
+    rope = layers.model_rope(cfg, positions)
+    got = [None] * cfg.num_layers
+
+    def mix(i, p, h):
+        kind = _mix_of(cfg, i)[0]
+        if kind == "attn":
+            q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
+            o = ops.flash_attention(q, k, v, causal=True)
+            got[i] = {"k": k.to(cache_dtype(cfg)),
+                      "v": v.to(cache_dtype(cfg))}
+            return layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+        if kind == "mamba":
+            o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h)
+            got[i] = {"conv": conv, "ssm": ssm}
+        elif kind == "mlstm":
+            o, ((C, n, m), conv) = xlstm.mlstm_apply(cfg, p["mlstm"], h)
+            got[i] = {"C": C, "n": n, "m": m, "conv": conv}
+        else:
+            o, st = xlstm.slstm_apply(cfg, p["slstm"], h)
+            got[i] = dict(zip("cnhm", st))
+        return o
+
+    x, _ = run_layers(cfg, params, x, mix, final_norm=False)
+    P = len(slot_kinds(cfg))
+    cache = {f"slot{s}": {key: torch.stack([g[key] for g in got[s::P]])
+                          for key in got[s]} for s in range(P)}
+    del got
+    cache["lengths"] = _lengths(true_len, B, S, dev)
+    return _last_logits(cfg, params, x, last_pos), cache
+
+
+def _decode_step_recurrent(cfg, params, cache, tokens, *, backend):
+    """:func:`decode_step` of a recurrent stack (the reference's
+    ``decode_step_inplace``): attention layers as the pure-attention
+    step, on their slot's K/V; each recurrent layer steps its states and
+    copies them back into the cache IN PLACE (``copy_``, a conv state
+    cast back to the cache's type), so a captured chunk replays on the
+    engine's own tensors. Every slot's state advances, idle ones too (the
+    reference freezes only ``lengths``): admission overwrites all of a
+    slot's state."""
+    x = embed(cfg, params, tokens)
+    lengths = cache["lengths"]
+    positions = lengths[:, None]
+    rope = layers.model_rope(cfg, positions)
+    attn_slots = [cache[f"slot{s}"]["k"].shape[2]
+                  for s, kind in enumerate(slot_kinds(cfg))
+                  if kind.startswith("attn")]
+    if attn_slots:
+        w_pos, kv_len = write_pos(cfg, lengths, attn_slots[0])
+
+    def mix(i, p, h):
+        kind, name, j = _mix_of(cfg, i)
+        slot = cache[name]
+        if kind == "attn":
+            return _decode_attend(cfg, p, h, positions, rope, slot["k"][j],
+                                  slot["v"][j], w_pos, kv_len, backend)
+        if kind == "mamba":
+            o, st = mamba.mamba_decode_step(
+                cfg, p["mamba"], h, (slot["conv"][j], slot["ssm"][j]))
+            new = dict(zip(("conv", "ssm"), st))
+        elif kind == "mlstm":
+            o, st, conv = xlstm.mlstm_decode_step(
+                cfg, p["mlstm"], h, tuple(slot[k][j] for k in "Cnm"),
+                slot["conv"][j])
+            new = dict(zip("Cnm", st), conv=conv)
+        else:
+            o, st = xlstm.slstm_decode_step(
+                cfg, p["slstm"], h, tuple(slot[k][j] for k in "cnhm"))
+            new = dict(zip("cnhm", st))
+        for key, t in new.items():
+            slot[key][j].copy_(t)
+        return o
+
+    _, h = run_layers(cfg, params, x, mix, backend=backend)
     logits = (h @ unembed_matrix(cfg, params)).float()
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1

@@ -10,15 +10,16 @@ chunk is a CUDA graph, captured once per ``n_steps`` and replayed
 (``registry.GraphedDecodeChunk``, the reference's ``jax.jit``);
 ``cuda_graph=False`` keeps the eager loop. Prefill pads prompts to
 power-of-two length buckets and quantizes a whole bucket's KV in one
-kernel launch; sliding-window stacks and VLMs are prefilled at their
-exact lengths instead.
+kernel launch; recurrent and sliding-window stacks and VLMs are
+prefilled at their exact lengths instead.
 
 Ported: ``PrefillEngine`` (bucketed, with the suffix path of partial
 prefix hits and chunked prefill, or exact-length); ``DecodeEngine`` over
 the page pool
 (``paged=True``, int4 pages by default or ``kv_resident="bf16"``, with
-prefix sharing) or over the dense ``(L, max_slots, max_seq, Hkv, hd)``
-cache (``paged=False``), each with ``step()`` and the one-token-per-host-
+prefix sharing) or over the dense cache (``paged=False``, or an arch
+that cannot page: a recurrent stack's slotted states, whisper's self and
+cross K/V), each with ``step()`` and the one-token-per-host-
 round-trip ``step_reference()``; and the phase-switching ``Replica``. The
 port's ``DecodeEngine`` pages by default (the reference's defaults to the
 dense cache): the paged int4 path is the system's main path.
@@ -35,7 +36,7 @@ import torch
 from repro_torch.analysis import sanitizers
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import paged as paged_fmt
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry, transformer, whisper
 from repro_torch.serving import kv_transfer, page_pool, protocol
 from repro_torch.serving.kv_transfer import KVWire
 from repro_torch.serving.page_pool import PagePool, pages_needed
@@ -156,12 +157,16 @@ class PrefillEngine:
     itself padded to a power of two). Logits are gathered at each
     prompt's own last token.
 
-    A sliding-window stack or a VLM is not ``bucketed`` (the reference's
-    rule): a sliding window's prefill builds the ring cache from the true
-    length, so padding would shift the ring, and the reference prefills a
-    VLM at exact lengths. Their prompts are grouped by exact length
-    (:meth:`_run_exact`: no padded row enters attention), and they cannot
-    prefill a suffix, so chunked prefill runs each prompt in one shot."""
+    A recurrent stack (jamba, xLSTM), a sliding-window stack or a VLM is
+    not ``bucketed`` (the reference's rule): padding would run through a
+    recurrence and into its state, a sliding window's prefill builds the
+    ring cache from the true length, so padding would shift the ring, and
+    the reference prefills a VLM at exact lengths. Their prompts are
+    grouped by exact length (:meth:`_run_exact`: no padded row enters the
+    model), and they cannot prefill a suffix, so chunked prefill runs each
+    prompt in one shot. Whisper's prompts need frame embeddings, which
+    the reference's engine never passes: its prefill runs through the
+    model API only (``registry.build(cfg).prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
                  max_batch: int = 4, min_bucket: int = 16, device="cuda"):
@@ -172,7 +177,10 @@ class PrefillEngine:
         self.max_seq = max_seq
         self.max_batch = max_batch
         self.min_bucket = min_bucket
-        self.bucketed = not cfg.sliding_window and cfg.family != "vlm"
+        mixes = ({"attn"} if cfg.family == "audio" else
+                 {k.split("+")[0] for k in cfg.layer_kinds()})
+        self.bucketed = (mixes == {"attn"} and not cfg.sliding_window
+                         and cfg.family != "vlm")
 
     @property
     def supports_suffix(self) -> bool:
@@ -395,9 +403,12 @@ class DecodeEngine:
     shared pages. With ``paged=False`` (or an arch that cannot page:
     ``paged_fallback`` says why) each slot owns a ``max_seq`` column of a
     dense bf16 cache (``min(max_seq, window)`` rows for a sliding-window
-    stack: a ring once a slot passes the window), wires are dequantized
-    into it on admission, and attention runs through the
-    ``decode_attention`` kernel.
+    stack: a ring once a slot passes the window; a recurrent stack's
+    attention layers beside its states, which admission overwrites whole;
+    whisper's self K/V beside its cross K/V), wires are dequantized into
+    it on admission, and attention runs through the ``decode_attention``
+    kernel. A migration snapshot (:meth:`extract_resident`) of a dense
+    engine goes through ``kv_transfer.extract``, recurrent states raw.
 
     On a CUDA device each chunk is one CUDA graph replay
     (``registry.GraphedDecodeChunk``), captured the first time ``step()``
@@ -426,8 +437,8 @@ class DecodeEngine:
         self.paged = bool(paged) and supported
         self.paged_fallback = (
             None if (not paged or supported) else
-            f"{cfg.name}: arch cannot page its decode cache (SWA ring "
-            f"buffer / softcap)")
+            f"{cfg.name}: arch cannot page its decode cache (recurrent "
+            f"state / SWA ring buffer / audio / softcap)")
         if self.paged:
             self.page_size = page_size
             self.table_w = paged_fmt.table_width(max_seq, page_size)
@@ -458,8 +469,9 @@ class DecodeEngine:
             self.prefix_admits = 0
         else:
             # bf16 whatever the model's type, as the reference's cache
-            self.cache = transformer.init_cache(cfg, max_slots, max_seq,
-                                                device=self.device)
+            init = (whisper.init_cache if cfg.family == "audio"
+                    else transformer.init_cache)
+            self.cache = init(cfg, max_slots, max_seq, device=self.device)
             self._decode, self._chunk = self.api.decode, \
                 self.api.decode_chunk
         self.graphs = (registry.GraphedDecodeChunk(

@@ -1,13 +1,24 @@
 """KV-cache wire format for the prefill -> decode transfer (the port of
-``repro.serving.kv_transfer``, attention KV only).
+``repro.serving.kv_transfer``).
 
 One-shot int4 group-wise quantization on the sender (``ops.kv_quant``),
 dequantization (``ops.kv_dequant``) where the receiver needs floats; both
 phases compute in 16 bits. A whole prefill batch is quantized in one
 kernel launch (``extract_batch``). Payloads stay device tensors end to
 end; :meth:`KVWire.materialize` is the single device -> host point, for a
-wire that crosses a real network hop. The reference's recurrent-state and
-encoder-decoder branches are not ported: their families are not either.
+wire that crosses a real network hop.
+
+A cache slot is one of three things, as in the reference: attention K/V
+(``{"k", "v"}``, trimmed to the request and int4-compressed); a
+recurrent stack's states (any other dict: Mamba's ``conv``/``ssm``,
+mLSTM's ``C``/``n``/``m``/``conv``, sLSTM's ``c``/``n``/``h``/``m``),
+which ride raw, a copy of the slot's bytes, so an insert followed by an
+extract gives them back bit for bit; or whisper's flat tensors
+(``self_*``, trimmed to the request and compressed; ``cross_*``, which
+span the encoder's frames and ship whole, carrying their own length).
+Only positional tensors (``k``, ``v``, whisper's ``x``) are ever
+quantized or spliced: the reference's ``compress_wire`` also quantizes
+an mLSTM's 4-D ``C`` state, which the port keeps raw.
 """
 from __future__ import annotations
 
@@ -61,6 +72,11 @@ class KVWire:
         return self
 
 
+# wire keys that index a position (spliced and compressed); the rest are
+# recurrent-state snapshots
+POSITIONAL = ("k", "v", "x")
+
+
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
@@ -101,26 +117,44 @@ def _dequantize(w: WireTensor, backend: str) -> torch.Tensor:
 
 def _extract_one(cache, batch_index: int, length: int, compress: bool,
                  pad_to: Optional[int] = None):
-    """Slice one request out of a prefill cache; returns (slots, pending
-    quantization jobs). With ``pad_to`` the KV is sliced to the padded
-    length (uniform shapes -> one launch for the batch); the true length
-    rides along for trimming after quantization."""
+    """Slice one request out of a prefill or decode cache; returns (slots,
+    pending quantization jobs). With ``pad_to`` positional tensors are
+    sliced to the padded length (uniform shapes -> one launch for the
+    batch); the true length rides along for trimming after
+    quantization."""
     slots: Dict[str, Dict[str, WireTensor]] = {}
     jobs = []
+
+    def positional(key, t, ln, lp):
+        if compress:
+            jobs.append((name, key, t[:, batch_index, :lp], ln))
+        else:
+            x = t[:, batch_index, :ln]                 # (L, len, Hkv, hd)
+            out[key] = WireTensor("raw", {"x": x}, tuple(x.shape),
+                                  _dtype_name(x))
+
     for name, slot in cache.items():
         if name == "lengths":
             continue
         out: Dict[str, WireTensor] = {}
-        s_cache = slot["k"].shape[2]
-        ln = min(length, s_cache)
-        lp = max(min(pad_to, s_cache) if pad_to else ln, ln)
-        for key in ("k", "v"):
-            if compress:
-                jobs.append((name, key, slot[key][:, batch_index, :lp], ln))
-            else:
-                t = slot[key][:, batch_index, :ln]         # (L, len, Hkv, hd)
-                out[key] = WireTensor("raw", {"x": t}, tuple(t.shape),
-                                      _dtype_name(t))
+        if isinstance(slot, dict) and "k" in slot:        # attention K/V
+            s_cache = slot["k"].shape[2]
+            ln = min(length, s_cache)
+            lp = max(min(pad_to, s_cache) if pad_to else ln, ln)
+            for key in ("k", "v"):
+                positional(key, slot[key], ln, lp)
+        elif isinstance(slot, dict):                       # recurrent
+            for key, arr in slot.items():
+                st = arr[:, batch_index].clone()
+                out[key] = WireTensor("raw", {"x": st}, tuple(st.shape),
+                                      _dtype_name(st))
+        else:       # whisper: self_* per token, cross_* the whole encoder
+            per_token = name.startswith("self_")
+            s_cache = slot.shape[2]
+            ln = min(length, s_cache) if per_token else s_cache
+            lp = max(min(pad_to, s_cache) if (pad_to and per_token)
+                     else ln, ln)
+            positional("x", slot, ln, lp)
         slots[name] = out
     return slots, jobs
 
@@ -148,8 +182,10 @@ def extract_batch(cache, requests: Sequence[Tuple[int, int]], *,
     bucket with ``pad_to``), then trim each to its true length."""
     group = None
     if pad_to is not None:
-        span = int(np.prod(cache["slot0"]["k"].shape[-2:]))
-        group = pick_group(span) or None
+        kv = next(s["k"] if isinstance(s, dict) else s
+                  for name, s in cache.items() if name != "lengths"
+                  and (not isinstance(s, dict) or "k" in s))
+        group = pick_group(int(np.prod(kv.shape[-2:]))) or None
         if group is None:
             pad_to = None
     wires: List[KVWire] = []
@@ -172,23 +208,24 @@ def extract_batch(cache, requests: Sequence[Tuple[int, int]], *,
 
 def extract(cache, batch_index: int, length: int, *, compress: bool = True,
             backend: str = "auto") -> KVWire:
-    """One request's KV out of a prefill or dense decode cache (the dense
-    engine's migration snapshot): one ``ops.kv_quant`` launch per distinct
-    tensor shape."""
+    """One request's state out of a prefill or dense decode cache (the
+    dense engine's migration snapshot, recurrent states included): one
+    ``ops.kv_quant`` launch per distinct tensor shape."""
     return extract_batch(cache, [(batch_index, length)], compress=compress,
                          backend=backend)[0]
 
 
 def compress_wire(wire: KVWire, *, backend: str = "auto") -> KVWire:
-    """int4-quantize a raw wire's positional tensors with position-aligned
-    groups (one launch per distinct shape): compressing a spliced chunked
-    wire gives exactly the bytes of a one-shot bucketed extraction."""
+    """int4-quantize a raw wire's positional tensors (``k``, ``v``, ``x``)
+    with position-aligned groups (one launch per distinct shape):
+    compressing a spliced chunked wire gives exactly the bytes of a
+    one-shot bucketed extraction. Recurrent states stay raw."""
     slots: Dict[str, Dict[str, WireTensor]] = {}
     jobs = []
     for name, slot_wire in wire.slots.items():
         out: Dict[str, WireTensor] = {}
         for key, wt in slot_wire.items():
-            if (wt.kind == "raw" and len(wt.orig_shape) == 4
+            if (wt.kind == "raw" and key in POSITIONAL
                     and pick_group(int(np.prod(wt.orig_shape[-2:])))):
                 jobs.append((name, key, wt.payload["x"]))
             else:
@@ -237,7 +274,7 @@ def concat_wires(wires: Sequence[KVWire], *,
                     payload[pk] = cat.reshape(-1, cat.shape[3])
                 out[key] = WireTensor("int4", payload,
                                       (L, sum(lens), Hkv, hd), wts[0].dtype)
-            elif all(len(wt.orig_shape) == 4 for wt in wts):
+            elif key in POSITIONAL:
                 cat = torch.cat([_dequantize(wt, backend) for wt in wts],
                                 dim=1)
                 out[key] = WireTensor("raw", {"x": cat}, tuple(cat.shape),
@@ -285,9 +322,12 @@ def insert(cache, wire: KVWire, batch_index: int, *,
 
 def insert_batch(cache, items: Sequence[Tuple[KVWire, int]], *,
                  backend: str = "auto"):
-    """Insert (wire, slot_index) pairs into a dense ``(L, B, S, Hkv, hd)``
-    decode cache, in place, with one ``ops.kv_dequant`` launch per distinct
-    packed shape across all wires and layers."""
+    """Insert (wire, slot_index) pairs into a dense decode cache, in place
+    (every tensor stays where it was: a captured decode chunk reads it
+    there), with one ``ops.kv_dequant`` launch per distinct packed shape
+    across all wires and layers. Attention K/V fills the slot's first
+    rows; recurrent states overwrite all of the slot's state, cast to the
+    cache's types (an f32 conv state to the cache's bf16)."""
     jobs = [(wi, name, key, wt) for wi, (wire, _) in enumerate(items)
             for name, slot_wire in wire.slots.items()
             for key, wt in slot_wire.items() if wt.kind == "int4"]
@@ -310,12 +350,23 @@ def insert_batch(cache, items: Sequence[Tuple[KVWire, int]], *,
         L = wire.request_len
         for name, slot_wire in wire.slots.items():
             slot = cache[name]
-            upd = min(L, slot["k"].shape[2])
-            for key in ("k", "v"):
+
+            def floats(key):
                 x = deq.get((wi, name, key))
-                if x is None:
-                    x = _dequantize(slot_wire[key], backend)
-                slot[key][:, batch_index, :upd] = x[:, -upd:]
+                return x if x is not None else \
+                    _dequantize(slot_wire[key], backend)
+
+            if "k" in slot_wire:                      # attention K/V
+                upd = min(L, slot["k"].shape[2])
+                for key in ("k", "v"):
+                    slot[key][:, batch_index, :upd] = floats(key)[:, -upd:]
+            elif isinstance(slot, torch.Tensor):      # whisper's flat K/V
+                x = floats("x")                       # cross_*: own length
+                upd = min(x.shape[1], slot.shape[2])
+                slot[:, batch_index, :upd] = x[:, -upd:]
+            else:                                     # recurrent states
+                for key in slot_wire:
+                    slot[key][:, batch_index] = floats(key)
         cache["lengths"][batch_index] = L
     return cache
 

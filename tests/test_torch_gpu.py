@@ -327,6 +327,26 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, P, H, Hkv, hd,
                                rtol=tol)
 
 
+@pytest.mark.parametrize("Sq,Sk,dtype", [(24, 24, "float32"),
+                                         (9, 24, "float32"),
+                                         (33, 70, "bfloat16"),
+                                         (256, 1500, "bfloat16")])
+def test_flash_attention_bidirectional_over_other_keys(cuda, Sq, Sk,
+                                                       dtype):
+    """Whisper's encoder and cross-attention: ``causal=False`` with Sk
+    keys, Sk no multiple of the 64-key tile."""
+    dt = getattr(torch, dtype)
+    gen = _gen(Sq + Sk)
+    q = torch.randn((2, Sq, 8, 64), generator=gen, device=cuda).to(dt)
+    k = torch.randn((2, Sk, 8, 64), generator=gen, device=cuda).to(dt)
+    v = torch.randn((2, Sk, 8, 64), generator=gen, device=cuda).to(dt)
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
 def test_flash_attention_ignores_masked_prefix_keys(cuda):
     """Prefix keys at or past prefix_len (the bucket's right padding) and a
     dummy row's whole prefix are never read into the result."""
@@ -1385,6 +1405,7 @@ def test_head_dims_without_an_instantiation_raise(cuda):
 DENSE_ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b")
 MOE_VLM_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
                  "llava-next-mistral-7b")
+RECURRENT_ARCHS = ("xlstm-125m", "jamba-v0.1-52b")
 
 
 def _arch_modes(arch):
@@ -1397,12 +1418,14 @@ def _arch_modes(arch):
 
 @pytest.mark.parametrize("arch,mode", [(a, m)
                                        for a in DENSE_ARCHS + MOE_VLM_ARCHS
+                                       + RECURRENT_ARCHS
                                        for m in _arch_modes(a)])
 def test_reduced_archs_graphed_tokens_equal_cpu(cuda, arch, mode):
     """Each other config's reduced float32 model decodes the same tokens
     on the card (graphed chunks) as on the CPU, on every decode cache it
     can take; h2o-danube's 32-token window wraps its ring; the MoE
-    configs route in f32 (TF32 off) to the CPU's experts."""
+    configs route in f32 (TF32 off) to the CPU's experts; the recurrent
+    stacks' states are written in place under the graph."""
     import numpy as np
     from repro_torch.configs import get_reduced
     from repro_torch.models.transformer import init_params

@@ -146,16 +146,12 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
 
 
 def test_model_config_copy_matches():
-    """Every arch the port registers, full and reduced: the reference's
-    fields, parameter count and layer kinds."""
+    """The port registers every arch of the reference, in its order, and
+    each, full and reduced, has the reference's fields, parameter count
+    and layer kinds."""
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(JModelConfig)]
-    assert set(ALL_ARCHS) == {"llama-30b", "stablelm-3b", "gemma-2b",
-                              "h2o-danube-3-4b", "command-r-35b",
-                              "qwen3-moe-235b-a22b",
-                              "llama4-maverick-400b-a17b",
-                              "llava-next-mistral-7b"}
-    assert set(ALL_ARCHS) <= set(J_ALL_ARCHS)
+    assert ALL_ARCHS == J_ALL_ARCHS and len(ALL_ARCHS) == 11
     for arch in ALL_ARCHS:
         for mine, theirs in ((get_config(arch), j_get_config(arch)),
                              (get_reduced(arch), j_get_reduced(arch))):
@@ -335,6 +331,9 @@ COPY_DIFFERENCES = {
     "configs/qwen3_moe_235b_a22b.py": {},
     "configs/llama4_maverick_400b_a17b.py": {},
     "configs/llava_next_mistral_7b.py": {},
+    "configs/jamba_v01_52b.py": {},
+    "configs/xlstm_125m.py": {},
+    "configs/whisper_base.py": {},
 }
 
 

@@ -214,19 +214,19 @@ def test_full_width_config_is_llama_30b():
 
 
 def test_unported_families_raise():
-    """What still refuses: a family the port lacks (by its ROADMAP item)
-    and an option no config uses (biases), a residency nobody has, and a
-    dense decode step the plain kernel cannot compute (softcap, the hkv_s
-    layout: ROADMAP A.15). A sliding window, which refused here until its
+    """What still refuses: a residency nobody has, and a dense decode step
+    the plain kernel cannot compute (softcap, the hkv_s layout: ROADMAP
+    A.15). The hybrid, SSM and audio families, which refused here until
+    the recurrent slice (ROADMAP A.8), now build, and so do biases
+    (whisper has them). A sliding window, which refused here until its
     ring cache was ported, now decodes: an 8-row ring of a 16-position
     cache, written at ``lengths % 8``; q/k norms, which refused until the
     MoE slice, now build."""
-    for family, item in (("hybrid", "A.8"), ("ssm", "A.8"),
-                         ("audio", "A.8")):
-        with pytest.raises(NotImplementedError, match=item):
-            build(get_reduced("llama-30b").replace(family=family))
-    with pytest.raises(NotImplementedError):
-        build(get_reduced("llama-30b").replace(attn_bias=True))
+    for arch in ("jamba-v0.1-52b", "xlstm-125m", "whisper-base"):
+        api = build(get_reduced(arch))
+        assert api.decode is not None and api.paged_decode_fns is None
+    assert build(get_reduced("llama-30b").replace(attn_bias=True,
+                                                  mlp_bias=True))
     assert build(get_reduced("llama-30b").replace(qk_norm=True))
     with pytest.raises(ValueError, match="unknown residency"):
         t_paged.init_paged_cache(get_reduced("llama-30b"), 2, 32, 9,
