@@ -172,7 +172,30 @@ before the last line:
    request DONE. Whisper prefills 4 prompts through the model API over
    1500 seeded frame embeddings a prompt, the wires carry the caches into
    the engines, and ``launch.serve`` must refuse it. Its launch counts
-   are summed with phases 5-9.
+   are summed with phases 5-9;
+11. train: the training path, which reaches no kernel (the reference
+   trains through plain jnp; a CUDA kernel has no backward): (a) every
+   registered config reduced in float32, 3 AdamW steps from the same
+   weights and ``PackedLM`` batches on the card and on the CPU, losses
+   within 1e-4 relative and step 1's gradients within 1e-3 relative L2
+   per tensor; (b) LLaMA-30B at full width cut to 8 of its 60 layers
+   (4.71 B parameters, 56.5 GB of bf16 params and grads and f32 AdamW
+   moments) through ``repro_torch.launch.train.run`` for 6 steps at batch
+   4 x seq 512: finite losses and grad norms, the host time a step
+   (median of steps 2-6) against the 8NT + 6dVT compute bound, peak
+   memory against the reckoning, then one more step with its forward,
+   backward and optimizer each under the profiler (device time between
+   CUDA events and summed over kernel records, the 6 largest kernels;
+   the optimizer against its 22-bytes-a-parameter bound); (c)
+   LLaMA-30B cut to 1 layer, 6 steps with async checkpoints every 2
+   steps into a temporary directory (the launcher checks the free space
+   first; removed after), the step-4 checkpoint removed and the run
+   resumed from step 2's (``--resume``): steps 3-5 give the same losses
+   and every byte of the state, and the write and read rates are
+   printed. No kernel
+   launches in the phase (the counts are read before and after), and
+   the memory returns to its level before it. ``CUBLAS_WORKSPACE_CONFIG``
+   is set at the start of the script, before cuBLAS first runs.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -2528,7 +2551,266 @@ def xlstm_chaos(torch, params, device="cuda", reduced=False):
                              f"not DONE {short}, graphs {graphs}")
 
 
+# -- phase 11: training and checkpoints ---------------------------------------
+
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
+TRAIN_ARGV = ["--batch", "4", "--seq", "512"]
+TRAIN_LAYERS, CKPT_LAYERS = 8, 1     # LLaMA-30B's 60 layers cut in depth
+
+
+def reduced_train_case(arch):
+    """(config, params on the CPU, 3 batches as numpy) of ``arch``
+    reduced in f32: ``PackedLM`` batches of 2 x 48 tokens, seeded patch
+    embeddings (VLM) or frames (whisper)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import make_params
+    from repro_torch.training.data import DataConfig, PackedLM
+    cfg = get_reduced(arch).replace(dtype="float32")
+    data = PackedLM(DataConfig(cfg.vocab_size, 48, 2))
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for i in range(3):
+        b = data.batch_at(i)
+        if cfg.family == "vlm":
+            b["patch_embeds"] = rng.standard_normal(
+                (2, 5, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            b["frame_embeds"] = rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        batches.append(b)
+    return cfg, make_params(cfg, "cpu"), batches
+
+
+def grad_rel_err(got, want):
+    """The worst per-tensor relative L2 of ``got`` against ``want``, each
+    against the larger of its own norm and ``TRAIN_GRAD_FLOOR`` of the
+    whole gradient's (a key bias's gradient is zero in exact arithmetic:
+    both sides give rounding noise there)."""
+    total = sum(float(w.double().square().sum()) for w in want) ** 0.5
+    return max(float((g.double() - w.double()).norm())
+               / max(float(w.double().norm()), TRAIN_GRAD_FLOOR * total)
+               for g, w in zip(got, want))
+
+
+def train_reduced(torch, arch, device="cuda"):
+    """Phase 11(a): 3 AdamW steps of ``arch`` reduced in f32 from the same
+    weights and batches on ``device`` and on the CPU: losses within
+    ``TRAIN_LOSS_RTOL`` relative, step 1's gradients within
+    ``TRAIN_GRAD_RTOL`` relative L2 per tensor."""
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    cfg, cpu_params, batches = reduced_train_case(arch)
+    api = build(cfg)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    runs = []
+    for dev in (device, "cpu"):
+        # a copy: the update writes the params in place
+        params = opt.tree_map(lambda t: t.to(dev, copy=True), cpu_params)
+        state, losses, grads1 = opt.adamw_init(params), [], None
+        for b in batches:
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            loss, grads = opt.value_and_grad(api.loss, params, tb)
+            if grads1 is None:
+                grads1 = [g.cpu() for g in opt.tree_leaves(grads)]
+            params, state, _ = opt.adamw_update(ocfg, grads, state, params)
+            losses.append(float(loss))
+        runs.append((losses, grads1))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    grad_err = grad_rel_err(g_card, g_cpu)
+    log(f"  {arch}: losses card {[round(x, 6) for x in l_card]} cpu "
+        f"{[round(x, 6) for x in l_cpu]} (worst {loss_err:.2e} relative), "
+        f"step-1 grads worst {grad_err:.2e} relative L2 over "
+        f"{len(g_cpu)} tensors")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL
+            and all(np.isfinite(l_card))):
+        raise AssertionError(f"{arch}: card vs CPU training: losses "
+                             f"{l_card} vs {l_cpu}, grads {grad_err:.3g}")
+
+
+def profile_device_ms(torch, run, what):
+    """(result, device ms between CUDA events around ``run()``, device ms
+    summed over the profiler's kernel records, records) of ``run()``
+    under the profiler (CUDA activity only); logs ``what``'s 6 largest
+    kernels. The events bracket the work on the stream (autograd's
+    backward runs on its device thread but on the same stream); the
+    records can come back short when the tracer drops some. A CPU
+    rehearsal runs it unprofiled and reads 0."""
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        return run(), 0.0, 0.0, 0
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a.record()
+        out = run()
+        b.record()
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3,
+                    e.count, e.key) for e in prof.key_averages()),
+                  reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    log(f"    {what}: " + "; ".join(f"{ms:.1f} ms x{n} {name[:48]}"
+                                      for ms, n, name in rows[:6]))
+    return (out, a.elapsed_time(b), sum(r[0] for r in rows),
+            sum(r[1] for r in rows))
+
+
+def train_flops(cfg, tokens):
+    """8 N T (forward, backward and the layers' recomputation; N the
+    layers' parameters) plus the unembedding's 6 d V T."""
+    from repro_torch.launch.train import make_params
+    from repro_torch.training import optimizer as opt
+    meta = make_params(cfg, "meta")
+    n_layers = sum(t.numel() for t in opt.tree_leaves(meta["layers"]))
+    return 8 * n_layers * tokens + 6 * cfg.d_model * cfg.vocab_size * tokens
+
+
+def train_full(torch, smi, device="cuda", reduced=False):
+    """Phase 11(b): LLaMA-30B at full width, ``TRAIN_LAYERS`` of its 60
+    layers, 6 steps through ``launch.train.run`` at batch 4 x seq 512;
+    then one more step split into forward, backward and the optimizer,
+    each under the profiler. Returns the numbers it printed. (The CPU
+    rehearsal: ``device="cpu", reduced=True``, the reduced config; its
+    profiles and memory read 0.)"""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, PackedLM
+    cfg = get_reduced("llama-30b") if reduced else \
+        get_config("llama-30b").replace(num_layers=TRAIN_LAYERS)
+    state_b, temps_b = train.train_state_bytes(cfg)
+    n_params = state_b // train.BYTES_PER_PARAM
+    on_card = device == "cuda"
+    base = torch.cuda.memory_allocated() if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = train.run(["--steps", "6", "--device", device] + TRAIN_ARGV,
+                    cfg=cfg)
+    run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    params, state = out["params"], out["opt_state"]
+    losses, gnorms = out["losses"], out["grad_norms"]
+    if len(losses) != 6 or not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"full-width training: losses {losses}, grad "
+                             f"norms {gnorms}")
+    step_ms = float(np.median(out["step_s"][1:])) * 1e3
+    tokens = 4 * 512
+    flops = train_flops(cfg, tokens)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    opt_bound_ms = 22 * n_params / HBM_BYTES_PER_S * 1e3
+    log(smi)
+    log(f"  {cfg.name} cut to {cfg.num_layers} of 60 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params:,} parameters, "
+        f"batch 4 x seq 512, 6 steps in {run_s:.1f} s (weights included)")
+    log(f"  losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}")
+    log(f"  host ms a step (steps 2-6): {[round(s * 1e3, 1) for s in out['step_s'][1:]]}, "
+        f"median {step_ms:.1f} ms, {tokens / step_ms * 1e3:,.0f} tokens/s; "
+        f"8NT + 6dVT = {flops:.3e} FLOPs, {bound_ms:.1f} ms at "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16: "
+        f"{100 * bound_ms / step_ms:.1f}% of peak")
+    log(f"  peak memory {peak:,} bytes over the run; reckoning: "
+        f"{state_b:,} (12 B x {n_params:,} params: bf16 params and grads, "
+        f"f32 m and v) + {temps_b:,} (f32 temporaries of the largest "
+        f"tensor) = {state_b + temps_b:,}")
+
+    # one more step, its three parts profiled apart
+    api = build(cfg.replace(vocab_chunk=512))
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=6)
+    b = PackedLM(DataConfig(cfg.vocab_size, 512, 4)).batch_at(6)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    leaves = opt.tree_leaves(params)
+
+    def forward():
+        with torch.enable_grad():
+            return api.loss(params, tb)
+
+    loss, fwd_ms, fwd_k, fwd_n = profile_device_ms(torch, forward,
+                                                   "forward")
+    grads, bwd_ms, bwd_k, bwd_n = profile_device_ms(
+        torch, lambda: torch.autograd.grad(loss, leaves), "backward")
+    del loss
+    grads = opt.tree_unflatten(params, grads)
+    upd, opt_ms, opt_k, opt_n = profile_device_ms(
+        torch, lambda: opt.adamw_update(ocfg, grads, state, params),
+        "optimizer")
+    del grads, upd
+    log(f"  one step by part (device ms between CUDA events; ms summed "
+        f"over the profiler's kernel records, records): forward "
+        f"{fwd_ms:.1f} ({fwd_k:.1f}, x{fwd_n}), backward {bwd_ms:.1f} "
+        f"({bwd_k:.1f}, x{bwd_n}; the layers' and the loss chunk's "
+        f"recomputation included), optimizer {opt_ms:.1f} ({opt_k:.1f}, "
+        f"x{opt_n}) against its byte bound {opt_bound_ms:.1f} ms (22 B a "
+        f"parameter at 3.35 TB/s)")
+    del out, params, state, leaves, tb
+    return {"step_ms": step_ms, "bound_ms": bound_ms, "flops": flops,
+            "peak": peak, "reckoning": state_b + temps_b,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "opt_ms": opt_ms,
+            "opt_bound_ms": opt_bound_ms}
+
+
+def train_restart(torch, smi, device="cuda", reduced=False):
+    """Phase 11(c): LLaMA-30B at full width cut to ``CKPT_LAYERS`` layer,
+    6 steps through ``launch.train.run`` with async checkpoints every 2
+    steps into a temporary directory (the launcher raises first if the
+    disk cannot hold them), then,
+    the step-4 checkpoint removed (as if the run died before writing it),
+    ``--resume``: steps 3-5 again from step 2's checkpoint, losses and
+    every byte of the final state equal. The directory is removed. (The
+    CPU rehearsal: ``device="cpu", reduced=True``.)"""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.sharded import tree_bytes as ckpt_bytes
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch import train
+    from repro_torch.training import optimizer as opt
+    cfg = get_reduced("llama-30b") if reduced else \
+        get_config("llama-30b").replace(num_layers=CKPT_LAYERS)
+    meta = train.make_params(cfg, "meta")
+    need = ckpt_bytes(train.train_tree(meta, opt.adamw_init(meta), cfg,
+                                       "meta"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        log(f"  {cfg.name} at {cfg.num_layers} layer(s): a checkpoint holds "
+            f"{need:,} bytes; {shutil.disk_usage(tmp).free:,} bytes free "
+            f"under {tmp}")
+        argv = ["--steps", "6", "--ckpt-dir", tmp, "--ckpt-every", "2",
+                "--device", device] + TRAIN_ARGV
+        a = train.run(argv, cfg=cfg)
+        shutil.rmtree(os.path.join(tmp, "step_00000004"))
+        b = train.run(argv + ["--resume"], cfg=cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same_loss = b["losses"] == a["losses"][3:]
+    pairs = list(zip(opt.tree_leaves((a["params"], a["opt_state"])),
+                     opt.tree_leaves((b["params"], b["opt_state"]))))
+    same_state = len(pairs) == len(opt.tree_leaves(a["params"])) * 3 + 1 \
+        and all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+                for x, y in pairs)
+    (s2, wbytes, wsec), (s4, _, wsec4) = a["writes"]
+    rbytes, rsec = b["read"]
+    log(f"  run a losses {[round(x, 4) for x in a['losses']]}; resumed at "
+        f"step {b['start']}: {[round(x, 4) for x in b['losses']]}")
+    log(f"  bit-identical after the restart: losses {same_loss}, state "
+        f"{same_state} ({len(pairs)} tensors)")
+    log(f"  checkpoint write (step {s2}): {wbytes:,} bytes in {wsec:.2f} s, "
+        f"{wbytes / wsec / 1e9:.2f} GB/s (step {s4}: {wsec4:.2f} s); read "
+        f"{rbytes:,} bytes in {rsec:.2f} s, {rbytes / rsec / 1e9:.2f} GB/s")
+    log(smi)
+    if not (same_loss and same_state and b["start"] == 3
+            and rbytes == wbytes == need):
+        raise AssertionError("the restarted run did not continue bit for "
+                             "bit")
+    del a, b, pairs
+    return {"write_gbs": wbytes / wsec / 1e9, "read_gbs": rbytes / rsec / 1e9}
+
+
 def main() -> int:
+    # phase 11's deterministic cuBLAS: set before the process first uses it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -2547,7 +2829,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/10] device")
+    log("[1/11] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -2555,7 +2837,7 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[2/10] build")
+    log("[2/11] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -2563,7 +2845,7 @@ def main() -> int:
     for name, regs, spill in kernel_resources(build.build_log()):
         log(f"  {name}: {regs} registers, {spill}")
 
-    log("[3/10] kernels against their plain versions on the card")
+    log("[3/11] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -2651,7 +2933,7 @@ def main() -> int:
     arch_rows += check_recurrent_shapes(torch, ref, fa, da, rn)
     torch.cuda.empty_cache()
 
-    log("[4/10] reduced configs, float32: card vs plain versions on the CPU")
+    log("[4/11] reduced configs, float32: card vs plain versions on the CPU")
     from repro_torch.configs import ALL_ARCHS, get_reduced
     from repro_torch.models.paged import paged_supported
     from repro_torch.models.transformer import recurrent
@@ -2672,7 +2954,7 @@ def main() -> int:
             moe_chunked_f32(torch, arch)
 
     base_mem = settled(torch)
-    log(f"[5/10] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/11] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
@@ -2684,12 +2966,12 @@ def main() -> int:
         torch.cuda.empty_cache()            # the engines' caches are freed
     log(f"  phase-5 launches: {launches5}")
 
-    log(f"[6/10] the gateway entry point (repro_torch.launch.serve) at full "
+    log(f"[6/11] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
     launches6 = serve_gateway(torch, params)
     log(f"  phase-6 launches: {launches6}")
 
-    log(f"[7/10] the chaos entry point (repro_torch.launch.serve_e2e "
+    log(f"[7/11] the chaos entry point (repro_torch.launch.serve_e2e "
         f"--chaos) at full width on phase 5's weights: a decode crash and "
         f"a spot preemption with graphed decode chunks")
     log(smi.splitlines()[0])
@@ -2698,7 +2980,7 @@ def main() -> int:
     launches = {k: launches5[k] + launches6[k] + launches7[k]
                 for k in launches5}
 
-    log("[8/10] the other dense configs at full width: stablelm-3b, "
+    log("[8/11] the other dense configs at full width: stablelm-3b, "
         "gemma-2b, h2o-danube-3-4b, command-r-35b")
     log(smi.splitlines()[0])
     del params, pre
@@ -2719,7 +3001,7 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[9/10] the MoE and VLM configs at published widths: "
+    log("[9/11] the MoE and VLM configs at published widths: "
         "llava-next-mistral-7b (32 layers), qwen3-moe-235b-a22b (8 of 94 "
         "layers), llama4-maverick-400b-a17b (2 of 48 layers)")
     log(smi.splitlines()[0])
@@ -2734,7 +3016,7 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[10/10] the recurrent and encoder-decoder configs at published "
+    log("[10/11] the recurrent and encoder-decoder configs at published "
         "widths: xlstm-125m, jamba-v0.1-52b (16 of 32 layers), "
         "whisper-base")
     log(smi.splitlines()[0])
@@ -2752,6 +3034,38 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+
+    log("[11/11] training and checkpoints: (a) every config reduced in "
+        "float32, 3 AdamW steps on the card and on the CPU; (b) LLaMA-30B "
+        f"at full width, {TRAIN_LAYERS} of 60 layers, 6 steps through "
+        f"launch.train; (c) LLaMA-30B cut to {CKPT_LAYERS} layer, async "
+        "checkpoints and a bit-identical restart")
+    log(smi.splitlines()[0])
+    t11 = time.perf_counter()
+    before = ops.launch_counts()
+    mem = settled(torch)
+    for arch in ALL_ARCHS:
+        train_reduced(torch, arch)
+    full = train_full(torch, smi.splitlines()[0])
+    mem_b = settled(torch)
+    log(f"  (a), (b) dropped: {mem_b:,} bytes allocated, {mem:,} before "
+        f"the phase")
+    restart = train_restart(torch, smi.splitlines()[0])
+    mem_c = settled(torch)
+    log(f"  (c) dropped: {mem_c:,} bytes allocated, {mem:,} before the "
+        f"phase")
+    if ops.launch_counts() != before:
+        raise AssertionError(f"training launched kernels: "
+                             f"{ops.launch_counts()} from {before}")
+    if max(mem_b, mem_c) > mem:
+        raise AssertionError(f"phase 11 left {max(mem_b, mem_c) - mem} "
+                             f"bytes allocated")
+    log(f"  phase 11: {time.perf_counter() - t11:.1f} s; no kernel "
+        f"launched; step {full['step_ms']:.1f} ms against the "
+        f"{full['bound_ms']:.1f} ms compute bound, optimizer "
+        f"{full['opt_ms']:.1f} ms against {full['opt_bound_ms']:.1f} ms, "
+        f"checkpoints {restart['write_gbs']:.2f} GB/s written, "
+        f"{restart['read_gbs']:.2f} GB/s read")
 
     rows = [("kv_quant", "src/repro_torch/kernels/csrc/kv_quant.cu",
              "src/repro/kernels/kv_quant.py:55", rq),

@@ -29,7 +29,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kv_quant import _require_cuda
+from repro_torch.kernels.kv_quant import _require_cuda, no_grad_inputs
 
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)   # the instantiations
 _TYPES = (torch.bfloat16, torch.float32)
@@ -101,6 +101,7 @@ def decode_attention(q, k, v, kv_len, *, sm_scale=None):
     ``kv_len`` 0 gives zeros (the plain version's softmax over an all-masked
     row gives the mean of V instead; the model never asks: its kv_len is
     at least 1). Returns (B, Hkv, g, hd) in ``q.dtype``."""
+    no_grad_inputs("decode_attention", q, k, v)
     _require_cuda("decode_attention", q=q, kv_len=kv_len)
     for name, t in (("k", k), ("v", v)):
         if not t.is_cuda:

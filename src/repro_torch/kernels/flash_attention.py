@@ -15,7 +15,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kv_quant import _require_cuda
+from repro_torch.kernels.kv_quant import _require_cuda, no_grad_inputs
 
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)   # the instantiations
 
@@ -25,6 +25,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):
     ``prefix_len``: None or (B,) int32 (then P = Sk - Sq is the padded
     prefix width and the mask is the suffix mask, causal, no window).
     Returns (B, Sq, H, hd) in ``q.dtype``."""
+    no_grad_inputs("flash_attention", q, k, v)
     _require_cuda("flash_attention", q=q, k=k, v=v)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]

@@ -10,6 +10,12 @@ Each of ``kv_quant`` and ``kv_dequant`` has two bodies; the wrapper picks
 one from the shape and the alignment (:func:`quant_body`,
 :func:`dequant_body`), and either counts as a launch. The dispatch that
 sends CPU tensors to the plain versions lives in ``kernels/ops.py``.
+
+No kernel of the port has a backward. Every wrapper in ``ops.KERNELS``
+first calls :func:`no_grad_inputs`, which raises when autograd records
+(``torch.is_grad_enabled()``) and an input requires grad: a launch there
+would cut the gradient with no error. Serving params never require
+grad, so the check changes no launch and no graph capture.
 """
 from __future__ import annotations
 
@@ -18,6 +24,21 @@ import torch
 from repro_torch.kernels import build
 
 _IN_TYPES = (torch.bfloat16, torch.float32)
+
+
+def no_grad_inputs(name: str, *tensors):
+    """Raise if autograd records and one of ``tensors`` (tensors, or
+    tuples of them: int4 page triples) requires grad: the kernel
+    ``name`` has no backward. A check in Python before the launch."""
+    if not torch.is_grad_enabled():
+        return
+    flat = [t for x in tensors
+            for t in (x if isinstance(x, (tuple, list)) else (x,))]
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad (autograd would cut the gradient here); the "
+            f"training forward runs the plain versions (kernels/ref.py)")
 
 
 def _require_cuda(name: str, **tensors):
@@ -52,6 +73,7 @@ def kv_quant(x: torch.Tensor):
     """x: (N, G) bf16/f32 on the card -> (packed (N, G//2) u8, scale (N, 1)
     f32, zero (N, 1) f32), byte-identical to ``ref.kv_quant_ref``, through
     the body :func:`quant_body` picks."""
+    no_grad_inputs("kv_quant", x)
     _require_cuda("kv_quant", x=x)
     if x.dim() != 2 or x.shape[1] % 2 or x.dtype not in _IN_TYPES:
         raise ValueError(f"kv_quant: want (N, even G) bf16/f32, got "
@@ -78,6 +100,7 @@ def kv_dequant(packed: torch.Tensor, scale: torch.Tensor,
     """Inverse of :func:`kv_quant`: (N, G) in ``out_dtype`` (bf16/f32),
     value-identical to ``ref.kv_dequant_ref``, through the body
     :func:`dequant_body` picks."""
+    no_grad_inputs("kv_dequant", packed, scale, zero)
     _require_cuda("kv_dequant", packed=packed, scale=scale, zero=zero)
     N, Gh = packed.shape
     if (packed.dtype != torch.uint8 or scale.dtype != torch.float32
@@ -118,6 +141,7 @@ def kv_quant_append(k, v, kpages, vpages, page_table, lengths, *,
     (clamped at 0, the trash page), byte-identical to
     ``ref.kv_quant_append_ref`` on every page but the trash page, where
     inactive slots' writes race. Reads nothing on the host."""
+    no_grad_inputs("kv_quant_append", k, v, kpages, vpages)
     named = {"k": k, "v": v, "page_table": page_table, "lengths": lengths,
              **{f"kpages[{i}]": t for i, t in enumerate(kpages)},
              **{f"vpages[{i}]": t for i, t in enumerate(vpages)}}

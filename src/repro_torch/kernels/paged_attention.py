@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
     HEAD_DIMS, _counters, split_operands, split_plan)
-from repro_torch.kernels.kv_quant import _require_cuda
+from repro_torch.kernels.kv_quant import _require_cuda, no_grad_inputs
 
 INT4_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the int4 instantiations
 
@@ -65,6 +65,7 @@ def paged_decode_attention_int4(q, k_pages, v_pages, page_table, kv_len, *,
     g//2) u8, scale (P, ..., 1) f32, zero)``, packed pages 16-byte aligned;
     page_table (B, W) int32 (0 = trash page); kv_len (B,) int32. Returns
     (B, Hkv, gq, hd) in ``q.dtype``."""
+    no_grad_inputs("paged_decode_attention_int4", q, k_pages, v_pages)
     kp, ks, kz = k_pages
     vp, vs, vz = v_pages
     _require_cuda("paged_decode_attention", q=q, kp=kp, ks=ks, kz=kz, vp=vp,
@@ -121,6 +122,7 @@ def paged_decode_attention_bf16(q, k_pages, v_pages, page_table, kv_len, *,
     Hkv, hd) bf16; page_table (B, W) int32 (entries clamped at 0, the trash
     page); kv_len (B,) int32 (keys past ``W * page_size`` do not exist).
     Returns (B, Hkv, gq, hd) in ``q.dtype``."""
+    no_grad_inputs("paged_decode_attention_bf16", q, k_pages, v_pages)
     _require_cuda("paged_decode_attention", q=q, k_pages=k_pages,
                   v_pages=v_pages, page_table=page_table, kv_len=kv_len)
     B, Hkv, gq, hd = q.shape

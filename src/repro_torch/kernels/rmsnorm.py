@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kv_quant import _require_cuda
+from repro_torch.kernels.kv_quant import _require_cuda, no_grad_inputs
 
 MAX_THREADS = 512            # the kernel's __launch_bounds__
 ELEMS_PER_THREAD = 32        # the most a thread holds in registers
@@ -79,6 +79,7 @@ def _launch(name, x, r, scale, eps):
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """x: (..., d) bf16/f32 contiguous; scale: (d,) f32. Returns
     ``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in ``x.dtype``."""
+    no_grad_inputs("rmsnorm", x, scale)
     _require_cuda("rmsnorm", x=x, scale=scale)
     _, y = _launch("rmsnorm", x, None, scale, eps)
     rmsnorm.launches += 1
@@ -93,6 +94,7 @@ def add_rmsnorm(x, r, scale, *, eps: float = 1e-6):
     f32. Returns ``(h, y)``: ``h = x + r`` (f32 sum rounded once to
     ``x.dtype``, PyTorch's ``x + r`` byte for byte) and ``y`` =
     :func:`rmsnorm` of ``h``, in one launch."""
+    no_grad_inputs("add_rmsnorm", x, r, scale)
     _require_cuda("add_rmsnorm", x=x, r=r, scale=scale)
     h, y = _launch("add_rmsnorm", x, r, scale, eps)
     add_rmsnorm.launches += 1

@@ -14,15 +14,28 @@ projection ``w`` with a bias (``cfg.attn_bias``, ``cfg.mlp_bias``, and
 the gate projections of the recurrent blocks) keeps it beside it as
 ``w_b``: ``{"wq": ..., "wq_b": ...}`` where the reference nests
 ``{"wq": {"w", "b"}}``.
+
+The training forward runs none of the kernels: the reference trains
+through its plain jnp ``rmsnorm`` and ``attention``, and a CUDA kernel has
+no backward. The functions that reach a kernel take ``kernels=`` (default
+``ops``, the kernel entry points); the training forward passes
+:data:`PLAIN`, the same names bound to the plain versions in
+``kernels/ref.py``. :func:`chunked_xent` is the training loss.
 """
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+
+# the kernels' names bound to their plain versions (the training forward)
+PLAIN = types.SimpleNamespace(rmsnorm=ref.rmsnorm_ref,
+                              flash_attention=ref.flash_attention_ref)
 
 
 def layernorm(x, scale, bias=None, eps: float = 1e-5):
@@ -42,6 +55,14 @@ def norm_apply(cfg, p, x, *, backend: str = "auto"):
     """The norm of ``cfg.norm_type`` with parameters ``p``."""
     if cfg.norm_type == "rmsnorm":
         return ops.rmsnorm(x, p, backend=backend)
+    return layernorm(x, p["scale"], p.get("bias"))
+
+
+def norm_plain(cfg, p, x):
+    """:func:`norm_apply` through the plain versions (the training
+    forward's norm, the reference's jnp ``norm_apply``)."""
+    if cfg.norm_type == "rmsnorm":
+        return ref.rmsnorm_ref(x, p)
     return layernorm(x, p["scale"], p.get("bias"))
 
 
@@ -159,22 +180,58 @@ def model_rope(cfg, positions):
                       theta=cfg.rope_theta)
 
 
-def attn_qkv(cfg, p, x, positions, rope=None):
+def attn_qkv(cfg, p, x, positions, rope=None, *, kernels=ops):
     """Projections, the q/k norms where ``cfg.qk_norm`` (qwen3: an RMSNorm
     over each head's ``head_dim``, ``p["qnorm"]``/``p["knorm"]`` its
-    ``(hd,)`` scales, through ``ops.rmsnorm`` on rows of ``head_dim``),
-    then RoPE. x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd). ``rope``
-    is the call's :func:`model_rope` table, shared by every layer; without
-    it each rotation builds its own."""
+    ``(hd,)`` scales, through ``kernels.rmsnorm`` on rows of
+    ``head_dim``), then RoPE. x: (B, S, d) -> q (B,S,H,hd), k/v
+    (B,S,Hkv,hd). ``rope`` is the call's :func:`model_rope` table, shared
+    by every layer; without it each rotation builds its own."""
     B, S, _ = x.shape
     q = proj(p, "wq", x).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = proj(p, "wk", x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = proj(p, "wv", x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = ops.rmsnorm(q, p["qnorm"])
-        k = ops.rmsnorm(k, p["knorm"])
+        q = kernels.rmsnorm(q, p["qnorm"])
+        k = kernels.rmsnorm(k, p["knorm"])
     q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct,
                    theta=cfg.rope_theta, table=rope)
     k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct,
                    theta=cfg.rope_theta, table=rope)
     return q, k, v
+
+
+def _xent_chunk(xc, w, tc, mc):
+    """One chunk's masked NLL sum: f32 logits (the reference's bf16
+    operands with f32 accumulation is their f32 product), logsumexp minus
+    the gold logit."""
+    logits = xc.float() @ w.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return ((lse - gold) * mc).sum()
+
+
+def chunked_xent(x, w_unembed, targets, *, chunk: int = 2048, mask=None):
+    """The reference's chunked softmax cross-entropy: x (B, S, d) final
+    hiddens, w_unembed (d, V), targets (B, S) ints, mask (B, S) or None.
+    The sequence runs in chunks of ``chunk`` (the last one zero-padded,
+    its padding masked), the masked NLL summed chunk by chunk, then
+    divided by the mask's sum (at least 1). Each chunk runs under
+    ``torch.utils.checkpoint``: its (B, chunk, V) f32 logits are not kept
+    for backward but recomputed there, so at a 256k vocab only one
+    chunk's logits exist at a time."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    pad = -(-S // c) * c - S
+    ms = torch.ones((B, S), dtype=torch.float32, device=x.device) \
+        if mask is None else mask.float()
+    xs = F.pad(x, (0, 0, 0, pad))
+    ts, ms = F.pad(targets.long(), (0, pad)), F.pad(ms, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S + pad, c):
+        tot = tot + checkpoint(_xent_chunk, xs[:, i:i + c], w_unembed,
+                               ts[:, i:i + c], ms[:, i:i + c],
+                               use_reentrant=False)
+        cnt = cnt + ms[:, i:i + c].sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -9,7 +9,10 @@ as an extra first step whose ``dA`` is 1 (the reference's form). It adds
 in another order than ``lax.associative_scan``, so the two agree to f32
 rounding. The scan is plain PyTorch because the reference's is jnp, not
 a Pallas kernel. Decode is one step of the recurrence over the carried
-``(conv_state, ssm_state)``.
+``(conv_state, ssm_state)``. Autograd refuses the in-place scan (each
+round overwrites what the last one saved for backward): the training
+forward passes ``scan=doubling_scan_out``, the same rounds out of place,
+which gives the in-place scan's values bit for bit.
 
 Parameters, one dict a layer: ``in_proj (d, 2 di)``, ``conv_w (d_conv,
 di)`` and ``conv_b (di,)`` bf16, ``x_proj (di, dt_rank + 2 d_state)``,
@@ -70,9 +73,25 @@ def doubling_scan(a, b):
     return b
 
 
-def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None):
+def doubling_scan_out(a, b):
+    """:func:`doubling_scan` out of place, for autograd: each round builds
+    new ``a`` and ``b`` from the same products and sums in the same
+    order, so the values are the in-place scan's bit for bit."""
+    n, d = a.shape[1], 1
+    while d < n:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        if 2 * d < n:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
+                scan=doubling_scan):
     """The full-sequence path over x (B, S, d); ``state`` an optional
-    carried (conv_state, ssm_state). Returns (out, new state)."""
+    carried (conv_state, ssm_state). ``scan`` runs each chunk's
+    recurrence (:func:`doubling_scan`, or :func:`doubling_scan_out` under
+    autograd). Returns (out, new state)."""
     B, S, _ = x.shape
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     conv_state = state[0] if state is not None else None
@@ -90,7 +109,7 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None):
         del dA
         b = torch.cat([h[:, None], dBx], dim=1)
         del dBx
-        hs = doubling_scan(a, b)
+        hs = scan(a, b)
         del a
         h = hs[:, -1].clone()
         ys.append(torch.einsum("bcns,bcs->bcn", hs[:, 1:], Cm))

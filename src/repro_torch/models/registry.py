@@ -19,7 +19,9 @@ tokens, active flags, token counts) stays in device tensors, so a chunk
 launches kernels back to back and never waits on the host.
 :class:`GraphedDecodeChunk` is what ``jax.jit`` makes of the reference's
 chunk: the same loop captured once per ``n_steps`` as a CUDA graph and
-replayed, one host launch a chunk.
+replayed, one host launch a chunk. ``loss(params, batch)`` is the
+training loss of every family (``transformer.loss_fn``,
+``whisper.loss_fn``), differentiable by autograd.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ class ModelApi:
     # and its device-resident multi-step loop
     decode: Optional[Callable] = None
     decode_chunk: Optional[Callable] = None
+    # the training loss: loss(params, batch) -> f32 scalar
+    loss: Optional[Callable] = None
 
 
 def make_decode_chunk(decode_fn: Callable) -> Callable:
@@ -250,8 +254,12 @@ def build(cfg: ModelConfig) -> ModelApi:
         def decode_fn(params, cache, tokens):
             return whisper.decode_step(cfg, params, cache, tokens)
 
+        def loss_fn(params, batch):
+            return whisper.loss_fn(cfg, params, batch)
+
         return ModelApi(cfg=cfg, prefill=prefill_fn, decode=decode_fn,
-                        decode_chunk=make_decode_chunk(decode_fn))
+                        decode_chunk=make_decode_chunk(decode_fn),
+                        loss=loss_fn)
 
     def prefill_fn(params, batch, *, max_seq=None):
         S = batch["tokens"].shape[1]
@@ -289,7 +297,10 @@ def build(cfg: ModelConfig) -> ModelApi:
     def decode_fn(params, cache, tokens):
         return transformer.decode_step(cfg, params, cache, tokens)
 
+    def loss_fn(params, batch):
+        return transformer.loss_fn(cfg, params, batch)
+
     return ModelApi(cfg=cfg, prefill=prefill_fn,
                     prefill_suffix=suffix_fn, paged_decode_fns=paged_fns,
                     decode=decode_fn,
-                    decode_chunk=make_decode_chunk(decode_fn))
+                    decode_chunk=make_decode_chunk(decode_fn), loss=loss_fn)

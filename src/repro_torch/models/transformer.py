@@ -45,6 +45,10 @@ lies. The reference's dense step attends with plain jnp
 (``layers.attention`` with ``kv_len``/``q_offset``, or
 ``_decode_attn_hkv``), not with its Pallas ``decode_attention``; the
 kernel computes the same function.
+
+:func:`forward` and :func:`loss_fn` are the training forward of every
+family but whisper's (``models/whisper.py``), under autograd: the plain
+versions of the norm and the attention, as the reference trains.
 """
 from __future__ import annotations
 
@@ -52,8 +56,9 @@ import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers, mamba, moe, xlstm
 from repro_torch.models.layers import dense
 
@@ -92,12 +97,14 @@ class ParamMaker:
     type on ``device`` from one ``torch.Generator``, one tensor at a time
     (LLaMA-30B's 65 GB of bf16 weights, or one llama4 expert ``wi`` of
     21.5 GB, never pass through an f32 temporary). Shared by the decoder
-    stacks here and ``models/whisper.py``."""
+    stacks here and ``models/whisper.py``. On the ``meta`` device it makes
+    the shapes and types alone (no generator there)."""
 
     def __init__(self, cfg, seed: int, device, dtype):
         self.cfg, self.dtype = cfg, dtype
         self.dev = torch.device(device)
-        self.gen = torch.Generator(device=self.dev).manual_seed(seed)
+        self.gen = None if self.dev.type == "meta" else \
+            torch.Generator(device=self.dev).manual_seed(seed)
 
     def normal(self, shape, scale, dt=None):
         return torch.randn(shape, generator=self.gen, device=self.dev,
@@ -379,6 +386,88 @@ def _last_logits(cfg, params, x, last_pos):
         h_last = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     h_last = layers.norm_apply(cfg, params["final_norm"], h_last)
     return (h_last @ unembed_matrix(cfg, params)).float()
+
+
+def _train_layer(cfg, kind, p, x, positions, rope):
+    """One layer of the training forward: ``(x, aux)``, aux its MoE
+    layer's Switch loss (0 elsewhere)."""
+    mix, ffn = kind.split("+")
+    B, S = x.shape[:2]
+    h = layers.norm_plain(cfg, p["norm1"], x)
+    if mix == "attn":
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope,
+                                  kernels=layers.PLAIN)
+        o = ref.flash_attention_ref(q, k, v, causal=True,
+                                    window=cfg.sliding_window)
+        out = layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+    elif mix == "mamba":
+        out, _ = mamba.mamba_apply(cfg, p["mamba"], h,
+                                   scan=mamba.doubling_scan_out)
+    elif mix == "mlstm":
+        out, _ = xlstm.mlstm_apply(cfg, p["mlstm"], h, kernels=layers.PLAIN)
+    else:
+        out, _ = xlstm.slstm_apply(cfg, p["slstm"], h, kernels=layers.PLAIN)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + out
+    if cfg.parallel_block and "mlp" in p:
+        x = x + layers.mlp_apply(cfg, p["mlp"], h)
+    elif ffn != "none":
+        h = layers.norm_plain(cfg, p["norm2"], x)
+        if ffn == "moe":
+            delta, aux = moe.moe_apply(cfg, p["moe"], h)
+        else:
+            delta = layers.mlp_apply(cfg, p["mlp"], h)
+        x = x + delta
+    return x, aux
+
+
+def forward(cfg, params, tokens, *, patch_embeds=None):
+    """The training forward (the reference's ``forward`` without a
+    cache): ``(hidden, aux)``, the final-normed hidden states (B, S, d)
+    (a VLM's ``patch_embeds`` in front of the text, :func:`embed`) and
+    the sum of the MoE layers' Switch losses (f32; 0 without MoE).
+
+    It runs under autograd and reaches no kernel: the norms are
+    ``layers.norm_plain``, the q/k norms and the attention the plain
+    versions (``ref.rmsnorm_ref``, ``ref.flash_attention_ref``, the
+    reference's jnp ``layers.attention``; causal, with
+    ``cfg.sliding_window`` as the reference's ``attn_apply``), Mamba's
+    scan the out-of-place one. Nothing is written in place and no cache
+    is collected. Under ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``nothing_saveable``
+    policy on its layer body: only the layer's input is kept, the rest
+    recomputed in backward); the results are the same bits either way.
+    A parallel block adds ``(x + attn) + mlp``, the order of the port's
+    other paths (ROADMAP C.4); the reference's ``forward`` adds ``x +
+    (attn + mlp)``, which agrees to f32 rounding."""
+    _unported(cfg, "the training forward", layout=False)
+    x = embed(cfg, params, tokens, patch_embeds)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    rope = layers.model_rope(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(cfg.layer_kinds(), params["layers"]):
+        if cfg.remat:
+            x, a = checkpoint(_train_layer, cfg, kind, p, x, positions,
+                              rope, use_reentrant=False)
+        else:
+            x, a = _train_layer(cfg, kind, p, x, positions, rope)
+        aux = aux + a
+    return layers.norm_plain(cfg, params["final_norm"], x), aux
+
+
+def loss_fn(cfg, params, batch):
+    """``batch``: tokens and targets (B, S), optional ``patch_embeds``
+    and ``mask``. The chunked cross-entropy of the text positions (a
+    VLM's patches come first and are left out) plus 0.01 of the MoE
+    aux loss, as the reference's ``loss_fn``."""
+    x, aux = forward(cfg, params, batch["tokens"],
+                     patch_embeds=batch.get("patch_embeds"))
+    targets = batch["targets"]
+    x = x[:, -targets.shape[1]:]
+    nll = layers.chunked_xent(x, unembed_matrix(cfg, params), targets,
+                              chunk=cfg.vocab_chunk, mask=batch.get("mask"))
+    return nll + 0.01 * aux
 
 
 def _lengths(true_len, B, S, device):

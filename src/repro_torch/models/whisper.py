@@ -13,7 +13,10 @@ self-attention prefill (causal) and its cross-attention prefill
 (``Sq`` tokens over ``Sk = encoder_seq`` frames) through
 ``ops.flash_attention``; both decode attentions through
 ``ops.decode_attention``, self-attention with ``kv_len = lengths + 1``
-and cross-attention with ``kv_len = encoder_seq``.
+and cross-attention with ``kv_len = encoder_seq``. The training forward
+(:func:`forward`, :func:`loss_fn`) runs the same layers through the
+plain attention (``ref.flash_attention_ref``, the reference's jnp
+``attention``), as the reference trains.
 
 Parameters: ``{"embed": (V, d), "enc_layers": [{"norm1", "attn",
 "norm2", "mlp"}, ...], "enc_norm", "dec_layers": [{"norm1",
@@ -31,7 +34,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 from repro_torch.models.layers import norm_apply, proj
 from repro_torch.models.transformer import ParamMaker, write_pos
@@ -59,10 +62,11 @@ def _positions(S, B, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def encode(cfg, params, frame_embeds):
-    """The encoder over ``frame_embeds (B, S_enc, d)``. The reference
-    casts the frames to bf16, its weights' type; here they take the
-    encoder weights' type (the same for bf16 weights)."""
+def encode(cfg, params, frame_embeds, *, kernels=ops):
+    """The encoder over ``frame_embeds (B, S_enc, d)``, its attention
+    ``kernels.flash_attention``. The reference casts the frames to bf16,
+    its weights' type; here they take the encoder weights' type (the same
+    for bf16 weights)."""
     B, S, d = frame_embeds.shape
     dt = params["enc_layers"][0]["attn"]["wq"].dtype
     x = frame_embeds.to(dt)
@@ -71,7 +75,7 @@ def encode(cfg, params, frame_embeds):
     for p in params["enc_layers"]:
         h = norm_apply(cfg, p["norm1"], x)
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, pos)
-        o = ops.flash_attention(q, k, v, causal=False)
+        o = kernels.flash_attention(q, k, v, causal=False)
         x = x + proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
         x = x + layers.mlp_apply(cfg, p["mlp"],
                                  norm_apply(cfg, p["norm2"], x))
@@ -113,6 +117,37 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=CACHE_DTYPE, *,
             "cross_k": z(cfg.encoder_seq), "cross_v": z(cfg.encoder_seq),
             "lengths": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
+
+
+def forward(cfg, params, tokens, frame_embeds):
+    """The training forward (the reference's ``forward``): the encoder
+    over ``frame_embeds``, then the decoder over ``tokens (B, S)``
+    teacher-forced, causal self-attention and cross-attention to the
+    encoder, all through the plain attention (the norms are LayerNorms,
+    plain on every path). Returns the final-normed hidden states (B, S,
+    d)."""
+    enc_out = encode(cfg, params, frame_embeds, kernels=layers.PLAIN)
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    pos = _positions(S, B, tokens.device)
+    x = x + layers.sinusoidal_pos(pos[0], cfg.d_model).to(x.dtype)[None]
+    for p in params["dec_layers"]:
+        h = norm_apply(cfg, p["norm1"], x)
+        q, k, v = layers.attn_qkv(cfg, p["self_attn"], h, pos,
+                                  kernels=layers.PLAIN)
+        o = ref.flash_attention_ref(q, k, v, causal=True)
+        kc, vc = _cross_kv(cfg, p, enc_out)
+        x = _dec_tail(cfg, p, x, o, lambda q_: ref.flash_attention_ref(
+            q_, kc, vc, causal=False))
+    return norm_apply(cfg, params["final_norm"], x)
+
+
+def loss_fn(cfg, params, batch):
+    """``layers.chunked_xent`` of :func:`forward` over ``unembed``;
+    ``batch``: tokens, targets, frame_embeds and an optional mask."""
+    x = forward(cfg, params, batch["tokens"], batch["frame_embeds"])
+    return layers.chunked_xent(x, params["unembed"], batch["targets"],
+                               chunk=cfg.vocab_chunk, mask=batch.get("mask"))
 
 
 def prefill(cfg, params, tokens, frame_embeds, *, max_seq: int,

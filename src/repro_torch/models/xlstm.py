@@ -20,7 +20,10 @@ Parameters, one dict a layer (a bias beside its weight as ``w_b``, see
            "gn": (d,) f32, "ffn_wi": (d, f), "ffn_wo": (f / 2, d)}
 
 ``gn`` is an RMSNorm scale; the norm runs through ``ops.rmsnorm`` (the
-kernel on the card) over rows of ``2 d`` (mLSTM) and ``d`` (sLSTM).
+kernel on the card) over rows of ``2 d`` (mLSTM) and ``d`` (sLSTM), or,
+in the training forward (``kernels=layers.PLAIN``), through its plain
+version. Both blocks differentiate as they stand: nothing here writes in
+place, and the sLSTM stays a Python loop over time under autograd.
 """
 from __future__ import annotations
 
@@ -123,16 +126,16 @@ def _mlstm_in(cfg, p, x, conv_state):
     return xc, z, q, k, v, li, F.logsigmoid(lfraw), conv_state
 
 
-def _mlstm_out(p, y, xc, z):
+def _mlstm_out(p, y, xc, z, kernels=ops):
     """The block's back half: per-block norm, skip, output gate, down
     projection."""
-    y = ops.rmsnorm(y, p["gn"])
+    y = kernels.rmsnorm(y, p["gn"])
     y = y + p["skip"].to(y.dtype) * xc
     y = y * F.silu(z.float()).to(y.dtype)
     return proj(p, "w_down", y)
 
 
-def mlstm_apply(cfg, p, x, *, state=None, conv_state=None):
+def mlstm_apply(cfg, p, x, *, state=None, conv_state=None, kernels=ops):
     """The mLSTM block over x (B, S, d). Returns (out, (cell state,
     conv state))."""
     B, S, d = x.shape
@@ -141,7 +144,7 @@ def mlstm_apply(cfg, p, x, *, state=None, conv_state=None):
         state = mlstm_state_init(cfg, B, x.device)
     y, state = mlstm_cell(q, k, v, lf, li, state, cfg.xlstm_chunk)
     y = y.reshape(B, S, 2 * d).to(x.dtype)
-    return _mlstm_out(p, y, xc, z), (state, conv_state)
+    return _mlstm_out(p, y, xc, z, kernels), (state, conv_state)
 
 
 def mlstm_decode_step(cfg, p, x, state, conv_state):
@@ -195,7 +198,7 @@ def slstm_state_init(cfg, batch: int, device="cuda"):
             torch.zeros(shape, **f32), torch.full(shape, -1e30, **f32))
 
 
-def slstm_apply(cfg, p, x, *, state=None):
+def slstm_apply(cfg, p, x, *, state=None, kernels=ops):
     """The sLSTM block over x (B, S, d): a loop over time, then the norm
     and the block's gated FFN. Returns (out, state); one step is the
     decode step."""
@@ -209,7 +212,7 @@ def slstm_apply(cfg, p, x, *, state=None):
         state = _slstm_step(p["r"], state, pre[:, t])
         hs.append(state[2])
     y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    y = ops.rmsnorm(y, p["gn"])
+    y = kernels.rmsnorm(y, p["gn"])
     g, u = torch.chunk(proj(p, "ffn_wi", y), 2, dim=-1)
     return proj(p, "ffn_wo", F.gelu(g, approximate="tanh") * u), state
 

@@ -1496,3 +1496,88 @@ def test_moe_apply_in_a_graph_without_host_sync(cuda):
     ref_out, _ = moe.moe_apply(cfg, cpu, x2.cpu().float())
     torch.testing.assert_close(out.float().cpu(), ref_out, atol=2e-2,
                                rtol=2e-2)
+
+
+# -- training (the plain versions under autograd; no kernel) -----------------
+
+
+@pytest.mark.parametrize("arch", ["llama-30b", "qwen3-moe-235b-a22b",
+                                  "jamba-v0.1-52b", "whisper-base"])
+def test_reduced_train_grads_card_match_cpu(cuda, arch):
+    """The loss and gradients of the reduced f32 config from the same
+    weights and batch on the card and on the CPU: the loss within 1e-4
+    relative, the gradients within 1e-3 relative L2 per tensor (against
+    the larger of the tensor's norm and 1e-3 of the whole gradient's); no
+    kernel runs (the launch counts stay). Gradients, not updated params:
+    Adam's first step moves an element by about +-lr whatever its
+    gradient's size, so a gradient near zero may take either sign."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import make_params
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, PackedLM
+    cfg = get_reduced(arch).replace(dtype="float32")
+    api = build(cfg)
+    batch = PackedLM(DataConfig(cfg.vocab_size, 48, 2)).batch_at(0)
+    g = torch.Generator().manual_seed(0)
+    if cfg.family == "audio":
+        batch["frame_embeds"] = torch.randn(
+            (2, cfg.encoder_seq, cfg.d_model), generator=g).numpy()
+    cpu = make_params(cfg, "cpu")
+    before = ops.launch_counts()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = opt.tree_map(lambda t: t.to(dev, copy=True), cpu)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, grads = opt.value_and_grad(api.loss, p, tb)
+        out.append((float(loss), [t.cpu() for t in opt.tree_leaves(grads)]))
+    assert ops.launch_counts() == before
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    total = sum(float(w.double().square().sum()) for w in g_cpu) ** 0.5
+    for a, b in zip(g_card, g_cpu):
+        scale = max(float(b.double().norm()), 1e-3 * total)
+        assert float((a.double() - b.double()).norm()) <= 1e-3 * scale
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    """A tensor that requires grad reaching a kernel raises, through the
+    wrapper and through ``ops``, and launches nothing; under no_grad the
+    same call launches."""
+    x = torch.randn((4, 64), device=cuda, requires_grad=True)
+    scale = torch.zeros(64, device=cuda)
+    before = ops.launch_counts()
+    for call in (lambda: rn.rmsnorm(x, scale),
+                 lambda: ops.rmsnorm(x, scale),
+                 lambda: ops.add_rmsnorm(x, x, scale),
+                 lambda: ops.kv_quant(x),
+                 lambda: ops.flash_attention(*(x.view(1, 4, 1, 64),) * 3)):
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        want = ref.rmsnorm_ref(x, scale)
+        got = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before["rmsnorm"] + 1
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_train_resume_is_bit_identical_on_the_card(cuda, tmp_path):
+    """``launch.train --reduced --device cuda``: 6 steps with checkpoints
+    after steps 2 and 4; the step-4 one removed, ``--resume`` runs steps
+    3-5 again from step 2's: the same losses and every byte of the state
+    (deterministic algorithms, the embedding's backward sorted)."""
+    import shutil
+    from repro_torch.launch import train
+    from repro_torch.training import optimizer as opt
+    argv = ["--reduced", "--device", "cuda", "--steps", "6", "--seq", "64",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    a = train.run(argv)
+    shutil.rmtree(tmp_path / "step_00000004")
+    b = train.run(argv + ["--resume"])
+    assert b["start"] == 3
+    assert b["losses"] == a["losses"][3:]
+    for x, y in zip(opt.tree_leaves((a["params"], a["opt_state"])),
+                    opt.tree_leaves((b["params"], b["opt_state"]))):
+        assert torch.equal(x.cpu(), y.cpu())

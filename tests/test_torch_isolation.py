@@ -14,10 +14,11 @@ modules have not drifted.
   copies too.
 * The copies of the gateway, transport, faults, profiler, the runtime
   sanitizers, the scheduler core, the serving simulator, the paper's
-  baselines, the paper's GPU table and the registered configs are the
-  reference's code: their ASTs are equal, definition by definition, once
-  imports and docstrings are set aside, except for the definitions listed
-  (with the reason) in ``COPY_DIFFERENCES``.
+  baselines, the paper's GPU table, the registered configs and the
+  training data pipeline are the reference's code: their ASTs are equal,
+  definition by definition, once imports and docstrings are set aside,
+  except for the definitions listed (with the reason) in
+  ``COPY_DIFFERENCES``.
 """
 import ast
 import dataclasses
@@ -334,6 +335,7 @@ COPY_DIFFERENCES = {
     "configs/jamba_v01_52b.py": {},
     "configs/xlstm_125m.py": {},
     "configs/whisper_base.py": {},
+    "training/data.py": {},
 }
 
 
