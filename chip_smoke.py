@@ -195,7 +195,29 @@ before the last line:
    printed. No kernel
    launches in the phase (the counts are read before and after), and
    the memory returns to its level before it. ``CUBLAS_WORKSPACE_CONFIG``
-   is set at the start of the script, before cuBLAS first runs.
+   is set at the start of the script, before cuBLAS first runs;
+12. distribution: (a) full LLaMA-30B under ``Runtime`` over a 1-D
+   ``model`` mesh of one rank over NCCL, through a ``PrefillEngine`` and
+   a graphed and an eager int4 ``DecodeEngine``, in lockstep with the
+   unmeshed graphed engine: wires, tokens, lengths, page table and page
+   bytes equal after every chunk, one graph holding 2L all-reduces and 2
+   all-gathers a step, one replay of each graph timed turn by turn;
+   then two ranks, each a process of its own on the one card over gloo
+   (NCCL puts one rank on a card), against unsharded runs of the same
+   cuts made first and freed before the ranks start: (b) LLaMA-30B at
+   TP 2 cut to 16 layers, (c) qwen3-moe at EP 2 + TP 2 cut to 8 layers
+   (its prefill drops printed by call and layer): prefill logits within
+   0.05 relative L2 where no route dropped, every layer's raw K/V per
+   head within ``CHUNK_REL_TOL`` up to the first dropped route, 8
+   decode steps from the unsharded prefill cache fed the unsharded
+   tokens within 0.05 (MoE: the median slot-step) with greedy tokens
+   equal where the top-2 margin clears 0.1, and the engines (the int4
+   wire into int4 and into bf16 pages) with every request DONE and 0
+   leaked pages; (d) ``pipeline_apply`` of 8 LLaMA-30B layers in 2
+   stages equal to the sequential apply bit for bit. Its launches, the
+   ranks' included, are summed into the kernels line, and every kernel
+   must launch in it. Phase 3 also checks and times the kernels at a
+   TP-2 rank's shapes (LLaMA-30B's 26 heads, qwen3-moe's 32 over 2).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -2808,6 +2830,583 @@ def train_restart(torch, smi, device="cuda", reduced=False):
     return {"write_gbs": wbytes / wsec / 1e9, "read_gbs": rbytes / rsec / 1e9}
 
 
+# -- phase 12: tensor-, expert- and pipeline-parallel replicas -----------------
+
+# (arch, model axis) of a rank's shapes checked in phase 3
+LOCAL_SHAPES = (("llama-30b", 2), ("qwen3-moe-235b-a22b", 2))
+P12_RANKS = 2
+# layers kept: (b) LLaMA-30B at TP 2, (c) qwen3-moe at EP 2 + TP 2, (d)
+# LLaMA-30B in 2 pipeline stages (reduced: every layer of the reduced
+# config)
+P12_LAYERS = {"tp": 16, "moe": 8, "pipe": 8}
+P12_DECODE_STEPS = 8
+# the kernels phase 12's runs reach: all nine
+PHASE12_KERNELS = ("kv_quant", "kv_dequant", "kv_quant_append",
+                   "paged_decode_attention_int4",
+                   "paged_decode_attention_bf16", "flash_attention",
+                   "decode_attention", "rmsnorm", "add_rmsnorm")
+# a prefill's logits, sharded against unsharded (relative L2); every
+# layer's raw K/V per head is held to CHUNK_REL_TOL
+P12_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.05}
+# a greedy token must match where the unsharded run's top-2 margin is
+# wider than this (logit units)
+P12_MARGIN = 0.1
+
+
+def check_local_shapes(torch, ref, fa, da, pa, kq, rn):
+    """A tensor-parallel rank's shapes (phase 12's): LLaMA-30B at 26 of
+    its 52 heads and qwen3-moe at 32 query heads over 2 KV heads (TP 2),
+    in every kernel a rank's main path runs: flash attention at the
+    prefill bucket (4 x 256), the int4 and bf16 paged bodies and the
+    dense decode step (4 slots, kv_len as phase 5's), the int4 append at
+    the rank's KV heads (its group: 128, one head), qwen3's q/k norms
+    over the rank's q rows; each checked against its plain version and
+    timed beside it, its bound and SDPA (flash, dense decode) or
+    ``F.rms_norm``. Returns ``[(kernel, arch, shape, result)]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import rank_cfg
+    bf16 = torch.bfloat16
+    rows = []
+    for arch, n in LOCAL_SHAPES:
+        cfg = rank_cfg(get_config(arch), n)
+        L, H, Hkv, hd = (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim)
+        g = H // Hkv
+        rolled = ("rows rolled",) if g > 1 else ()
+        tag = f"{arch} TP {n} rank"
+        log(f"  {tag}: {H} heads (kv {Hkv}), hd {hd}, {L} layers")
+        rows.append(("flash_attention", tag, "bucket 4 x 256",
+                     check_flash(torch, ref, fa, 4, 256, 0, H, Hkv, hd,
+                                 bf16, controls=("last 8 of hd",),
+                                 timed=True)))
+        step = f"decode 4 slots, kv_len {DECODE_LENS}"
+        rows.append(("decode_attention", tag, step + ", 256-row cache",
+                     check_decode(torch, ref, da, L, 4, Hkv, g, hd, 256,
+                                  DECODE_LENS, bf16, bf16,
+                                  controls=("kv_len - 64", "last 8 of hd")
+                                  + rolled, timed=True)))
+        rows.append(("paged_decode_attention_int4", tag, step,
+                     check_attention(torch, ref, pa, L, 4, Hkv, g, hd, 16,
+                                     16, DECODE_LENS, bf16,
+                                     controls=("kv_len - 64",) + rolled,
+                                     timed=True)))
+        rows.append(("paged_decode_attention_bf16", tag, step,
+                     check_paged_bf16(torch, ref, pa, L, 4, Hkv, g, hd, 16,
+                                      16, DECODE_LENS, bf16,
+                                      controls=("kv_len - 64",) + rolled,
+                                      timed=True)))
+        rows.append(("kv_quant_append", tag, f"4 slots x {Hkv} heads",
+                     check_append(torch, ref, kq, 4, Hkv, hd, 16, 16,
+                                  DECODE_LENS, bf16, timed=True)))
+        if cfg.qk_norm:
+            for m, what in ((4 * 256 * H, "q rows of the bucket"),
+                            (4 * H, "q rows of a 4-slot step")):
+                rows.append(("rmsnorm", tag, f"{m} x {hd} ({what})",
+                             check_rmsnorm(torch, ref, rn, m, hd, bf16,
+                                           control=True, timed=True)))
+    log("  a rank's shapes: kernel, arch, shape: ms (plain, library, "
+        "bound)")
+    for name, tag, shape, r in rows:
+        log(f"    {name} {tag} ({shape}): {r['ms']:.5f} ms (plain "
+            f"{r['plain_ms']:.5f}, library "
+            f"{r.get('library_ms') or float('nan'):.5f}, bound "
+            f"{r['bound'][0]:.5f} by {r['bound'][1]}; "
+            f"{r['ms'] / r['bound'][0]:.1f}x the bound)")
+    return rows
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def same_engines(torch, a, b, what):
+    """Two decode engines hold the same slots, tokens, lengths, page table
+    and pool state and every page byte but the trash page's."""
+    if [None if r is None else (r.rid, r.out_tokens) for r in a.slots] != \
+            [None if r is None else (r.rid, r.out_tokens) for r in b.slots]:
+        raise AssertionError(f"{what}: tokens differ")
+    if not torch.equal(a.cache["lengths"], b.cache["lengths"]) or \
+            not torch.equal(a.cache["page_table"], b.cache["page_table"]) \
+            or a.pool.state_key() != b.pool.state_key():
+        raise AssertionError(f"{what}: lengths, page table or pool differ")
+    for key in a.cache["slot0"]:
+        if not torch.equal(a.cache["slot0"][key][:, 1:],
+                           b.cache["slot0"][key][:, 1:]):
+            raise AssertionError(f"{what}: page bytes of {key} differ")
+
+
+def same_wires(torch, xs, ys, what):
+    for (_, w0, f0), (_, w1, f1) in zip(xs, ys):
+        same = f0 == f1 and all(
+            torch.equal(p, q) for s in w0.slots for k in w0.slots[s]
+            for p, q in zip(w0.slots[s][k].payload.values(),
+                            w1.slots[s][k].payload.values()))
+        if not same:
+            raise AssertionError(f"{what}: prefill wires differ")
+
+
+def mesh_world1(torch, cfg, params, device="cuda"):
+    """Phase 12 (a): ``Runtime(mesh)`` over a 1-D ``model`` mesh of the
+    one rank of a process group over NCCL (gloo on the CPU), through a
+    ``PrefillEngine`` and a graphed and an eager ``DecodeEngine`` on int4
+    pages, in lockstep with the unmeshed engines (graphed) on the same
+    weights: wires, tokens, lengths, page table and page bytes equal
+    after every chunk; the graphed chunk one graph holding its
+    collectives; the collectives a step and one replay's time (CUDA
+    events) beside the unmeshed replay's, turn by turn. Returns the
+    kernel launches of the run."""
+    import torch.distributed as dist
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serving import engine as E
+    on_card = device == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        rt = Runtime(make_mesh((1,), ("model",), device=device))
+        before = ops.launch_counts()
+        comm.reset_counts()
+        pres = {m: E.PrefillEngine(cfg, params, max_seq=256, max_batch=4,
+                                   device=device, rt=rt if m else None)
+                for m in (False, True)}
+        arms = {"unmeshed graphed": (False, True), "graphed": (True, True),
+                "eager": (True, False)}
+        decs = {a: E.DecodeEngine(cfg, params, max_slots=4, max_seq=256,
+                                  device=device, rt=rt if m else None,
+                                  cuda_graph=g and on_card)
+                for a, (m, g) in arms.items()}
+        rng = np.random.default_rng(SEED + 12)
+        prompts = [rng.integers(1, cfg.vocab_size, n)
+                   for n in (40, 200, 17, 100)]
+        wires = {m: pre.run([E.GenRequest(i, p, 24)
+                             for i, p in enumerate(prompts)])
+                 for m, pre in pres.items()}
+        same_wires(torch, wires[False], wires[True], "(a) world 1")
+        reqs = {}
+        for a, dec in decs.items():
+            reqs[a] = [E.GenRequest(i, p, 24) for i, p in enumerate(prompts)]
+            if dec.admit(E.AdmissionBatch(
+                    [E.AdmissionItem(r, f, wire=w) for r, (_, w, f) in
+                     zip(reqs[a], wires[arms[a][0]])])):
+                raise AssertionError("(a): admission rejected")
+        chunks = 0
+        while decs["graphed"].active:
+            for dec in decs.values():
+                dec.step()
+            chunks += 1
+            for a in ("graphed", "eager"):
+                same_engines(torch, decs["unmeshed graphed"], decs[a],
+                             f"(a) world 1, chunk {chunks}, {a}")
+        if any(d.active for d in decs.values()) or any(
+                len(r.out_tokens) != r.max_new_tokens
+                for rs in reqs.values() for r in rs):
+            raise AssertionError("(a): requests not DONE")
+        for a, dec in decs.items():
+            if dec.page_stats()["leaked_pages"]:
+                raise AssertionError(f"(a) {a}: leaked pages")
+        launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        log(f"  (a) world 1: {len(prompts)} requests x 24 tokens, "
+            f"{chunks} chunks; wires, tokens, lengths and page bytes of "
+            f"the meshed graphed and eager engines equal the unmeshed "
+            f"engine's after every chunk; collectives issued "
+            f"{comm.counts()}")
+        if not on_card:
+            return launches
+        g_m, g_u = decs["graphed"], decs["unmeshed graphed"]
+        if len(g_m.graphs) != 1 or len(g_u.graphs) != 1:
+            raise AssertionError("(a): one graph an engine")
+        n = g_m.chunk_size
+        per = g_m.graphs.collectives(n, g_m.eos_id, g_m.max_seq)
+        want = {"all_reduce": 2 * cfg.num_layers * n, "all_gather": 2 * n}
+        if per != want:
+            raise AssertionError(f"(a): a replay's collectives {per}, "
+                                 f"want {want}")
+        log(f"  (a) the graphed chunk holds its collectives: "
+            f"{per['all_reduce'] // n} all-reduces and "
+            f"{per['all_gather'] // n} all-gathers over NCCL a step "
+            f"(counted at capture), kernel launches a replay "
+            f"{json.dumps(g_m.graphs.captured(n, g_m.eos_id, g_m.max_seq)[1])}")
+        # one replay of each graph between CUDA events, turn by turn, one
+        # request decoding on each
+        for a in ("unmeshed graphed", "graphed"):
+            r = E.GenRequest(9, prompts[1], 4 * n)
+            (_, w, f), = pres[a == "graphed"].run([r])
+            decs[a].admit(E.AdmissionBatch([E.AdmissionItem(r, f, wire=w)]))
+            decs[a].step()
+        times = {a: [] for a in ("unmeshed graphed", "graphed")}
+        for a in ("unmeshed graphed", "graphed", "graphed",
+                  "unmeshed graphed"):
+            dec = decs[a]
+            graph, _ = dec.graphs.captured(n, dec.eos_id, dec.max_seq)
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            graph.replay()
+            e.record()
+            torch.cuda.synchronize()
+            times[a].append(s.elapsed_time(e))
+        log(f"  (a) one replay of the {n}-step chunk (CUDA events, 1 slot "
+            f"decoding): meshed {times['graphed']} ms, unmeshed "
+            f"{times['unmeshed graphed']} ms")
+        for a in ("unmeshed graphed", "graphed"):
+            decs[a].release(decs[a].slots.index(
+                next(r for r in decs[a].slots if r is not None)))
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def p12_cfg(arch, part, reduced=False):
+    from repro_torch.configs import get_config, get_reduced
+    if reduced:
+        return get_reduced(arch)
+    return get_config(arch).replace(num_layers=P12_LAYERS[part])
+
+
+def p12_batch(torch, cfg, device, reduced):
+    B, S = (4, 32) if reduced else (4, 256)
+    rng = np.random.default_rng(SEED + 120)
+    lens = np.array([S, S - 9, S // 2, 17])
+    return S, {"tokens": torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (B, S)), device=device),
+        "last_pos": torch.as_tensor(lens - 1, device=device),
+        "true_len": torch.as_tensor(lens.astype(np.int32), device=device)}
+
+
+def tp_case(torch, arch, part, *, mesh=None, ref=None, device="cuda",
+            reduced=False):
+    """One run of phase 12 (b) or (c) on this process's shard (unsharded
+    without a ``mesh``): a prefill of 4 prompts (logits at each last
+    position, raw K/V, the drops of each MoE layer), 8 dense decode
+    steps from the unsharded run's prefill cache fed the unsharded run's
+    tokens (``ref``; its own without), and the engines on the main path
+    (bucketed prefill, the int4 wire, int4 pages, eager chunks): every
+    request DONE, 0 leaked pages. Returns host tensors and counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, moe, transformer
+    from repro_torch.serving import engine as E
+    cfg = p12_cfg(arch, part, reduced)
+    rt = None if mesh is None else transformer.Runtime(
+        mesh, moe_shard_map=bool(cfg.moe_num_experts))
+    params = transformer.init_params(cfg, seed=SEED, device=device,
+                                     mesh=mesh)
+    api = build(cfg, rt=rt)
+    local = api.local_cfg
+    S, batch = p12_batch(torch, cfg, device, reduced)
+    before = ops.launch_counts()
+    with moe.count_drops() as drops:
+        logits, cache = api.prefill(params, batch)
+    out = {"logits": logits[:, -1].float().cpu(),
+           "k": cache["slot0"]["k"].cpu(), "v": cache["slot0"]["v"].cpu(),
+           "drops": [int(d) for d in drops]}
+    del cache
+    # decode steps from the unsharded run's prefill cache and tokens
+    src = ref or out
+    lo = 0 if mesh is None else api.tp.rank * local.num_kv_heads
+    dc = transformer.init_cache(local, 4, S + P12_DECODE_STEPS,
+                                device=device)
+    for key in ("k", "v"):
+        dc["slot0"][key][:, :, :S] = src[key][..., lo:lo + local.num_kv_heads,
+                                              :].to(device)
+    dc["lengths"].copy_(batch["true_len"])
+    cur = torch.argmax(src["logits"], -1).to(device)
+    dec_logits, dec_toks = [], []
+    with moe.count_drops() as ddrops:
+        for i in range(P12_DECODE_STEPS):
+            lg, dc = api.decode(params, dc, cur[:, None].to(torch.long))
+            dec_logits.append(lg[:, -1].float().cpu())
+            dec_toks.append(torch.argmax(lg[:, -1], -1).cpu())
+            cur = (src["dec_toks"][i] if ref else dec_toks[-1]).to(device)
+    out.update(dec_logits=torch.stack(dec_logits),
+               dec_toks=torch.stack(dec_toks),
+               dec_drops=sum(int(d) for d in ddrops))
+    del dc
+    # the engines on the main path
+    pre = E.PrefillEngine(cfg, params, max_seq=S + 32, max_batch=4,
+                          device=device, rt=rt)
+    rng = np.random.default_rng(SEED + 121)
+    prompts = [rng.integers(1, cfg.vocab_size, n)
+               for n in (S - S // 4, S // 3, 17, S - 1)]
+    with moe.count_drops() as pdrops:
+        wires = pre.run([E.GenRequest(i, p, 16)
+                         for i, p in enumerate(prompts)])
+    toks = {}
+    for resident in ("int4", "bf16"):      # bf16 pages dequantize the wire
+        dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=S + 32,
+                             cuda_graph=False, device=device, rt=rt,
+                             kv_resident=resident)
+        reqs = [E.GenRequest(i, p, 16) for i, p in enumerate(prompts)]
+        if dec.admit(E.AdmissionBatch([E.AdmissionItem(r, f, wire=w)
+                                       for r, (_, w, f) in zip(reqs,
+                                                               wires)])):
+            raise AssertionError(f"{arch}: admission rejected")
+        while dec.active:
+            dec.step()
+        if any(len(r.out_tokens) != r.max_new_tokens for r in reqs):
+            raise AssertionError(f"{arch} {resident}: requests not DONE")
+        if dec.page_stats()["leaked_pages"]:
+            raise AssertionError(f"{arch} {resident}: leaked pages")
+        toks[resident] = [r.out_tokens for r in reqs]
+        del dec
+    out.update(engine_toks=toks["int4"], bf16_toks=toks["bf16"],
+               prefill_drops=[int(d) for d in pdrops],
+               launches={k: n - before[k]
+                         for k, n in ops.launch_counts().items()})
+    return out
+
+
+def stage_fn(cfg):
+    """``fn(layers, x)``: a pipeline stage, ``run_layers`` over its
+    layers with causal flash attention (no cache)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, transformer
+
+    def fn(stage, x):
+        import torch
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        rope = layers.model_rope(cfg, positions)
+
+        def attend(i, p, h):
+            q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
+            o = ops.flash_attention(q, k, v, causal=True)
+            return layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+
+        return transformer.run_layers(cfg, {"layers": stage}, x, attend,
+                                      final_norm=False)[0]
+    return fn
+
+
+def pipe_inputs(torch, cfg, device):
+    g = torch.Generator(device=device).manual_seed(SEED + 122)
+    return torch.randn((4, 64, cfg.d_model), generator=g, device=device
+                       ).to(torch.bfloat16)
+
+
+def phase12_rank(rank, world, port, tmp, reduced, device):
+    """One rank of phase 12 (b)-(d), a process of its own over gloo on
+    the one card: (b) and (c) through :func:`tp_case` against the
+    unsharded runs' results in ``tmp``, (d) ``pipeline_apply`` over two
+    stages against the sequential apply, bit for bit. Saves its results
+    to ``tmp/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((world,), ("model",), device=device)
+        out = {}
+        for part, arch in (("tp", "llama-30b"),
+                           ("moe", "qwen3-moe-235b-a22b")):
+            t = time.perf_counter()
+            ref = torch.load(os.path.join(tmp, f"{part}.pt"),
+                             weights_only=False)
+            out[part] = tp_case(torch, arch, part, mesh=mesh, ref=ref,
+                                device=device, reduced=reduced)
+            del ref
+            settled(torch) if device == "cuda" else None
+            out[part]["s"] = time.perf_counter() - t
+        # (d) two pipeline stages of LLaMA-30B's layers
+        t = time.perf_counter()
+        cfg = p12_cfg("llama-30b", "pipe", reduced)
+        pod = make_mesh((world,), ("pod",), device=device)
+        params = transformer.init_params(cfg, seed=SEED, device=device)
+        n = cfg.num_layers // world
+        stage = params["layers"][rank * n:(rank + 1) * n]
+        del params
+        y = pipeline_apply(stage_fn(cfg), stage, pipe_inputs(
+            torch, cfg, device), mesh=pod, axis="pod", n_microbatch=2)
+        want = torch.load(os.path.join(tmp, "pipe.pt"), weights_only=False)
+        out["pipe"] = {"equal": bool(torch.equal(y.cpu(), want)),
+                       "s": time.perf_counter() - t}
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def compare_tp(torch, name, ref, got, dtype):
+    """Phase 12 (b)/(c): the ranks' results against the unsharded run's.
+    Prefill logits within P12_LOGIT_TOL relative L2 (held only where no
+    route dropped in either run), every layer's raw K/V per head within
+    CHUNK_REL_TOL up to the first layer where a route dropped, the
+    decode steps' logits within P12_LOGIT_TOL relative L2 at every slot
+    and step (a MoE model: the median slot-step, since rounding can move
+    a route across the router's k-th place and change that slot-step's
+    experts; every one is printed) and their greedy tokens equal where
+    the unsharded top-2 margin exceeds P12_MARGIN."""
+    tol, kv_tol = P12_LOGIT_TOL[dtype], CHUNK_REL_TOL[dtype]
+    drops = [sum(g["drops"][i] for g in got)
+             for i in range(len(ref["drops"]))]
+    first = next((i for i, (a, b) in enumerate(zip(ref["drops"], drops))
+                  if a or b), None)
+    if not ref["drops"] or first is None:
+        err = rel_l2(torch, ref["logits"], got[0]["logits"])
+        log(f"  {name} prefill logits: relative L2 {err:.3e} (tol {tol})")
+        if err > tol:
+            raise AssertionError(f"{name}: prefill logits {err} > {tol}")
+    else:
+        log(f"  {name} prefill: routes dropped (unsharded {ref['drops']}, "
+            f"sharded {drops} by layer); logits not held, K/V held up to "
+            f"layer {first}")
+    L = ref["k"].shape[0] if first is None else first + 1
+    worst = 0.0
+    for key in ("k", "v"):
+        full = torch.cat([g[key] for g in got], dim=3)
+        for i in range(L):
+            for h in range(full.shape[3]):
+                e = rel_l2(torch, ref[key][i, ..., h, :], full[i, ..., h, :])
+                worst = max(worst, e)
+                if e > kv_tol:
+                    raise AssertionError(f"{name}: {key} layer {i} head {h}"
+                                         f" relative L2 {e} > {kv_tol}")
+    log(f"  {name} raw K/V of layers 0-{L - 1}, per head: worst relative "
+        f"L2 {worst:.3e} (tol {kv_tol})")
+    want, have = ref["dec_logits"], got[0]["dec_logits"]
+    errs = torch.tensor([[rel_l2(torch, want[i, b], have[i, b])
+                          for b in range(want.shape[1])]
+                         for i in range(want.shape[0])])
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > P12_MARGIN
+    same = ref["dec_toks"] == got[0]["dec_toks"]
+    # MoE: a route that rounding moves across the router's k-th place
+    # changes a slot-step's expert mix, so its median slot-step is held
+    held = float(errs.median() if ref["drops"] else errs.max())
+    log(f"  {name} {want.shape[0]} decode steps x {want.shape[1]} slots "
+        f"fed the unsharded tokens: logits relative L2 by slot-step median "
+        f"{float(errs.median()):.3e}, worst {float(errs.max()):.3e} (tol "
+        f"{tol} on the {'median' if ref['drops'] else 'worst'}), each "
+        f"step's worst {[round(float(e), 4) for e in errs.max(1).values]}; "
+        f"greedy tokens equal at {int((same & clear).sum())} of "
+        f"{int(clear.sum())} slot-steps whose top-2 margin clears "
+        f"{P12_MARGIN} ({int(same.sum())} of {same.numel()} in all); drops "
+        f"{[g['dec_drops'] for g in got]}")
+    if held > tol or bool((clear & ~same).any()):
+        raise AssertionError(f"{name}: decode steps differ")
+    n_eq = [sum(a == b for a, b in zip(ref[k], got[0][k]))
+            for k in ("engine_toks", "bf16_toks")]
+    log(f"  {name} engines (the int4 wire into int4 and into bf16 pages, "
+        f"eager chunks over gloo): 4 requests DONE each, 0 leaked pages on "
+        f"every rank; token streams equal to the unsharded engines': "
+        f"{n_eq[0]} of 4 (int4), {n_eq[1]} of 4 (bf16); prefill drops by "
+        f"call and layer, unsharded {ref['prefill_drops']}, ranks "
+        f"{[g['prefill_drops'] for g in got]}")
+
+
+def phase12(torch, *, device="cuda", reduced=False):
+    """Phase 12: (a) :func:`mesh_world1` on full LLaMA-30B (60 layers;
+    reduced: the reduced config); (b)-(d) over two ranks, each a process
+    of its own on the one card over gloo (NCCL cannot put two ranks on
+    one card), against unsharded runs made here first and freed before
+    the ranks start. Returns the kernel launches of its main-path runs
+    (this process's and the ranks')."""
+    import tempfile
+    from repro_torch.configs import get_config, get_reduced
+    cfg = get_reduced("llama-30b") if reduced else get_config("llama-30b")
+    dtype = "bfloat16"
+    t = time.perf_counter()
+    base = settled(torch) if device == "cuda" else 0
+    params = full_model(torch, cfg, device)[0]
+    launches = mesh_world1(torch, cfg, params, device)
+    del params
+    if device == "cuda" and settled(torch) > base:
+        raise AssertionError(f"(a) left {settled(torch) - base} bytes "
+                             f"allocated")
+    log(f"  (a) {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        refs = {}
+        for part, arch in (("tp", "llama-30b"),
+                           ("moe", "qwen3-moe-235b-a22b")):
+            refs[part] = tp_case(torch, arch, part, device=device,
+                                 reduced=reduced)
+            torch.save(refs[part], os.path.join(tmp, f"{part}.pt"))
+            if device == "cuda":
+                settled(torch)
+        pcfg = p12_cfg("llama-30b", "pipe", reduced)
+        from repro_torch.models import transformer
+        params = transformer.init_params(pcfg, seed=SEED, device=device)
+        fn, x = stage_fn(pcfg), pipe_inputs(torch, pcfg, device)
+        n = pcfg.num_layers // P12_RANKS
+        seq = []
+        for mb in x.reshape(2, -1, *x.shape[1:]):
+            for s in range(P12_RANKS):
+                mb = fn(params["layers"][s * n:(s + 1) * n], mb)
+            seq.append(mb)
+        torch.save(torch.cat(seq).cpu(), os.path.join(tmp, "pipe.pt"))
+        del params, seq, x
+        if device == "cuda":
+            settled(torch)
+        log(f"  unsharded runs of (b)-(d): {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        port, root = free_port(), os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(root, "src"), root]))
+        outs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+                for r in range(P12_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke."
+             f"phase12_rank({r}, {P12_RANKS}, {port}, {tmp!r}, {reduced}, "
+             f"{device!r})"], cwd=root, env=env, stdout=outs[r],
+            stderr=subprocess.STDOUT) for r in range(P12_RANKS)]
+        try:
+            # a rank that fails ends the others: none waits on it
+            deadline = time.perf_counter() + 900
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() for p in procs) or \
+                        time.perf_counter() > deadline:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+            for f in outs:
+                f.close()
+        for r, p in enumerate(procs):
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                text = f.read()
+            for line in text.splitlines():
+                if line.startswith("[comm]") or p.returncode:
+                    log(f"  [rank {r}] {line}")
+            if p.returncode:
+                raise AssertionError(f"phase 12 rank {r} exited "
+                                     f"{p.returncode}")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(P12_RANKS)]
+        log(f"  two ranks over gloo: {time.perf_counter() - t:.1f} s "
+            f"(tp {[g['tp']['s'] for g in got]}, moe "
+            f"{[g['moe']['s'] for g in got]}, pipe "
+            f"{[g['pipe']['s'] for g in got]} s a rank)")
+    for part, name in (("tp", f"(b) llama-30b TP {P12_RANKS}"),
+                       ("moe", f"(c) qwen3-moe EP {P12_RANKS} + TP "
+                               f"{P12_RANKS}")):
+        compare_tp(torch, name, refs[part], [g[part] for g in got], dtype)
+        for g in got:
+            launches = {k: launches.get(k, 0) + n
+                        for k, n in g[part]["launches"].items()}
+    equal = [g["pipe"]["equal"] for g in got]
+    log(f"  (d) pipeline_apply over {P12_RANKS} stages of "
+        f"{p12_cfg('llama-30b', 'pipe', reduced).num_layers // P12_RANKS} "
+        f"layers, 2 microbatches: equal to the sequential apply bit for "
+        f"bit on every rank: {equal}")
+    if not all(equal):
+        raise AssertionError("(d): the pipeline differs from the "
+                             "sequential apply")
+    return launches
+
+
 def main() -> int:
     # phase 11's deterministic cuBLAS: set before the process first uses it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2829,7 +3428,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/11] device")
+    log("[1/12] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -2837,7 +3436,7 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[2/11] build")
+    log("[2/12] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -2845,7 +3444,7 @@ def main() -> int:
     for name, regs, spill in kernel_resources(build.build_log()):
         log(f"  {name}: {regs} registers, {spill}")
 
-    log("[3/11] kernels against their plain versions on the card")
+    log("[3/12] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -2931,9 +3530,10 @@ def main() -> int:
                      torch.float32, timed=False)
     arch_rows = check_arch_shapes(torch, ref, fa, da, pa, kq, rn)
     arch_rows += check_recurrent_shapes(torch, ref, fa, da, rn)
+    arch_rows += check_local_shapes(torch, ref, fa, da, pa, kq, rn)
     torch.cuda.empty_cache()
 
-    log("[4/11] reduced configs, float32: card vs plain versions on the CPU")
+    log("[4/12] reduced configs, float32: card vs plain versions on the CPU")
     from repro_torch.configs import ALL_ARCHS, get_reduced
     from repro_torch.models.paged import paged_supported
     from repro_torch.models.transformer import recurrent
@@ -2954,7 +3554,7 @@ def main() -> int:
             moe_chunked_f32(torch, arch)
 
     base_mem = settled(torch)
-    log(f"[5/11] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/12] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
@@ -2966,12 +3566,12 @@ def main() -> int:
         torch.cuda.empty_cache()            # the engines' caches are freed
     log(f"  phase-5 launches: {launches5}")
 
-    log(f"[6/11] the gateway entry point (repro_torch.launch.serve) at full "
+    log(f"[6/12] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
     launches6 = serve_gateway(torch, params)
     log(f"  phase-6 launches: {launches6}")
 
-    log(f"[7/11] the chaos entry point (repro_torch.launch.serve_e2e "
+    log(f"[7/12] the chaos entry point (repro_torch.launch.serve_e2e "
         f"--chaos) at full width on phase 5's weights: a decode crash and "
         f"a spot preemption with graphed decode chunks")
     log(smi.splitlines()[0])
@@ -2980,7 +3580,7 @@ def main() -> int:
     launches = {k: launches5[k] + launches6[k] + launches7[k]
                 for k in launches5}
 
-    log("[8/11] the other dense configs at full width: stablelm-3b, "
+    log("[8/12] the other dense configs at full width: stablelm-3b, "
         "gemma-2b, h2o-danube-3-4b, command-r-35b")
     log(smi.splitlines()[0])
     del params, pre
@@ -3001,7 +3601,7 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[9/11] the MoE and VLM configs at published widths: "
+    log("[9/12] the MoE and VLM configs at published widths: "
         "llava-next-mistral-7b (32 layers), qwen3-moe-235b-a22b (8 of 94 "
         "layers), llama4-maverick-400b-a17b (2 of 48 layers)")
     log(smi.splitlines()[0])
@@ -3016,7 +3616,7 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[10/11] the recurrent and encoder-decoder configs at published "
+    log("[10/12] the recurrent and encoder-decoder configs at published "
         "widths: xlstm-125m, jamba-v0.1-52b (16 of 32 layers), "
         "whisper-base")
     log(smi.splitlines()[0])
@@ -3035,7 +3635,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
-    log("[11/11] training and checkpoints: (a) every config reduced in "
+    log("[11/12] training and checkpoints: (a) every config reduced in "
         "float32, 3 AdamW steps on the card and on the CPU; (b) LLaMA-30B "
         f"at full width, {TRAIN_LAYERS} of 60 layers, 6 steps through "
         f"launch.train; (c) LLaMA-30B cut to {CKPT_LAYERS} layer, async "
@@ -3066,6 +3666,23 @@ def main() -> int:
         f"{full['opt_ms']:.1f} ms against {full['opt_bound_ms']:.1f} ms, "
         f"checkpoints {restart['write_gbs']:.2f} GB/s written, "
         f"{restart['read_gbs']:.2f} GB/s read")
+
+    log("[12/12] distribution: (a) Runtime over a 1-D model mesh of one "
+        "rank over NCCL, full LLaMA-30B through the engines, graphed and "
+        "eager, against the unmeshed engine; (b) LLaMA-30B at TP 2, "
+        f"{P12_LAYERS['tp']} of 60 layers, (c) qwen3-moe at EP 2 + TP 2, "
+        f"{P12_LAYERS['moe']} of 94 layers, (d) a 2-stage pipeline of "
+        f"{P12_LAYERS['pipe']} LLaMA-30B layers: two ranks over gloo on "
+        "the one card")
+    log(smi.splitlines()[0])
+    t12 = time.perf_counter()
+    got = phase12(torch)
+    launches = {k: launches[k] + got.get(k, 0) for k in launches}
+    log(f"  phase-12 launches: {got}")
+    missing = [k for k in PHASE12_KERNELS if not got.get(k)]
+    if missing:
+        raise AssertionError(f"phase 12 never launched {missing}")
+    log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
     rows = [("kv_quant", "src/repro_torch/kernels/csrc/kv_quant.cu",
              "src/repro/kernels/kv_quant.py:55", rq),

@@ -1,0 +1,131 @@
+"""The collectives the layers call on one mesh axis.
+
+The reference's collectives are XLA's (``psum``, ``all_to_all``,
+``ppermute`` inside ``shard_map``); here each becomes a
+``torch.distributed`` call on the process group of one mesh axis:
+NCCL on the card, gloo on the CPU. :class:`Group` wraps that process
+group with the four calls the layers need (``all_reduce``,
+``all_gather``, ``all_to_all`` and point-to-point ``exchange``).
+
+On NCCL every call is issued on the device, so a decode chunk that makes
+them captures them in its CUDA graph. Gloo takes CUDA tensors only for
+``all_reduce`` and ``broadcast``: on a gloo group the other calls copy a
+CUDA tensor to the host and back (``Group.staged``). That choice is made
+from the group's backend when the group is built, and printed; it is
+never made by catching a failure. A gloo group cannot be captured in a
+graph (``Group.graphable``).
+
+Calls are issued at every group size, 1 included, so a world of one
+rank exercises the same calls as a larger one. Each call adds one to
+its count (:func:`counts`), as a kernel wrapper does, so a caller can
+read how many collectives a step made.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+_COUNTS: Dict[str, int] = collections.Counter()
+
+# the flat gather's name in newer releases, the older one's otherwise
+_all_gather_flat = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def counts() -> Dict[str, int]:
+    """Collectives issued so far in this process, by call."""
+    return dict(_COUNTS)
+
+
+def reset_counts():
+    _COUNTS.clear()
+
+
+def add_counts(delta: Dict[str, int]):
+    """Add the collectives a graph replay made (its capture counted them
+    once and was taken back, as the kernel wrappers' counts are)."""
+    for name, n in delta.items():
+        _COUNTS[name] += n
+
+
+def set_counts(snapshot: Dict[str, int]):
+    _COUNTS.clear()
+    _COUNTS.update(snapshot)
+
+
+class Group:
+    """One mesh axis's process group: ``size``, this rank's ``rank`` in
+    it, its ``backend`` and the collectives on it."""
+
+    def __init__(self, pg, name: str):
+        self.pg, self.name = pg, name
+        self.size = dist.get_world_size(pg)
+        self.rank = dist.get_rank(pg)
+        self.backend = str(dist.get_backend(pg))
+        self.staged = self.backend == "gloo"
+        self.graphable = self.backend == "nccl"
+        how = ("all_gather, all_to_all and send/recv of CUDA tensors go "
+               "through host copies (gloo takes CUDA tensors only for "
+               "all_reduce and broadcast)" if self.staged else
+               "every collective is issued on the device")
+        print(f"[comm] axis {name!r}: {self.size} rank(s) over "
+              f"{self.backend}; {how}", flush=True)
+
+    def global_rank(self, r: int) -> int:
+        return dist.get_global_rank(self.pg, r)
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        return x.cpu() if self.staged and x.is_cuda else x.contiguous()
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the group, in place; returns ``x``."""
+        _COUNTS["all_reduce"] += 1
+        dist.all_reduce(x, group=self.pg)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim``, in rank order."""
+        _COUNTS["all_gather"] += 1
+        h = self._host(x)
+        buf = h.new_empty((self.size * h.shape[0],) + tuple(h.shape[1:]))
+        _all_gather_flat(buf, h, group=self.pg)
+        parts = buf.view((self.size,) + tuple(h.shape)).unbind(0)
+        out = torch.cat(parts, dim=dim % x.ndim)
+        return out.to(x.device) if out.device != x.device else out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s dim 0 in ``size`` equal chunks: chunk j goes to rank j,
+        and chunk i of the result came from rank i."""
+        _COUNTS["all_to_all"] += 1
+        h = self._host(x)
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h, group=self.pg)
+        return out.to(x.device) if out.device != x.device else out
+
+    def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]],
+                 recvs: Sequence[Tuple[torch.Tensor, int]]
+                 ) -> List[torch.Tensor]:
+        """Point-to-point: each ``(tensor, peer)`` of ``sends`` to its
+        peer, each of ``recvs`` filled from its peer (peers are ranks of
+        this group), all in one ``batch_isend_irecv``. Returns the
+        received tensors (on the device of the ones passed)."""
+        if not sends and not recvs:
+            return []
+        _COUNTS["send_recv"] += 1
+        ops, got = [], []
+        for t, peer in sends:
+            ops.append(dist.P2POp(dist.isend, self._host(t),
+                                  self.global_rank(peer), group=self.pg))
+        for t, peer in recvs:
+            h = torch.empty(t.shape, dtype=t.dtype,
+                            device="cpu" if self.staged else t.device)
+            got.append((h, t))
+            ops.append(dist.P2POp(dist.irecv, h, self.global_rank(peer),
+                                  group=self.pg))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [h.to(t.device) if h.device != t.device else h
+                for h, t in got]

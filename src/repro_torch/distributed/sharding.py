@@ -1,0 +1,377 @@
+"""Logical-axis sharding rules and per-parameter PartitionSpecs (the port
+of ``repro.distributed.sharding``).
+
+The rules, ``set_rules``/``use_rules``/``get_mesh``, ``_resolve``, the
+parameter patterns, ``param_spec``, ``tree_paths`` and
+``params_pspec_tree`` are the reference's, over the port's own ``P`` (a
+tuple: one entry a dim, ``None`` or a mesh axis name or a tuple of
+them) and its mesh (``launch/mesh.py``: ``shape_of`` is the reference's
+``mesh.shape``).
+
+The reference leaves the layout to XLA's SPMD partitioner, so its
+``constrain`` is a ``with_sharding_constraint``. The port is explicit
+SPMD: every rank holds its shard and the layers place the collectives,
+so ``constrain`` moves no data. Without rules it is a no-op, as in the
+reference; under rules with a mesh it checks that the tensor's local
+shape is what the logical spec implies on this rank, and raises if not.
+
+Port-only: :func:`local_cfg` is the config one rank's shard of a tensor-
+and expert-parallel model computes (heads, KV heads, the FFN width and
+the experts divided by the ``model`` axis), so the layer code runs
+unchanged on a rank's shard; :func:`shard_params` cuts each weight to
+this rank's slice by its spec; :func:`check_tp` refuses what this step
+of the port does not shard (ROADMAP A.9 step two).
+"""
+from __future__ import annotations
+
+import functools
+import re
+import threading
+from contextlib import contextmanager
+from typing import Optional
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh as Mesh
+
+from repro_torch.launch.mesh import shape_of
+
+_state = threading.local()
+
+
+class P(tuple):
+    """A PartitionSpec: ``P(None, "model")`` is the tuple
+    ``(None, "model")``."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+
+DEFAULT_RULES = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": None,
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "kv_seq": "model",       # decode KV cache: sequence-sharded (flash-decode)
+    "experts": "model",
+    "mamba_inner": "model",
+    "state": None,
+}
+
+# Sequence-parallel variant: long-context activations shard seq over model.
+SEQPAR_RULES = dict(DEFAULT_RULES, seq="model", kv_seq="model")
+
+# MQA/GQA fix-up (heads % model != 0): shard attention on the QUERY sequence,
+# force-replicate the (tiny) KV — stops XLA sharding head_dim and emitting
+# partial-sum all-reduces per attention block. "qseq"/"kseq" are only
+# constrained inside attention; the rest of the model keeps DEFAULT rules.
+ATTN_QSEQ_RULES = dict(DEFAULT_RULES, qseq="model", kseq="force_replicated")
+
+
+def set_rules(mesh: Optional[Mesh], rules: Optional[dict] = None):
+    _state.mesh = mesh
+    _state.rules = dict(rules) if rules is not None else None
+
+
+def get_mesh() -> Optional[Mesh]:
+    return getattr(_state, "mesh", None)
+
+
+@contextmanager
+def use_rules(mesh: Optional[Mesh], rules: Optional[dict] = None):
+    old = (getattr(_state, "mesh", None), getattr(_state, "rules", None))
+    set_rules(mesh, rules if rules is not None else DEFAULT_RULES)
+    try:
+        yield
+    finally:
+        set_rules(*old)
+
+
+def _resolve(mesh, rules, logical_axes, ndim):
+    spec = [None] * ndim
+    forced = False
+    for i, ax in enumerate(logical_axes):
+        if ax is None:
+            continue
+        target = rules.get(ax)
+        if target == "force_replicated":
+            forced = True  # emit the constraint even if fully-None
+            continue
+        if target is None:
+            continue
+        names = target if isinstance(target, tuple) else (target,)
+        names = tuple(n for n in names if n in shape_of(mesh))
+        if names:
+            spec[i] = names if len(names) > 1 else names[0]
+    return P(*spec), forced
+
+
+def _fits(shape, spec, sizes):
+    """Replicate every spec axis that does not divide its dimension (the
+    reference's rule, ``launch/dryrun.py: _fits`` and ``constrain``)."""
+    out = []
+    for i, s in enumerate(spec):
+        names = () if s is None else s if isinstance(s, tuple) else (s,)
+        n = 1
+        for nm in names:
+            n *= sizes[nm]
+        out.append(s if names and shape[i] % n == 0 else None)
+    return P(*out)
+
+
+def local_shape(shape, spec, sizes):
+    """Each dim of ``shape`` over the product of its spec entry's axis
+    sizes (after :func:`_fits`)."""
+    out = []
+    for dim, s in zip(shape, _fits(shape, spec, sizes)):
+        names = () if s is None else s if isinstance(s, tuple) else (s,)
+        n = 1
+        for nm in names:
+            n *= sizes[nm]
+        out.append(dim // n)
+    return tuple(out)
+
+
+def constrain(x, *logical_axes, full=None):
+    """No-op without rules. Under rules with a mesh, checks that ``x``
+    (this rank's tensor) has the local shape that the logical spec
+    implies for the global shape ``full`` (``x.shape`` where None: a
+    tensor the rules must leave whole), and raises if not. Moves no
+    data: explicit SPMD has laid the tensor out already."""
+    mesh = getattr(_state, "mesh", None)
+    rules = getattr(_state, "rules", None)
+    if mesh is None or rules is None:
+        return x
+    full = tuple(x.shape) if full is None else tuple(full)
+    spec, _ = _resolve(mesh, rules, logical_axes, len(full))
+    want = local_shape(full, spec, shape_of(mesh))
+    if tuple(x.shape) != want:
+        raise ValueError(
+            f"constrain{logical_axes}: local shape {tuple(x.shape)}, the "
+            f"spec {tuple(spec)} of {full} gives {want} on this rank")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Per-parameter PartitionSpecs (pattern-matched on the param tree path)
+# ---------------------------------------------------------------------------
+
+# (regex on "/"-joined path, spec builder given leaf ndim). Specs are written
+# for the *unstacked* param; a leading scan/stack dim is padded with None.
+_PARAM_PATTERNS = [
+    (r"embed$",                lambda: P(None, "model")),            # (V, d)
+    (r"unembed$",              lambda: P(None, "model")),            # (d, V)
+    (r"pos_embed$",            lambda: P(None, None)),
+    (r"(wq|wk|wv)/w$",         lambda: P(None, "model")),            # col-par
+    (r"wo/w$",                 lambda: P("model", None)),            # row-par
+    (r"(wi|w_up|ffn_wi|w_in)/w$", lambda: P(None, "model")),
+    (r"(w_down|ffn_wo)/w$",    lambda: P("model", None)),
+    (r"moe/wi$",               lambda: P("model", None, None)),      # (E,d,f) EP
+    (r"moe/wo$",               lambda: P("model", None, None)),
+    (r"moe/router$",           lambda: P(None, None)),
+    (r"shared/wi/w$",          lambda: P(None, "model")),
+    (r"shared/wo/w$",          lambda: P("model", None)),
+    (r"in_proj/w$",            lambda: P(None, "model")),            # mamba
+    (r"conv_w$",               lambda: P(None, "model")),            # (K, di)
+    (r"conv_b$",               lambda: P("model",)),
+    (r"x_proj/w$",             lambda: P("model", None)),
+    (r"dt_proj/w$",            lambda: P(None, "model")),
+    (r"A_log$",                lambda: P("model", None)),
+    (r"D$",                    lambda: P("model",)),
+    (r"w_if/w$",               lambda: P(None, None)),               # tiny gates
+    (r"skip$",                 lambda: P("model",)),
+]
+
+
+def param_spec(path: str, ndim: int, n_stacked_dims: int = 0) -> P:
+    for pat, builder in _PARAM_PATTERNS:
+        if re.search(pat, path):
+            spec = builder()
+            if len(spec) + n_stacked_dims == ndim:
+                return P(*([None] * n_stacked_dims + list(spec)))
+            return P(*([None] * ndim))  # rank mismatch (e.g. bias): replicate
+    return P(*([None] * ndim))  # default: replicated
+
+
+def tree_paths(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(tree_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            out.update(tree_paths(v, f"{prefix}/{i}"))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def params_pspec_tree(params, *, stacked_prefixes=("blocks",)):
+    """PartitionSpec pytree matching ``params``; block params get a leading
+    None for the scan-stacking dimension."""
+    def rec(tree, prefix="", stacked=False):
+        if isinstance(tree, dict):
+            return {k: rec(v, f"{prefix}/{k}" if prefix else str(k),
+                           stacked or k in stacked_prefixes)
+                    for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            t = type(tree)
+            return t(rec(v, f"{prefix}/{i}", stacked)
+                     for i, v in enumerate(tree))
+        n_stack = 1 if stacked else 0
+        return param_spec(prefix, tree.ndim if hasattr(tree, "ndim")
+                          else len(tree.shape), n_stack)
+    return rec(params)
+
+
+# ---------------------------------------------------------------------------
+# Port-only: the rank-local config and parameters
+# ---------------------------------------------------------------------------
+
+STEP_TWO = "is not sharded over a model axis larger than 1 yet " \
+    "(ROADMAP A.9 step two)"
+
+
+def tp_refusals(cfg, n: int):
+    """What keeps ``cfg`` from running tensor- and expert-parallel over a
+    ``model`` axis of ``n`` ranks (empty at ``n == 1``, and for the
+    configurations this step shards: LLaMA-30B and qwen3-moe)."""
+    if n == 1:
+        return []
+    kinds = {k.split("+")[0] for k in cfg.layer_kinds()} \
+        if cfg.family != "audio" else {"audio"}
+    why = [name for name, on in (
+        ("a recurrent stack", kinds - {"attn"} and cfg.family != "audio"),
+        ("the audio encoder-decoder", cfg.family == "audio"),
+        ("a VLM's patch projector", cfg.family == "vlm"),
+        ("tied embeddings", cfg.tie_embeddings),
+        ("an embedding scale", cfg.embed_scale),
+        ("a sliding window", cfg.sliding_window),
+        ("a parallel block", cfg.parallel_block),
+        ("LayerNorm", cfg.norm_type != "rmsnorm"),
+        ("biases", cfg.attn_bias or cfg.mlp_bias),
+        ("a shared expert", cfg.moe_shared_expert),
+        ("MoE interleaved with dense layers",
+         cfg.moe_num_experts and cfg.moe_every > 1),
+        (f"{cfg.num_heads} heads", cfg.num_heads % n),
+        (f"{cfg.num_kv_heads} KV heads (replicated KV, ATTN_QSEQ)",
+         cfg.num_kv_heads % n),
+        (f"an FFN of {cfg.d_ff}", not cfg.moe_num_experts and cfg.d_ff % n),
+        (f"{cfg.moe_num_experts} experts",
+         cfg.moe_num_experts and cfg.moe_num_experts % n),
+        (f"a vocabulary of {cfg.vocab_size}", cfg.vocab_size % n),
+        (f"d_model {cfg.d_model}", cfg.d_model % n)) if on]
+    return why
+
+
+def check_tp(cfg, n: int):
+    why = tp_refusals(cfg, n)
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name} with {', '.join(why)} {STEP_TWO}; model axis {n}")
+
+
+@functools.lru_cache(maxsize=None)
+def rank_cfg(cfg, n: int):
+    """:func:`local_cfg` for a ``model`` axis of ``n`` ranks."""
+    check_tp(cfg, n)
+    if n == 1:
+        return cfg
+    kw = dict(num_heads=cfg.num_heads // n,
+              num_kv_heads=cfg.num_kv_heads // n)
+    if cfg.moe_num_experts:
+        kw["moe_num_experts"] = cfg.moe_num_experts // n
+    else:
+        kw["d_ff"] = cfg.d_ff // n
+    return cfg.replace(**kw)
+
+
+def model_size(mesh) -> int:
+    return 1 if mesh is None else shape_of(mesh).get("model", 1)
+
+
+def local_cfg(cfg, mesh):
+    """The config one rank of ``mesh``'s ``model`` axis computes: heads,
+    KV heads and the FFN width (a dense stack) or the experts (MoE: the
+    experts are split, each whole) divided by the axis. ``cfg`` itself
+    at axis size 1 or without a mesh; raises (:func:`check_tp`) for
+    what this step does not shard."""
+    return rank_cfg(cfg, model_size(mesh))
+
+
+def _split_dim(spec):
+    """The dim a spec splits over ``model`` (None if replicated there)."""
+    for i, s in enumerate(spec):
+        names = () if s is None else s if isinstance(s, tuple) else (s,)
+        if "model" in names:
+            return i
+    return None
+
+
+def _cut(t, dim, r, n, gated):
+    """Rank r's 1/n of ``t`` along ``dim``; a gated ``[gate | up]`` last
+    dim gives each half's 1/n (a contiguous split would give rank 0 all
+    of ``gate``). A new tensor: the full one can be freed."""
+    if gated:
+        return torch.cat([h.chunk(n, dim)[r] for h in t.chunk(2, dim)],
+                         dim=dim)
+    return t.chunk(n, dim)[r].clone()
+
+
+def _leaf_specs(tree):
+    """The reference's spec of each leaf of a port parameter tree (one
+    layer's dict, or the model's top level), through the reference's
+    nesting (``convert.nest``: ``wq`` -> ``wq/w``, ``wq_b`` -> ``wq/b``):
+    ``{id(leaf): (spec, path)}``."""
+    from repro_torch.models import convert
+    return {id(t): (param_spec(path, t.ndim), path)
+            for path, t in tree_paths(convert.nest(tree)).items()}
+
+
+def _shard_tree(tree, r, n, gated):
+    specs = _leaf_specs(tree)
+
+    def rec(sub):
+        return {k: rec(v) if isinstance(v, dict) else leaf(sub, k, v)
+                for k, v in sub.items()}
+
+    def leaf(sub, k, t):
+        spec, path = specs[id(t)]
+        if k.endswith("_b") and k[:-2] in sub:      # a projection's bias
+            wspec, path = specs[id(sub[k[:-2]])]
+            if _split_dim(wspec) != len(wspec) - 1:
+                return t                            # row-parallel: whole
+            spec = P(*([None] * (t.ndim - 1) + ["model"]))
+        dim = _split_dim(_fits(t.shape, spec, {"model": n}))
+        if dim is None:
+            return t
+        pair = gated and dim == t.ndim - 1 and \
+            re.search(r"(^|/)(mlp|shared)/wi/[wb]$", path) is not None
+        return _cut(t, dim, r, n, pair)
+
+    return rec(tree)
+
+
+def shard_params(params, cfg, mesh):
+    """This rank's shard of ``params`` (the whole model, or one layer's
+    dict): each tensor cut along the dim its reference spec puts on
+    ``model``, where the axis divides it (``_fits``). Gated ``wi``
+    weights split ``gate`` and ``up`` each; a column-parallel weight's
+    bias follows its columns, a row-parallel one's stays whole (added
+    once, after the reduce). At axis size 1 (or without a mesh) the
+    tensors are returned as they are."""
+    n = model_size(mesh)
+    if n == 1:
+        return params
+    r = mesh.get_local_rank("model")
+    gated = cfg.mlp_type in ("silu", "geglu")
+    if "layers" not in params:
+        return _shard_tree(params, r, n, gated)
+    top = _shard_tree({k: v for k, v in params.items() if k != "layers"},
+                      r, n, gated)
+    return {k: [_shard_tree(p, r, n, gated) for p in v] if k == "layers"
+            else top[k] for k, v in params.items()}

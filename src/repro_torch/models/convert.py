@@ -64,7 +64,7 @@ def _stack(tree, n, device):
     return [_flat(tree, device, j) for j in range(n)]
 
 
-def params_from_numpy(tree, cfg, device="cuda"):
+def params_from_numpy(tree, cfg, device="cuda", mesh=None):
     """The reference stacks a decoder's layers in ``period`` slots
     (``blocks = {"slot0": ..., "slot{p-1}": ...}``, each stacked over
     ``num_layers // period`` superblocks): layer i is slot ``i % period``,
@@ -75,7 +75,10 @@ def params_from_numpy(tree, cfg, device="cuda"):
     biases and q/k norms where the config has them. Tied embeddings have
     no ``unembed``; a VLM has ``mm_projector``. Whisper's tree (``audio``)
     stacks ``enc_layers`` and ``dec_layers``, each unstacked into a
-    list."""
+    list. With a ``mesh`` only this rank's shard is kept
+    (``sharding.shard_params``), one layer at a time."""
+    from repro_torch.distributed import sharding
+    sharding.check_tp(cfg, sharding.model_size(mesh))
     if cfg.family == "audio":
         out = {k: _tensor(tree[k], device) for k in ("embed", "unembed")}
         out.update(enc_layers=_stack(tree["enc_layers"],
@@ -91,15 +94,18 @@ def params_from_numpy(tree, cfg, device="cuda"):
         raise ValueError(f"{cfg.name}: slots {sorted(blocks)} do not "
                          f"stack {cfg.num_layers} layers of period "
                          f"{period}")
-    layers = [_flat(blocks[f"slot{i % period}"], device, i // period)
-              for i in range(cfg.num_layers)]
+    layers = [sharding.shard_params(
+        _flat(blocks[f"slot{i % period}"], device, i // period), cfg, mesh)
+        for i in range(cfg.num_layers)]
     params = {"embed": _tensor(tree["embed"], device), "layers": layers,
               "final_norm": _norm(tree["final_norm"], device)}
     if "unembed" in tree:
         params["unembed"] = _tensor(tree["unembed"], device)
     if "mm_projector" in tree:
         params["mm_projector"] = _tensor(tree["mm_projector"]["w"], device)
-    return params
+    top = sharding.shard_params(
+        {k: v for k, v in params.items() if k != "layers"}, cfg, mesh)
+    return {k: layers if k == "layers" else top[k] for k in params}
 
 
 # the reference's leaves that are neither a projection's {"w"(, "b")} nor
@@ -111,7 +117,7 @@ _SCALES = frozenset({"norm1", "norm2", "norm3", "final_norm", "enc_norm",
                      "qnorm", "knorm", "gn"})
 
 
-def _nest(tree, parent=""):
+def nest(tree, parent=""):
     """The inverse of :func:`_flat` on one unstacked layer (or the
     model's top level): a weight and its ``name_b`` back into ``{"w",
     "b"}``, an RMSNorm scale into ``{"scale"}``, raw leaves as they
@@ -119,7 +125,7 @@ def _nest(tree, parent=""):
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = _nest(v, k)
+            out[k] = nest(v, k)
         elif k in _RAW or (parent == "moe" and k in ("wi", "wo")):
             out[k] = v
         elif k in _SCALES:
@@ -159,15 +165,15 @@ def params_to_tree(params, cfg, device=None):
     ``params_from_numpy(params_to_tree(p, cfg), cfg)`` is ``p``, byte for
     byte."""
     if cfg.family == "audio":
-        stacks = {name: _restack([_nest(p) for p in params[name]], device)
+        stacks = {name: _restack([nest(p) for p in params[name]], device)
                   for name in ("enc_layers", "dec_layers")}
     else:
         period = len(transformer.slot_kinds(cfg))
         layers = params["layers"]
         stacks = {"blocks": {
-            f"slot{s}": _restack([_nest(p) for p in layers[s::period]], device)
+            f"slot{s}": _restack([nest(p) for p in layers[s::period]], device)
             for s in range(period)}}
-    top = _nest({k: v for k, v in params.items()
+    top = nest({k: v for k, v in params.items()
                  if k not in ("layers", "enc_layers", "dec_layers")})
     return {**_copy(top, device), **stacks}
 

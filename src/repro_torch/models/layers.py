@@ -140,6 +140,18 @@ def proj(p, name, x):
     return dense(p[name], x, p.get(name + "_b"))
 
 
+def row_proj(p, name, x, tp=None):
+    """A row-parallel projection (attention's and the MLP's ``wo``): this
+    rank's partial product summed over the model axis ``tp``
+    (``distributed/comm.py``; none without a mesh), then the bias, once.
+    :func:`proj` where ``tp`` is None."""
+    y = x @ p[name]
+    if tp is not None:
+        tp.all_reduce(y)
+    b = p.get(name + "_b")
+    return y if b is None else y + b
+
+
 def causal_conv1d(x, w, b=None, state=None):
     """Depthwise causal conv over time (Mamba, mLSTM), the reference's:
     x (B, S, C), taps w (K, C), optional bias b (C,), ``state (B, K-1,
@@ -161,8 +173,11 @@ def causal_conv1d(x, w, b=None, state=None):
     return y.to(x.dtype), xx[:, S:]
 
 
-def mlp_apply(cfg, p, x):
-    """SwiGLU / GeGLU / GELU MLP; ``wi``'s output splits as (gate, up)."""
+def mlp_apply(cfg, p, x, tp=None):
+    """SwiGLU / GeGLU / GELU MLP; ``wi``'s output splits as (gate, up).
+    Under tensor parallelism (``tp``, the model axis's group) ``wi`` holds
+    this rank's columns of gate and of up, ``wo`` the matching rows
+    (:func:`row_proj`)."""
     h = proj(p, "wi", x)
     if cfg.mlp_type in ("silu", "geglu"):
         g, u = torch.chunk(h, 2, dim=-1)
@@ -171,7 +186,7 @@ def mlp_apply(cfg, p, x):
         h = act * u
     else:
         h = F.gelu(h, approximate="tanh")
-    return proj(p, "wo", h)
+    return row_proj(p, "wo", h, tp)
 
 
 def model_rope(cfg, positions):

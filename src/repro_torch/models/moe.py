@@ -27,15 +27,21 @@ replay gives the eager chunk's bytes.
 
 ``count_drops()`` collects each call's dropped routes as device scalars,
 for callers that report them (it is off unless asked for).
+
+:func:`moe_apply_shard_map` is the reference's expert-parallel path over
+a mesh (``launch/mesh.py``), index for index, with ``torch.distributed``
+collectives in place of ``shard_map``'s (``distributed/comm.py``).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import List, Optional
 
 import torch
 
+from repro_torch.launch.mesh import axis_group, shape_of
 from repro_torch.models import layers
 
 _DROPS: Optional[List[torch.Tensor]] = None
@@ -121,18 +127,149 @@ def moe_apply(cfg, p, x, *, capacity_factor=None):
     # each kept route to its own row; dropped ones to the extra last row
     n_rows = E * capacity
     rows = torch.where(keep, idx * capacity + pos, n_rows).reshape(-1)
-    tok = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
-    buf = x.new_zeros((n_rows + 1, d))
-    buf[rows] = x2d[tok]
-    y_buf = _expert_ffn(cfg, p["wi"], p["wo"],
-                        buf[:n_rows].view(E, capacity, d))
+    buf = _dispatch(x2d, rows, n_rows, k)
+    y_buf = _expert_ffn(cfg, p["wi"], p["wo"], buf.view(E, capacity, d))
     # a dropped route reads some row and weighs it 0, as the reference's
     w = (keep.to(x.dtype) * gates.to(x.dtype)).reshape(-1, 1)
-    y_tok = (y_buf.reshape(n_rows, d)[torch.clamp(rows, max=n_rows - 1)]
-             * w).view(T, k, d)
-    y = torch.zeros_like(x2d)
-    for c in range(k):                         # choice order, no atomics
-        y = y + y_tok[:, c]
+    y = _combine(y_buf.reshape(n_rows, d), rows, w, T, k)
     if cfg.moe_shared_expert:
         y = y + layers.mlp_apply(cfg, p["shared"], x2d)
     return y.reshape(B, S, d), aux
+
+
+@functools.lru_cache(maxsize=None)
+def _with_experts(cfg, E: int):
+    return cfg.replace(moe_num_experts=E)
+
+
+def _dispatch(x2d, rows, n_rows, k):
+    """The capacity buffer (``n_rows`` rows, each kept route's token in
+    its own row; ``rows == n_rows`` is a dropped route's throwaway
+    row)."""
+    T, d = x2d.shape
+    tok = torch.arange(T, device=x2d.device)[:, None].expand(T, k).reshape(-1)
+    buf = x2d.new_zeros((n_rows + 1, d))
+    buf[rows] = x2d[tok]
+    return buf[:n_rows]
+
+
+def _combine(y_rows, rows, w, T, k):
+    """Each token's k expert outputs (rows of ``y_rows``, weighed by
+    ``w``; a dropped route reads some row and weighs it 0) added in
+    choice order, no atomics."""
+    n_rows, d = y_rows.shape
+    y_tok = (y_rows[torch.clamp(rows, max=n_rows - 1)] * w).view(T, k, d)
+    y = torch.zeros((T, d), dtype=y_rows.dtype, device=y_rows.device)
+    for c in range(k):
+        y = y + y_tok[:, c]
+    return y
+
+
+def moe_apply_shard_map(cfg, p, x, *, mesh, expert_axis="model",
+                        data_axis="data", capacity_factor=None):
+    """Expert parallelism with explicit all-to-all (the reference's
+    ``moe_apply_shard_map``). ``x (B, S, d)`` is the global batch, whole
+    on every rank (the residual stream of a tensor-parallel model); the
+    result is global too. ``p``: the router (``(d, E)``, whole) and this
+    rank's ``E / ep`` experts of ``wi``/``wo`` (expert ``e`` lives on
+    rank ``e // (E / ep)`` of ``expert_axis``); ``cfg`` may be the global
+    config or a rank's (the experts are counted from the router).
+
+    Each rank takes its tokens: its batch rows over the data axes (where
+    they divide B; a mesh may have none) and, where ``S`` divides over
+    ``ep`` ranks, its ``S / ep`` positions. Capacity comes from that
+    local token count, so the drops are the reference's shard_map drops,
+    not ``moe_apply``'s.
+
+    * Sequence-sharded: each rank routes its tokens into an ``(E, C,
+      d)`` buffer; an all-to-all sends each expert's rows to its owner
+      (``(E/ep, ep*C, d)``, peer-major along capacity), the owner runs
+      the FFN, and the reverse exchange returns them; the positions are
+      gathered back over ``expert_axis``.
+    * Replicated (decode, ``S < ep``): every rank routes all its tokens,
+      serves only its own experts, and the outputs are summed over
+      ``expert_axis``.
+
+    The aux loss is averaged over every mesh axis. A shared expert runs
+    outside the exchange, tensor-parallel over ``expert_axis``, as the
+    reference applies it outside its shard_map. Under
+    :func:`count_drops` each call appends this rank's dropped routes
+    (its tokens', or on the replicated path the drops at its experts):
+    their sum over the ranks is the call's."""
+    sizes = shape_of(mesh)
+    ep = sizes[expert_axis]
+    E = p["router"].shape[1]
+    if cfg.moe_num_experts != E:
+        cfg = _with_experts(cfg, E)
+    k = cfg.moe_top_k
+    if E % ep:
+        raise ValueError(f"{E} experts over {ep} ranks")
+    E_loc = E // ep
+    B, S, d = x.shape
+    seq_shard = S % ep == 0 and S >= ep
+
+    data_axes = tuple(a for a in (("pod", data_axis) if "pod" in sizes
+                                  else (data_axis,)) if a in sizes)
+    n_data = math.prod(sizes[a] for a in data_axes)
+    batch_shard = B % n_data == 0
+    b_loc = B // n_data if batch_shard else B
+    T_loc = b_loc * (S // ep) if seq_shard else b_loc * S
+    capacity = capacity_of(cfg, T_loc, capacity_factor)
+
+    grp = axis_group(mesh, expert_axis)
+    xl = x
+    if batch_shard and n_data > 1:
+        di = 0
+        for a in data_axes:
+            di = di * sizes[a] + mesh.get_local_rank(a)
+        xl = xl[di * b_loc:(di + 1) * b_loc]
+    if seq_shard:
+        s_loc = S // ep
+        xl = xl[:, grp.rank * s_loc:(grp.rank + 1) * s_loc]
+    t = xl.shape[0] * xl.shape[1]
+    x2d = xl.reshape(t, d)
+    idx, pos, keep, gates, aux = route(cfg, p["router"], x2d, capacity)
+
+    if seq_shard:
+        n_rows = E * capacity
+        rows = torch.where(keep, idx * capacity + pos, n_rows).reshape(-1)
+        buf = _dispatch(x2d, rows, n_rows, k).view(ep, E_loc, capacity, d)
+        # (E, C, d) -> (E/ep, ep*C, d): expert owners gather their slots
+        # (peer-major along the capacity axis)
+        got = grp.all_to_all(buf).transpose(0, 1).reshape(
+            E_loc, ep * capacity, d)
+        y_buf = _expert_ffn(cfg, p["wi"], p["wo"], got)
+        # (E/ep, ep*C, d) -> (E, C, d): results return to token owners
+        back = y_buf.view(E_loc, ep, capacity, d).transpose(0, 1)
+        y_rows = grp.all_to_all(back.contiguous()).reshape(n_rows, d)
+        mine = keep
+    else:
+        # replicated tokens: each rank serves only its local experts,
+        # combined with a sum over the expert axis
+        lo = grp.rank * E_loc
+        mine = keep & (idx >= lo) & (idx < lo + E_loc)
+        n_rows = E_loc * capacity
+        rows = torch.where(mine, (idx - lo) * capacity + pos,
+                           n_rows).reshape(-1)
+        buf = _dispatch(x2d, rows, n_rows, k).view(E_loc, capacity, d)
+        y_rows = _expert_ffn(cfg, p["wi"], p["wo"], buf).reshape(n_rows, d)
+    if _DROPS is not None:
+        _DROPS.append((~keep).sum() if seq_shard else
+                      (~keep & (idx // E_loc == grp.rank)).sum())
+    w = (mine.to(x.dtype) * gates.to(x.dtype)).reshape(-1, 1)
+    y = _combine(y_rows, rows, w, t, k)
+    if not seq_shard:
+        grp.all_reduce(y)
+    for a in sizes:                            # pmean over every axis
+        axis_group(mesh, a).all_reduce(aux)
+    aux = aux / math.prod(sizes.values())
+
+    y = y.reshape(xl.shape)
+    if seq_shard:
+        y = grp.all_gather(y, 1)
+    if batch_shard and n_data > 1:
+        for a in reversed(data_axes):
+            y = axis_group(mesh, a).all_gather(y, 0)
+    if cfg.moe_shared_expert:
+        y = y + layers.mlp_apply(cfg, p["shared"], x, grp)
+    return y, aux

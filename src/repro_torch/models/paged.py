@@ -31,8 +31,8 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kv_layout import pick_group
 from repro_torch.models import layers
-from repro_torch.models.transformer import (embed, run_layers,
-                                           unembed_matrix)
+from repro_torch.models.transformer import (embed, logits_of, run_layers,
+                                           shard_view)
 
 DEFAULT_PAGE_SIZE = 16
 PAGE_KEYS = ("kp", "ks", "kz", "vp", "vs", "vz")
@@ -95,7 +95,7 @@ def init_paged_cache(cfg, max_slots: int, max_seq: int, num_pages: int, *,
 
 def decode_step_paged(cfg, params, cache, tokens, *,
                       page_size: int = DEFAULT_PAGE_SIZE,
-                      backend: str = "auto"):
+                      backend: str = "auto", rt=None):
     """One decode step against the paged pool. tokens: (B, 1).
 
     Each slot's new K/V is written into its tail page: int4 pages take it
@@ -105,8 +105,12 @@ def decode_step_paged(cfg, params, cache, tokens, *,
     for K and V). Attention runs through
     ``ops.paged_decode_attention``, whose kernel follows the residency.
     Returns (logits (B, 1, V) f32, cache) with ``lengths + 1``; the page
-    table is host business."""
-    x = embed(cfg, params, tokens)
+    table is host business. Under a mesh (``rt``) the pages hold this
+    rank's KV heads (``cfg`` there is ``sharding.local_cfg``'s, as
+    ``init_paged_cache`` was given), and their int4 group is the one
+    this rank's span picks."""
+    cfg, tp = shard_view(cfg, rt)
+    x = embed(cfg, params, tokens, tp=tp)
     B = x.shape[0]
     lengths = cache["lengths"]
     positions = lengths[:, None]
@@ -136,11 +140,11 @@ def decode_step_paged(cfg, params, cache, tokens, *,
         qr = q[:, 0].reshape(B, Hkv, gq, hd).contiguous()
         o = ops.paged_decode_attention(qr, kpages, vpages, pt, kv_len,
                                        page_size=ps, backend=backend)
-        return layers.proj(p["attn"], "wo",
-                           o.reshape(B, 1, cfg.q_dim).to(h.dtype))
+        return layers.row_proj(p["attn"], "wo",
+                               o.reshape(B, 1, cfg.q_dim).to(h.dtype), tp)
 
-    _, h = run_layers(cfg, params, x, attend, backend=backend)
-    logits = (h @ unembed_matrix(cfg, params)).float()
+    _, h = run_layers(cfg, params, x, attend, backend=backend, rt=rt)
+    logits = logits_of(cfg, params, h, tp)
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1
     return logits, new_cache

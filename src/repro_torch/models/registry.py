@@ -22,6 +22,14 @@ chunk: the same loop captured once per ``n_steps`` as a CUDA graph and
 replayed, one host launch a chunk. ``loss(params, batch)`` is the
 training loss of every family (``transformer.loss_fn``,
 ``whisper.loss_fn``), differentiable by autograd.
+
+``build(cfg, rt=transformer.Runtime(mesh))`` runs the model tensor- and
+expert-parallel over the mesh's ``model`` axis: the functions take this
+rank's shard of the params and the caches that ``ModelApi.local_cfg``
+(``sharding.local_cfg``: this rank's heads, KV heads, FFN columns or
+experts) lays out, and place the collectives (``distributed/comm.py``).
+On NCCL a graphed chunk captures them with the rest; a gloo group cannot
+be captured, and :class:`GraphedDecodeChunk` refuses it.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm, sharding
 from repro_torch.kernels import ops
 from repro_torch.models import paged, transformer, whisper
 
@@ -50,6 +59,11 @@ class ModelApi:
     decode_chunk: Optional[Callable] = None
     # the training loss: loss(params, batch) -> f32 scalar
     loss: Optional[Callable] = None
+    # the config one rank's shard computes and its caches hold (cfg
+    # itself without a mesh or at model axis size 1)
+    local_cfg: Optional[ModelConfig] = None
+    # the model axis's collectives (None without a mesh)
+    tp: Optional[comm.Group] = None
 
 
 def make_decode_chunk(decode_fn: Callable) -> Callable:
@@ -152,12 +166,23 @@ class GraphedDecodeChunk:
 
     The wrappers count their launches in Python, which a replay does not
     run: the counts a capture adds are taken back, and added again at
-    every replay. Replays run on the current stream, in order, like the
-    eager launches they replace (the split decode kernels share one merge
-    counter buffer per device and must not overlap)."""
+    every replay; so are the collectives' (``comm.counts``). Replays run
+    on the current stream, in order, like the eager launches they
+    replace (the split decode kernels share one merge counter buffer per
+    device and must not overlap).
+
+    Under a mesh (``tp``, the model axis's group) the chunk's NCCL
+    collectives are captured with its kernels; the warm-up step has made
+    the communicator before. A gloo group cannot be captured (its
+    collectives run on the host): it raises."""
 
     def __init__(self, step_fn: Callable, chunk_fn: Callable, params,
-                 cache, max_slots: int):
+                 cache, max_slots: int, tp: Optional[comm.Group] = None):
+        if tp is not None and not tp.graphable:
+            raise ValueError(
+                f"decode chunk graph: the model axis runs over "
+                f"{tp.backend}, whose collectives cannot be captured; "
+                f"use cuda_graph=False")
         device = cache["lengths"].device
         self._chunk_fn = chunk_fn
         self._stream = _capture_stream(device)
@@ -200,6 +225,7 @@ class GraphedDecodeChunk:
             return
         self._check(params, cache)
         before = ops.launch_counts()
+        before_comm = comm.counts()
         graph = torch.cuda.CUDAGraph()
         gc.collect()
         collecting = gc.isenabled()
@@ -212,37 +238,54 @@ class GraphedDecodeChunk:
         finally:
             if collecting:
                 gc.enable()
-        after = ops.launch_counts()
+        after, after_comm = ops.launch_counts(), comm.counts()
         for name, n in before.items():          # the capture ran nothing
             ops.KERNELS[name].launches = n
+        comm.set_counts(before_comm)
         launches = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
-        self._graphs[key] = (graph, out, launches)
+        collectives = {k: n - before_comm.get(k, 0)
+                       for k, n in after_comm.items()
+                       if n != before_comm.get(k, 0)}
+        self._graphs[key] = (graph, out, launches, collectives)
 
     def captured(self, n_steps: int, eos_id: int, max_seq: int):
         """``(graph, launches)`` of a captured chunk: the
         ``torch.cuda.CUDAGraph`` (a replay with the state buffers as they
         are runs the chunk again, for timing) and the kernel launches one
         replay makes, by wrapper, as counted while it was captured."""
-        graph, _, launches = self._graphs[(n_steps, eos_id, max_seq)]
+        graph, _, launches, _ = self._graphs[(n_steps, eos_id, max_seq)]
         return graph, dict(launches)
+
+    def collectives(self, n_steps: int, eos_id: int, max_seq: int):
+        """The collectives one replay of a captured chunk makes, by
+        call."""
+        return dict(self._graphs[(n_steps, eos_id, max_seq)][3])
 
     def __call__(self, params, cache, state, *, n_steps: int, eos_id: int,
                  max_seq: int):
         self.capture(params, cache, n_steps=n_steps, eos_id=eos_id,
                      max_seq=max_seq)
         self._check(params, cache)
-        graph, (toks, valid, _, st), launches = \
+        graph, (toks, valid, _, st), launches, collectives = \
             self._graphs[(n_steps, eos_id, max_seq)]
         for k in STATE_KEYS:
             self._state[k].copy_(state[k])
         graph.replay()
         for name, n in launches.items():
             ops.KERNELS[name].launches += n
+        comm.add_counts(collectives)
         return toks, valid, cache, st
 
 
-def build(cfg: ModelConfig) -> ModelApi:
+def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
+    """The model API of ``cfg``; under ``rt`` (a
+    ``transformer.Runtime``) its functions run on this rank's shard. An
+    audio model has no tensor-parallel path: under a mesh only an axis of
+    size 1 takes it, and runs unsharded (``sharding.check_tp``)."""
+    mesh = None if rt is None else rt.mesh
+    local = sharding.local_cfg(cfg, mesh)
+    tp = None if rt is None else rt.tp
     if cfg.family == "audio":
         def prefill_fn(params, batch, *, max_seq=None):
             return whisper.prefill(
@@ -259,7 +302,7 @@ def build(cfg: ModelConfig) -> ModelApi:
 
         return ModelApi(cfg=cfg, prefill=prefill_fn, decode=decode_fn,
                         decode_chunk=make_decode_chunk(decode_fn),
-                        loss=loss_fn)
+                        loss=loss_fn, local_cfg=local)
 
     def prefill_fn(params, batch, *, max_seq=None):
         S = batch["tokens"].shape[1]
@@ -275,7 +318,8 @@ def build(cfg: ModelConfig) -> ModelApi:
                 true_len = true_len + n_patch
         return transformer.prefill(
             cfg, params, batch["tokens"], max_seq=max_seq or S,
-            last_pos=last_pos, true_len=true_len, patch_embeds=patches)
+            last_pos=last_pos, true_len=true_len, patch_embeds=patches,
+            rt=rt)
 
     suffix_fn = paged_fns = None
     if paged.paged_supported(cfg):
@@ -285,17 +329,17 @@ def build(cfg: ModelConfig) -> ModelApi:
                 cfg, params, batch["tokens"], batch["prefix_kv"],
                 batch["prefix_len"], max_seq=max_seq or S,
                 last_pos=batch.get("last_pos"),
-                true_len=batch.get("true_len"))
+                true_len=batch.get("true_len"), rt=rt)
 
         def paged_fns(page_size: int, backend: str = "auto"):
             def step_fn(params, cache, tokens):
                 return paged.decode_step_paged(
                     cfg, params, cache, tokens, page_size=page_size,
-                    backend=backend)
+                    backend=backend, rt=rt)
             return step_fn, make_decode_chunk(step_fn)
 
     def decode_fn(params, cache, tokens):
-        return transformer.decode_step(cfg, params, cache, tokens)
+        return transformer.decode_step(cfg, params, cache, tokens, rt=rt)
 
     def loss_fn(params, batch):
         return transformer.loss_fn(cfg, params, batch)
@@ -303,4 +347,5 @@ def build(cfg: ModelConfig) -> ModelApi:
     return ModelApi(cfg=cfg, prefill=prefill_fn,
                     prefill_suffix=suffix_fn, paged_decode_fns=paged_fns,
                     decode=decode_fn,
-                    decode_chunk=make_decode_chunk(decode_fn), loss=loss_fn)
+                    decode_chunk=make_decode_chunk(decode_fn), loss=loss_fn,
+                    local_cfg=local, tp=tp)

@@ -58,7 +58,9 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import axis_group, shape_of
 from repro_torch.models import layers, mamba, moe, xlstm
 from repro_torch.models.layers import dense
 
@@ -208,8 +210,49 @@ class ParamMaker:
                 **self.proj("ffn_wi", d, f), **self.proj("ffn_wo", f // 2, d)}
 
 
+class Runtime:
+    """Execution context (the reference's ``Runtime``): the mesh and the
+    feature flags, passed to the model calls, never global.
+
+    With a ``mesh`` the model runs explicit SPMD over its ``model`` axis:
+    each rank holds its shard of the weights (``init_params(mesh=)``,
+    ``distributed/sharding.py: shard_params``) and computes the config
+    ``sharding.local_cfg`` gives, its heads, KV heads and FFN columns (or
+    its experts); the layers place the collectives (``tp``, the axis's
+    ``comm.Group``): an ``all_gather`` of the embedding (split on
+    ``d``), an ``all_reduce`` after each row-parallel ``wo``, the
+    experts' exchange (``moe.moe_apply_shard_map`` under
+    ``moe_shard_map``), an ``all_gather`` of the vocab-parallel logits.
+    The collectives are issued at axis size 1 too, where the results
+    equal the run without a mesh bit for bit. ``inplace_decode`` is the
+    reference's flag: the port's decode steps always write their cache
+    in place, so it must be True."""
+
+    def __init__(self, mesh=None, moe_shard_map=False, inplace_decode=True):
+        if not inplace_decode:
+            raise ValueError("the port's decode steps write their cache in "
+                             "place (inplace_decode=True)")
+        self.mesh = mesh
+        self.moe_shard_map = moe_shard_map
+        self.inplace_decode = inplace_decode
+        self.tp = axis_group(mesh, "model") \
+            if mesh is not None and "model" in shape_of(mesh) else None
+
+
+def shard_view(cfg, rt):
+    """``(the config this rank computes, the model axis's group or
+    None)`` of a model call under ``rt``."""
+    if rt is None or rt.tp is None:
+        return cfg, None
+    local = sharding.local_cfg(cfg, rt.mesh)
+    if rt.tp.size > 1 and cfg.moe_num_experts and not rt.moe_shard_map:
+        raise ValueError(f"{cfg.name}: experts split over a model axis of "
+                         f"{rt.tp.size} need Runtime(moe_shard_map=True)")
+    return local, rt.tp
+
+
 def init_params(cfg, *, seed: int = 0, device="cuda",
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, mesh=None):
     """Random weights with the reference's scales (normal * 1/sqrt(d_in),
     embed * 0.02; RMSNorm scales zero, LayerNorm scales one and biases
     zero; a MoE router f32; the recurrent blocks' f32 states' parameters
@@ -217,8 +260,18 @@ def init_params(cfg, *, seed: int = 0, device="cuda",
     its mixer under its kind (``attn``, ``mamba``, ``mlstm``, ``slstm``)
     and its FFN (``mlp``, ``moe``, or none: an xLSTM block carries its
     own). The numbers differ from ``jax.random``'s; parity tests convert
-    the JAX weights instead."""
+    the JAX weights instead.
+
+    With a ``mesh`` each full tensor is drawn in the unsharded order
+    from the same generator, and only this rank's slice is kept
+    (``sharding.shard_params``, one layer at a time), so every width of
+    the ``model`` axis holds the same model as the unsharded one."""
     mk = ParamMaker(cfg, seed, device, dtype)
+    sharding.check_tp(cfg, sharding.model_size(mesh))
+
+    def keep(tree):
+        return sharding.shard_params(tree, cfg, mesh)
+
     d = cfg.d_model
     blocks = []
     for kind in cfg.layer_kinds():
@@ -230,11 +283,12 @@ def init_params(cfg, *, seed: int = 0, device="cuda",
             blk["mlp"] = mk.mlp()
         if ffn != "none" and not (cfg.parallel_block and "mlp" in blk):
             blk["norm2"] = mk.norm()
-        blocks.append(blk)
-    params = {"embed": mk.normal((cfg.vocab_size, d), 0.02),
+        blocks.append(keep(blk))
+    params = {**keep({"embed": mk.normal((cfg.vocab_size, d), 0.02)}),
               "layers": blocks, "final_norm": mk.norm()}
     if not cfg.tie_embeddings:
-        params["unembed"] = mk.normal((d, cfg.vocab_size), 1 / math.sqrt(d))
+        params.update(keep({"unembed": mk.normal((d, cfg.vocab_size),
+                                                 1 / math.sqrt(d))}))
     if cfg.family == "vlm":
         params["mm_projector"] = mk.normal((d, d), 1 / math.sqrt(d))
     return params
@@ -251,12 +305,16 @@ def _embed_scale(d_model: int, dtype) -> float:
     return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
-def embed(cfg, params, tokens, patch_embeds=None):
+def embed(cfg, params, tokens, patch_embeds=None, tp=None):
     """Token embeddings, times the rounded ``sqrt(d_model)`` where
     ``cfg.embed_scale`` (gemma). A VLM given ``patch_embeds (B, P, d)``
     puts ``mm_projector`` of them (cast to the embeddings' type first)
-    in front of the text, as the reference's ``_embed_inputs``."""
+    in front of the text, as the reference's ``_embed_inputs``. Under
+    tensor parallelism (``tp``) the table is split on ``d``: the rows'
+    slices are gathered over the model axis."""
     x = params["embed"][tokens]
+    if tp is not None:
+        x = tp.all_gather(x, -1)
     if cfg.embed_scale:
         x = x * _embed_scale(cfg.d_model, x.dtype)
     if cfg.family == "vlm" and patch_embeds is not None:
@@ -330,7 +388,7 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
 
 
 def run_layers(cfg, params, x, attend, *, final_norm=True,
-               backend: str = "auto"):
+               backend: str = "auto", rt=None):
     """The residual stream ``x`` through every layer: ``attend(i, p, h)``
     returns layer i's mixer output (attention projected back to d_model,
     or a recurrent block's) for the normed input ``h``. Each residual add
@@ -349,20 +407,25 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
     The FFN follows the layer's kind: an MLP, or (a layer holding
     ``moe``) ``moe.moe_apply`` over the call's tokens, as the reference's
     ``_apply_ffn`` on every path; a MoE layer is never a parallel block.
+    Under a mesh (``rt``; ``cfg`` is then this rank's, ``shard_view``)
+    the MLP reduces its row-parallel ``wo`` over the model axis and the
+    MoE runs ``moe.moe_apply_shard_map`` where ``rt.moe_shard_map``; the
+    residual stream stays whole on every rank.
 
     On the CPU the arithmetic is the reference's exactly: an add, then
     the norm's plain version."""
     blocks = params["layers"]
+    tp = None if rt is None else rt.tp
     h = layers.norm_apply(cfg, blocks[0]["norm1"], x, backend=backend)
     for i, p in enumerate(blocks):
         o = attend(i, p, h)
         if cfg.parallel_block and "mlp" in p:
-            m = layers.mlp_apply(cfg, p["mlp"], h)
+            m = layers.mlp_apply(cfg, p["mlp"], h, tp)
             x = x + o
         elif "norm2" in p:
             x, h = layers.add_norm(cfg, x, o, p["norm2"], backend=backend)
-            m = moe.moe_apply(cfg, p["moe"], h)[0] if "moe" in p else \
-                layers.mlp_apply(cfg, p["mlp"], h)
+            m = _ffn(cfg, p, h, rt) if "moe" in p else \
+                layers.mlp_apply(cfg, p["mlp"], h, tp)
         else:
             m = o
         if i + 1 < len(blocks):
@@ -376,7 +439,29 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
     return x, h
 
 
-def _last_logits(cfg, params, x, last_pos):
+def _ffn(cfg, p, h, rt):
+    """A MoE layer's FFN: the expert-parallel exchange under a mesh with
+    ``rt.moe_shard_map`` (the reference's ``_apply_ffn``), else
+    ``moe_apply``."""
+    if rt is not None and rt.moe_shard_map and rt.mesh is not None:
+        return moe.moe_apply_shard_map(cfg, p["moe"], h, mesh=rt.mesh)[0]
+    return moe.moe_apply(cfg, p["moe"], h)[0]
+
+
+def logits_of(cfg, params, h, tp=None):
+    """``h @ unembed`` in the working type, cast to f32 (the reference's
+    order). Under tensor parallelism the unembedding is split on the
+    vocab and the logits' slices are gathered; a tied table (split on
+    ``d``) gives partial sums, which are reduced."""
+    if tp is None:
+        return (h @ unembed_matrix(cfg, params)).float()
+    if cfg.tie_embeddings:
+        y = h.chunk(tp.size, -1)[tp.rank] @ params["embed"].T
+        return tp.all_reduce(y).float()
+    return tp.all_gather(h @ params["unembed"], -1).float()
+
+
+def _last_logits(cfg, params, x, last_pos, tp=None):
     """Final norm + unembed at each sequence's last real position, in f32
     (``h_last @ w`` in the working type, then cast, as the reference)."""
     B = x.shape[0]
@@ -385,7 +470,7 @@ def _last_logits(cfg, params, x, last_pos):
     else:
         h_last = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     h_last = layers.norm_apply(cfg, params["final_norm"], h_last)
-    return (h_last @ unembed_matrix(cfg, params)).float()
+    return logits_of(cfg, params, h_last, tp)
 
 
 def _train_layer(cfg, kind, p, x, positions, rope):
@@ -477,7 +562,7 @@ def _lengths(true_len, B, S, device):
 
 
 def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
-            true_len=None, patch_embeds=None):
+            true_len=None, patch_embeds=None, rt=None):
     """Process right-padded prompts ``tokens (B, S)``; returns
     (logits at ``last_pos`` (B, 1, V) f32, cache). Causal attention makes
     the right padding invisible to the real positions; a sliding window
@@ -486,13 +571,16 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
     keeps the last ``window`` positions as a ring (:func:`cache_rows`).
     A VLM's ``patch_embeds (B, P, d)`` come first (:func:`embed`): the
     sequence is P + S long, and ``last_pos``/``true_len`` count the
-    patches (``registry.build``'s prefill shifts them)."""
+    patches (``registry.build``'s prefill shifts them). Under a mesh
+    (``rt``) the cache holds this rank's KV heads."""
     _unported(cfg, "prefill", layout=False)
+    cfg, tp = shard_view(cfg, rt)
     if recurrent(cfg):
         return _prefill_recurrent(cfg, params, tokens, max_seq=max_seq,
-                                  last_pos=last_pos, true_len=true_len)
+                                  last_pos=last_pos, true_len=true_len,
+                                  rt=rt)
     dev = tokens.device
-    x = embed(cfg, params, tokens, patch_embeds)
+    x = embed(cfg, params, tokens, patch_embeds, tp)
     B, S = x.shape[:2]
     if S > max_seq:
         raise ValueError(f"prompt bucket {S} exceeds max_seq={max_seq}")
@@ -512,15 +600,16 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
             v = torch.roll(v[:, -rows:], S % rows, dims=1)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
-        return layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+        return layers.row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim),
+                               tp)
 
-    x, _ = run_layers(cfg, params, x, attend, final_norm=False)
+    x, _ = run_layers(cfg, params, x, attend, final_norm=False, rt=rt)
     cache["lengths"] = _lengths(true_len, B, S, dev)
-    return _last_logits(cfg, params, x, last_pos), cache
+    return _last_logits(cfg, params, x, last_pos, tp), cache
 
 
 def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
-                   max_seq: int, last_pos=None, true_len=None):
+                   max_seq: int, last_pos=None, true_len=None, rt=None):
     """Prefill only a prompt SUFFIX against already-computed prefix KV
     (the partial prefix hit and chunked prefill). ``prefix_kv["slot0"]``
     is (k, v) of shape (L, B, P, Hkv, hd), right-padded to P;
@@ -532,12 +621,13 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
         raise ValueError(f"{cfg.name}: suffix prefill assumes a stack of "
                          f"full attention")
     _unported(cfg, "suffix prefill", layout=False)
+    cfg, tp = shard_view(cfg, rt)
     B, S = tokens.shape
     if S > max_seq:
         raise ValueError(f"suffix bucket {S} exceeds max_seq={max_seq}")
     dev = tokens.device
     pk_all, pv_all = prefix_kv["slot0"]
-    x = embed(cfg, params, tokens)
+    x = embed(cfg, params, tokens, tp=tp)
     positions = prefix_len[:, None].long() + torch.arange(S, device=dev)[None]
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
 
@@ -550,11 +640,12 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
         o = ops.flash_attention(q, K, V, prefix_len=prefix_len)
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
-        return layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+        return layers.row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim),
+                               tp)
 
-    x, _ = run_layers(cfg, params, x, attend, final_norm=False)
+    x, _ = run_layers(cfg, params, x, attend, final_norm=False, rt=rt)
     cache["lengths"] = _lengths(true_len, B, S, dev)
-    return _last_logits(cfg, params, x, last_pos), cache
+    return _last_logits(cfg, params, x, last_pos, tp), cache
 
 
 def _unported(cfg, what, *, layout=True):
@@ -574,7 +665,8 @@ def _unported(cfg, what, *, layout=True):
             f"(ROADMAP A.15)")
 
 
-def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
+def decode_step(cfg, params, cache, tokens, *, backend: str = "auto",
+                rt=None):
     """One decode step against the dense cache. tokens: (B, 1).
 
     Each slot's new K/V is written into every layer of ``cache["slot0"]``
@@ -588,12 +680,14 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
     window`` and ``kv_len = min(lengths + 1, window)``: softmax does not
     care in which order the window's keys lie, and each key was rotated
     at its own position before it was written. Returns (logits (B, 1, V)
-    f32, cache) with ``lengths + 1``."""
+    f32, cache) with ``lengths + 1``. Under a mesh (``rt``) the cache
+    holds this rank's KV heads."""
     _unported(cfg, "the dense decode step")
+    cfg, tp = shard_view(cfg, rt)
     if recurrent(cfg):
         return _decode_step_recurrent(cfg, params, cache, tokens,
-                                      backend=backend)
-    x = embed(cfg, params, tokens)
+                                      backend=backend, rt=rt)
+    x = embed(cfg, params, tokens, tp=tp)
     lengths = cache["lengths"]
     positions = lengths[:, None]
     K, V = cache["slot0"]["k"], cache["slot0"]["v"]
@@ -603,10 +697,10 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
 
     def attend(i, p, h):
         return _decode_attend(cfg, p, h, positions, rope, K[i], V[i],
-                              w_pos, kv_len, backend)
+                              w_pos, kv_len, backend, tp)
 
-    _, h = run_layers(cfg, params, x, attend, backend=backend)
-    logits = (h @ unembed_matrix(cfg, params)).float()
+    _, h = run_layers(cfg, params, x, attend, backend=backend, rt=rt)
+    logits = logits_of(cfg, params, h, tp)
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1
     return logits, new_cache
@@ -624,7 +718,7 @@ def write_pos(cfg, lengths, rows):
 
 
 def _decode_attend(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
-                   backend):
+                   backend, tp=None):
     """One layer's decode attention over its cache ``K``/``V`` (B, rows,
     Hkv, hd): this step's K/V written in place at ``w_pos`` (slot index,
     row), then ``ops.decode_attention`` over the permuted views,
@@ -638,8 +732,8 @@ def _decode_attend(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
         q[:, 0].reshape(B, Hkv, cfg.num_heads // Hkv, hd).contiguous(),
         K.permute(0, 2, 1, 3), V.permute(0, 2, 1, 3), kv_len,
         backend=backend)
-    return layers.proj(p["attn"], "wo",
-                       o.reshape(B, 1, cfg.q_dim).to(h.dtype))
+    return layers.row_proj(p["attn"], "wo",
+                           o.reshape(B, 1, cfg.q_dim).to(h.dtype), tp)
 
 
 # -- recurrent stacks (jamba, xLSTM) ------------------------------------------
@@ -652,7 +746,8 @@ def _mix_of(cfg, i):
         i // len(kinds)
 
 
-def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len):
+def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
+                       rt=None):
     """:func:`prefill` of a recurrent stack, the reference's ``forward``
     with ``collect_cache``: attention layers run causal flash attention
     (jamba has no RoPE: ``model_rope`` is None) and keep their K/V in the
@@ -661,9 +756,11 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len):
     in the stream's type). The cache is slotted (:func:`init_cache`) and
     holds the S computed positions. Right padding would run through the
     recurrences: ``PrefillEngine`` prefills these stacks at exact
-    lengths."""
+    lengths. Under a mesh only an axis of size 1 runs it
+    (``sharding.check_tp``)."""
+    tp = None if rt is None else rt.tp
     dev = tokens.device
-    x = embed(cfg, params, tokens)
+    x = embed(cfg, params, tokens, tp=tp)
     B, S = x.shape[:2]
     if S > max_seq:
         raise ValueError(f"prompt {S} exceeds max_seq={max_seq}")
@@ -678,7 +775,8 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len):
             o = ops.flash_attention(q, k, v, causal=True)
             got[i] = {"k": k.to(cache_dtype(cfg)),
                       "v": v.to(cache_dtype(cfg))}
-            return layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+            return layers.row_proj(p["attn"], "wo",
+                                   o.reshape(B, S, cfg.q_dim), tp)
         if kind == "mamba":
             o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h)
             got[i] = {"conv": conv, "ssm": ssm}
@@ -690,16 +788,16 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len):
             got[i] = dict(zip("cnhm", st))
         return o
 
-    x, _ = run_layers(cfg, params, x, mix, final_norm=False)
+    x, _ = run_layers(cfg, params, x, mix, final_norm=False, rt=rt)
     P = len(slot_kinds(cfg))
     cache = {f"slot{s}": {key: torch.stack([g[key] for g in got[s::P]])
                           for key in got[s]} for s in range(P)}
     del got
     cache["lengths"] = _lengths(true_len, B, S, dev)
-    return _last_logits(cfg, params, x, last_pos), cache
+    return _last_logits(cfg, params, x, last_pos, tp), cache
 
 
-def _decode_step_recurrent(cfg, params, cache, tokens, *, backend):
+def _decode_step_recurrent(cfg, params, cache, tokens, *, backend, rt=None):
     """:func:`decode_step` of a recurrent stack (the reference's
     ``decode_step_inplace``): attention layers as the pure-attention
     step, on their slot's K/V; each recurrent layer steps its states and
@@ -708,7 +806,8 @@ def _decode_step_recurrent(cfg, params, cache, tokens, *, backend):
     engine's own tensors. Every slot's state advances, idle ones too (the
     reference freezes only ``lengths``): admission overwrites all of a
     slot's state."""
-    x = embed(cfg, params, tokens)
+    tp = None if rt is None else rt.tp
+    x = embed(cfg, params, tokens, tp=tp)
     lengths = cache["lengths"]
     positions = lengths[:, None]
     rope = layers.model_rope(cfg, positions)
@@ -723,7 +822,7 @@ def _decode_step_recurrent(cfg, params, cache, tokens, *, backend):
         slot = cache[name]
         if kind == "attn":
             return _decode_attend(cfg, p, h, positions, rope, slot["k"][j],
-                                  slot["v"][j], w_pos, kv_len, backend)
+                                  slot["v"][j], w_pos, kv_len, backend, tp)
         if kind == "mamba":
             o, st = mamba.mamba_decode_step(
                 cfg, p["mamba"], h, (slot["conv"][j], slot["ssm"][j]))
@@ -741,8 +840,8 @@ def _decode_step_recurrent(cfg, params, cache, tokens, *, backend):
             slot[key][j].copy_(t)
         return o
 
-    _, h = run_layers(cfg, params, x, mix, backend=backend)
-    logits = (h @ unembed_matrix(cfg, params)).float()
+    _, h = run_layers(cfg, params, x, mix, backend=backend, rt=rt)
+    logits = logits_of(cfg, params, h, tp)
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1
     return logits, new_cache

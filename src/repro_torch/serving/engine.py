@@ -23,10 +23,20 @@ cross K/V), each with ``step()`` and the one-token-per-host-
 round-trip ``step_reference()``; and the phase-switching ``Replica``. The
 port's ``DecodeEngine`` pages by default (the reference's defaults to the
 dense cache): the paged int4 path is the system's main path.
+
+Every engine takes ``rt`` (a ``transformer.Runtime``). Under a mesh it
+runs this rank's shard of a tensor- and expert-parallel model
+(``registry.build(cfg, rt=)``): its caches, pages and wires hold this
+rank's KV heads (``kv_cfg``, ``sharding.local_cfg``), so a page pool's
+bytes are the local KV's. Every rank of the ``model`` axis makes the
+same engine calls in the same order (SPMD); the greedy tokens come from
+the gathered logits, and the engines check that every rank chose the
+same ones (:func:`_agree`), raising if not.
 """
 from __future__ import annotations
 
 import contextlib
+import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -146,9 +156,27 @@ def _params_device(params, device) -> torch.device:
     return have
 
 
-def _first_tokens(logits) -> np.ndarray:
-    """Greedy first tokens: one device -> host copy per prefill call."""
-    return torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+def _first_tokens(logits, tp=None) -> np.ndarray:
+    """Greedy first tokens: one device -> host copy per prefill call
+    (checked across the model axis ``tp``, :func:`_agree`)."""
+    return _agree(tp, torch.argmax(logits[:, -1], dim=-1).cpu().numpy(),
+                  logits.device, "prefill's first tokens")
+
+
+def _agree(tp, host: np.ndarray, device, what: str) -> np.ndarray:
+    """``host`` unchanged where every rank of the model axis ``tp`` holds
+    the same bytes (one gather of a checksum); raises where they
+    differ. Nothing to check without a mesh."""
+    if tp is None:
+        return host
+    mine = zlib.crc32(np.ascontiguousarray(host).tobytes())
+    dev = device if tp.backend == "nccl" else torch.device("cpu")
+    got = tp.all_gather(torch.tensor([mine], dtype=torch.int64,
+                                     device=dev), 0).tolist()
+    if len(set(got)) != 1:
+        raise RuntimeError(f"SPMD ranks disagree on {what}: checksums "
+                           f"{got}")
+    return host
 
 
 class PrefillEngine:
@@ -169,11 +197,12 @@ class PrefillEngine:
     model API only (``registry.build(cfg).prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
-                 max_batch: int = 4, min_bucket: int = 16, device="cuda"):
+                 max_batch: int = 4, min_bucket: int = 16, device="cuda",
+                 rt=None):
         self.cfg = cfg
         self.params = params
         self.device = _params_device(params, device)
-        self.api = registry.build(cfg)
+        self.api = registry.build(cfg, rt=rt)
         self.max_seq = max_seq
         self.max_batch = max_batch
         self.min_bucket = min_bucket
@@ -289,7 +318,7 @@ class PrefillEngine:
                 logits, cache = self.api.prefill(
                     self.params, {"tokens": self._tensor(toks)},
                     max_seq=self.max_seq)
-                first = _first_tokens(logits)
+                first = _first_tokens(logits, self.api.tp)
                 wires = kv_transfer.extract_batch(
                     cache, [(i, n) for i in range(len(sub))],
                     compress=compress, backend=backend)
@@ -329,7 +358,7 @@ class PrefillEngine:
         _, batch = self._bucket_batch(group, Lb, lens, [0] * len(group))
         logits, cache = self.api.prefill(self.params, batch,
                                          max_seq=self.max_seq)
-        first = _first_tokens(logits)
+        first = _first_tokens(logits, self.api.tp)
         wires = kv_transfer.extract_batch(
             cache, [(i, lens[i]) for i in range(len(group))],
             compress=compress, backend=backend, pad_to=Lb)
@@ -369,7 +398,7 @@ class PrefillEngine:
         batch["prefix_len"] = plen
         logits, cache = self.api.prefill_suffix(self.params, batch,
                                                 max_seq=self.max_seq)
-        first = _first_tokens(logits)
+        first = _first_tokens(logits, self.api.tp)
         wires = kv_transfer.extract_batch(
             cache, [(i, slens[i]) for i in range(len(group))],
             compress=compress, backend=backend, pad_to=Lb)
@@ -424,11 +453,12 @@ class DecodeEngine:
                  num_pages: Optional[int] = None,
                  kv_resident: str = "int4", paged_backend: str = "auto",
                  prefix_sharing: bool = False, cuda_graph: bool = True,
-                 device="cuda"):
+                 device="cuda", rt=None):
         self.cfg = cfg
         self.params = params
         self.device = _params_device(params, device)
-        self.api = registry.build(cfg)
+        self.api = registry.build(cfg, rt=rt)
+        self.kv_cfg = self.api.local_cfg     # what this rank's KV holds
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
@@ -453,7 +483,8 @@ class DecodeEngine:
             else:
                 self.pool = PagePool(num_pages, page_size)
             self.cache = paged_fmt.init_paged_cache(
-                cfg, max_slots, max_seq, num_pages, page_size=page_size,
+                self.kv_cfg, max_slots, max_seq, num_pages,
+                page_size=page_size,
                 resident=kv_resident, device=self.device)
             self._decode, self._chunk = self.api.paged_decode_fns(
                 page_size, paged_backend)
@@ -471,11 +502,13 @@ class DecodeEngine:
             # bf16 whatever the model's type, as the reference's cache
             init = (whisper.init_cache if cfg.family == "audio"
                     else transformer.init_cache)
-            self.cache = init(cfg, max_slots, max_seq, device=self.device)
+            self.cache = init(self.kv_cfg, max_slots, max_seq,
+                              device=self.device)
             self._decode, self._chunk = self.api.decode, \
                 self.api.decode_chunk
         self.graphs = (registry.GraphedDecodeChunk(
-            self._decode, self._chunk, params, self.cache, max_slots)
+            self._decode, self._chunk, params, self.cache, max_slots,
+            self.api.tp)
             if cuda_graph and self.device.type == "cuda" else None)
         self.slots: List[Optional[GenRequest]] = [None] * max_slots
         self.cur_token = np.zeros((max_slots,), np.int32)
@@ -532,7 +565,7 @@ class DecodeEngine:
             for it in items:
                 if it.source == ADMIT_MIGRATED:
                     sanitizers.check_wire_alignment(
-                        it.wire, self.cfg,
+                        it.wire, self.kv_cfg,
                         context=f"admit MIGRATED rid={it.req.rid}")
         if self.paged:
             n = self._admit_paged(items, backend=backend)
@@ -598,7 +631,7 @@ class DecodeEngine:
             n_taken += 1
         if placed:
             self.cache, nz, nr = page_pool.insert_wires(
-                self.cache, self.cfg,
+                self.cache, self.kv_cfg,
                 [(it.wire, s, p, pre) for it, s, p, pre in placed],
                 backend=backend)
             self.zero_copy_inserts += nz
@@ -638,7 +671,7 @@ class DecodeEngine:
     def extract_prefix(self, pages: List[int], length: int) -> KVWire:
         """Gather a (pinned) prefix chain into a wire for the suffix
         prefill: a pure page gather, no dequantization here."""
-        return page_pool.extract_slot_wire(self.cache, self.cfg, length,
+        return page_pool.extract_slot_wire(self.cache, self.kv_cfg, length,
                                            pages)
 
     def _admit_one_prefix(self, req: GenRequest, pages: List[int],
@@ -731,7 +764,7 @@ class DecodeEngine:
             ln = int(lengths[slot])
             if self.paged:
                 wire = page_pool.extract_slot_wire(
-                    self.cache, self.cfg, ln, self._slot_pages[slot])
+                    self.cache, self.kv_cfg, ln, self._slot_pages[slot])
             else:
                 wire = kv_transfer.extract(self.cache, slot, ln,
                                            compress=compress,
@@ -808,6 +841,7 @@ class DecodeEngine:
                           valid_d.reshape(-1).to(torch.int32), st["cur"],
                           st["active"].to(torch.int32),
                           self.cache["lengths"]]).cpu().numpy()
+        host = _agree(self.api.tp, host, self.device, "a decode chunk")
         toks = host[:n * B].reshape(n, B)
         valid = host[n * B:2 * n * B].reshape(n, B).astype(bool)
         cur, still_active, lengths = (host[2 * n * B:2 * n * B + B],
@@ -849,8 +883,10 @@ class DecodeEngine:
         tokens = torch.as_tensor(self.cur_token[:, None], device=self.device)
         logits, stepped = self._decode(self.params, self.cache, tokens)
         self.cache["lengths"].copy_(stepped["lengths"])
-        host = torch.cat([torch.argmax(logits[:, -1], dim=-1).to(
-            torch.int32), self.cache["lengths"]]).cpu().numpy()
+        host = _agree(self.api.tp, torch.cat([torch.argmax(
+            logits[:, -1], dim=-1).to(torch.int32),
+            self.cache["lengths"]]).cpu().numpy(), self.device,
+            "a decode step")
         nxt, lengths = host[:self.max_slots], host[self.max_slots:]
         self.host_syncs += 1
         self.steps_run += 1
@@ -922,15 +958,15 @@ class Replica:
 
     def __init__(self, cfg: ModelConfig, params, *,
                  phase: str = "prefill", max_seq: int = 512, device="cuda",
-                 prefill_kw: Optional[Dict] = None,
+                 rt=None, prefill_kw: Optional[Dict] = None,
                  decode_kw: Optional[Dict] = None):
         if phase not in ("prefill", "decode"):
             raise ValueError(f"unknown phase {phase!r}")
         self.cfg = cfg
         self.params = params
-        self._prefill_kw = {"max_seq": max_seq, "device": device,
+        self._prefill_kw = {"max_seq": max_seq, "device": device, "rt": rt,
                             **(prefill_kw or {})}
-        self._decode_kw = {"max_seq": max_seq, "device": device,
+        self._decode_kw = {"max_seq": max_seq, "device": device, "rt": rt,
                            **(decode_kw or {})}
         self._engines: Dict[str, object] = {}
         self.phase = ""

@@ -1979,7 +1979,7 @@ class Gateway:
 def gateway_from_plan(plan, cfg: ModelConfig, params, *,
                       transport: Optional[Transport] = None,
                       max_seq: int = 64, max_slots: int = 4,
-                      chunk_size: int = 4, device="cuda",
+                      chunk_size: int = 4, device="cuda", rt=None,
                       prefill_kw: Optional[Dict] = None,
                       decode_kw: Optional[Dict] = None,
                       scheduler: Optional[SchedulerConfig] = None,
@@ -1992,10 +1992,10 @@ def gateway_from_plan(plan, cfg: ModelConfig, params, *,
     ``prefill_kw`` / ``decode_kw``."""
     dkw = {"max_slots": max_slots, "chunk_size": chunk_size,
            **(decode_kw or {})}
-    pres = [Replica(cfg, params, phase="prefill", max_seq=max_seq,
+    pres = [Replica(cfg, params, phase="prefill", max_seq=max_seq, rt=rt,
                     device=device, prefill_kw=prefill_kw, decode_kw=dkw)
             for _ in plan.prefill_replicas]
-    decs = [Replica(cfg, params, phase="decode", max_seq=max_seq,
+    decs = [Replica(cfg, params, phase="decode", max_seq=max_seq, rt=rt,
                     device=device, prefill_kw=prefill_kw, decode_kw=dkw)
             for _ in plan.decode_replicas]
     return Gateway(pres, decs, transport=transport, plan=plan,

@@ -1581,3 +1581,122 @@ def test_train_resume_is_bit_identical_on_the_card(cuda, tmp_path):
     for x, y in zip(opt.tree_leaves((a["params"], a["opt_state"])),
                     opt.tree_leaves((b["params"], b["opt_state"]))):
         assert torch.equal(x.cpu(), y.cpu())
+
+
+# -- a model axis over torch.distributed (ROADMAP A.9) -------------------------
+
+
+@pytest.fixture
+def world1(request, cuda):
+    """A process group of one rank (``request.param``: ``nccl`` or
+    ``gloo``) and a 1-D ``model`` mesh over it on the card; the group is
+    destroyed after the test."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(request.param,
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1,), ("model",), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world1", ["nccl"], indirect=True)
+@pytest.mark.parametrize("mode", ["int4", "dense"])
+def test_nccl_world1_graphed_chunk_holds_collectives(world1, mode):
+    """At model axis size 1 over NCCL, the meshed engines (graphed and
+    eager) equal the unmeshed graphed engine bit for bit after every
+    chunk: prefill wires, tokens, lengths, page bytes. The graphed chunk
+    captures its collectives with its kernels (one graph: 2L all-reduces
+    and 2 all-gathers a step), and a replay counts them."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed import comm
+    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.serving import engine as E
+    cfg = get_reduced("llama-30b")
+    params = _tree_to(init_params(cfg, seed=0, device="cpu"), "cuda")
+    rt = Runtime(world1)
+    pres = {m: E.PrefillEngine(cfg, params, max_seq=64, device="cuda",
+                               rt=rt if m else None) for m in (True, False)}
+    decs = {(m, g): E.DecodeEngine(cfg, params, max_slots=4, max_seq=64,
+                                   chunk_size=4, cuda_graph=g, device="cuda",
+                                   rt=rt if m else None, **GRAPH_MODES[mode])
+            for m, g in ((False, True), (True, True), (True, False))}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 13, 22)]
+    wires = {}
+    for m, pre in pres.items():
+        wires[m] = pre.run([E.GenRequest(i, p, 9)
+                            for i, p in enumerate(prompts)])
+    for (_, w0, f0), (_, w1, f1) in zip(wires[False], wires[True]):
+        assert f0 == f1
+        for s in w0.slots:
+            for k in w0.slots[s]:
+                for a, b in zip(w0.slots[s][k].payload.values(),
+                                w1.slots[s][k].payload.values()):
+                    assert torch.equal(a, b)
+    reqs = {}
+    for key, dec in decs.items():
+        reqs[key] = [E.GenRequest(i, p, 9) for i, p in enumerate(prompts)]
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w)
+             for r, (_, w, f) in zip(reqs[key], wires[key[0]])]))
+    while decs[False, True].active:
+        for dec in decs.values():
+            dec.step()
+        torch.cuda.synchronize()
+        _assert_same_decode_state(decs[False, True], decs[True, True])
+        _assert_same_decode_state(decs[True, True], decs[True, False])
+    assert all(not d.active for d in decs.values())
+    graphed = decs[True, True].graphs
+    assert len(graphed) == 1 and len(decs[False, True].graphs) == 1
+    per_replay = graphed.collectives(4, -1, 64)
+    assert per_replay == {"all_reduce": 4 * 2 * cfg.num_layers,
+                          "all_gather": 4 * 2}
+    assert decs[False, True].graphs.collectives(4, -1, 64) == {}
+    # a replay adds back the collectives its capture counted
+    req = E.GenRequest(9, prompts[0], 4)
+    (_, w, f), = pres[True].run([req])
+    assert not decs[True, True].admit(E.AdmissionBatch(
+        [E.AdmissionItem(req, f, wire=w)]))
+    before = comm.counts()
+    decs[True, True].step()
+    after = comm.counts()
+    assert after["all_reduce"] - before["all_reduce"] == \
+        per_replay["all_reduce"]
+    assert [r.out_tokens for r in reqs[False, True]] == \
+        [r.out_tokens for r in reqs[True, True]] == \
+        [r.out_tokens for r in reqs[True, False]]
+
+
+@pytest.mark.parametrize("world1", ["gloo"], indirect=True)
+def test_gloo_group_refuses_a_graphed_decode_chunk(world1):
+    """A gloo group's collectives run on the host and cannot be captured:
+    a decode engine asked for ``cuda_graph=True`` raises; the eager
+    engine serves (its all-gathers staged through host copies)."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import Runtime, init_params
+    from repro_torch.serving import engine as E
+    cfg = get_reduced("llama-30b")
+    params = _tree_to(init_params(cfg, seed=0, device="cpu"), "cuda")
+    rt = Runtime(world1)
+    assert rt.tp.backend == "gloo" and rt.tp.staged
+    with pytest.raises(ValueError, match="gloo"):
+        E.DecodeEngine(cfg, params, max_slots=2, max_seq=32, device="cuda",
+                       rt=rt)
+    dec = E.DecodeEngine(cfg, params, max_slots=2, max_seq=32,
+                         cuda_graph=False, device="cuda", rt=rt)
+    pre = E.PrefillEngine(cfg, params, max_seq=32, device="cuda", rt=rt)
+    req = E.GenRequest(0, np.arange(1, 10), 5)
+    (r, w, f), = pre.run([req])
+    assert not dec.admit(E.AdmissionBatch([E.AdmissionItem(r, f, wire=w)]))
+    while dec.active:
+        dec.step()
+    assert len(req.out_tokens) == 5

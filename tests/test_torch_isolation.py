@@ -14,8 +14,9 @@ modules have not drifted.
   copies too.
 * The copies of the gateway, transport, faults, profiler, the runtime
   sanitizers, the scheduler core, the serving simulator, the paper's
-  baselines, the paper's GPU table, the registered configs and the
-  training data pipeline are the reference's code: their ASTs are equal,
+  baselines, the paper's GPU table, the registered configs, the
+  training data pipeline, the sharding rules and the mesh helpers are
+  the reference's code: their ASTs are equal,
   definition by definition, once imports and docstrings are set aside,
   except for the definitions listed (with the reason) in
   ``COPY_DIFFERENCES``.
@@ -336,6 +337,28 @@ COPY_DIFFERENCES = {
     "configs/xlstm_125m.py": {},
     "configs/whisper_base.py": {},
     "training/data.py": {},
+    "distributed/sharding.py": {
+        # a tuple of the port's own for jax's PartitionSpec
+        "P": ONE_SIDE,
+        "P.__new__": ONE_SIDE,
+        # the mesh's {axis: size} (a DeviceMesh's shape is a tuple)
+        "_resolve": _stmts("shape_of", "mesh.shape"),
+        # explicit SPMD: checks a local shape, moves nothing
+        "constrain": ONE_SIDE,
+        # the rank-local config and parameters, the refusals
+        **{name: ONE_SIDE for name in (
+            "_fits", "local_shape", "STEP_TWO", "tp_refusals", "check_tp",
+            "rank_cfg", "model_size", "local_cfg", "_split_dim", "_cut",
+            "_leaf_specs", "_shard_tree", "shard_params")},
+    },
+    "launch/mesh.py": {
+        # torch.distributed's DeviceMesh for jax.make_mesh
+        "make_production_mesh": ONE_SIDE,
+        "make_mesh": ONE_SIDE,
+        "data_axes": _stmts("shape_of", "mesh.shape"),
+        "shape_of": ONE_SIDE,
+        "axis_group": ONE_SIDE,
+    },
 }
 
 
