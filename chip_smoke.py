@@ -15,7 +15,8 @@ before the last line:
    prefix, kv_len 1 and S); CUDA-event times of kernel, plain version and,
    where one PyTorch call computes the same function, that call (timed,
    never used by the port), beside the bound (bytes at 3.35 TB/s or
-   operations at the peak rate of the inputs' type). ``kv_quant`` and
+   operations at the peak rate of the inputs' type; the FLOPs and bytes
+   from ``kernels/cost.py``). ``kv_quant`` and
    ``kv_dequant`` are checked through both bodies (vector and scalar, and
    a misaligned view) and timed through both at the prefill bucket; the
    decode append (``kv_quant_append``, K and V of 4 slots in one launch)
@@ -217,7 +218,28 @@ before the last line:
    stages equal to the sequential apply bit for bit. Its launches, the
    ranks' included, are summed into the kernels line, and every kernel
    must launch in it. Phase 3 also checks and times the kernels at a
-   TP-2 rank's shapes (LLaMA-30B's 26 heads, qwen3-moe's 32 over 2).
+   TP-2 rank's shapes (LLaMA-30B's 26 heads, qwen3-moe's 32 over 2);
+13. the counts against the card: LLaMA-30B's int4 paged decode step (4
+   slots, phase 5's pages and lengths), a 4 x 256 bucket prefill through
+   the model API and the wire, and phase 11's train step (8 of 60
+   layers, 4 x 512) are each counted on meta tensors by
+   ``roofline/op_cost.py`` and run on the card on weights made as phases
+   5 and 11 make them: (a) the counted matmul FLOPs must equal
+   ``FlopCounterMode``'s on the real eager run, the counted kernel calls
+   the launches it made, the counted argument bytes the real tensors';
+   the traced peak is printed beside ``max_memory_allocated``'s rise;
+   (b) each step's roofline time on the H100 (``roofline/analysis.py``)
+   beside its measured time (the decode step one graph replay, the
+   others eager between CUDA events), their ratio and the whole-step
+   share ``model_flops_for / (measured s x 989e12)``: for decode and
+   prefill the roofline time must not exceed the measured one, and the
+   decode step's counted bytes must be at least the bytes it must read;
+   (c) the dry-run (``python -m repro_torch.launch.dryrun``), started on
+   the host at phase 10: every cell at ``--mesh four`` (``--all``) and
+   LLaMA-30B's, and LLaMA-30B's and qwen3-moe's cells at ``one``
+   (``--all`` takes ~25 min on the host there); every ``one`` cell must
+   be ``ok`` and every error name A.9 step two; ``report.table`` of
+   each mesh is printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -226,6 +248,7 @@ result.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import subprocess
@@ -234,9 +257,13 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+from repro_torch.roofline.hw import H100  # noqa: E402  (the repo's src)
+
+HBM_BYTES_PER_S = H100.hbm_bw      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12             # non-tensor-core f32 peak, same source
-BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak, same source
+BF16_FLOP_PER_S = H100.peak_flops  # dense bf16 tensor-core peak
 SEED = 0
 ATTN_TOL_F32 = 1e-5               # atol = rtol, as tests/test_torch_gpu.py
 # a bf16 attention output may differ by two bf16 ulps of its value plus
@@ -257,6 +284,26 @@ def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def cost_bound(name, *args, peak=F32_FLOP_PER_S, **data):
+    """(bound ms, "bytes" or "operations") of kernel ``name`` on ``args``
+    (its tensor arguments in the wrapper's order), its FLOPs and bytes
+    from ``kernels/cost.py`` (``data``: the values its work depends on,
+    ``kv_len``, ``prefix_len``), its FLOPs at ``peak``."""
+    from repro_torch.kernels import cost
+    flops, nbytes = cost.of(name, *args, **data)
+    return bound(nbytes, flops, peak)
+
+
+def cost_flops(name, *args, **data):
+    from repro_torch.kernels import cost
+    return cost.of(name, *args, **data)[0]
+
+
+def cost_bytes(name, *args, **data):
+    from repro_torch.kernels import cost
+    return cost.of(name, *args, **data)[1]
 
 
 def peak_of(torch, dtype):
@@ -398,19 +445,19 @@ def check_quant(torch, ref, kq, N, G, dtype, *, timed, offset=0):
                              "version")
     if not timed:
         return None
-    esz = x.element_size()
     iters = 20 if N * G > 1 << 20 else 200
     rq = {"err": err_q,
           "ms": cuda_ms(torch, kq.kv_quant, [(x,)], iters),
           "plain_ms": cuda_ms(torch, ref.kv_quant_ref, [(x,)], iters),
-          "bound": bound(N * G * esz + N * G // 2 + 8 * N, 6 * N * G)}
+          "bound": cost_bound("kv_quant", x)}
     deq = lambda p, s, z: kq.kv_dequant(p, s, z, out_dtype=torch.bfloat16)
     deq_ref = lambda p, s, z: ref.kv_dequant_ref(p, s, z,
                                                  dtype=torch.bfloat16)
     rd = {"err": err_d,
           "ms": cuda_ms(torch, deq, [got], iters),
           "plain_ms": cuda_ms(torch, deq_ref, [want], iters),
-          "bound": bound(N * G // 2 + 8 * N + N * G * 2, 2 * N * G)}
+          "bound": cost_bound("kv_dequant", *got,
+                              out_dtype=torch.bfloat16)}
     for name, r, b in (("kv_quant", rq, qbody), ("kv_dequant", rd, dbody)):
         log(f"  {name:10s} N={N} G={G} ({b} body): {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -482,13 +529,13 @@ def check_append(torch, ref, kq, B, Hkv, hd, ps, W, kv_len, dtype, *,
 
     quant2 = lambda k, v: (kq.kv_quant(k.reshape(B * ppr, g)),
                            kq.kv_quant(v.reshape(B * ppr, g)))
-    nbytes = (2 * B * Hkv * hd * kv[0][0].element_size()
-              + 2 * B * ppr * (g // 2 + 8) + 8 * B)
+    app_args = (*kv[0], kpg, vpg, pt, lengths)
+    nbytes = cost_bytes("kv_quant_append", *app_args)
     r = {"err": err, "ms": cuda_ms(torch, fused, kv, 200),
          "plain_ms": cuda_ms(torch, plain, kv, 50),
          "old_ms": cuda_ms(torch, two_launch, kv, 200),
          "quant2_ms": cuda_ms(torch, quant2, kv, 200),
-         "bound": bound(nbytes, 6 * 2 * B * Hkv * hd)}
+         "bound": cost_bound("kv_quant_append", *app_args)}
     r["eager_ms"] = eager_ms(torch, fused, kv, 200)
     log(f"  kv_quant_append: {r['ms']:.4f} ms ({r['eager_ms']:.4f} ms "
         f"launched eagerly), plain {r['plain_ms']:.4f} ms, the path it "
@@ -570,13 +617,13 @@ def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
-    tokens = sum(kv_len)
-    nbytes = (tokens * 2 * ppr * (g // 2 + 8) + 2 * q.numel()
-              * q.element_size() + 4 * (B * W + B))
+    nbytes = cost_bytes("paged_decode_attention_int4", *layer[0],
+                        page_size=ps, kv_len=kv_len)
     r = {"err": err,
          "ms": cuda_ms(torch, fn, layer, 3 * L),
          "plain_ms": cuda_ms(torch, fn_ref, layer, L),
-         "bound": bound(nbytes, 4 * Hkv * gq * hd * tokens)}
+         "bound": cost_bound("paged_decode_attention_int4", *layer[0],
+                             page_size=ps, kv_len=kv_len)}
     log(f"  paged_decode_attention_int4: {r['ms']:.4f} ms/layer, plain "
         f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
         f"({r['bound'][1]}, {nbytes} B); layers cycled, L2 cold")
@@ -620,20 +667,14 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
-    # visible (query, key) pairs: what these inputs need
-    if not causal:
-        pairs = B * Sq * Sk
-    else:
-        pairs = sum(min(i + 1, window) if window else i + 1
-                    for i in range(Sq))
-        pairs = B * pairs + Sq * sum(plen) if plen is not None \
-            else pairs * B
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    cdata = dict(causal=causal, window=window, prefix_len=plen)
+    nbytes = cost_bytes("flash_attention", q, k, v, **cdata)
     fn = lambda a, b, c: fa.flash_attention(a, b, c, **kw)
     fn_ref = lambda a, b, c: ref.flash_attention_ref(a, b, c, **kw)
     r = {"err": err, "ms": cuda_ms(torch, fn, [(q, k, v)], 50),
          "plain_ms": cuda_ms(torch, fn_ref, [(q, k, v)], 10),
-         "bound": bound(nbytes, 4 * hd * H * pairs, peak_of(torch, dtype))}
+         "bound": cost_bound("flash_attention", q, k, v,
+                             peak=peak_of(torch, dtype), **cdata)}
     # one PyTorch call of the same function (timed only, never used by
     # the port): SDPA on (B, H, S, hd) views of the same tensors (GQA
     # through enable_gqa), with the suffix mask or the sliding window
@@ -659,7 +700,7 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
         f"launched eagerly), plain {r['plain_ms']:.4f} "
         f"ms, library {r['library_ms']:.4f} ms, bound "
         f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {nbytes} B, "
-        f"{4 * hd * H * pairs} FLOP)")
+        f"{cost_flops('flash_attention', q, k, v, **cdata)} FLOP)")
     return r
 
 
@@ -701,15 +742,14 @@ def check_rmsnorm(torch, ref, rn, N, d, dtype, *, control=False, timed):
                                  "from rows of 2d")
     if not timed:
         return None
-    esz = x.element_size()
     gain = (1.0 + scale).to(dtype)
     r = {"err": err, "ms": cuda_ms(torch, rn.rmsnorm, [(x, scale)], 100),
          "plain_ms": cuda_ms(torch, ref.rmsnorm_ref, [(x, scale)], 100),
          "library_ms": cuda_ms(
              torch, lambda a, w: F.rms_norm(a, (d,), weight=w, eps=1e-6),
              [(x, gain)], 100),
-         "bound": bound(2 * N * d * esz + 4 * d, 4 * N * d,
-                        peak_of(torch, dtype))}
+         "bound": cost_bound("rmsnorm", x, scale,
+                             peak=peak_of(torch, dtype))}
     r["eager_ms"] = eager_ms(torch, rn.rmsnorm, [(x, scale)], 100)
     log(f"  rmsnorm {N}x{d}: {r['ms']:.4f} ms ({r['eager_ms']:.4f} ms "
         f"launched eagerly), plain {r['plain_ms']:.4f} "
@@ -750,7 +790,6 @@ def check_add_rmsnorm(torch, ref, rn, N, d, dtype, *, timed, offset=0):
                              "norm")
     if not timed:
         return None
-    esz = x.element_size()
     gain = (1.0 + scale).to(dtype)
     lib = lambda a, b, w: (a + b, F.rms_norm(a + b, (d,), weight=w,
                                               eps=1e-6))
@@ -760,8 +799,8 @@ def check_add_rmsnorm(torch, ref, rn, N, d, dtype, *, timed, offset=0):
           "plain_ms": cuda_ms(torch, ref.add_rmsnorm_ref, [(x, r, scale)],
                               iters),
           "library_ms": cuda_ms(torch, lib, [(x, r, gain)], iters),
-          "bound": bound(4 * N * d * esz + 4 * d, 6 * N * d,
-                         peak_of(torch, dtype))}
+          "bound": cost_bound("add_rmsnorm", x, r, scale,
+                              peak=peak_of(torch, dtype))}
     r_["eager_ms"] = eager_ms(torch, rn.add_rmsnorm, [(x, r, scale)], iters)
     log(f"  add_rmsnorm {N}x{d}: {r_['ms']:.4f} ms ({r_['eager_ms']:.4f} ms "
         f"launched eagerly), plain {r_['plain_ms']:.4f} ms, library "
@@ -818,9 +857,7 @@ def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
-    tokens = sum(kv_len)
-    nbytes = (tokens * Hkv * hd * 2 * K.element_size()
-              + 2 * q.numel() * q.element_size() + 4 * B)
+    nbytes = cost_bytes("decode_attention", *layer[0], kv_len=kv_len)
 
     def sdpa(a, b, c, n):
         # the g query heads of a KV head as g query rows, kv_len as a mask
@@ -835,8 +872,8 @@ def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
          "ms": cuda_ms(torch, da.decode_attention, layer, 3 * L),
          "plain_ms": cuda_ms(torch, fn_ref, layer, L),
          "library_ms": cuda_ms(torch, sdpa, layer, 3 * L),
-         "bound": bound(nbytes, 4 * Hkv * g * hd * tokens,
-                        peak_of(torch, kvdt))}
+         "bound": cost_bound("decode_attention", *layer[0], kv_len=kv_len,
+                             peak=peak_of(torch, kvdt))}
     r["eager_ms"] = eager_ms(torch, da.decode_attention, layer, 3 * L)
     log(f"  decode_attention: {r['ms']:.4f} ms/layer ({r['eager_ms']:.4f} "
         f"ms launched eagerly), plain {r['plain_ms']:.4f} ms, library "
@@ -909,14 +946,14 @@ def check_paged_bf16(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len, qdt,
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
-    tokens = sum(kv_len)
-    nbytes = (tokens * Hkv * hd * 2 * 2 + 2 * q.numel() * q.element_size()
-              + 4 * (B * W + B))
+    nbytes = cost_bytes("paged_decode_attention_bf16", *layer[0],
+                        page_size=ps, kv_len=kv_len)
     r = {"err": err,
          "ms": cuda_ms(torch, fn, layer, 3 * L),
          "plain_ms": cuda_ms(torch, fn_ref, layer, L),
-         "bound": bound(nbytes, 4 * Hkv * gq * hd * tokens,
-                        peak_of(torch, torch.bfloat16))}
+         "bound": cost_bound("paged_decode_attention_bf16", *layer[0],
+                             page_size=ps, kv_len=kv_len,
+                             peak=peak_of(torch, torch.bfloat16))}
     r["eager_ms"] = eager_ms(torch, fn, layer, 3 * L)
     log(f"  paged_decode_attention_bf16: {r['ms']:.4f} ms/layer "
         f"({r['eager_ms']:.4f} ms launched eagerly), plain "
@@ -3407,6 +3444,382 @@ def phase12(torch, *, device="cuda", reduced=False):
     return launches
 
 
+# -- phase 13: the counts against the card ------------------------------------
+
+P13_ARCHS = ("llama-30b", "qwen3-moe-235b-a22b")
+P13_MESHES = ("one", "four")
+P13_PS, P13_SEQ = 16, 256          # phase 5's pages and max_seq
+P13_BUCKET = 256                   # phase 5's prefill bucket, 4 prompts
+
+
+def p13_cells(mesh):
+    """The (arch, shape) cells phase 13(c) dry-runs at ``mesh``: at
+    ``four`` every cell of ``all_cells()`` (``--all``, ~15 s on the host:
+    all but qwen3-moe's prefill and decode are refused at once, A.9 step
+    two) and LLaMA-30B's; at ``one`` only LLaMA-30B's and qwen3-moe's
+    (``--all`` takes ~25 min on the host there, ~19 of them xlstm's
+    per-token sLSTM loop)."""
+    from repro_torch.configs import all_cells, get_config
+    mine = [(a, s) for a in P13_ARCHS for s in get_config(a).shape_cells()]
+    if mesh == "one":
+        return mine
+    cells = all_cells()[0]
+    return cells + [c for c in mine if c not in cells]
+
+
+def dryrun_start(tmp):
+    """Phase 13(c), started early: ``python -m repro_torch.launch.dryrun``
+    over :func:`p13_cells` (``--all`` at ``four``, then one process a
+    cell not in it), the cells of each mesh of ``P13_MESHES`` in one
+    chain, the two chains side by side on the host (meta tensors: no
+    device work). Returns the chains' processes and their log paths."""
+    from repro_torch.configs import all_cells
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = []
+    atexit.register(_stop, procs)
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    for mesh in P13_MESHES:
+        cells = p13_cells(mesh)
+        cmds = []
+        if mesh != "one":
+            cmds.append(" ".join(cli + ["--all", "--mesh", mesh, "--force"]))
+            cells = [c for c in cells if c not in all_cells()[0]]
+        cmds += [" ".join(cli + ["--arch", arch, "--shape", shape, "--mesh",
+                                 mesh, "--force"]) for arch, shape in cells]
+        path = os.path.join(tmp, f"dryrun_{mesh}.log")
+        out = open(path, "w")
+        procs.append((subprocess.Popen(["/bin/sh", "-c", "; ".join(cmds)],
+                                       cwd=root, env=env, stdout=out,
+                                       stderr=subprocess.STDOUT),
+                      out, path, mesh))
+    return procs
+
+
+def _stop(procs):
+    """Kill what is left of the dry-run's chains (a failed phase exits
+    before :func:`dryrun_finish` waits for them)."""
+    for p, out, _, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+
+
+def dryrun_finish(procs, timeout=900):
+    """Wait for :func:`dryrun_start`'s chains; print their logs. The
+    chains' own exit codes say whether a cell failed (a refused cell at
+    ``four`` is an expected error): the records decide."""
+    for p, out, path, mesh in procs:
+        try:
+            p.wait(timeout=timeout)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+        with open(path) as f:
+            for line in f.read().splitlines():
+                if line.startswith(("[ok]", "[FAIL]")):
+                    log(f"  {line[:150]}")
+
+
+def p13_dryrun(procs, t0):
+    """Phase 13(c)'s end: wait for the chains, then hold their records
+    (at ``one`` every cell ``ok``; above it an error must name A.9 step
+    two) and print ``report.table`` of each mesh."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+    dryrun_finish(procs)
+    log(f"  (c): the dry-run's chains ended {time.perf_counter() - t0:.1f}"
+        f" s after they started")
+    for mesh in P13_MESHES:
+        recs = [dryrun.run_cell(arch, shape, mesh)
+                for arch, shape in p13_cells(mesh)]
+        # a model axis above one refuses what A.9 step two has not ported
+        bad = [r for r in recs if r["status"] != "ok" and not (
+            mesh != "one" and "A.9 step two" in r["error"])]
+        n_err = sum(r["status"] != "ok" for r in recs)
+        log(f"  {mesh}: {len(recs) - n_err} of {len(recs)} cells ok"
+            + (f", {n_err} errors naming A.9 step two" if n_err else ""))
+        log(f"  report.table({mesh!r}), counted from shapes against the "
+            f"H100's published peaks (not measured):")
+        for line in report.table(mesh).splitlines():
+            log(f"    {line}")
+        if bad:
+            raise AssertionError(f"dry-run cells failed at {mesh}: "
+                                 f"{[(r['arch'], r['shape']) for r in bad]}")
+
+
+def p13_count(torch, fn, *args):
+    """``roofline/op_cost.py``'s count of ``fn(*args)`` on meta tensors
+    (what ``launch/dryrun.py`` runs), and the host seconds it took."""
+    from repro_torch.roofline.op_cost import OpCounter
+    t = time.perf_counter()
+    with OpCounter() as c:
+        fn(*args)
+    return c.result(), time.perf_counter() - t
+
+
+def p13_real(torch, fn, *args):
+    """The real eager run of ``fn(*args)`` on the card under
+    ``FlopCounterMode``: (its matmul FLOPs, the kernel launches it made,
+    the rise of ``max_memory_allocated`` over the memory before it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    return (fc.get_total_flops(),
+            {k: after[k] - before[k] for k in after if after[k] != before[k]},
+            rise)
+
+
+def graph_replay_ms(torch, fn, reps=5):
+    """Median ms of one CUDA-graph replay of ``fn()`` (captured once after
+    a warm-up on the capture stream; the kernel wrappers' launch counts
+    are restored after the capture, which ran nothing), each replay
+    between CUDA events."""
+    from repro_torch.kernels import ops
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    before = ops.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    for name, n in before.items():
+        ops.KERNELS[name].launches = n
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    del graph
+    return float(np.median(times))
+
+
+def eager_call_ms(torch, fn, reps=3):
+    """Median ms of an eager call of ``fn()`` between CUDA events, after
+    one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def p13_hold(name, counted, real_flops, real_launches, arg_meta, arg_real):
+    """Phase 13(a)'s three equalities for one step: the counted matmul
+    FLOPs against ``FlopCounterMode``'s, the counted kernel calls against
+    the real launches, the counted argument bytes against the real
+    tensors'."""
+    mm = counted["by_class"].get("matmul", {}).get("flops", 0)
+    log(f"  {name}: matmul FLOPs counted on meta {mm:,}, FlopCounterMode on "
+        f"the card {real_flops:,}; kernel calls counted {counted['kernels']}"
+        f", launched {real_launches}; argument bytes counted {arg_meta:,}, "
+        f"real {arg_real:,}")
+    if mm != real_flops:
+        raise AssertionError(f"{name}: counted matmul FLOPs {mm} != "
+                             f"FlopCounterMode's {real_flops}")
+    if counted["kernels"] != real_launches:
+        raise AssertionError(f"{name}: counted kernel calls "
+                             f"{counted['kernels']} != launches "
+                             f"{real_launches}")
+    if arg_meta != arg_real:
+        raise AssertionError(f"{name}: counted argument bytes {arg_meta} != "
+                             f"the real tensors' {arg_real}")
+
+
+def p13_clock(name, counted, ms, shape, cfg, *, held):
+    """Phase 13(b) for one step: the roofline time on the H100
+    (``roofline/analysis.py``) beside the measured time, their ratio and
+    the whole-step share ``model_flops_for / (measured s x 989e12)``.
+    ``held``: the roofline time must not exceed the measured one."""
+    from repro_torch.roofline import analysis
+    mf = analysis.model_flops_for(cfg, shape)
+    roof = analysis.analyze(counted, arch=cfg.name, shape=shape.name,
+                            mesh_desc="card", n_chips=1, model_flops=mf)
+    share = mf / (ms * 1e-3 * H100.peak_flops)
+    log(f"  {name}: counted {roof.hlo_flops:.4e} FLOPs, {roof.hlo_bytes:.4e} "
+        f"bytes; roofline {roof.step_s * 1e3:.3f} ms ({roof.bottleneck}: "
+        f"compute {roof.compute_s * 1e3:.3f}, memory "
+        f"{roof.memory_s * 1e3:.3f} ms) against {ms:.3f} ms measured, "
+        f"ratio {roof.step_s * 1e3 / ms:.3f}; model_flops_for "
+        f"{mf:.4e} at {shape} -> whole-step share "
+        f"{100 * share:.2f}% of {H100.peak_flops / 1e12:.0f} TFLOP/s")
+    if held and roof.step_s * 1e3 > ms:
+        raise AssertionError(f"{name}: the roofline time "
+                             f"{roof.step_s * 1e3:.3f} ms exceeds the "
+                             f"measured {ms:.3f} ms: the count claims more "
+                             f"work than the card did")
+    return {"roofline_ms": roof.step_s * 1e3, "ms": ms,
+            "ratio": roof.step_s * 1e3 / ms, "share": share,
+            "flops": roof.hlo_flops, "bytes": roof.hlo_bytes}
+
+
+def p13_serve(torch, smi, device="cuda"):
+    """Phase 13(a) and (b) for LLaMA-30B's main path at full width, on
+    weights made as phase 5 makes them (``full_model``'s seed): the int4
+    paged decode step at 4 slots (``P13_PS``-token pages, ``P13_SEQ``
+    positions, kv_len ``DECODE_LENS`` + 1) and one bucket prefill of 4 x
+    ``P13_BUCKET`` through the model API and the wire (the prefill
+    engine's ``_run_one_bucket`` without its first-token read)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.models import paged, registry, transformer
+    from repro_torch.serving import kv_transfer
+    cfg = get_config("llama-30b")
+    api = registry.build(cfg)
+    step_fn, _ = api.paged_decode_fns(P13_PS)
+    W = paged.table_width(P13_SEQ, P13_PS)
+    n_pages = 4 * W + 1
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def decode_args(dev):
+        cache = paged.init_paged_cache(cfg, 4, P13_SEQ, n_pages,
+                                       page_size=P13_PS, device=dev)
+        tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+        if dev != "meta":
+            for key, t in cache["slot0"].items():
+                if t.dtype == torch.uint8:
+                    t.copy_(torch.randint(0, 256, t.shape, generator=gen,
+                                          device=dev, dtype=torch.uint8))
+                else:
+                    t.copy_(torch.rand(t.shape, generator=gen, device=dev))
+            cache["page_table"].copy_(torch.arange(
+                1, n_pages, dtype=torch.int32, device=dev).view(4, W))
+            cache["lengths"].copy_(torch.tensor(DECODE_LENS,
+                                                dtype=torch.int32))
+            tok.random_(0, cfg.vocab_size, generator=gen)
+        return cache, tok
+
+    def prefill(params, batch):
+        _, cache = api.prefill(params, batch, max_seq=P13_SEQ)
+        return kv_transfer.extract_batch(
+            cache, [(i, P13_BUCKET) for i in range(4)], pad_to=P13_BUCKET)
+
+    def prefill_batch(dev):
+        tok = torch.zeros((4, P13_BUCKET), dtype=torch.int64, device=dev)
+        if dev != "meta":
+            tok.random_(0, cfg.vocab_size, generator=gen)
+        return {"tokens": tok,
+                "last_pos": torch.full((4,), P13_BUCKET - 1,
+                                       dtype=torch.int64, device=dev),
+                "true_len": torch.full((4,), P13_BUCKET, dtype=torch.int32,
+                                       device=dev)}
+
+    # the counts on meta first: no device memory, no kernel
+    mparams = transformer.init_params(cfg, device="meta")
+    mcache, mtok = decode_args("meta")
+    c_dec, s_dec = p13_count(torch, step_fn, mparams, mcache, mtok)
+    mbatch = prefill_batch("meta")
+    c_pre, s_pre = p13_count(torch, prefill, mparams, mbatch)
+    log(f"  counted on meta in {s_dec:.1f} s (decode step) and {s_pre:.1f} s "
+        f"(prefill); traced peaks {c_dec['peak_bytes']:,} / "
+        f"{c_pre['peak_bytes']:,} bytes")
+    a_dec = tree_bytes([mparams, mcache, mtok])[1]
+    a_pre = tree_bytes([mparams, mbatch])[1]
+    del mparams, mcache, mbatch
+
+    params, _ = full_model(torch, cfg, device=device)
+    cache, tok = decode_args(device)
+    step_fn(params, cache, tok)                     # warm
+    f_dec, l_dec, rise_dec = p13_real(torch, step_fn, params, cache, tok)
+    p13_hold("decode step", c_dec, f_dec, l_dec,
+             a_dec, tree_bytes([params, cache, tok])[1])
+    log(f"  decode step: traced peak {c_dec['peak_bytes']:,} bytes beside "
+        f"max_memory_allocated's rise {rise_dec:,} bytes")
+    read = step_read_bytes(cfg, params)
+    log(f"  decode step: counted bytes {c_dec['bytes']:,} against "
+        f"step_read_bytes {read:,}")
+    if c_dec["bytes"] < read:
+        raise AssertionError(f"the decode step's counted bytes "
+                             f"{c_dec['bytes']} are fewer than the bytes "
+                             f"it must read ({read})")
+    ms = graph_replay_ms(torch, lambda: step_fn(params, cache, tok))
+    log(smi)
+    out["decode"] = p13_clock(
+        "decode step (one graph replay)", c_dec, ms,
+        ShapeSpec("decode_4x256", P13_SEQ, 4, "decode"), cfg, held=True)
+    del cache, tok
+
+    batch = prefill_batch(device)
+    f_pre, l_pre, rise_pre = p13_real(torch, prefill, params, batch)
+    p13_hold("bucket prefill", c_pre, f_pre, l_pre,
+             a_pre, tree_bytes([params, batch])[1])
+    log(f"  bucket prefill: traced peak {c_pre['peak_bytes']:,} bytes "
+        f"beside max_memory_allocated's rise {rise_pre:,} bytes")
+    ms = eager_call_ms(torch, lambda: prefill(params, batch))
+    out["prefill"] = p13_clock(
+        "bucket prefill (eager, CUDA events)", c_pre, ms,
+        ShapeSpec("prefill_4x256", P13_BUCKET, 4, "prefill"), cfg,
+        held=True)
+    del params, batch
+    return out
+
+
+def p13_train(torch, smi, device="cuda"):
+    """Phase 13(a) and (b) for phase 11's train step: LLaMA-30B at full
+    width cut to ``TRAIN_LAYERS`` layers, batch 4 x 512, one
+    ``make_train_step`` step (loss, autograd, AdamW in place). The
+    roofline ratio is printed, not held: its many small f32 ops can hit
+    L2."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, PackedLM
+    cfg = get_config("llama-30b").replace(num_layers=TRAIN_LAYERS)
+    api = build(cfg)
+    step = opt.make_train_step(api, opt.AdamWConfig())
+    b = PackedLM(DataConfig(cfg.vocab_size, 512, 4)).batch_at(0)
+
+    def state(dev):
+        params = train.make_params(cfg, dev)
+        return params, opt.adamw_init(params), {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    mp, ms_, mb = state("meta")
+    counted, secs = p13_count(torch, step, mp, ms_, mb)
+    a_meta = tree_bytes([mp, ms_, mb])[1]
+    log(f"  train step counted on meta in {secs:.1f} s; traced peak "
+        f"{counted['peak_bytes']:,} bytes")
+    del mp, ms_, mb
+    params, st, batch = state(device)
+    a_real = tree_bytes([params, st, batch])[1]
+    f_real, l_real, rise = p13_real(torch, step, params, st, batch)
+    p13_hold("train step", counted, f_real, l_real, a_meta, a_real)
+    log(f"  train step: traced peak {counted['peak_bytes']:,} bytes beside "
+        f"max_memory_allocated's rise {rise:,} bytes")
+    ms = eager_call_ms(torch, lambda: step(params, st, batch), reps=2)
+    log(smi)
+    out = p13_clock("train step (eager, CUDA events)", counted, ms,
+                    ShapeSpec("train_4x512", 512, 4, "train"), cfg,
+                    held=False)
+    del params, st, batch
+    return out
+
+
 def main() -> int:
     # phase 11's deterministic cuBLAS: set before the process first uses it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3415,8 +3828,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on a "
               "GPU only", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import decode_attention as da
@@ -3428,7 +3839,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/12] device")
+    log("[1/13] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -3436,7 +3847,7 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[2/12] build")
+    log("[2/13] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -3444,7 +3855,7 @@ def main() -> int:
     for name, regs, spill in kernel_resources(build.build_log()):
         log(f"  {name}: {regs} registers, {spill}")
 
-    log("[3/12] kernels against their plain versions on the card")
+    log("[3/13] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -3533,7 +3944,7 @@ def main() -> int:
     arch_rows += check_local_shapes(torch, ref, fa, da, pa, kq, rn)
     torch.cuda.empty_cache()
 
-    log("[4/12] reduced configs, float32: card vs plain versions on the CPU")
+    log("[4/13] reduced configs, float32: card vs plain versions on the CPU")
     from repro_torch.configs import ALL_ARCHS, get_reduced
     from repro_torch.models.paged import paged_supported
     from repro_torch.models.transformer import recurrent
@@ -3554,7 +3965,7 @@ def main() -> int:
             moe_chunked_f32(torch, arch)
 
     base_mem = settled(torch)
-    log(f"[5/12] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/13] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
@@ -3566,12 +3977,12 @@ def main() -> int:
         torch.cuda.empty_cache()            # the engines' caches are freed
     log(f"  phase-5 launches: {launches5}")
 
-    log(f"[6/12] the gateway entry point (repro_torch.launch.serve) at full "
+    log(f"[6/13] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
     launches6 = serve_gateway(torch, params)
     log(f"  phase-6 launches: {launches6}")
 
-    log(f"[7/12] the chaos entry point (repro_torch.launch.serve_e2e "
+    log(f"[7/13] the chaos entry point (repro_torch.launch.serve_e2e "
         f"--chaos) at full width on phase 5's weights: a decode crash and "
         f"a spot preemption with graphed decode chunks")
     log(smi.splitlines()[0])
@@ -3580,7 +3991,7 @@ def main() -> int:
     launches = {k: launches5[k] + launches6[k] + launches7[k]
                 for k in launches5}
 
-    log("[8/12] the other dense configs at full width: stablelm-3b, "
+    log("[8/13] the other dense configs at full width: stablelm-3b, "
         "gemma-2b, h2o-danube-3-4b, command-r-35b")
     log(smi.splitlines()[0])
     del params, pre
@@ -3601,7 +4012,7 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[9/12] the MoE and VLM configs at published widths: "
+    log("[9/13] the MoE and VLM configs at published widths: "
         "llava-next-mistral-7b (32 layers), qwen3-moe-235b-a22b (8 of 94 "
         "layers), llama4-maverick-400b-a17b (2 of 48 layers)")
     log(smi.splitlines()[0])
@@ -3616,7 +4027,15 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[10/12] the recurrent and encoder-decoder configs at published "
+    # phase 13(c) runs on the host (meta tensors) beside phases 10-13
+    import tempfile
+    p13_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    t13c = time.perf_counter()
+    dry = dryrun_start(p13_tmp)
+    log(f"  phase 13(c) started: the dry-run of {', '.join(P13_ARCHS)}'s "
+        f"cells at meshes {', '.join(P13_MESHES)}, on the host")
+
+    log("[10/13] the recurrent and encoder-decoder configs at published "
         "widths: xlstm-125m, jamba-v0.1-52b (16 of 32 layers), "
         "whisper-base")
     log(smi.splitlines()[0])
@@ -3635,7 +4054,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
-    log("[11/12] training and checkpoints: (a) every config reduced in "
+    log("[11/13] training and checkpoints: (a) every config reduced in "
         "float32, 3 AdamW steps on the card and on the CPU; (b) LLaMA-30B "
         f"at full width, {TRAIN_LAYERS} of 60 layers, 6 steps through "
         f"launch.train; (c) LLaMA-30B cut to {CKPT_LAYERS} layer, async "
@@ -3667,7 +4086,7 @@ def main() -> int:
         f"checkpoints {restart['write_gbs']:.2f} GB/s written, "
         f"{restart['read_gbs']:.2f} GB/s read")
 
-    log("[12/12] distribution: (a) Runtime over a 1-D model mesh of one "
+    log("[12/13] distribution: (a) Runtime over a 1-D model mesh of one "
         "rank over NCCL, full LLaMA-30B through the engines, graphed and "
         "eager, against the unmeshed engine; (b) LLaMA-30B at TP 2, "
         f"{P12_LAYERS['tp']} of 60 layers, (c) qwen3-moe at EP 2 + TP 2, "
@@ -3683,6 +4102,24 @@ def main() -> int:
     if missing:
         raise AssertionError(f"phase 12 never launched {missing}")
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
+
+    log("[13/13] the counts against the card: LLaMA-30B's int4 decode "
+        "step, a bucket prefill and phase 11's train step counted on meta "
+        "tensors (roofline/op_cost.py) and run on the card; the dry-run "
+        "(launch/dryrun.py)")
+    log(smi.splitlines()[0])
+    t13 = time.perf_counter()
+    mem = settled(torch)
+    p13 = p13_serve(torch, smi.splitlines()[0])
+    p13["train"] = p13_train(torch, smi.splitlines()[0])
+    mem13 = settled(torch)
+    if mem13 > mem:
+        raise AssertionError(f"phase 13 left {mem13 - mem} bytes allocated")
+    log(f"  (a), (b): {time.perf_counter() - t13:.1f} s")
+    p13_dryrun(dry, t13c)
+    log(f"  phase 13: {time.perf_counter() - t13:.1f} s; " + "; ".join(
+        f"{k} share {100 * v['share']:.2f}%, roofline / measured "
+        f"{v['ratio']:.3f}" for k, v in p13.items()))
 
     rows = [("kv_quant", "src/repro_torch/kernels/csrc/kv_quant.cu",
              "src/repro/kernels/kv_quant.py:55", rq),

@@ -19,6 +19,12 @@ Calls are issued at every group size, 1 included, so a world of one
 rank exercises the same calls as a larger one. Each call adds one to
 its count (:func:`counts`), as a kernel wrapper does, so a caller can
 read how many collectives a step made.
+
+:class:`CountingGroup` is :class:`Group`'s sibling for an abstract mesh
+(``launch/mesh.py: abstract_mesh``, the dry-run's): no process group,
+the same four calls on ``meta`` tensors, each returning a meta tensor of
+the shape the real call returns and telling the active op counter
+(``roofline/op_cost.py``) its op, payload bytes and group size.
 """
 from __future__ import annotations
 
@@ -129,3 +135,55 @@ class Group:
             req.wait()
         return [h.to(t.device) if h.device != t.device else h
                 for h, t in got]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class CountingGroup:
+    """One axis of an abstract mesh: ``size`` ranks, this one rank 0, no
+    process group. Each call runs nothing, returns what the real call
+    returns in shape and type (meta tensors), and adds ``(op, payload
+    bytes, size)`` to the active op counter; outside a counter it
+    raises. Payloads are the reference's (``roofline/analysis.py``): an
+    all-reduce's tensor, an all-gather's output, an all-to-all's tensor,
+    a point-to-point exchange's sends."""
+
+    backend = "abstract"
+    staged = graphable = False
+
+    def __init__(self, size: int, name: str):
+        self.size, self.name, self.rank = size, name, 0
+
+    def global_rank(self, r: int) -> int:
+        return r
+
+    def _count(self, op: str, payload: int):
+        from repro_torch.kernels import ops
+        if not ops.COUNTERS:
+            raise RuntimeError(f"{op} on abstract axis {self.name!r} outside "
+                               f"an op counter: an abstract mesh only counts")
+        _COUNTS[op] += 1
+        ops.COUNTERS[-1].collective(op, payload, self.size)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        self._count("all_reduce", _nbytes(x))
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim % x.ndim] *= self.size
+        out = x.new_empty(shape)
+        self._count("all_gather", _nbytes(out))
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        self._count("all_to_all", _nbytes(x))
+        return torch.empty_like(x)
+
+    def exchange(self, sends, recvs) -> List[torch.Tensor]:
+        if not sends and not recvs:
+            return []
+        self._count("send_recv", sum(_nbytes(t) for t, _ in sends))
+        return [torch.empty_like(t) for t, _ in recvs]

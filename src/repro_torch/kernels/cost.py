@@ -1,0 +1,174 @@
+"""The work of each kernel of ``kernels/ops.py``: its FLOPs and the bytes
+it must move, from the shapes and types of its tensor arguments.
+
+Each function of :data:`COSTS` takes ``(shapes, dtypes, **data)`` -- the
+shapes and types of the wrapper's tensor arguments in its order (an int4
+page triple as its three tensors), and the values the work depends on
+where they are known -- and returns ``(flops, bytes)``:
+
+- bytes: each input read once and each output written once, the least
+  any implementation moves (a decode kernel reads the cache rows up to
+  ``kv_len`` only, and writes nothing back but its output);
+- FLOPs: the arithmetic of the function, the attention kernels' two
+  products (4 hd FLOPs a visible query-key pair and query head), the
+  norms' and the quantizer's per-element operations.
+
+The work of the attention kernels depends on the data: the tokens a
+decode step reads (``kv_len``), the pairs a suffix prefill sees
+(``prefix_len``). Pass them as lists of ints where they are known (the
+card's checks in ``chip_smoke.py`` phase 3, whose bound column these are);
+left out (a meta tensor holds no values) every row counts: ``kv_len`` at
+the cache's or page table's length, ``prefix_len`` at the padded prefix.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+Shape = Tuple[int, ...]
+
+
+def _n(shape: Shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def kv_quant(shapes, dtypes):
+    """x (N, G) -> packed (N, G/2) u8, scale and zero (N, 1) f32."""
+    N, G = shapes[0]
+    return 6 * N * G, N * G * dtypes[0].itemsize + N * G // 2 + 8 * N
+
+
+def kv_dequant(shapes, dtypes, *, out_dtype=torch.bfloat16):
+    """packed (N, G/2), scale, zero -> (N, G) of ``out_dtype``."""
+    N, Gh = shapes[0]
+    G = 2 * Gh
+    return 2 * N * G, N * G // 2 + 8 * N + N * G * out_dtype.itemsize
+
+
+def kv_quant_append(shapes, dtypes):
+    """k, v (B, 1, Hkv, hd) quantized into the tail rows of the int4
+    triples kp, ks, kz, vp, vs, vz (P, R, g/2 | 1); page_table, lengths."""
+    B, _, Hkv, hd = shapes[0]
+    g = 2 * shapes[2][-1]
+    ppr = Hkv * hd // g
+    return (6 * 2 * B * Hkv * hd,
+            2 * B * Hkv * hd * dtypes[0].itemsize + 2 * B * ppr * (g // 2 + 8)
+            + 8 * B)
+
+
+def _tokens(kv_len, B, rows):
+    return B * rows if kv_len is None else int(sum(kv_len))
+
+
+def paged_decode_attention_int4(shapes, dtypes, *, page_size, kv_len=None):
+    """q (B, Hkv, gq, hd) over int4 triples kp, ks, kz, vp, vs, vz
+    (P, R, g/2 | 1) through page_table (B, W), kv_len (B,)."""
+    B, Hkv, gq, hd = shapes[0]
+    g = 2 * shapes[1][-1]
+    ppr = shapes[1][1] // page_size
+    W = shapes[7][1]
+    tokens = _tokens(kv_len, B, W * page_size)
+    return (4 * Hkv * gq * hd * tokens,
+            tokens * 2 * ppr * (g // 2 + 8)
+            + 2 * _n(shapes[0]) * dtypes[0].itemsize + 4 * (B * W + B))
+
+
+def paged_decode_attention_bf16(shapes, dtypes, *, page_size, kv_len=None):
+    """q (B, Hkv, gq, hd) over bf16 pages k, v (P, ps, Hkv, hd) through
+    page_table (B, W), kv_len (B,)."""
+    B, Hkv, gq, hd = shapes[0]
+    W = shapes[3][1]
+    tokens = _tokens(kv_len, B, W * page_size)
+    return (4 * Hkv * gq * hd * tokens,
+            tokens * Hkv * hd * 2 * dtypes[1].itemsize
+            + 2 * _n(shapes[0]) * dtypes[0].itemsize + 4 * (B * W + B))
+
+
+def decode_attention(shapes, dtypes, *, kv_len=None):
+    """q (B, Hkv, g, hd) over k, v (B, Hkv, S, hd) up to kv_len (B,)."""
+    B, Hkv, g, hd = shapes[0]
+    tokens = _tokens(kv_len, B, shapes[1][2])
+    return (4 * Hkv * g * hd * tokens,
+            tokens * Hkv * hd * 2 * dtypes[1].itemsize
+            + 2 * _n(shapes[0]) * dtypes[0].itemsize + 4 * B)
+
+
+def flash_pairs(B, Sq, Sk, *, causal=True, window=0, prefix_len=None):
+    """Visible (query, key) pairs of a flash call: all of them
+    bidirectional; causal ones within the window; with ``prefix_len`` the
+    suffix's causal pairs plus each row's prefix (``Sk - Sq`` padded
+    prefix positions a row where the lengths are not known)."""
+    if not causal:
+        return B * Sq * Sk
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(Sq))
+    if prefix_len is None:
+        return B * pairs
+    if isinstance(prefix_len, str):          # known to exist, not its values
+        return B * pairs + Sq * B * (Sk - Sq)
+    return B * pairs + Sq * int(sum(prefix_len))
+
+
+def flash_attention(shapes, dtypes, *, causal=True, window=0,
+                    prefix_len=None):
+    """q (B, Sq, H, hd), k, v (B, Sk, Hkv, hd). ``prefix_len``: a list of
+    each row's prefix length, or ``"unknown"`` for a suffix call whose
+    lengths are not known (every padded prefix position counts)."""
+    (B, Sq, H, hd), (_, Sk, _, _) = shapes[0], shapes[1]
+    pairs = flash_pairs(B, Sq, Sk, causal=causal, window=window,
+                        prefix_len=prefix_len)
+    return (4 * hd * H * pairs,
+            (2 * _n(shapes[0]) + _n(shapes[1]) + _n(shapes[2]))
+            * dtypes[0].itemsize)
+
+
+def rmsnorm(shapes, dtypes):
+    """x (..., d), scale (d,)."""
+    d = shapes[0][-1]
+    N = _n(shapes[0]) // d
+    return 4 * N * d, 2 * N * d * dtypes[0].itemsize + 4 * d
+
+
+def add_rmsnorm(shapes, dtypes):
+    """x, r (..., d), scale (d,) -> h, y."""
+    d = shapes[0][-1]
+    N = _n(shapes[0]) // d
+    return 6 * N * d, 4 * N * d * dtypes[0].itemsize + 4 * d
+
+
+COSTS: Dict[str, Callable] = {
+    "kv_quant": kv_quant,
+    "kv_dequant": kv_dequant,
+    "kv_quant_append": kv_quant_append,
+    "paged_decode_attention_int4": paged_decode_attention_int4,
+    "paged_decode_attention_bf16": paged_decode_attention_bf16,
+    "flash_attention": flash_attention,
+    "decode_attention": decode_attention,
+    "rmsnorm": rmsnorm,
+    "add_rmsnorm": add_rmsnorm,
+}
+
+
+def flat_tensors(args) -> list:
+    """The tensors of ``args`` in order, tuples (an int4 page triple)
+    flattened."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif isinstance(a, (tuple, list)):
+            out.extend(flat_tensors(a))
+    return out
+
+
+def of(name: str, *args, **data) -> Tuple[int, int]:
+    """``(flops, bytes)`` of kernel ``name`` called on ``args`` (its
+    tensor arguments in the wrapper's order; page triples may stay
+    tuples)."""
+    ts = flat_tensors(args)
+    return COSTS[name]([tuple(t.shape) for t in ts], [t.dtype for t in ts],
+                       **data)
+

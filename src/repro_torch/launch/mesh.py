@@ -11,17 +11,24 @@ The reference reads an axis's size as ``mesh.shape[name]``, a dict
 lookup; a ``DeviceMesh``'s ``shape`` is a tuple, so :func:`shape_of`
 gives the dict and :func:`axis_group` an axis's size, rank and
 collectives (``distributed/comm.py``).
+
+:func:`abstract_mesh` is a mesh with no process group, the dry-run's
+(``launch/dryrun.py``; the counterpart of the reference's 512 forced
+host devices): the same ``shape_of``/``data_axes``/``axis_group``
+interface, this process rank 0 of every axis, and each axis's
+collectives counted, not run (``comm.CountingGroup``).
 """
 from __future__ import annotations
 
 import math
+import types
 from typing import Dict
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch.distributed.comm import Group
+from repro_torch.distributed.comm import CountingGroup, Group
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
@@ -48,6 +55,26 @@ def make_mesh(shape, axes, *, device="cuda"):
                             mesh_dim_names=tuple(axes))
 
 
+class AbstractMesh:
+    """A mesh of ``shape`` with axes ``axes`` and no process group (see
+    :func:`abstract_mesh`)."""
+
+    def __init__(self, shape, axes):
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} for axes {axes}")
+        self.mesh_dim_names = tuple(axes)
+        self.mesh = types.SimpleNamespace(shape=tuple(int(n) for n in shape))
+
+    def get_local_rank(self, name: str) -> int:
+        return 0
+
+
+def abstract_mesh(shape, axes) -> AbstractMesh:
+    """A mesh of ``shape`` named ``axes`` that needs no process group:
+    rank 0 of every axis, its collectives counted on meta tensors."""
+    return AbstractMesh(shape, axes)
+
+
 def shape_of(mesh) -> Dict[str, int]:
     """``{axis name: size}``, the reference's ``mesh.shape``."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
@@ -67,5 +94,7 @@ def axis_group(mesh, name: str) -> Group:
     mesh and axis."""
     groups = mesh.__dict__.setdefault("_repro_groups", {})
     if name not in groups:
-        groups[name] = Group(mesh.get_group(name), name)
+        groups[name] = CountingGroup(shape_of(mesh)[name], name) \
+            if isinstance(mesh, AbstractMesh) else \
+            Group(mesh.get_group(name), name)
     return groups[name]

@@ -30,6 +30,15 @@ rank's shard of the params and the caches that ``ModelApi.local_cfg``
 experts) lays out, and place the collectives (``distributed/comm.py``).
 On NCCL a graphed chunk captures them with the rest; a gloo group cannot
 be captured, and :class:`GraphedDecodeChunk` refuses it.
+
+For the dry-run (``launch/dryrun.py``), as the reference:
+``input_specs(shape)`` is a cell's batch and ``cache_specs(shape)`` its
+dense decode cache, as ``meta`` tensors (nothing allocated), after the
+per-cell adjustments of :func:`_effective_cfg`; :func:`build_for_cell`
+builds the model those adjustments give. ``cache_specs`` is the port's
+own dense cache (``transformer.init_cache``, ``whisper.init_cache``):
+where it differs from the reference's (ROADMAP C.4: one layer-ordered
+stack for a multi-slot pure-attention stack) the specs differ too.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed import comm, sharding
 from repro_torch.kernels import ops
 from repro_torch.models import paged, transformer, whisper
@@ -64,6 +73,9 @@ class ModelApi:
     local_cfg: Optional[ModelConfig] = None
     # the model axis's collectives (None without a mesh)
     tp: Optional[comm.Group] = None
+    # a cell's batch and dense decode cache as meta tensors
+    input_specs: Optional[Callable] = None
+    cache_specs: Optional[Callable] = None
 
 
 def make_decode_chunk(decode_fn: Callable) -> Callable:
@@ -278,6 +290,77 @@ class GraphedDecodeChunk:
         return toks, valid, cache, st
 
 
+def _effective_cfg(cfg: ModelConfig, shape: Optional[ShapeSpec]
+                   ) -> ModelConfig:
+    """Per-cell adjustments (the reference's, DESIGN.md):
+
+    * jamba long_500k: its 4 attention layers fall back to SWA(4096) so the
+      decode state is bounded (Mamba layers already are O(1)).
+    """
+    if shape is None:
+        return cfg
+    if shape.name == "long_500k" and cfg.family == "hybrid" \
+            and not cfg.sliding_window:
+        return cfg.replace(sliding_window=4096)
+    return cfg
+
+
+def _token_specs(cfg, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """The reference's batch of a cell, as meta tensors of its shapes and
+    types."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "train":
+        if cfg.family == "audio":
+            return {"tokens": sds((B, S), i32),
+                    "targets": sds((B, S), i32),
+                    "frame_embeds": sds((B, cfg.encoder_seq, cfg.d_model),
+                                        bf16)}
+        if cfg.family == "vlm":
+            s_text = S - cfg.num_patches
+            return {"tokens": sds((B, s_text), i32),
+                    "targets": sds((B, s_text), i32),
+                    "patch_embeds": sds((B, cfg.num_patches, cfg.d_model),
+                                        bf16)}
+        return {"tokens": sds((B, S), i32), "targets": sds((B, S), i32)}
+    if shape.kind == "prefill":
+        if cfg.family == "audio":
+            return {"tokens": sds((B, S), i32),
+                    "frame_embeds": sds((B, cfg.encoder_seq, cfg.d_model),
+                                        bf16)}
+        if cfg.family == "vlm":
+            return {"tokens": sds((B, S - cfg.num_patches), i32),
+                    "patch_embeds": sds((B, cfg.num_patches, cfg.d_model),
+                                        bf16)}
+        return {"tokens": sds((B, S), i32)}
+    # decode: one new token; the KV/state cache is a separate argument
+    return {"tokens": sds((B, 1), i32)}
+
+
+def _spec_fns(cfg: ModelConfig):
+    def input_specs(shape: ShapeSpec):
+        return _token_specs(_effective_cfg(cfg, shape), shape)
+
+    def cache_specs(shape: ShapeSpec):
+        ecfg = _effective_cfg(cfg, shape)
+        init_fn = (whisper.init_cache if ecfg.family == "audio"
+                   else transformer.init_cache)
+        return init_fn(ecfg, shape.global_batch, shape.seq_len,
+                       device="meta")
+
+    return input_specs, cache_specs
+
+
+def build_for_cell(cfg: ModelConfig, shape: ShapeSpec, rt=None) -> ModelApi:
+    """Model with per-cell config adjustments applied (see
+    :func:`_effective_cfg`)."""
+    return build(_effective_cfg(cfg, shape), rt=rt)
+
+
 def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
     """The model API of ``cfg``; under ``rt`` (a
     ``transformer.Runtime``) its functions run on this rank's shard. An
@@ -286,6 +369,7 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
     mesh = None if rt is None else rt.mesh
     local = sharding.local_cfg(cfg, mesh)
     tp = None if rt is None else rt.tp
+    specs = _spec_fns(cfg)
     if cfg.family == "audio":
         def prefill_fn(params, batch, *, max_seq=None):
             return whisper.prefill(
@@ -302,7 +386,8 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
 
         return ModelApi(cfg=cfg, prefill=prefill_fn, decode=decode_fn,
                         decode_chunk=make_decode_chunk(decode_fn),
-                        loss=loss_fn, local_cfg=local)
+                        loss=loss_fn, local_cfg=local,
+                        input_specs=specs[0], cache_specs=specs[1])
 
     def prefill_fn(params, batch, *, max_seq=None):
         S = batch["tokens"].shape[1]
@@ -348,4 +433,5 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
                     prefill_suffix=suffix_fn, paged_decode_fns=paged_fns,
                     decode=decode_fn,
                     decode_chunk=make_decode_chunk(decode_fn), loss=loss_fn,
-                    local_cfg=local, tp=tp)
+                    local_cfg=local, tp=tp, input_specs=specs[0],
+                    cache_specs=specs[1])

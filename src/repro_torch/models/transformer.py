@@ -648,15 +648,16 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     return _last_logits(cfg, params, x, last_pos, tp), cache
 
 
-def _unported(cfg, what, *, layout=True):
+def _unported(cfg, what, *, layout=True, ring=False):
     """Options no registered config uses, which the kernels do not
     compute: a logit softcap, a sliding window in a recurrent stack (the
-    reference's jamba long_500k cell), and (for the dense decode step)
-    the reference's ``hkv_s`` cache layout."""
+    reference's jamba long_500k cell) but in the dense decode step
+    (``ring``: its attention layers' ring), and (for the dense decode
+    step) the reference's ``hkv_s`` cache layout."""
     why = [name for name, on in (
         ("a logit softcap", cfg.attn_logit_softcap),
         ("a sliding window in a recurrent stack",
-         cfg.sliding_window and recurrent(cfg)),
+         cfg.sliding_window and recurrent(cfg) and not ring),
         ("the hkv_s cache layout",
          layout and cfg.decode_cache_layout == "hkv_s")) if on]
     if why:
@@ -681,8 +682,11 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto",
     care in which order the window's keys lie, and each key was rotated
     at its own position before it was written. Returns (logits (B, 1, V)
     f32, cache) with ``lengths + 1``. Under a mesh (``rt``) the cache
-    holds this rank's KV heads."""
-    _unported(cfg, "the dense decode step")
+    holds this rank's KV heads. A recurrent stack with a window (the
+    reference's jamba long_500k cell) keeps its attention layers' K/V in
+    the same ring (:func:`_decode_step_recurrent`), as the reference's
+    in-place step does; its prefill is not ported (ROADMAP A.15)."""
+    _unported(cfg, "the dense decode step", ring=True)
     cfg, tp = shard_view(cfg, rt)
     if recurrent(cfg):
         return _decode_step_recurrent(cfg, params, cache, tokens,
@@ -803,7 +807,8 @@ def _decode_step_recurrent(cfg, params, cache, tokens, *, backend, rt=None):
     step, on their slot's K/V; each recurrent layer steps its states and
     copies them back into the cache IN PLACE (``copy_``, a conv state
     cast back to the cache's type), so a captured chunk replays on the
-    engine's own tensors. Every slot's state advances, idle ones too (the
+    engine's own tensors. Under a sliding window the attention slots'
+    caches of ``window`` rows are rings (:func:`write_pos`). Every slot's state advances, idle ones too (the
     reference freezes only ``lengths``): admission overwrites all of a
     slot's state."""
     tp = None if rt is None else rt.tp

@@ -1,7 +1,9 @@
 """Hardware constants of the paper's GPUs (its Table 1): the scheduler's
 device model (peak FLOP/s, memory bandwidth, link bandwidth, memory size,
 rental price). The port's copy of ``repro.roofline.hw`` without its TPU
-entry.
+entry; in its place :data:`H100`, the card the port runs on, which the
+roofline (``roofline/analysis.py``) converts counted work into seconds
+with.
 """
 from dataclasses import dataclass
 
@@ -15,6 +17,16 @@ class ChipSpec:
     hbm_bytes: float
     price_per_hr: float = 0.0
 
+
+# NVIDIA H100 SXM5 80GB, from NVIDIA's H100 Tensor Core GPU data sheet:
+# dense bf16 tensor-core peak (no sparsity), HBM3 rate, the card's 80 GB,
+# and NVLink 4 at 25 GB/s a link a direction (18 links: 900 GB/s both
+# ways); a four-card host's cards talk over those links (``nvidia-smi
+# nvlink -s``), the collective term of the dry-run's ``four`` mesh. No
+# rental price is stated here.
+H100 = ChipSpec("H100", peak_flops=989e12, hbm_bw=3.35e12, link_bw=25e9,
+                hbm_bytes=80e9)
+NVLINK_LINKS = 18            # H100 SXM5, NVLink 4
 
 # Paper Table 1 (used by the scheduler's faithful reproduction)
 A100 = ChipSpec("A100", 312e12, 2.0e12, 25e9, 80e9, 1.753)

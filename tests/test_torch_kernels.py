@@ -26,6 +26,7 @@ S = 512 two) and trash-page table entries.
 """
 import math
 import os
+import types
 
 import numpy as np
 import pytest
@@ -452,7 +453,9 @@ def test_kv_quant_append_ref_matches_reference_append(B, Hkv, hd, ps, W, lens,
 
 def test_kv_quant_append_refuses_cpu_and_unknown_devices():
     """The append's wrapper takes CUDA tensors only; ``ops`` sends CPU
-    tensors to the plain version and refuses any other device."""
+    tensors to the plain version, counts meta ones (and refuses them
+    outside an op counter: ``roofline/op_cost.py``) and refuses any other
+    device."""
     k, v, kp, vp, pt, lengths = _append_inputs(2, 2, 8, 4, 2, [3, 5],
                                                seed=1)
     args = (torch.from_numpy(k), torch.from_numpy(v),
@@ -463,8 +466,18 @@ def test_kv_quant_append_refuses_cpu_and_unknown_devices():
         t_kq.kv_quant_append(*args, page_size=4)
     meta = tuple(a.to("meta") if isinstance(a, torch.Tensor)
                  else tuple(t.to("meta") for t in a) for a in args)
-    with pytest.raises(ValueError, match="no kernel for device"):
+    with pytest.raises(RuntimeError, match="outside an op counter"):
         t_ops.kv_quant_append(*meta, page_size=4)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        t_ops.kv_quant_append(_on_device("xpu", args[0]), *args[1:],
+                              page_size=4)
+
+
+def _on_device(kind, t):
+    """A stand-in for ``t`` on a device the port has no kernel for (no
+    such tensor can be made here): its shape, a device of ``kind``."""
+    return types.SimpleNamespace(shape=tuple(t.shape),
+                                 device=torch.device(kind))
 
 
 @pytest.mark.parametrize("G,offset,want", [
@@ -542,6 +555,9 @@ def test_decode_wrappers_refuse_cpu_tensors():
 
 def test_ops_refuse_unknown_device():
     with pytest.raises(ValueError, match="no kernel for device"):
+        t_ops.kv_quant(_on_device("xpu", torch.zeros((4, 64))))
+    # meta is counted by an op counter, and refused outside one
+    with pytest.raises(RuntimeError, match="outside an op counter"):
         t_ops.kv_quant(torch.zeros((4, 64), device="meta"))
 
 
