@@ -16,14 +16,45 @@ reference; under rules with a mesh it checks that the tensor's local
 shape is what the logical spec implies on this rank, and raises if not.
 
 Port-only: :func:`local_cfg` is the config one rank's shard of a tensor-
-and expert-parallel model computes (heads, KV heads, the FFN width and
-the experts divided by the ``model`` axis), so the layer code runs
-unchanged on a rank's shard; :func:`shard_params` cuts each weight to
-this rank's slice by its spec; :func:`check_tp` refuses what this step
-of the port does not shard (ROADMAP A.9 step two).
+and expert-parallel model computes (:class:`RankConfig`: heads, KV heads,
+the FFN width, the experts and the recurrent widths divided by the
+``model`` axis), so the layer code runs unchanged on a rank's shard;
+:func:`shard_params` cuts each weight to this rank's slice by its spec;
+:func:`check_tp` refuses what the port does not shard (ROADMAP A.9 step
+two: heads, KV heads, experts, ``d_model`` or an FFN width that the axis
+does not divide).
+
+Where a rank's shard is not the plain cut of the reference's spec
+(``_shard_tree``), or the spec leaves a weight whole and the layer takes
+its part of the weight's input or output, the port differs thus, and
+``param_spec`` stays the reference's:
+
+=======================================  ====================================
+weight                                   what a rank holds or does
+=======================================  ====================================
+``mlp|shared/wi`` (gated)                1/n of gate and 1/n of up
+``mamba/in_proj``, ``mlstm/w_up``        1/n of x and 1/n of z
+``slstm/w_in`` and its bias              1/n of each of z, i, f and o
+``slstm/ffn_wi``                         1/n of gate and 1/n of up
+``wk``/``wv`` (+ bias), replicated KV    the whole KV head its queries read
+                                         (never 1/n of ``head_dim``)
+``mamba/out_proj`` (whole)               ``y`` gathered before it
+``mlstm/w_if`` (whole)                   its heads' i and f gates sliced
+``mlstm/gn`` (whole)                     its channels; the sum of squares
+                                         all-reduced
+``slstm/gn`` (whole)                     ``y`` gathered, then the whole norm
+``slstm/r`` (whole)                      its heads sliced
+``mm_projector`` (whole)                 the whole patches projected
+``unembed``, vocab not dividing          whole: every logit on every rank
+=======================================  ====================================
+
+Replicated KV: where the axis is a multiple of the KV heads' count
+(gemma-2b's one KV head), each rank holds the one KV head its query
+heads read, whole, so its cache, pages and wire hold that head.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import re
 import threading
@@ -33,6 +64,7 @@ from typing import Optional
 import torch
 from torch.distributed.device_mesh import DeviceMesh as Mesh
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import shape_of
 
 _state = threading.local()
@@ -238,33 +270,30 @@ STEP_TWO = "is not sharded over a model axis larger than 1 yet " \
 
 def tp_refusals(cfg, n: int):
     """What keeps ``cfg`` from running tensor- and expert-parallel over a
-    ``model`` axis of ``n`` ranks (empty at ``n == 1``, and for the
-    configurations this step shards: LLaMA-30B and qwen3-moe)."""
+    ``model`` axis of ``n`` ranks (empty at ``n == 1``): query heads that
+    the axis does not divide, KV heads where neither the axis nor their
+    count divides the other (replicated KV needs whole query groups a
+    rank), experts or a ``d_model`` that the axis does not divide, and an
+    FFN width, a shared expert's or an sLSTM's, whose gate and up halves
+    it does not divide (a whole row-parallel ``wo`` would be summed ``n``
+    times). A vocabulary that does not divide leaves ``unembed`` whole
+    (``_fits``), which needs nothing."""
+    from repro_torch.models import xlstm
     if n == 1:
         return []
-    kinds = {k.split("+")[0] for k in cfg.layer_kinds()} \
-        if cfg.family != "audio" else {"audio"}
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    widths = [("an FFN of", cfg.d_ff)]
+    if cfg.moe_shared_expert:
+        widths.append(("a shared expert of", cfg.moe_d_ff))
+    if cfg.family == "ssm":
+        widths.append(("an sLSTM FFN of", xlstm.slstm_ffn_width(cfg) // 2))
     why = [name for name, on in (
-        ("a recurrent stack", kinds - {"attn"} and cfg.family != "audio"),
-        ("the audio encoder-decoder", cfg.family == "audio"),
-        ("a VLM's patch projector", cfg.family == "vlm"),
-        ("tied embeddings", cfg.tie_embeddings),
-        ("an embedding scale", cfg.embed_scale),
-        ("a sliding window", cfg.sliding_window),
-        ("a parallel block", cfg.parallel_block),
-        ("LayerNorm", cfg.norm_type != "rmsnorm"),
-        ("biases", cfg.attn_bias or cfg.mlp_bias),
-        ("a shared expert", cfg.moe_shared_expert),
-        ("MoE interleaved with dense layers",
-         cfg.moe_num_experts and cfg.moe_every > 1),
-        (f"{cfg.num_heads} heads", cfg.num_heads % n),
-        (f"{cfg.num_kv_heads} KV heads (replicated KV, ATTN_QSEQ)",
-         cfg.num_kv_heads % n),
-        (f"an FFN of {cfg.d_ff}", not cfg.moe_num_experts and cfg.d_ff % n),
+        (f"{H} heads", H % n),
+        (f"{Hkv} KV heads", Hkv % n and n % Hkv),
         (f"{cfg.moe_num_experts} experts",
          cfg.moe_num_experts and cfg.moe_num_experts % n),
-        (f"a vocabulary of {cfg.vocab_size}", cfg.vocab_size % n),
-        (f"d_model {cfg.d_model}", cfg.d_model % n)) if on]
+        (f"d_model {cfg.d_model}", cfg.d_model % n),
+        *((f"{what} {f}", f and f % n) for what, f in widths)) if on]
     return why
 
 
@@ -275,19 +304,44 @@ def check_tp(cfg, n: int):
             f"{cfg.name} with {', '.join(why)} {STEP_TWO}; model axis {n}")
 
 
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """The config one rank of a ``model`` axis of ``model_axis`` ranks
+    computes (:func:`rank_cfg`): a ``ModelConfig`` whose heads, KV heads,
+    FFN width and experts are the rank's, and whose recurrent widths
+    follow ``model_axis``: the Mamba inner width here, the mLSTM and
+    sLSTM widths in ``models/xlstm.py`` (:func:`split_of`). ``d_model``
+    stays whole: the residual stream is whole on every rank."""
+    model_axis: int = 1
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model // self.model_axis
+
+
+def split_of(cfg) -> int:
+    """The ``model`` axis a config's recurrent widths are divided over (1
+    for a whole model's config)."""
+    return getattr(cfg, "model_axis", 1)
+
+
 @functools.lru_cache(maxsize=None)
 def rank_cfg(cfg, n: int):
-    """:func:`local_cfg` for a ``model`` axis of ``n`` ranks."""
+    """:func:`local_cfg` for a ``model`` axis of ``n`` ranks: ``n``-th of
+    the query heads, the KV heads (one where the axis is a multiple of
+    their count: replicated KV), the dense FFN width and the experts
+    (MoE interleaved with dense layers divides both), and of the
+    recurrent widths (:class:`RankConfig`)."""
     check_tp(cfg, n)
     if n == 1:
         return cfg
-    kw = dict(num_heads=cfg.num_heads // n,
-              num_kv_heads=cfg.num_kv_heads // n)
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw.update(num_heads=cfg.num_heads // n,
+              num_kv_heads=max(cfg.num_kv_heads // n, 1),
+              d_ff=cfg.d_ff // n, model_axis=n)
     if cfg.moe_num_experts:
         kw["moe_num_experts"] = cfg.moe_num_experts // n
-    else:
-        kw["d_ff"] = cfg.d_ff // n
-    return cfg.replace(**kw)
+    return RankConfig(**kw)
 
 
 def model_size(mesh) -> int:
@@ -295,12 +349,23 @@ def model_size(mesh) -> int:
 
 
 def local_cfg(cfg, mesh):
-    """The config one rank of ``mesh``'s ``model`` axis computes: heads,
-    KV heads and the FFN width (a dense stack) or the experts (MoE: the
-    experts are split, each whole) divided by the axis. ``cfg`` itself
-    at axis size 1 or without a mesh; raises (:func:`check_tp`) for
-    what this step does not shard."""
+    """The config one rank of ``mesh``'s ``model`` axis computes
+    (:func:`rank_cfg`). ``cfg`` itself at axis size 1 or without a mesh;
+    raises (:func:`check_tp`) for what this step does not shard."""
     return rank_cfg(cfg, model_size(mesh))
+
+
+def kv_replicated(cfg, n: int) -> bool:
+    """Whether a ``model`` axis of ``n`` replicates ``cfg``'s KV heads:
+    fewer of them than ranks, so each rank holds the one its query heads
+    read (the reference's ``ATTN_QSEQ_RULES`` replicate the KV whole
+    rather than split ``head_dim``)."""
+    return cfg.num_kv_heads % n != 0 and n % cfg.num_kv_heads == 0
+
+
+def kv_head_of(cfg, n: int, r: int) -> int:
+    """The KV head rank ``r`` holds under replicated KV."""
+    return r // (n // cfg.num_kv_heads)
 
 
 def _split_dim(spec):
@@ -312,14 +377,32 @@ def _split_dim(spec):
     return None
 
 
-def _cut(t, dim, r, n, gated):
-    """Rank r's 1/n of ``t`` along ``dim``; a gated ``[gate | up]`` last
-    dim gives each half's 1/n (a contiguous split would give rank 0 all
-    of ``gate``). A new tensor: the full one can be freed."""
-    if gated:
-        return torch.cat([h.chunk(n, dim)[r] for h in t.chunk(2, dim)],
+def _cut(t, dim, r, n, chunks=1):
+    """Rank r's 1/n of ``t`` along ``dim``; a last dim of ``chunks``
+    concatenated outputs (``[gate | up]``, Mamba's ``[x | z]``, the
+    sLSTM's ``[z | i | f | o]``) gives each chunk's 1/n, in order (a
+    contiguous split would give rank 0 all of the first). A new tensor:
+    the full one can be freed."""
+    if chunks > 1:
+        return torch.cat([h.chunk(n, dim)[r] for h in t.chunk(chunks, dim)],
                          dim=dim)
     return t.chunk(n, dim)[r].clone()
+
+
+# column-parallel weights whose output is ``chunks`` concatenated parts:
+# (weight path, chunks; None: 2 where the MLP is gated)
+_CHUNKED = ((r"(^|/)(mlp|shared)/wi/w$", None),
+            (r"(^|/)mamba/in_proj/w$", 2),
+            (r"(^|/)mlstm/w_up/w$", 2),
+            (r"(^|/)slstm/w_in/w$", 4),
+            (r"(^|/)slstm/ffn_wi/w$", 2))
+
+
+def _chunks_of(path, gated):
+    for pat, chunks in _CHUNKED:
+        if re.search(pat, path):
+            return (2 if gated else 1) if chunks is None else chunks
+    return 1
 
 
 def _leaf_specs(tree):
@@ -332,8 +415,10 @@ def _leaf_specs(tree):
             for path, t in tree_paths(convert.nest(tree)).items()}
 
 
-def _shard_tree(tree, r, n, gated):
+def _shard_tree(tree, r, n, cfg):
     specs = _leaf_specs(tree)
+    gated = cfg.mlp_type in ("silu", "geglu")
+    rep_kv = kv_replicated(cfg, n)
 
     def rec(sub):
         return {k: rec(v) if isinstance(v, dict) else leaf(sub, k, v)
@@ -346,12 +431,16 @@ def _shard_tree(tree, r, n, gated):
             if _split_dim(wspec) != len(wspec) - 1:
                 return t                            # row-parallel: whole
             spec = P(*([None] * (t.ndim - 1) + ["model"]))
+        if rep_kv and re.search(r"(^|/)(attn|self_attn|cross_attn)/(wk|wv)/w$",
+                                   path):
+            # replicated KV: the whole head this rank's queries read
+            return t.chunk(cfg.num_kv_heads, -1)[
+                kv_head_of(cfg, n, r)].clone()
         dim = _split_dim(_fits(t.shape, spec, {"model": n}))
         if dim is None:
             return t
-        pair = gated and dim == t.ndim - 1 and \
-            re.search(r"(^|/)(mlp|shared)/wi/[wb]$", path) is not None
-        return _cut(t, dim, r, n, pair)
+        chunks = _chunks_of(path, gated) if dim == t.ndim - 1 else 1
+        return _cut(t, dim, r, n, chunks)
 
     return rec(tree)
 
@@ -359,19 +448,19 @@ def _shard_tree(tree, r, n, gated):
 def shard_params(params, cfg, mesh):
     """This rank's shard of ``params`` (the whole model, or one layer's
     dict): each tensor cut along the dim its reference spec puts on
-    ``model``, where the axis divides it (``_fits``). Gated ``wi``
-    weights split ``gate`` and ``up`` each; a column-parallel weight's
-    bias follows its columns, a row-parallel one's stays whole (added
-    once, after the reduce). At axis size 1 (or without a mesh) the
-    tensors are returned as they are."""
+    ``model``, where the axis divides it (``_fits``), with the port's
+    differences from a plain cut (the module's table); a
+    column-parallel weight's bias follows its columns, a row-parallel
+    one's stays whole (added once, after the reduce). A list of layers
+    (``layers``, whisper's ``enc_layers`` and ``dec_layers``) is cut
+    layer by layer. At axis size 1 (or without a mesh) the tensors are
+    returned as they are."""
     n = model_size(mesh)
     if n == 1:
         return params
     r = mesh.get_local_rank("model")
-    gated = cfg.mlp_type in ("silu", "geglu")
-    if "layers" not in params:
-        return _shard_tree(params, r, n, gated)
-    top = _shard_tree({k: v for k, v in params.items() if k != "layers"},
-                      r, n, gated)
-    return {k: [_shard_tree(p, r, n, gated) for p in v] if k == "layers"
+    lists = {k for k, v in params.items() if isinstance(v, list)}
+    top = _shard_tree({k: v for k, v in params.items() if k not in lists},
+                      r, n, cfg)
+    return {k: [_shard_tree(p, r, n, cfg) for p in v] if k in lists
             else top[k] for k, v in params.items()}

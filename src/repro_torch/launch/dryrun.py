@@ -20,13 +20,17 @@ TPU mesh; here :func:`trace_cell` runs the port's own step under
 - ``--mesh four``: ``data 1 x model 4``, the four cards of one host.
 
 A rank's config is ``sharding.local_cfg``'s (its heads, KV heads, FFN
-columns or experts) and its batch the global one divided over the data
+columns, experts and recurrent channels; every family shards, whisper's
+encoder-decoder too) and its batch the global one divided over the data
 axes where they divide it (the reference's ``_fits``). What the port
 does not shard is refused by ``sharding.check_tp`` and recorded as an
-error with its words (ROADMAP A.9 step two), as is a train step over a
-model axis (the training forward has no tensor-parallel path yet, A.9
-step two). The port's decode step always writes its cache in place, so
-``--inplace-decode`` changes nothing (ROADMAP C.4).
+error with its words (ROADMAP A.9 step two: heads, KV heads, experts or
+a width that the model axis does not divide, such as LLaMA-30B's 52
+heads over 16), as is a train step over a model axis (the training
+forward has no tensor-parallel path yet, A.9 step two). At ``four``
+every prefill, decode and long_500k cell is counted. The port's decode
+step always writes its cache in place, so ``--inplace-decode`` changes
+nothing (ROADMAP C.4).
 
 Records: one JSON per cell under ``results/dryrun_torch/`` (the
 reference's are under ``results/dryrun/``), with the reference's keys;
@@ -118,7 +122,8 @@ def trace_cell(arch: str, shape_name: str, mesh, *, moe_shard_map=True,
              for k, v in api.input_specs(shape).items()}
     dtype = transformer.cache_dtype(ecfg)
     if ecfg.family == "audio":
-        params = whisper.init_params(ecfg, device="meta", dtype=dtype)
+        params = whisper.init_params(ecfg, device="meta", dtype=dtype,
+                                     mesh=mesh)
     else:
         params = transformer.init_params(ecfg, device="meta", dtype=dtype,
                                          mesh=mesh)

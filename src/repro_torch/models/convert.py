@@ -60,10 +60,6 @@ def _norm(tree, device):
     return _flat({"n": tree}, device)["n"]
 
 
-def _stack(tree, n, device):
-    return [_flat(tree, device, j) for j in range(n)]
-
-
 def params_from_numpy(tree, cfg, device="cuda", mesh=None):
     """The reference stacks a decoder's layers in ``period`` slots
     (``blocks = {"slot0": ..., "slot{p-1}": ...}``, each stacked over
@@ -80,12 +76,14 @@ def params_from_numpy(tree, cfg, device="cuda", mesh=None):
     from repro_torch.distributed import sharding
     sharding.check_tp(cfg, sharding.model_size(mesh))
     if cfg.family == "audio":
-        out = {k: _tensor(tree[k], device) for k in ("embed", "unembed")}
-        out.update(enc_layers=_stack(tree["enc_layers"],
-                                     cfg.num_encoder_layers, device),
-                   dec_layers=_stack(tree["dec_layers"], cfg.num_layers,
-                                     device),
-                   enc_norm=_norm(tree["enc_norm"], device),
+        out = sharding.shard_params(
+            {k: _tensor(tree[k], device) for k in ("embed", "unembed")},
+            cfg, mesh)
+        out.update({name: [sharding.shard_params(
+            _flat(tree[name], device, j), cfg, mesh) for j in range(n)]
+            for name, n in (("enc_layers", cfg.num_encoder_layers),
+                            ("dec_layers", cfg.num_layers))})
+        out.update(enc_norm=_norm(tree["enc_norm"], device),
                    final_norm=_norm(tree["final_norm"], device))
         return out
     blocks = tree["blocks"]

@@ -66,6 +66,20 @@ def norm_plain(cfg, p, x):
     return layernorm(x, p["scale"], p.get("bias"))
 
 
+def rmsnorm_split(x, scale, tp, eps: float = 1e-6):
+    """The RMSNorm of rows whose channels are split evenly over the
+    model axis ``tp``: ``x`` this rank's share of each row, ``scale``
+    its slice of the ``(1 + scale)`` gain. Each rank's mean square is
+    summed over the axis (one all-reduce) and divided by its size, the
+    whole row's mean square; the rest is ``ref.rmsnorm_ref``'s f32
+    arithmetic, so at axis size 1 the result is its bits."""
+    dt = x.dtype
+    xf = x.float()
+    ms = tp.all_reduce(xf.square().mean(dim=-1, keepdim=True)) / tp.size
+    xf = xf * torch.rsqrt(ms + eps)
+    return (xf * (1.0 + scale.float())).to(dt)
+
+
 def add_norm(cfg, x, r, p, *, backend: str = "auto"):
     """A residual add and the norm after it: ``(h, norm(h))`` with
     ``h = x + r``. RMSNorm fuses the two (``ops.add_rmsnorm``, one launch

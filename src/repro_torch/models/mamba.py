@@ -18,22 +18,32 @@ Parameters, one dict a layer: ``in_proj (d, 2 di)``, ``conv_w (d_conv,
 di)`` and ``conv_b (di,)`` bf16, ``x_proj (di, dt_rank + 2 d_state)``,
 ``dt_proj (dt_rank, di)`` bf16 and its f32 bias ``dt_proj_b (di,)``,
 ``A_log (di, d_state)`` and ``D (di,)`` f32, ``out_proj (di, d)``.
+
+Under tensor parallelism (``tp``, the model axis's ``comm.Group``; the
+config a rank's, ``sharding.local_cfg``, whose ``mamba_d_inner`` is the
+rank's ``di / n`` channels) a rank holds its channels of ``in_proj``
+(of x and of z each), the conv, ``dt_proj``, ``A_log`` and ``D``, and its
+rows of ``x_proj``, whose ``(dt_rank + 2 d_state)`` output is then a sum
+of partial products, all-reduced before the reference's f32 cast. The
+scan and its states run on the rank's channels; ``y`` is gathered before
+the whole ``out_proj`` (the reference's spec leaves it whole), so every
+rank computes the layer's whole output.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import causal_conv1d, dense
+from repro_torch.models.layers import causal_conv1d, dense, row_proj
 
 CHUNK = 512            # steps a prefill chunk scans at once
 
 
-def _selective_terms(cfg, p, xc):
+def _selective_terms(cfg, p, xc, tp=None):
     """dA, dBx (B, S, di, ds) f32 and C (B, S, ds) f32 of the conv's
     output xc (B, S, di)."""
     ds, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
-    proj = dense(p["x_proj"], xc).float()
+    proj = row_proj(p, "x_proj", xc, tp).float()
     dt_r, Bm, Cm = torch.split(proj, [dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"].float() + p["dt_proj_b"])
     A = -torch.exp(p["A_log"])
@@ -49,10 +59,12 @@ def _front(cfg, p, x, conv_state):
     return F.silu(xc.float()).to(x.dtype), z, conv_state
 
 
-def _back(p, y, xc, z, dtype):
+def _back(p, y, xc, z, dtype, tp=None):
     y = y + p["D"] * xc.float()
-    y = y * F.silu(z.float())
-    return dense(p["out_proj"], y.to(dtype))
+    y = (y * F.silu(z.float())).to(dtype)
+    if tp is not None:
+        y = tp.all_gather(y, -1)
+    return dense(p["out_proj"], y)
 
 
 def doubling_scan(a, b):
@@ -87,11 +99,12 @@ def doubling_scan_out(a, b):
 
 
 def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
-                scan=doubling_scan):
+                scan=doubling_scan, tp=None):
     """The full-sequence path over x (B, S, d); ``state`` an optional
     carried (conv_state, ssm_state). ``scan`` runs each chunk's
     recurrence (:func:`doubling_scan`, or :func:`doubling_scan_out` under
-    autograd). Returns (out, new state)."""
+    autograd). Returns (out, new state); under ``tp`` the state is the
+    rank's channels'."""
     B, S, _ = x.shape
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     conv_state = state[0] if state is not None else None
@@ -103,7 +116,8 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
     xcp = F.pad(xc, (0, 0, 0, n * c - S))
     ys = []
     for i in range(n):
-        dA, dBx, Cm = _selective_terms(cfg, p, xcp[:, i * c:(i + 1) * c])
+        dA, dBx, Cm = _selective_terms(cfg, p, xcp[:, i * c:(i + 1) * c],
+                                       tp)
         # the carried state enters as an extra first step with dA = 1
         a = torch.cat([torch.ones_like(dA[:, :1]), dA], dim=1)
         del dA
@@ -115,17 +129,17 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
         ys.append(torch.einsum("bcns,bcs->bcn", hs[:, 1:], Cm))
         del hs, b
     y = torch.cat(ys, dim=1)[:, :S]
-    return _back(p, y, xc, z, x.dtype), (conv_state, h)
+    return _back(p, y, xc, z, x.dtype, tp), (conv_state, h)
 
 
-def mamba_decode_step(cfg, p, x, state):
+def mamba_decode_step(cfg, p, x, state, tp=None):
     """One token, x (B, 1, d); state (conv_state, ssm_state)."""
     conv_state, h = state
     xc, z, conv_state = _front(cfg, p, x, conv_state)
-    dA, dBx, Cm = _selective_terms(cfg, p, xc)        # (B, 1, di, ds)
+    dA, dBx, Cm = _selective_terms(cfg, p, xc, tp)    # (B, 1, di, ds)
     h = dA[:, 0] * h + dBx[:, 0]
     y = torch.einsum("bns,bs->bn", h, Cm[:, 0])[:, None]
-    return _back(p, y, xc, z, x.dtype), (conv_state, h)
+    return _back(p, y, xc, z, x.dtype, tp), (conv_state, h)
 
 
 def mamba_state_init(cfg, batch: int, dtype=torch.bfloat16, device="cuda"):

@@ -24,10 +24,12 @@ training loss of every family (``transformer.loss_fn``,
 ``whisper.loss_fn``), differentiable by autograd.
 
 ``build(cfg, rt=transformer.Runtime(mesh))`` runs the model tensor- and
-expert-parallel over the mesh's ``model`` axis: the functions take this
+expert-parallel over the mesh's ``model`` axis, every family (whisper's
+encoder-decoder and the recurrent stacks too): the functions take this
 rank's shard of the params and the caches that ``ModelApi.local_cfg``
-(``sharding.local_cfg``: this rank's heads, KV heads, FFN columns or
-experts) lays out, and place the collectives (``distributed/comm.py``).
+(``sharding.local_cfg``: this rank's heads, KV heads, FFN columns,
+experts and recurrent channels) lays out, and place the collectives
+(``distributed/comm.py``).
 On NCCL a graphed chunk captures them with the rest; a gloo group cannot
 be captured, and :class:`GraphedDecodeChunk` refuses it.
 
@@ -363,9 +365,9 @@ def build_for_cell(cfg: ModelConfig, shape: ShapeSpec, rt=None) -> ModelApi:
 
 def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
     """The model API of ``cfg``; under ``rt`` (a
-    ``transformer.Runtime``) its functions run on this rank's shard. An
-    audio model has no tensor-parallel path: under a mesh only an axis of
-    size 1 takes it, and runs unsharded (``sharding.check_tp``)."""
+    ``transformer.Runtime``) its functions run on this rank's shard, the
+    audio model's too (``whisper.prefill``/``decode_step`` take ``rt``),
+    and ``local_cfg`` is what this rank's caches hold."""
     mesh = None if rt is None else rt.mesh
     local = sharding.local_cfg(cfg, mesh)
     tp = None if rt is None else rt.tp
@@ -376,17 +378,17 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
                 cfg, params, batch["tokens"], batch["frame_embeds"],
                 max_seq=max_seq or batch["tokens"].shape[1],
                 last_pos=batch.get("last_pos"),
-                true_len=batch.get("true_len"))
+                true_len=batch.get("true_len"), rt=rt)
 
         def decode_fn(params, cache, tokens):
-            return whisper.decode_step(cfg, params, cache, tokens)
+            return whisper.decode_step(cfg, params, cache, tokens, rt=rt)
 
         def loss_fn(params, batch):
             return whisper.loss_fn(cfg, params, batch)
 
         return ModelApi(cfg=cfg, prefill=prefill_fn, decode=decode_fn,
                         decode_chunk=make_decode_chunk(decode_fn),
-                        loss=loss_fn, local_cfg=local,
+                        loss=loss_fn, local_cfg=local, tp=tp,
                         input_specs=specs[0], cache_specs=specs[1])
 
     def prefill_fn(params, batch, *, max_seq=None):

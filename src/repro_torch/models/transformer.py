@@ -217,12 +217,18 @@ class Runtime:
     With a ``mesh`` the model runs explicit SPMD over its ``model`` axis:
     each rank holds its shard of the weights (``init_params(mesh=)``,
     ``distributed/sharding.py: shard_params``) and computes the config
-    ``sharding.local_cfg`` gives, its heads, KV heads and FFN columns (or
-    its experts); the layers place the collectives (``tp``, the axis's
-    ``comm.Group``): an ``all_gather`` of the embedding (split on
-    ``d``), an ``all_reduce`` after each row-parallel ``wo``, the
-    experts' exchange (``moe.moe_apply_shard_map`` under
-    ``moe_shard_map``), an ``all_gather`` of the vocab-parallel logits.
+    ``sharding.local_cfg`` gives, its heads, KV heads (or the one KV
+    head its queries read, where the KV heads are fewer than the ranks),
+    FFN columns, experts and recurrent channels; the layers place the
+    collectives (``tp``, the axis's ``comm.Group``): an ``all_gather`` of
+    the embedding (split on ``d``), an ``all_reduce`` after each
+    row-parallel ``wo`` (a parallel block makes two, one for attention
+    and one for the MLP), the experts' exchange
+    (``moe.moe_apply_shard_map`` under ``moe_shard_map``), the recurrent
+    blocks' own (``models/mamba.py``, ``models/xlstm.py``), and an
+    ``all_gather`` of the vocab-parallel logits (a tied table's partial
+    sums are reduced; a vocabulary the axis does not divide leaves
+    ``unembed`` whole, and no collective).
     The collectives are issued at axis size 1 too, where the results
     equal the run without a mesh bit for bit. ``inplace_decode`` is the
     reference's flag: the port's decode steps always write their cache
@@ -356,8 +362,8 @@ def _slot_cache(cfg, mix, n, batch, max_seq, dtype, device):
             cfg, batch, dtype, device)))
     elif mix == "mlstm":
         st = dict(zip("Cnm", xlstm.mlstm_state_init(cfg, batch, device)))
-        st["conv"] = torch.zeros((batch, 3, 2 * cfg.d_model), dtype=dtype,
-                                 device=device)
+        st["conv"] = torch.zeros((batch, 3, xlstm.mlstm_dims(cfg)[0]),
+                                 dtype=dtype, device=device)
     else:
         st = dict(zip("cnhm", xlstm.slstm_state_init(cfg, batch, device)))
     return {key: torch.stack([t] * n) for key, t in st.items()}
@@ -420,6 +426,8 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
     for i, p in enumerate(blocks):
         o = attend(i, p, h)
         if cfg.parallel_block and "mlp" in p:
+            # two all-reduces under a mesh, attention's and the MLP's;
+            # their sum could be reduced once (ROADMAP perf queue)
             m = layers.mlp_apply(cfg, p["mlp"], h, tp)
             x = x + o
         elif "norm2" in p:
@@ -452,8 +460,11 @@ def logits_of(cfg, params, h, tp=None):
     """``h @ unembed`` in the working type, cast to f32 (the reference's
     order). Under tensor parallelism the unembedding is split on the
     vocab and the logits' slices are gathered; a tied table (split on
-    ``d``) gives partial sums, which are reduced."""
-    if tp is None:
+    ``d``) gives partial sums, which are reduced; a vocabulary the axis
+    does not divide leaves ``unembed`` whole (``sharding._fits``), and
+    every rank computes every logit."""
+    if tp is None or (not cfg.tie_embeddings
+                      and cfg.vocab_size % tp.size):
         return (h @ unembed_matrix(cfg, params)).float()
     if cfg.tie_embeddings:
         y = h.chunk(tp.size, -1)[tp.rank] @ params["embed"].T
@@ -760,8 +771,8 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
     in the stream's type). The cache is slotted (:func:`init_cache`) and
     holds the S computed positions. Right padding would run through the
     recurrences: ``PrefillEngine`` prefills these stacks at exact
-    lengths. Under a mesh only an axis of size 1 runs it
-    (``sharding.check_tp``)."""
+    lengths. Under a mesh (``rt``) each layer runs on this rank's heads
+    or channels, and the cache holds the rank's KV heads and states."""
     tp = None if rt is None else rt.tp
     dev = tokens.device
     x = embed(cfg, params, tokens, tp=tp)
@@ -782,13 +793,14 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
             return layers.row_proj(p["attn"], "wo",
                                    o.reshape(B, S, cfg.q_dim), tp)
         if kind == "mamba":
-            o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h)
+            o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h, tp=tp)
             got[i] = {"conv": conv, "ssm": ssm}
         elif kind == "mlstm":
-            o, ((C, n, m), conv) = xlstm.mlstm_apply(cfg, p["mlstm"], h)
+            o, ((C, n, m), conv) = xlstm.mlstm_apply(cfg, p["mlstm"], h,
+                                                     tp=tp)
             got[i] = {"C": C, "n": n, "m": m, "conv": conv}
         else:
-            o, st = xlstm.slstm_apply(cfg, p["slstm"], h)
+            o, st = xlstm.slstm_apply(cfg, p["slstm"], h, tp=tp)
             got[i] = dict(zip("cnhm", st))
         return o
 
@@ -830,16 +842,18 @@ def _decode_step_recurrent(cfg, params, cache, tokens, *, backend, rt=None):
                                   slot["v"][j], w_pos, kv_len, backend, tp)
         if kind == "mamba":
             o, st = mamba.mamba_decode_step(
-                cfg, p["mamba"], h, (slot["conv"][j], slot["ssm"][j]))
+                cfg, p["mamba"], h, (slot["conv"][j], slot["ssm"][j]),
+                tp=tp)
             new = dict(zip(("conv", "ssm"), st))
         elif kind == "mlstm":
             o, st, conv = xlstm.mlstm_decode_step(
                 cfg, p["mlstm"], h, tuple(slot[k][j] for k in "Cnm"),
-                slot["conv"][j])
+                slot["conv"][j], tp=tp)
             new = dict(zip("Cnm", st), conv=conv)
         else:
             o, st = xlstm.slstm_decode_step(
-                cfg, p["slstm"], h, tuple(slot[k][j] for k in "cnhm"))
+                cfg, p["slstm"], h, tuple(slot[k][j] for k in "cnhm"),
+                tp=tp)
             new = dict(zip("cnhm", st))
         for key, t in new.items():
             slot[key][j].copy_(t)

@@ -27,6 +27,17 @@ Parameters: ``{"embed": (V, d), "enc_layers": [{"norm1", "attn",
 encoder_seq, Hkv, hd), "lengths": (B,)}``, bf16 whatever the model's
 type, as the reference's; a prefill cache holds the S prompt positions
 (the reference pads it to ``max_seq`` with rows the wire never reads).
+
+Under tensor parallelism (``rt``, a ``transformer.Runtime`` over a mesh;
+:func:`prefill` and :func:`decode_step`) a rank holds its heads of every
+attention (encoder, decoder self and cross: ``wq``/``wk``/``wv`` and
+their biases column-parallel, ``wo`` row-parallel, all-reduced, its bias
+added once after), its columns of each MLP's ``wi`` (and bias) and rows
+of ``wo``, the embedding's columns (the rows looked up are gathered) and
+the vocabulary's columns of ``unembed`` where the axis divides it (the
+logits gathered; whisper-base's 51865 does not, and every rank computes
+every logit). LayerNorms are whole. Its caches, the self and the cross
+K/V, hold its heads.
 """
 from __future__ import annotations
 
@@ -34,39 +45,50 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
-from repro_torch.models.layers import norm_apply, proj
-from repro_torch.models.transformer import ParamMaker, write_pos
+from repro_torch.models.layers import norm_apply, proj, row_proj
+from repro_torch.models.transformer import (ParamMaker, embed, logits_of,
+                                           shard_view, write_pos)
 
 CACHE_DTYPE = torch.bfloat16
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
-                dtype=torch.bfloat16):
-    """Random weights with the reference's scales (:class:`ParamMaker`)."""
+                dtype=torch.bfloat16, mesh=None):
+    """Random weights with the reference's scales (:class:`ParamMaker`).
+    With a ``mesh`` each tensor is drawn whole, in the unsharded order,
+    and only this rank's shard is kept (``sharding.shard_params``, one
+    layer at a time)."""
     mk = ParamMaker(cfg, seed, device, dtype)
-    enc = [{"norm1": mk.norm(), "attn": mk.attn(), "norm2": mk.norm(),
-            "mlp": mk.mlp()} for _ in range(cfg.num_encoder_layers)]
-    dec = [{"norm1": mk.norm(), "self_attn": mk.attn(), "norm2": mk.norm(),
-            "cross_attn": mk.attn(), "norm3": mk.norm(), "mlp": mk.mlp()}
+    sharding.check_tp(cfg, sharding.model_size(mesh))
+
+    def keep(tree):
+        return sharding.shard_params(tree, cfg, mesh)
+
+    enc = [keep({"norm1": mk.norm(), "attn": mk.attn(), "norm2": mk.norm(),
+                 "mlp": mk.mlp()}) for _ in range(cfg.num_encoder_layers)]
+    dec = [keep({"norm1": mk.norm(), "self_attn": mk.attn(),
+                 "norm2": mk.norm(), "cross_attn": mk.attn(),
+                 "norm3": mk.norm(), "mlp": mk.mlp()})
            for _ in range(cfg.num_layers)]
     d, V = cfg.d_model, cfg.vocab_size
-    return {"embed": mk.normal((V, d), 0.02), "enc_layers": enc,
+    return {**keep({"embed": mk.normal((V, d), 0.02)}), "enc_layers": enc,
             "enc_norm": mk.norm(), "dec_layers": dec,
             "final_norm": mk.norm(),
-            "unembed": mk.normal((d, V), 1 / math.sqrt(d))}
+            **keep({"unembed": mk.normal((d, V), 1 / math.sqrt(d))})}
 
 
 def _positions(S, B, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def encode(cfg, params, frame_embeds, *, kernels=ops):
+def encode(cfg, params, frame_embeds, *, kernels=ops, tp=None):
     """The encoder over ``frame_embeds (B, S_enc, d)``, its attention
     ``kernels.flash_attention``. The reference casts the frames to bf16,
     its weights' type; here they take the encoder weights' type (the same
-    for bf16 weights)."""
+    for bf16 weights). Under ``tp`` on this rank's heads."""
     B, S, d = frame_embeds.shape
     dt = params["enc_layers"][0]["attn"]["wq"].dtype
     x = frame_embeds.to(dt)
@@ -76,9 +98,9 @@ def encode(cfg, params, frame_embeds, *, kernels=ops):
         h = norm_apply(cfg, p["norm1"], x)
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, pos)
         o = kernels.flash_attention(q, k, v, causal=False)
-        x = x + proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+        x = x + row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim), tp)
         x = x + layers.mlp_apply(cfg, p["mlp"],
-                                 norm_apply(cfg, p["norm2"], x))
+                                 norm_apply(cfg, p["norm2"], x), tp)
     return norm_apply(cfg, params["enc_norm"], x)
 
 
@@ -93,19 +115,20 @@ def _cross_kv(cfg, p_layer, enc_out):
     return proj(a, "wk", x).reshape(shape), proj(a, "wv", x).reshape(shape)
 
 
-def _dec_tail(cfg, p, x, o_self, cross_attend):
+def _dec_tail(cfg, p, x, o_self, cross_attend, tp=None):
     """The decoder layer after its self-attention output ``o_self`` (B, S,
     H, hd): residual, cross-attention (``cross_attend(q)`` of the
     queries), residual, MLP."""
     B, S = x.shape[:2]
-    x = x + proj(p["self_attn"], "wo", o_self.reshape(B, S, cfg.q_dim))
+    x = x + row_proj(p["self_attn"], "wo", o_self.reshape(B, S, cfg.q_dim),
+                     tp)
     h = norm_apply(cfg, p["norm2"], x)
     q = proj(p["cross_attn"], "wq", h).reshape(B, S, cfg.num_heads,
                                                cfg.head_dim)
     o = cross_attend(q)
-    x = x + proj(p["cross_attn"], "wo", o.reshape(B, S, cfg.q_dim))
+    x = x + row_proj(p["cross_attn"], "wo", o.reshape(B, S, cfg.q_dim), tp)
     return x + layers.mlp_apply(cfg, p["mlp"],
-                                norm_apply(cfg, p["norm3"], x))
+                                norm_apply(cfg, p["norm3"], x), tp)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=CACHE_DTYPE, *,
@@ -151,18 +174,20 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, tokens, frame_embeds, *, max_seq: int,
-            last_pos=None, true_len=None):
+            last_pos=None, true_len=None, rt=None):
     """The encoder, then the decoder over ``tokens (B, S)``: causal flash
     self-attention and non-causal flash cross-attention over the encoder
     output. ``last_pos``/``true_len`` serve right-padded prompts (causal
     self-attention keeps the padding from the real positions). Returns
-    (logits at the last position (B, 1, V) f32, cache)."""
-    enc_out = encode(cfg, params, frame_embeds)
+    (logits at the last position (B, 1, V) f32, cache); under a mesh
+    (``rt``) the cache holds this rank's heads."""
+    cfg, tp = shard_view(cfg, rt)
+    enc_out = encode(cfg, params, frame_embeds, tp=tp)
     B, S = tokens.shape
     if S > max_seq:
         raise ValueError(f"prompt {S} exceeds max_seq={max_seq}")
     dev = tokens.device
-    x = params["embed"][tokens]
+    x = embed(cfg, params, tokens, tp=tp)
     pos = _positions(S, B, dev)
     x = x + layers.sinusoidal_pos(pos[0], cfg.d_model).to(x.dtype)[None]
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -177,7 +202,7 @@ def prefill(cfg, params, tokens, frame_embeds, *, max_seq: int,
         o = ops.flash_attention(q, k, v, causal=True)
         kc, vc = _cross_kv(cfg, p, enc_out)
         x = _dec_tail(cfg, p, x, o, lambda q_: ops.flash_attention(
-            q_, kc, vc, causal=False))
+            q_, kc, vc, causal=False), tp)
         for name, t in (("self_k", k), ("self_v", v), ("cross_k", kc),
                         ("cross_v", vc)):
             cache[name][i] = t
@@ -188,17 +213,20 @@ def prefill(cfg, params, tokens, frame_embeds, *, max_seq: int,
         h_last = x[:, -1:]
     else:
         h_last = x[torch.arange(B, device=dev), last_pos.long()][:, None]
-    return (h_last @ params["unembed"]).float(), cache
+    return logits_of(cfg, params, h_last, tp), cache
 
 
-def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
+def decode_step(cfg, params, cache, tokens, *, backend: str = "auto",
+                rt=None):
     """One decoder token per slot against both caches; tokens (B, 1).
     This step's self K/V is written into ``self_k``/``self_v`` IN PLACE
     at row ``lengths`` (clamped to the last row, which only an idle slot
     reaches), so a captured chunk replays on the engine's own cache.
-    Returns (logits (B, 1, V) f32, cache with ``lengths + 1``)."""
+    Returns (logits (B, 1, V) f32, cache with ``lengths + 1``); under a
+    mesh (``rt``) the caches hold this rank's heads."""
+    cfg, tp = shard_view(cfg, rt)
     lengths = cache["lengths"]
-    x = params["embed"][tokens]
+    x = embed(cfg, params, tokens, tp=tp)
     B = x.shape[0]
     dev = x.device
     x = x + layers.sinusoidal_pos(lengths, cfg.d_model)[:, None].to(x.dtype)
@@ -224,8 +252,8 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto"):
         V[w_pos] = v[:, 0].to(V.dtype)
         o = attend(q, K, V, kv_self)
         x = _dec_tail(cfg, p, x, o, lambda q_: attend(
-            q_, cache["cross_k"][i], cache["cross_v"][i], kv_cross))
+            q_, cache["cross_k"][i], cache["cross_v"][i], kv_cross), tp)
     x = norm_apply(cfg, params["final_norm"], x)
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1
-    return (x @ params["unembed"]).float(), new_cache
+    return logits_of(cfg, params, x, tp), new_cache

@@ -24,6 +24,23 @@ kernel on the card) over rows of ``2 d`` (mLSTM) and ``d`` (sLSTM), or,
 in the training forward (``kernels=layers.PLAIN``), through its plain
 version. Both blocks differentiate as they stand: nothing here writes in
 place, and the sLSTM stays a Python loop over time under autograd.
+
+Under tensor parallelism (``tp``, the model axis's ``comm.Group``; the
+config a rank's, ``sharding.local_cfg``: its heads, its widths from
+:func:`mlstm_dims` and :func:`slstm_dims`) each block runs on the rank's
+heads. The mLSTM's ``w_up`` holds the rank's channels of x and of z and
+the conv runs on them; ``xc`` and ``xm`` are gathered (one all-gather)
+for ``wq``/``wk``/``wv``, which hold the rank's heads' columns, and for
+the whole ``w_if``, whose gates the rank slices to its heads; ``gn``
+normalizes over the whole inner width, so each rank's mean square is
+all-reduced (``layers.rmsnorm_split``); ``skip`` is the rank's channels
+and ``w_down`` row-parallel, all-reduced. The sLSTM's ``w_in`` holds the
+rank's heads of each of z, i, f and o (bias too) and the recurrence runs
+on the rank's heads of ``r``; ``y`` is gathered (the GeGLU FFN's
+column-parallel ``ffn_wi`` needs whole rows anyway), normed whole, and
+``ffn_wo`` is row-parallel, all-reduced. The states ``C (H, dh, dh)``,
+``n``, ``m`` and the sLSTM's hold the rank's heads, the conv state its
+channels.
 """
 from __future__ import annotations
 
@@ -32,14 +49,29 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import split_of
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv1d, proj
+from repro_torch.models.layers import (causal_conv1d, proj, rmsnorm_split,
+                                       row_proj)
 
 
 def mlstm_dims(cfg):
-    """(inner width 2 d, heads, head width)."""
-    di = 2 * cfg.d_model
+    """(inner width 2 d, heads, head width); a rank's share of the
+    inner width and its heads under a model axis."""
+    di = 2 * cfg.d_model // split_of(cfg)
     return di, cfg.num_heads, di // cfg.num_heads
+
+
+def slstm_dims(cfg):
+    """(width d, heads, head width) of the sLSTM's recurrence; a rank's
+    share of ``d`` and its heads under a model axis."""
+    d = cfg.d_model // split_of(cfg)
+    return d, cfg.num_heads, d // cfg.num_heads
+
+
+def _gather(tp, *ts):
+    """Each of ``ts`` (this rank's channels) whole, in one all-gather."""
+    return tp.all_gather(torch.stack(ts), -1).unbind(0)
 
 
 def slstm_ffn_width(cfg) -> int:
@@ -111,7 +143,7 @@ def mlstm_state_init(cfg, batch: int, device="cuda"):
             torch.full((batch, H), -1e30, **f32))
 
 
-def _mlstm_in(cfg, p, x, conv_state):
+def _mlstm_in(cfg, p, x, conv_state, tp=None):
     """The block's front half: up projection, conv, the q/k/v heads and
     the gates. Returns (xc, z, q, k, v, li, lf, conv_state)."""
     B, S, _ = x.shape
@@ -119,40 +151,51 @@ def _mlstm_in(cfg, p, x, conv_state):
     xm, z = torch.chunk(proj(p, "w_up", x), 2, dim=-1)
     xc, conv_state = causal_conv1d(xm, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc.float()).to(x.dtype)
-    q = proj(p, "wq", xc).reshape(B, S, H, dh)
-    k = proj(p, "wk", xc).reshape(B, S, H, dh)
-    v = proj(p, "wv", xm).reshape(B, S, H, dh)
-    li, lfraw = torch.chunk(proj(p, "w_if", xm).float(), 2, dim=-1)
+    xcw, xmw = (xc, xm) if tp is None else _gather(tp, xc, xm)
+    q = proj(p, "wq", xcw).reshape(B, S, H, dh)
+    k = proj(p, "wk", xcw).reshape(B, S, H, dh)
+    v = proj(p, "wv", xmw).reshape(B, S, H, dh)
+    li, lfraw = torch.chunk(proj(p, "w_if", xmw).float(), 2, dim=-1)
+    if tp is not None:              # the whole w_if: this rank's heads
+        li, lfraw = (t[..., tp.rank * H:(tp.rank + 1) * H]
+                     for t in (li, lfraw))
     return xc, z, q, k, v, li, F.logsigmoid(lfraw), conv_state
 
 
-def _mlstm_out(p, y, xc, z, kernels=ops):
+def _mlstm_out(p, y, xc, z, kernels=ops, tp=None):
     """The block's back half: per-block norm, skip, output gate, down
     projection."""
-    y = kernels.rmsnorm(y, p["gn"])
+    if tp is None:
+        y = kernels.rmsnorm(y, p["gn"])
+    else:                           # the whole gn: this rank's channels
+        c = y.shape[-1]
+        y = rmsnorm_split(y, p["gn"][tp.rank * c:(tp.rank + 1) * c], tp)
     y = y + p["skip"].to(y.dtype) * xc
     y = y * F.silu(z.float()).to(y.dtype)
-    return proj(p, "w_down", y)
+    return row_proj(p, "w_down", y, tp)
 
 
-def mlstm_apply(cfg, p, x, *, state=None, conv_state=None, kernels=ops):
+def mlstm_apply(cfg, p, x, *, state=None, conv_state=None, kernels=ops,
+                tp=None):
     """The mLSTM block over x (B, S, d). Returns (out, (cell state,
     conv state))."""
-    B, S, d = x.shape
-    xc, z, q, k, v, li, lf, conv_state = _mlstm_in(cfg, p, x, conv_state)
+    B, S, _ = x.shape
+    xc, z, q, k, v, li, lf, conv_state = _mlstm_in(cfg, p, x, conv_state,
+                                                   tp)
     if state is None:
         state = mlstm_state_init(cfg, B, x.device)
     y, state = mlstm_cell(q, k, v, lf, li, state, cfg.xlstm_chunk)
-    y = y.reshape(B, S, 2 * d).to(x.dtype)
-    return _mlstm_out(p, y, xc, z, kernels), (state, conv_state)
+    y = y.reshape(B, S, mlstm_dims(cfg)[0]).to(x.dtype)
+    return _mlstm_out(p, y, xc, z, kernels, tp), (state, conv_state)
 
 
-def mlstm_decode_step(cfg, p, x, state, conv_state):
+def mlstm_decode_step(cfg, p, x, state, conv_state, tp=None):
     """One token, x (B, 1, d): the recurrence itself, no chunking.
     Returns (out, (C, n, m), conv_state)."""
     B = x.shape[0]
     di, H, dh = mlstm_dims(cfg)
-    xc, z, q, k, v, li, lf, conv_state = _mlstm_in(cfg, p, x, conv_state)
+    xc, z, q, k, v, li, lf, conv_state = _mlstm_in(cfg, p, x, conv_state,
+                                                   tp)
     q = q.reshape(B, H, dh).float() / math.sqrt(dh)
     k, v = k.reshape(B, H, dh).float(), v.reshape(B, H, dh).float()
     li, lf = li[:, 0], lf[:, 0]                        # (B, H)
@@ -166,7 +209,7 @@ def mlstm_decode_step(cfg, p, x, state, conv_state):
     den = torch.maximum(torch.einsum("bhd,bhd->bh", n, q).abs(),
                         torch.exp(-m_new))
     y = (num / den[..., None]).reshape(B, 1, di).to(x.dtype)
-    return _mlstm_out(p, y, xc, z), (C, n, m_new), conv_state
+    return _mlstm_out(p, y, xc, z, tp=tp), (C, n, m_new), conv_state
 
 
 # -- sLSTM --------------------------------------------------------------------
@@ -191,31 +234,36 @@ def _slstm_step(r, carry, x_pre):
 
 
 def slstm_state_init(cfg, batch: int, device="cuda"):
-    H = cfg.num_heads
-    shape = (batch, H, cfg.d_model // H)
+    _, H, dh = slstm_dims(cfg)
+    shape = (batch, H, dh)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.zeros(shape, **f32), torch.zeros(shape, **f32),
             torch.zeros(shape, **f32), torch.full(shape, -1e30, **f32))
 
 
-def slstm_apply(cfg, p, x, *, state=None, kernels=ops):
+def slstm_apply(cfg, p, x, *, state=None, kernels=ops, tp=None):
     """The sLSTM block over x (B, S, d): a loop over time, then the norm
     and the block's gated FFN. Returns (out, state); one step is the
     decode step."""
-    B, S, d = x.shape
-    H = cfg.num_heads
-    pre = proj(p, "w_in", x).float().reshape(B, S, 4, H, d // H)
+    B, S, _ = x.shape
+    d, H, dh = slstm_dims(cfg)
+    pre = proj(p, "w_in", x).float().reshape(B, S, 4, H, dh)
+    # the whole r: this rank's heads
+    r = p["r"] if tp is None else p["r"][:, tp.rank * H:(tp.rank + 1) * H]
     if state is None:
         state = slstm_state_init(cfg, B, x.device)
     hs = []
     for t in range(S):
-        state = _slstm_step(p["r"], state, pre[:, t])
+        state = _slstm_step(r, state, pre[:, t])
         hs.append(state[2])
     y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    if tp is not None:
+        y = tp.all_gather(y, -1)
     y = kernels.rmsnorm(y, p["gn"])
     g, u = torch.chunk(proj(p, "ffn_wi", y), 2, dim=-1)
-    return proj(p, "ffn_wo", F.gelu(g, approximate="tanh") * u), state
+    return row_proj(p, "ffn_wo", F.gelu(g, approximate="tanh") * u,
+                    tp), state
 
 
-def slstm_decode_step(cfg, p, x, state):
-    return slstm_apply(cfg, p, x, state=state)
+def slstm_decode_step(cfg, p, x, state, tp=None):
+    return slstm_apply(cfg, p, x, state=state, tp=tp)

@@ -26,10 +26,13 @@ dense cache): the paged int4 path is the system's main path.
 
 Every engine takes ``rt`` (a ``transformer.Runtime``). Under a mesh it
 runs this rank's shard of a tensor- and expert-parallel model
-(``registry.build(cfg, rt=)``): its caches, pages and wires hold this
-rank's KV heads (``kv_cfg``, ``sharding.local_cfg``), so a page pool's
-bytes are the local KV's. Every rank of the ``model`` axis makes the
-same engine calls in the same order (SPMD); the greedy tokens come from
+(``registry.build(cfg, rt=)``, every family): its caches, pages and
+wires hold this rank's KV heads, or the one KV head its query heads
+read where the KV heads are fewer than the ranks, and a recurrent
+stack's states on this rank's channels or heads (``kv_cfg``,
+``sharding.local_cfg``), so a page pool's bytes are the local KV's.
+Every rank of the ``model`` axis makes the same engine calls in the
+same order (SPMD); the greedy tokens come from
 the gathered logits, and the engines check that every rank chose the
 same ones (:func:`_agree`), raising if not.
 """

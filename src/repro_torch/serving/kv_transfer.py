@@ -19,6 +19,13 @@ span the encoder's frames and ship whole, carrying their own length).
 Only positional tensors (``k``, ``v``, whisper's ``x``) are ever
 quantized or spliced: the reference's ``compress_wire`` also quantizes
 an mLSTM's 4-D ``C`` state, which the port keeps raw.
+
+Under tensor parallelism each rank extracts and inserts its own cache's
+shard: its KV heads (or its one replicated KV head, which each rank that
+shares it ships again), its recurrent states' channels or heads, raw,
+and whisper's flat tensors on its heads. Nothing here knows the mesh:
+the shapes carry it, and an int4 group follows the rank's span
+(``kv_layout``'s rule: the largest of 128..2 that divides it).
 """
 from __future__ import annotations
 

@@ -28,7 +28,12 @@ Tolerances:
   or fewer tokens from ever dropping);
 * pipeline: within 2e-5 of the JAX ``pipeline_apply``, and bit for bit
   the port's sequential apply of the same microbatches;
-* model axis size 1: bit for bit the run without a mesh, every config.
+* model axis size 1: bit for bit the run without a mesh, every config;
+* refusals: every config shards at a model axis of 2 and 4 (the other
+  nine are held to the unsharded port in
+  ``tests/test_torch_distributed_families.py``); only what the axis does
+  not divide is refused (52 heads over 8 and 16, an expert count, reduced
+  xlstm's 2 heads over 4).
 """
 import os
 import pathlib
@@ -539,19 +544,51 @@ def test_axis_size_one_is_bit_identical(runs, arch):
 @pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
                                   if a not in (LLAMA, QWEN)])
 def test_unported_configs_are_refused_above_size_one(arch):
-    assert sharding.tp_refusals(get_reduced(arch), 1) == []
-    for cfg in (get_reduced(arch), get_config(arch)):
+    """The nine configs A.9 step one left whole now shard at a model
+    axis of 1, 2 and 4 (full widths; the reduced ones where their heads
+    divide), and only what does not divide the axis is refused: an axis
+    of twice the heads, reduced xlstm's 2 heads at 4."""
+    full, small = get_config(arch), get_reduced(arch)
+    for n in (1, 2, 4):
+        sharding.check_tp(full, n)
+        assert sharding.local_cfg(full, None) is full
+    for n in (1, 2) + ((4,) if small.num_heads % 4 == 0 else ()):
+        sharding.check_tp(small, n)
+    for cfg in (full, small):
         with pytest.raises(NotImplementedError, match="A.9 step two"):
-            sharding.check_tp(cfg, 2)
+            sharding.check_tp(cfg, 2 * cfg.num_heads)
+    if arch == "xlstm-125m":
+        with pytest.raises(NotImplementedError, match="2 heads"):
+            sharding.check_tp(small, 4)
 
 
 def test_sharded_configs_run_at_their_axis_sizes():
-    for arch, sizes in ((LLAMA, (1, 2, 4)), (QWEN, (1, 2, 4))):
+    for arch, sizes in ((LLAMA, (1, 2, 4)), (QWEN, (1, 2, 4, 8, 16))):
         for n in sizes:
             sharding.check_tp(get_config(arch), n)
-    for arch, n in ((LLAMA, 8), (QWEN, 8)):     # 52 heads; 4 KV heads
+    # 52 heads over 8 and 16 (--mesh single|multi); an expert count the
+    # axis does not divide; reduced xlstm's 2 heads over 4
+    for cfg, n, why in ((get_config(LLAMA), 8, "52 heads"),
+                        (get_config(LLAMA), 16, "52 KV heads"),
+                        (get_reduced(QWEN).replace(moe_num_experts=6), 4,
+                         "6 experts"),
+                        (get_reduced("xlstm-125m"), 4, "2 heads")):
         with pytest.raises(NotImplementedError, match="A.9 step two"):
-            sharding.check_tp(get_config(arch), n)
+            sharding.check_tp(cfg, n)
+        assert any(why in w for w in sharding.tp_refusals(cfg, n))
+    # replicated KV: more ranks than KV heads, a whole head each
+    gemma = sharding.rank_cfg(get_config("gemma-2b"), 4)
+    assert (gemma.num_heads, gemma.num_kv_heads, gemma.head_dim) == \
+        (2, 1, 256)
+    assert sharding.kv_replicated(get_config("gemma-2b"), 4)
+    # MoE interleaved with dense layers: both the experts and d_ff divide
+    for arch in ("llama4-maverick-400b-a17b", "jamba-v0.1-52b"):
+        cfg = get_config(arch)
+        mine = sharding.rank_cfg(cfg, 4)
+        assert (mine.d_ff, mine.moe_num_experts, mine.moe_d_ff) == \
+            (cfg.d_ff // 4, cfg.moe_num_experts // 4, cfg.moe_d_ff)
+    assert sharding.rank_cfg(get_config("jamba-v0.1-52b"), 4
+                             ).mamba_d_inner == 4096 * 2 // 4
 
 
 def test_refusals_under_a_mesh(runs):

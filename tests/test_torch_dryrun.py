@@ -13,6 +13,14 @@
   for a reduced LLaMA tensor-parallel decode step (what phase 12 of
   ``chip_smoke.py`` captured at L = 60), their wire bytes the ring
   model's.
+* The same mesh counts a rank's collectives in a recurrent and an audio
+  cell at a reduced shape (full widths, 2 x 64 tokens): xlstm-125m's
+  prefill (an all-gather of the embedding, of each mLSTM's ``xc`` and
+  ``xm`` and of each sLSTM's ``y``, of the logits; two all-reduces an
+  mLSTM, its norm's mean squares and ``w_down``, one an sLSTM) and
+  whisper-base's prefill and decode (three all-reduces a decoder layer,
+  two an encoder layer; its vocabulary of 51865 leaves ``unembed``
+  whole, so no logits are gathered).
 * The jamba decode step with a sliding window (the reference's
   long_500k cell, a ring of ``window`` rows in its attention layers)
   matches the reference's in-place step on the reduced config in f32,
@@ -42,6 +50,7 @@ from repro.models import transformer as j_tf  # noqa: E402
 from repro.roofline import report as j_report  # noqa: E402
 from repro_torch.configs import (ALL_ARCHS, SHAPES, all_cells,  # noqa: E402
                                  get_config, get_reduced)
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import abstract_mesh  # noqa: E402
@@ -186,6 +195,29 @@ def test_abstract_mesh_counts_a_tp_decode_steps_collectives():
         "all_reduce", ar, 4) + analysis.wire_bytes("all_gather", ag, 4)
     with pytest.raises(RuntimeError, match="outside an op counter"):
         api.decode(params, cache, tok)
+
+
+@pytest.mark.parametrize("arch,kind,want", [
+    ("xlstm-125m", "prefill", {"all_gather": 1 + 10 + 2 + 1,
+                               "all_reduce": 2 * 10 + 2}),
+    ("whisper-base", "prefill", {"all_gather": 1,
+                                 "all_reduce": 2 * 6 + 3 * 6}),
+    ("whisper-base", "decode", {"all_gather": 1, "all_reduce": 3 * 6})])
+def test_abstract_mesh_counts_a_recurrent_and_an_audio_cell(
+        monkeypatch, arch, kind, want):
+    name = f"{kind}_64"
+    monkeypatch.setitem(dryrun.SHAPES, name, ShapeSpec(name, 64, 2, kind))
+    counted, info = dryrun.trace_cell(arch, name, dryrun.make_mesh("four"))
+    assert counted["coll_counts"] == want
+    cfg = get_config(arch)
+    assert info["batch"] == 2 and info["cfg"] == cfg
+    if arch == "xlstm-125m":
+        # each mLSTM gathers (2, B, S, 2d / 4) bf16 into (2, B, S, 2d)
+        assert counted["coll_payload"] >= 10 * 2 * 2 * 64 * 2 * 768 * 2
+        assert counted["kernels"] == {"rmsnorm": 2}    # the sLSTM norms
+    else:
+        assert counted["kernels"]["flash_attention" if kind == "prefill"
+                                  else "decode_attention"] > 0
 
 
 # -- (i) the jamba window in the dense decode step ------------------------------

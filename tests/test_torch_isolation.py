@@ -366,7 +366,9 @@ COPY_DIFFERENCES = {
         **{name: ONE_SIDE for name in (
             "_fits", "local_shape", "STEP_TWO", "tp_refusals", "check_tp",
             "rank_cfg", "model_size", "local_cfg", "_split_dim", "_cut",
-            "_leaf_specs", "_shard_tree", "shard_params")},
+            "_leaf_specs", "_shard_tree", "shard_params", "RankConfig",
+            "RankConfig.mamba_d_inner", "split_of", "kv_replicated",
+            "kv_head_of", "_CHUNKED", "_chunks_of")},
     },
     "launch/mesh.py": {
         # torch.distributed's DeviceMesh for jax.make_mesh
