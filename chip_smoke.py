@@ -219,6 +219,19 @@ before the last line:
    ranks' included, are summed into the kernels line, and every kernel
    must launch in it. Phase 3 also checks and times the kernels at a
    TP-2 rank's shapes (LLaMA-30B's 26 heads, qwen3-moe's 32 over 2);
+   (e) the nine other configs at TP 2 (xlstm in f32; in bf16 too, as
+   ROADMAP C.3's probe, printed and not held); (f) the sharded
+   training step (``optimizer.make_train_step`` under the mesh): a
+   world-1 NCCL train step of LLaMA-30B cut to one layer bit for bit the
+   unmeshed one; LLaMA-30B at TP 2 (4 layers, 4 x 512, 3 steps), at data
+   2 x model 2 (2 layers, one step over four ranks) and qwen3-moe at EP
+   2 + TP 2 (one layer, one step), each against the unsharded run of its
+   cut: every loss within 1e-2 relative, each leaf's step-1 gradient
+   within ``CHUNK_REL_TOL`` of the unsharded one cut to the rank (MoE:
+   only where no route dropped; drops printed), the leaves every rank
+   holds alike the same bytes on each, host ms a step and gloo's seconds;
+   a TP-2 checkpoint of the 1-layer cut read back at TP 1 byte for byte
+   the state the ranks gathered. No kernel launches in (f);
 13. the counts against the card: LLaMA-30B's int4 paged decode step (4
    slots, phase 5's pages and lengths), a 4 x 256 bucket prefill through
    the model API and the wire, and phase 11's train step (8 of 60
@@ -234,12 +247,13 @@ before the last line:
    share ``model_flops_for / (measured s x 989e12)``: for decode and
    prefill the roofline time must not exceed the measured one, and the
    decode step's counted bytes must be at least the bytes it must read;
-   (c) the dry-run (``python -m repro_torch.launch.dryrun``), started on
-   the host at phase 10: every cell at ``--mesh four`` (``--all``) and
-   LLaMA-30B's, and LLaMA-30B's and qwen3-moe's cells at ``one``
-   (``--all`` takes ~25 min on the host there); every ``one`` cell must
-   be ``ok`` and every error name A.9 step two; ``report.table`` of
-   each mesh is printed.
+   (c) the dry-run (``python -m repro_torch.launch.dryrun``) on the
+   host: the train cells at ``--mesh four`` from phase 1, the other
+   cells at ``four`` (``--all``) and LLaMA-30B's, and LLaMA-30B's and
+   qwen3-moe's cells at ``one`` (``--all`` takes ~25 min on the host
+   there) from phase 10, xlstm's prefill and train cells at ``four``
+   left out by name (``P13_SKIP``: its per-token sLSTM loop); every cell
+   must be ``ok``; ``report.table`` of each mesh is printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -3464,13 +3478,18 @@ P12E = {"stablelm-3b": 4, "gemma-2b": None, "h2o-danube-3-4b": 4,
         "command-r-35b": 4, "llava-next-mistral-7b": 4,
         "llama4-maverick-400b-a17b": 2, "jamba-v0.1-52b": 8,
         "xlstm-125m": None, "whisper-base": None}
+# (e)'s C.3 probe: xlstm at TP 2 in bf16, measured and printed, not held
+# (ROADMAP C.3 stays open with its value)
+P12E_PROBE = "xlstm-125m:bf16"
+P12E[P12E_PROBE] = None
 # (e)'s world-1 NCCL runs: a paged stack with one KV head, a recurrent one
 P12E_WORLD1 = ("gemma-2b", "jamba-v0.1-52b")
-# xlstm runs (e) in float32: in bf16 its random-weight stack compounds the
-# one extra rounding of each row-parallel sum (w_down, ffn_wo) by ~1.3% a
-# layer, to 0.152 relative L2 at the logits of 12 layers on the H100
-# (PERF.md) against 0.008-0.02 for the other configs; f32 holds the
-# sharding itself to P12_LOGIT_TOL's 1e-4
+# xlstm runs (e) in float32: in bf16 its random-weight stack compounds
+# every rounding a rank's products make apart from the unsharded ones
+# through its exponential gates, to 0.102 relative L2 at the logits of 12
+# layers on an H100 with f32 row-parallel sums (0.152 with bf16 sums)
+# against 0.007-0.02 for the other configs (ROADMAP C.3, PERF.md); f32
+# holds the sharding itself to P12_LOGIT_TOL's 1e-4
 P12E_F32 = ("xlstm-125m",)
 P12E_STEPS = 4        # teacher-forced dense decode steps
 P12E_NEW = 8          # tokens a request on the main path: one chunk
@@ -3482,10 +3501,13 @@ HEADS_DIM = {"k": 3, "v": 3, "self_k": 3, "self_v": 3, "cross_k": 3,
 
 def p12e_cfg(arch, reduced=False):
     from repro_torch.configs import get_config, get_reduced
+    keep = P12E[arch]
+    arch, _, probe = arch.partition(":")
     cfg = get_reduced(arch) if reduced else get_config(arch)
-    if not reduced and P12E[arch] is not None:
-        cfg = cfg.replace(num_layers=P12E[arch])
-    return cfg.replace(dtype="float32") if arch in P12E_F32 else cfg
+    if not reduced and keep is not None:
+        cfg = cfg.replace(num_layers=keep)
+    return cfg.replace(dtype="float32") if arch in P12E_F32 and not probe \
+        else cfg
 
 
 def p12e_params(torch, cfg, device="cuda", mesh=None):
@@ -3719,7 +3741,8 @@ def layer_of(cfg, name, j):
     return j * len(slot_kinds(cfg)) + int(slot[4:])
 
 
-def compare_family(torch, arch, cfg, ref, got, dtype="bfloat16"):
+def compare_family(torch, arch, cfg, ref, got, dtype="bfloat16", *,
+                   gated=True):
     """Phase 12 (e): one config's ranks against its unsharded run. The
     prefill logits within P12_LOGIT_TOL relative L2 (held where no MoE
     route dropped in either run) and equal on both ranks, every layer's
@@ -3731,8 +3754,9 @@ def compare_family(torch, arch, cfg, ref, got, dtype="bfloat16"):
     every slot-step (a MoE config's median) and their greedy tokens equal
     where the unsharded top-2 margin clears P12_MARGIN. Everything is
     measured and printed before a failure raises (each cache tensor's
-    error by layer where one fails). Returns the row of PERF.md's
-    table."""
+    error by layer where one fails); ``gated=False`` (the C.3 probe)
+    prints what would fail and raises nothing. Returns the row of
+    PERF.md's table."""
     from repro_torch.distributed import sharding
     tol, kv_tol = P12_LOGIT_TOL[dtype], CHUNK_REL_TOL[dtype]
     step_tol = P12_LOGIT_TOL["bfloat16"]
@@ -3800,7 +3824,9 @@ def compare_family(torch, arch, cfg, ref, got, dtype="bfloat16"):
     if step_err > step_tol or bool((clear & ~same).any()):
         bad_news.append(f"decode steps differ ({step_err} against "
                         f"{step_tol})")
-    if bad_news:
+    if bad_news and not gated:
+        log(f"  (e) {arch}, not held (C.3): {'; '.join(bad_news)}")
+    elif bad_news:
         for line in bad_news:
             log(f"  (e) {arch} FAILED: {line}")
         raise AssertionError(f"(e) {arch}: {'; '.join(bad_news)}")
@@ -3942,7 +3968,8 @@ def phase12(torch, *, device="cuda", reduced=False):
     for arch in P12E:
         ecfg = p12e_cfg(arch, reduced)
         rows.append(compare_family(torch, arch, ecfg, refs[arch],
-                                   [g["e"][arch] for g in got], ecfg.dtype))
+                                   [g["e"][arch] for g in got], ecfg.dtype,
+                                   gated=arch != P12E_PROBE))
         for r, g in enumerate(got):
             mine = g["e"][arch]["launches"]
             log(f"  (e) {arch} rank {r}'s kernel launches at its shapes: "
@@ -3967,54 +3994,452 @@ def phase12(torch, *, device="cuda", reduced=False):
     return launches, rows, replay
 
 
+# -- phase 12 (f): the sharded training step ----------------------------------
+
+# layers kept at full width: (f) world 1, LLaMA-30B at TP 2, data 2 x model
+# 2, the TP-2 checkpoint (its 1-layer state is 9.6 GB on disk; the 4-layer
+# one's 25.7 GB would need ~80 GB of host memory to write and read back),
+# qwen3-moe at EP 2 + TP 2
+P12F_LAYERS = {"world1": 1, "tp": 4, "dp": 2, "ckpt": 1, "moe": 1}
+P12F_STEPS = {"tp": 3, "dp": 1, "moe": 1}
+P12F_BATCH = (4, 512)             # rows x tokens of the global batch
+P12F_LOSS_TOL = 1e-2              # relative, every step's loss
+# step-1 gradients, each leaf's relative L2: CHUNK_REL_TOL (bf16 0.05)
+
+
+def p12f_cfg(part, reduced=False):
+    from repro_torch.configs import get_config, get_reduced
+    arch = "qwen3-moe-235b-a22b" if part == "moe" else "llama-30b"
+    if reduced:
+        return get_reduced(arch)
+    return get_config(arch).replace(num_layers=P12F_LAYERS[part])
+
+
+def p12f_ocfg():
+    from repro_torch.training import optimizer as opt
+    return opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+
+
+def p12f_batches(cfg, n, reduced):
+    """``n`` global batches of the data pipeline (numpy)."""
+    from repro_torch.training.data import DataConfig, PackedLM
+    B, S = (4, 32) if reduced else P12F_BATCH
+    data = PackedLM(DataConfig(cfg.vocab_size, S, B, seed=SEED))
+    return [data.batch_at(i) for i in range(n)]
+
+
+class RankOf:
+    """A ``data x model`` mesh's shape and one rank's place in it, for
+    ``sharding.shard_params`` in a process with no process group (the
+    unsharded run cutting its gradients for each rank)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, rank):
+        import types
+        self.mesh = types.SimpleNamespace(shape=tuple(shape))
+        self.rank = rank
+
+    def get_local_rank(self, name):
+        n = self.mesh.shape[1]
+        return self.rank % n if name == "model" else self.rank // n
+
+
+def p12f_train(torch, cfg, params, batches, device, rt=None):
+    """The sharded (or, without ``rt``, the unsharded) train step over
+    ``batches`` (this data rank's rows under a mesh): the step-1
+    gradients (``optimizer.loss_and_grads`` of the initial state, the
+    call the step makes) and routes dropped in that call, then every
+    step through ``make_train_step``: losses, grad norms, host ms a step
+    (the card synchronized)."""
+    from repro_torch.launch.mesh import data_axes, shape_of
+    from repro_torch.models import build, moe
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import rank_rows
+    api = build(cfg, rt=rt)
+    di, nd = 0, 1
+    if rt is not None:
+        for a in data_axes(rt.mesh):
+            di = di * shape_of(rt.mesh)[a] + rt.mesh.get_local_rank(a)
+            nd *= shape_of(rt.mesh)[a]
+
+    def rows(b):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in rank_rows(b, di, nd).items()}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    with moe.count_drops() as drops:
+        _, g1 = opt.loss_and_grads(api, params, rows(batches[0]))
+    g1 = opt.tree_map(lambda g: g.detach(), g1)
+    step = opt.make_train_step(api, p12f_ocfg())
+    state = opt.adamw_init(params)
+    out = {"loss": [], "norm": [], "ms": [],
+           "drops": int(sum(int(d) for d in drops))}
+    for b in batches:
+        b = rows(b)
+        sync()
+        t = time.perf_counter()
+        params, state, st = step(params, state, b)
+        sync()
+        out["ms"].append(1e3 * (time.perf_counter() - t))
+        out["loss"].append(float(st["loss"]))
+        out["norm"].append(float(st["grad_norm"]))
+    return out, g1, params, state
+
+
+def p12f_world1(torch, device, reduced):
+    """(f) world 1: a train step of full-width LLaMA-30B cut to one layer
+    over a ``data 1 x model 1`` mesh of one NCCL rank (gloo on the CPU)
+    against the unmeshed step, under deterministic algorithms: loss,
+    grad norm and every param after the step, bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.training import optimizer as opt
+    cfg = p12f_cfg("world1", reduced)
+    batches = p12f_batches(cfg, 1, reduced)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        got = {}
+        for arm in ("unmeshed", "meshed"):
+            rt = None if arm == "unmeshed" else Runtime(make_mesh(
+                (1, 1), ("data", "model"), device=device))
+            params = make_params(torch, cfg, device=device)
+            out, _, params, _ = p12f_train(torch, cfg, params, batches,
+                                           device, rt)
+            got[arm] = (out, [t.detach().cpu() for t in
+                              opt.tree_leaves(params)])
+            del params
+            if device == "cuda":
+                settled(torch)
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(was)
+    (a, pa), (b, pb) = got["unmeshed"], got["meshed"]
+    same = a["loss"] == b["loss"] and a["norm"] == b["norm"] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(pa, pb))
+    log(f"  (f) world 1, {cfg.name} ({cfg.num_layers} layer(s)): the meshed "
+        f"train step bit for bit the unmeshed one: {same} (loss "
+        f"{b['loss'][0]:.6f}, grad norm {b['norm'][0]:.6f}, {len(pb)} "
+        f"params; {b['ms'][0]:.1f} ms meshed, {a['ms'][0]:.1f} unmeshed)")
+    if not same:
+        raise AssertionError("(f) world 1: the meshed train step differs")
+
+
+def p12f_reference(torch, part, tmp, device, reduced):
+    """The unsharded run of (f)'s ``part``: its losses and the step-1
+    gradients cut for each rank (``tmp/f_{part}_r{r}.pt``)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.training import optimizer as opt
+    world, shape = {"tp": (2, (1, 2)), "dp": (4, (2, 2)),
+                    "moe": (2, (1, 2))}[part]
+    cfg = p12f_cfg(part, reduced)
+    batches = p12f_batches(cfg, P12F_STEPS[part], reduced)
+    params = make_params(torch, cfg, device=device)
+    t = time.perf_counter()
+    out, g1, params, state = p12f_train(torch, cfg, params, batches, device)
+    del params, state
+    g1 = None if out["drops"] else opt.tree_map(lambda g: g.cpu(), g1)
+    if device == "cuda":
+        settled(torch)
+    for r in range(world):
+        # a step that dropped routes holds no gradient: none is saved
+        grads = None if out["drops"] else sharding.shard_params(
+            g1, cfg, RankOf(shape, r))
+        torch.save({"out": out, "grads": grads},
+                   os.path.join(tmp, f"f_{part}_r{r}.pt"))
+    del g1, grads
+    log(f"  (f) {part}: the unsharded run of {cfg.name} ({cfg.num_layers} "
+        f"layers, {P12F_STEPS[part]} step(s)): losses "
+        f"{[round(x, 5) for x in out['loss']]}, host ms a step "
+        f"{[round(x, 1) for x in out['ms']]}, routes dropped "
+        f"{out['drops']} ({time.perf_counter() - t:.1f} s)")
+    return out
+
+
+def p12f_rank(rank, world, port, tmp, part, reduced, device):
+    """One rank of (f)'s ``part``: ``tp`` (LLaMA-30B at TP 2 over a 1 x 2
+    mesh, then the TP-2 checkpoint of the 1-layer cut), ``dp`` (data 2 x
+    model 2) or ``moe`` (qwen3-moe at EP 2 + TP 2): its shard drawn rank
+    after rank, the steps (:func:`p12f_train`) under a collective clock,
+    the step-1 gradients against the unsharded run's cut to the rank
+    (each leaf's relative L2), the leaves every rank holds alike
+    compared across the ranks. Saves ``tmp/f_{part}_rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.training import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        shape = (2, 2) if part == "dp" else (1, 2)
+        mesh = make_mesh(shape, ("data", "model"), device=device)
+        cfg = p12f_cfg(part, reduced)
+        for r in range(world):
+            if r == rank:
+                params = make_params(torch, cfg, device=device, mesh=mesh)
+                if device == "cuda":
+                    settled(torch)
+            dist.barrier()
+        rt = Runtime(mesh, moe_shard_map=bool(cfg.moe_num_experts))
+        t = time.perf_counter()
+        with CollectiveClock(torch) as clock:
+            out, g1, params, _ = p12f_train(
+                torch, cfg, params, p12f_batches(cfg, P12F_STEPS[part],
+                                                 reduced), device, rt)
+        out.update(coll_s=clock.s, coll_n=clock.n,
+                   s=time.perf_counter() - t, setup_s=t - t0)
+        t = time.perf_counter()
+        ref = torch.load(os.path.join(tmp, f"f_{part}_r{rank}.pt"),
+                         weights_only=False)["grads"]
+        out["grad_rel"] = [] if ref is None else [
+            rel_l2(torch, w.to(g.device), g) for g, w in zip(
+                opt.tree_leaves(g1), opt.tree_leaves(ref))]
+        del g1, ref
+        out["compare_s"] = time.perf_counter() - t
+        # the leaves every rank holds alike: the same bytes on each
+        same = []
+        for kind, p in zip(opt.tree_leaves(sharding.grad_kinds(cfg, 2)),
+                           opt.tree_leaves(params)):
+            if kind in ("whole", "partial"):
+                mine = p.detach().cpu().contiguous()
+                got = [torch.empty_like(mine) for _ in range(world)]
+                dist.all_gather(got, mine)
+                same.append(all(torch.equal(g, got[0]) for g in got))
+        out["whole_same"] = (sum(same), len(same))
+        del params
+        if device == "cuda":
+            settled(torch)
+        if part == "tp":
+            t = time.perf_counter()
+            out["ckpt"] = p12f_checkpoint(torch, rank, mesh, tmp, reduced,
+                                          device)
+            out["ckpt"]["s"] = time.perf_counter() - t
+        torch.save(out, os.path.join(tmp, f"f_{part}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def p12f_checkpoint(torch, rank, mesh, tmp, reduced, device):
+    """(f)'s TP-2 checkpoint: ``launch.train.run`` of the 1-layer cut at
+    TP 2 for 2 steps, checkpointing after step 1 (the ranks gather each
+    leaf, the first rank writes the whole state); then each rank reads it
+    back at TP 1 (``load_checkpoint``: the whole state) and holds its cut
+    (``restore_into``'s, the inverse of the gather) to the state it
+    trained, byte for byte."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.checkpoint.sharded import tree_bytes as ckpt_bytes
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.training import optimizer as opt
+    B, S = (4, 32) if reduced else P12F_BATCH
+    cfg = p12f_cfg("ckpt", reduced).replace(vocab_chunk=S)
+    ck = os.path.join(tmp, "ck")
+    argv = ["--steps", "2", "--ckpt-dir", ck, "--ckpt-every", "1",
+            "--device", device, "--batch", str(B), "--seq", str(S)]
+    t = time.perf_counter()
+    run = train.run(argv, cfg=cfg, rt=Runtime(mesh))
+    run_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back, step, _ = load_checkpoint(ck, train.whole_tree(cfg))
+    read_s = time.perf_counter() - t
+    mine = opt.tree_leaves((
+        convert.params_from_numpy(back["p"], cfg, "cpu", mesh=mesh),
+        convert.opt_state_from_numpy(back["o"], cfg, "cpu", mesh=mesh)))
+    live = opt.tree_leaves((run["params"], run["opt_state"]))
+    out = {"equal": len(mine) == len(live) and all(
+               a.dtype == b.dtype and torch.equal(a, b.cpu())
+               for a, b in zip(mine, live)),
+           "n": len(live), "bytes": ckpt_bytes(back), "step": step,
+           "read_s": read_s, "run_s": run_s, "writes": run["writes"]}
+    del run, back, mine, live
+    return out
+
+
+def p12f_spawn(torch, part, world, tmp, reduced, device):
+    """Run :func:`p12f_rank` over ``world`` processes (gloo, one card);
+    a rank that fails ends the others. Returns the ranks' results."""
+    port, root = free_port(), os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(root, "src"), root]))
+    logs = [os.path.join(tmp, f"f_{part}_rank{r}.log") for r in range(world)]
+    outs = [open(path, "w") for path in logs]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"p12f_rank({r}, {world}, {port}, {tmp!r}, {part!r}, {reduced}, "
+         f"{device!r})"], cwd=root, env=env, stdout=outs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        deadline = time.perf_counter() + 600
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs) or \
+                    time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for f in outs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            text = f.read()
+        if p.returncode:
+            for line in text.splitlines()[-40:]:
+                log(f"  [(f) {part} rank {r}] {line}")
+            raise AssertionError(f"(f) {part} rank {r} exited {p.returncode}")
+    return [torch.load(os.path.join(tmp, f"f_{part}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def p12f_compare(part, ref, got):
+    """(f)'s bounds for ``part``: every step's loss within P12F_LOSS_TOL
+    relative of the unsharded run's; each leaf's step-1 gradient within
+    CHUNK_REL_TOL["bfloat16"] relative L2 of the unsharded one cut to the
+    rank (qwen3-moe: only where no route dropped, in either run); the
+    leaves every rank holds alike, the same bytes. Returns a row."""
+    tol = CHUNK_REL_TOL["bfloat16"]
+    loss_rel = max(abs(a - b) / abs(b) for g in got
+                   for a, b in zip(g["loss"], ref["loss"]))
+    drops = [ref["drops"]] + [g["drops"] for g in got]
+    held = not any(drops)
+    worst = max((max(g["grad_rel"]) for g in got if g["grad_rel"]),
+                default=float("nan"))
+    same = [g["whole_same"] for g in got]
+    row = {"part": part, "loss_rel": loss_rel, "grad_rel": worst,
+           "compare_s": [round(g["compare_s"], 1) for g in got],
+           "held": held, "drops": drops, "same": same,
+           "ms": [g["ms"] for g in got], "coll_s": [g["coll_s"] for g in got],
+           "s": [g["s"] for g in got]}
+    log(f"  (f) {part}: losses {[round(x, 5) for x in got[0]['loss']]} "
+        f"against {[round(x, 5) for x in ref['loss']]} (worst relative "
+        f"{loss_rel:.3e}, bound {P12F_LOSS_TOL}); step-1 gradients' worst "
+        f"leaf relative L2 {worst:.3e} (bound {tol}"
+        f"{'' if held else ', not held: routes dropped'}); routes dropped "
+        f"(unsharded, ranks) {drops}; leaves alike on every rank, equal "
+        f"bytes: {same}; host ms a step {row['ms']}; gloo's collectives "
+        f"{[round(x, 2) for x in row['coll_s']]} s of "
+        f"{[round(x, 1) for x in row['s']]} s a rank (its train call, "
+        f"after {[round(g['setup_s'], 1) for g in got]} s of set-up), "
+        f"gradients compared in {row['compare_s']} s")
+    if loss_rel > P12F_LOSS_TOL or (held and worst > tol) or \
+            any(a != b for a, b in same):
+        raise AssertionError(f"(f) {part}: the sharded step is off its "
+                             f"unsharded one")
+    return row
+
+
+def phase12f(torch, *, device="cuda", reduced=False):
+    """Phase 12 (f), the sharded training step: the world-1 check
+    (:func:`p12f_world1`), then for each of LLaMA-30B at TP 2 (4 layers,
+    3 steps; then the checkpoint), data 2 x model 2 (2 layers, one step)
+    and qwen3-moe at EP 2 + TP 2 (one layer, one step): the unsharded run
+    on the card first, freed before the ranks start, then the ranks over
+    gloo. No kernel runs in training. Returns (f)'s rows. (The CPU
+    rehearsal: ``device="cpu", reduced=True``.)"""
+    import tempfile
+    t = time.perf_counter()
+    p12f_world1(torch, device, reduced)
+    log(f"  (f) world 1: {time.perf_counter() - t:.1f} s")
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, world in (("tp", 2), ("dp", 4), ("moe", 2)):
+            t = time.perf_counter()
+            ref = p12f_reference(torch, part, tmp, device, reduced)
+            got = p12f_spawn(torch, part, world, tmp, reduced, device)
+            rows.append(p12f_compare(part, ref, got))
+            if part == "tp":
+                ck = got[0]["ckpt"]
+                (_, wbytes, wsec), = ck["writes"]
+                log(f"  (f) the TP-2 checkpoint ({P12F_LAYERS['ckpt']} "
+                    f"layer(s), step {ck['step']}): the 2-step run "
+                    f"{ck['run_s']:.1f} s, its gathered {wbytes:,} bytes "
+                    f"written in {wsec:.2f} s; read back at TP 1 in "
+                    f"{[round(g['ckpt']['read_s'], 2) for g in got]} s, "
+                    f"each rank's cut byte for byte its trained state: "
+                    f"{[g['ckpt']['equal'] for g in got]} ({ck['n']} "
+                    f"tensors a rank; "
+                    f"{[round(g['ckpt']['s'], 1) for g in got]} s a rank)")
+                if not all(g["ckpt"]["equal"] for g in got) or \
+                        wbytes != ck["bytes"]:
+                    raise AssertionError("(f) the TP-2 checkpoint differs")
+            for name in os.listdir(tmp):
+                if name.startswith(f"f_{part}_r") and name.endswith(".pt"):
+                    os.remove(os.path.join(tmp, name))
+            log(f"  (f) {part}: {time.perf_counter() - t:.1f} s")
+    return rows
+
+
 # -- phase 13: the counts against the card ------------------------------------
 
 P13_ARCHS = ("llama-30b", "qwen3-moe-235b-a22b")
-P13_MESHES = ("one", "four")
 P13_PS, P13_SEQ = 16, 256          # phase 5's pages and max_seq
 P13_BUCKET = 256                   # phase 5's prefill bucket, 4 prompts
 # left out of the four chain, by name: xlstm's per-token sLSTM loop over
 # 32768 tokens takes ~11 minutes on the host; tests/test_torch_dryrun.py
 # counts its four-mesh prefill at 2 x 64 tokens
-P13_SKIP = (("xlstm-125m", "prefill_32k"),)
+P13_SKIP = (("xlstm-125m", "prefill_32k"), ("xlstm-125m", "train_4k"))
+# the chains of phase 13(c): the two meshes' serving cells, and the train
+# cells at four in a chain of their own (25-45 s each on the host, a
+# sharded forward and backward on meta), started at phase 1
+P13_CHAINS = ("one", "four", "four-train")
 
 
-def p13_cells(mesh):
-    """The (arch, shape) cells phase 13(c) dry-runs at ``mesh``: at
-    ``four`` every cell of ``all_cells()`` but ``P13_SKIP`` (the train
-    cells are refused at once, A.9 step two) and LLaMA-30B's; at ``one``
-    only LLaMA-30B's and qwen3-moe's (``--all`` takes ~25 min on the host
-    there, ~19 of them xlstm's per-token sLSTM loop)."""
+def p13_cells(chain):
+    """The (arch, shape) cells phase 13(c) dry-runs in ``chain``: at
+    ``one`` only LLaMA-30B's and qwen3-moe's (``--all`` takes ~25 min on
+    the host there, ~19 of them xlstm's per-token sLSTM loop); at
+    ``four`` every cell of ``all_cells()`` but ``P13_SKIP`` and the train
+    cells, and LLaMA-30B's; ``four-train`` the train cells at ``four``
+    (LLaMA-30B's too) but ``P13_SKIP``'s."""
     from repro_torch.configs import all_cells, get_config
     mine = [(a, s) for a in P13_ARCHS for s in get_config(a).shape_cells()]
-    if mesh == "one":
+    if chain == "one":
         return mine
     cells = [c for c in all_cells()[0] if c not in P13_SKIP]
-    return cells + [c for c in mine if c not in cells]
+    cells += [c for c in mine if c not in cells]
+    train = chain == "four-train"
+    return [c for c in cells if (c[1] == "train_4k") == train]
 
 
-def dryrun_start(tmp):
+def dryrun_start(tmp, chains):
     """Phase 13(c), started early: the dry-run's CLI
     (``launch/dryrun.py: main``, ``--arch --shape --mesh --force``) over
-    each cell of :func:`p13_cells`, one process a mesh of
-    ``P13_MESHES`` running its cells in turn, the two side by side on
-    the host (meta tensors: no device work). Returns the processes and
-    their log paths."""
+    each cell of :func:`p13_cells`, one process a chain of ``chains``
+    running its cells in turn, side by side on the host (meta tensors: no
+    device work). Returns the processes and their log paths."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     procs = []
     atexit.register(_stop, procs)
-    for mesh in P13_MESHES:
+    for chain in chains:
+        mesh = chain.split("-")[0]
         argv = [["--arch", a, "--shape", s, "--mesh", mesh, "--force"]
-                for a, s in p13_cells(mesh)]
+                for a, s in p13_cells(chain)]
         code = ("from repro_torch.launch import dryrun\n"
                 f"for argv in {argv!r}:\n    dryrun.main(argv)")
-        path = os.path.join(tmp, f"dryrun_{mesh}.log")
+        path = os.path.join(tmp, f"dryrun_{chain}.log")
         out = open(path, "w")
         procs.append((subprocess.Popen([sys.executable, "-c", code],
                                        cwd=root, env=env, stdout=out,
                                        stderr=subprocess.STDOUT),
-                      out, path, mesh))
+                      out, path, chain))
     return procs
 
 
@@ -4048,25 +4473,24 @@ def dryrun_finish(procs, timeout=900):
 
 def p13_dryrun(procs, t0):
     """Phase 13(c)'s end: wait for the chains, then hold their records
-    (every cell ``ok``, but above one a train cell, an error that must
-    name A.9 step two) and print ``report.table`` of each mesh."""
+    (every cell ``ok``: a train cell over a model axis counts the sharded
+    step) and print ``report.table`` of each mesh."""
     from repro_torch.launch import dryrun
     from repro_torch.roofline import report
     dryrun_finish(procs)
     log(f"  (c): the dry-run's chains ended {time.perf_counter() - t0:.1f}"
-        f" s after they started; left out at four, by name: "
+        f" s after the first started; left out at four, by name: "
         f"{', '.join(f'{a} x {s}' for a, s in P13_SKIP)} (its per-token "
-        f"sLSTM loop; tests/test_torch_dryrun.py counts it reduced)")
-    for mesh in P13_MESHES:
+        f"sLSTM loop; tests/test_torch_dryrun.py and "
+        f"tests/test_torch_train_sharded.py count them reduced)")
+    for mesh in ("one", "four"):
         recs = [dryrun.run_cell(arch, shape, mesh)
-                for arch, shape in p13_cells(mesh)]
-        # a model axis above one has no tensor-parallel training yet
-        bad = [r for r in recs if r["status"] != "ok" and not (
-            mesh != "one" and r["shape"] == "train_4k"
-            and "A.9 step two" in r["error"])]
-        n_err = sum(r["status"] != "ok" for r in recs)
-        log(f"  {mesh}: {len(recs) - n_err} of {len(recs)} cells ok"
-            + (f", {n_err} errors naming A.9 step two" if n_err else ""))
+                for chain in P13_CHAINS if chain.split("-")[0] == mesh
+                for arch, shape in p13_cells(chain)]
+        bad = [r for r in recs if r["status"] != "ok"]
+        n_train = sum(r["shape"] == "train_4k" for r in recs)
+        log(f"  {mesh}: {len(recs) - len(bad)} of {len(recs)} cells ok "
+            f"({n_train} train cells)")
         log(f"  report.table({mesh!r}), counted from shapes against the "
             f"H100's published peaks (not measured):")
         for line in report.table(mesh).splitlines():
@@ -4371,6 +4795,13 @@ def main() -> int:
     log(smi.splitlines()[0])
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    # phase 13(c)'s train cells at four run on the host from here on
+    import tempfile
+    p13_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    t13c = time.perf_counter()
+    dry = dryrun_start(p13_tmp, ("four-train",))
+    log(f"  phase 13(c) started: the dry-run of the train cells at four "
+        f"({len(p13_cells('four-train'))}), on the host")
 
     log("[2/13] build")
     t = time.perf_counter()
@@ -4552,13 +4983,11 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    # phase 13(c) runs on the host (meta tensors) beside phases 10-13
-    import tempfile
-    p13_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    t13c = time.perf_counter()
-    dry = dryrun_start(p13_tmp)
+    # phase 13(c)'s serving cells run on the host (meta tensors) beside
+    # phases 10-13
+    dry += dryrun_start(p13_tmp, ("one", "four"))
     log(f"  phase 13(c) started: the dry-run of {', '.join(P13_ARCHS)}'s "
-        f"cells at meshes {', '.join(P13_MESHES)}, on the host")
+        f"cells at one and of every serving cell at four, on the host")
 
     log("[10/13] the recurrent and encoder-decoder configs at published "
         "widths: xlstm-125m, jamba-v0.1-52b (16 of 32 layers), "
@@ -4618,7 +5047,11 @@ def main() -> int:
         f"{P12_LAYERS['moe']} of 94 layers, (d) a 2-stage pipeline of "
         f"{P12_LAYERS['pipe']} LLaMA-30B layers: two ranks over gloo on "
         "the one card; (e) every other config at TP 2 (full widths, cut "
-        "in depth), and gemma-2b and jamba over a world-1 NCCL mesh")
+        "in depth), and gemma-2b and jamba over a world-1 NCCL mesh; (f) "
+        "the sharded training step: a world-1 NCCL step of LLaMA-30B, "
+        f"LLaMA-30B at TP 2 ({P12F_LAYERS['tp']} layers) and at data 2 x "
+        f"model 2 ({P12F_LAYERS['dp']}), qwen3-moe at EP 2 + TP 2 "
+        f"({P12F_LAYERS['moe']}), a TP-2 checkpoint read back at TP 1")
     log(smi.splitlines()[0])
     t12 = time.perf_counter()
     got = phase12(torch)[0]
@@ -4627,6 +5060,18 @@ def main() -> int:
     missing = [k for k in PHASE12_KERNELS if not got.get(k)]
     if missing:
         raise AssertionError(f"phase 12 never launched {missing}")
+    t12f = time.perf_counter()
+    mem = settled(torch)
+    before = ops.launch_counts()
+    phase12f(torch)
+    if ops.launch_counts() != before:
+        raise AssertionError(f"(f): training launched kernels: "
+                             f"{ops.launch_counts()} from {before}")
+    if settled(torch) > mem:
+        raise AssertionError(f"(f) left {settled(torch) - mem} bytes "
+                             f"allocated")
+    log(f"  (f): {time.perf_counter() - t12f:.1f} s; no kernel launched")
+    log(smi.splitlines()[0])
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
     log("[13/13] the counts against the card: LLaMA-30B's int4 decode "

@@ -19,6 +19,16 @@ The port writes its training state in the reference's pytree
 (``models/convert.py``: ``params_to_tree``, ``opt_state_to_tree``), so a
 JAX checkpoint of ``{"p": params, "o": opt_state}`` loads here and the
 port's loads into ``repro.checkpoint.load_checkpoint``.
+
+A sharded training state is written whole, in the same layout: the
+launcher (``launch/train.py: train_tree``) gathers each leaf over the
+``model`` axis on the training thread, one leaf at a time
+(``distributed/sharding.py: unshard_params``, the inverse of
+``shard_params``' cut), and one rank hands the whole tree to its
+:class:`AsyncCheckpointer`, whose worker only writes. Loading gives the
+whole tree; ``launch/train.py: restore_into`` cuts each leaf to the
+loading rank's shard, so a checkpoint taken at one model axis loads at
+any other, and in the reference.
 """
 from __future__ import annotations
 

@@ -25,6 +25,24 @@ read how many collectives a step made.
 the same four calls on ``meta`` tensors, each returning a meta tensor of
 the shape the real call returns and telling the active op counter
 (``roofline/op_cost.py``) its op, payload bytes and group size.
+
+Under autograd (the training forward) the layers call the collectives
+through the functions at the end of this module, each a
+``torch.autograd.Function`` whose backward is the collective's adjoint
+(Megatron-LM's *f* and *g*): :func:`copy_to_model` is the identity
+forward and an all-reduce backward (a replicated tensor entering work
+that each rank does on its own shard, so each rank's gradient is a
+part), :func:`reduce_from_model` an all-reduce forward and the identity
+backward (partial sums whose total every rank then uses alike),
+:func:`gather_from_model` an all-gather forward and the rank's slice
+backward, :func:`all_to_all` and :func:`exchange` their own reverse.
+A region that every rank computes whole and alike (a whole ``unembed``,
+a gathered norm) takes none of them: reducing its gradient would count
+it once a rank. Without grad (serving, or a tensor that needs none)
+each function issues exactly the :class:`Group` call the layers made
+before, in place where that call is. The backward collectives go
+through the same group, so they are counted too, and on an abstract
+mesh the dry-run sees them.
 """
 from __future__ import annotations
 
@@ -187,3 +205,143 @@ class CountingGroup:
             return []
         self._count("send_recv", sum(_nbytes(t) for t, _ in sends))
         return [torch.empty_like(t) for t, _ in recvs]
+
+
+# -- differentiable collectives (the training forward) ------------------------
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd records a call on ``ts``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _fresh(g: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor of its own (a gradient autograd hands over may
+    be shared or strided; an in-place collective needs neither)."""
+    return g.clone(memory_format=torch.contiguous_format)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grp.all_reduce(_fresh(g)), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        return grp.all_reduce(_fresh(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return grp.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mine = g.chunk(ctx.grp.size, ctx.dim)[ctx.grp.rank]
+        return mine.contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return grp.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # chunk i of the output came from rank i: its gradient goes back
+        return ctx.grp.all_to_all(g.contiguous()), None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, grp, send_peers, recvs, *sends):
+        ctx.grp, ctx.send_peers = grp, send_peers
+        ctx.recv_peers = [peer for _, peer in recvs]
+        ctx.send_like = [torch.empty_like(t, device="meta") for t in sends]
+        ctx.devices = [t.device for t in sends]
+        return tuple(grp.exchange(list(zip(sends, send_peers)), recvs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # the received tensors' gradients go back to their senders; the
+        # sent ones' come back from their receivers
+        back = ctx.grp.exchange(
+            [(g.contiguous(), peer) for g, peer in zip(gs, ctx.recv_peers)],
+            [(torch.empty(t.shape, dtype=t.dtype, device=dev), peer)
+             for t, dev, peer in zip(ctx.send_like, ctx.devices,
+                                     ctx.send_peers)])
+        return (None, None, None, *back)
+
+
+def copy_to_model(grp, x):
+    """Megatron's *f*: ``x`` as it is; under autograd its gradient is
+    summed over ``grp`` in backward (``x`` is replicated and each rank's
+    work on it gives part of its gradient). None ``grp``, or a group of
+    one rank: ``x``, not recorded (its backward is the identity there, and
+    leaving it out keeps the order in which autograd adds ``x``'s
+    gradients, so a meshed step at axis size 1 is the unmeshed one bit
+    for bit)."""
+    if grp is None or grp.size == 1 or not needs_grad(x):
+        return x
+    return _Copy.apply(x, grp)
+
+
+def reduce_from_model(grp, x):
+    """Megatron's *g*: ``x`` summed over ``grp`` (in place without grad,
+    as ``Group.all_reduce``); backward passes the gradient through, as
+    every rank uses the sum alike. None ``grp``: ``x``."""
+    if grp is None:
+        return x
+    if not needs_grad(x):
+        return grp.all_reduce(x)
+    return _Reduce.apply(x, grp)
+
+
+def sum_over(grp, x):
+    """``x`` summed over ``grp`` where each rank then uses the sum in
+    work of its own: both directions all-reduce (:func:`reduce_from_model`
+    after :func:`copy_to_model`). One collective without grad."""
+    return copy_to_model(grp, reduce_from_model(grp, x))
+
+
+def gather_from_model(grp, x, dim: int):
+    """The ranks' ``x`` concatenated along ``dim`` (``Group.all_gather``);
+    backward keeps this rank's slice of the gradient, which every rank
+    holds whole."""
+    if not needs_grad(x):
+        return grp.all_gather(x, dim)
+    return _Gather.apply(x, grp, dim)
+
+
+def all_to_all(grp, x):
+    """``Group.all_to_all``; backward sends each chunk's gradient back to
+    the rank it came from (the same exchange)."""
+    if not needs_grad(x):
+        return grp.all_to_all(x)
+    return _AllToAll.apply(x, grp)
+
+
+def exchange(grp, sends, recvs):
+    """``Group.exchange``; backward runs the reversed exchange (each
+    received tensor's gradient to its sender, each sent tensor's
+    gradient from its receiver)."""
+    if not needs_grad(*(t for t, _ in sends)):
+        return grp.exchange(sends, recvs)
+    return list(_Exchange.apply(grp, [peer for _, peer in sends],
+                                list(recvs), *(t for t, _ in sends)))
+

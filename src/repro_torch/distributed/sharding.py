@@ -27,26 +27,43 @@ does not divide).
 Where a rank's shard is not the plain cut of the reference's spec
 (``_shard_tree``), or the spec leaves a weight whole and the layer takes
 its part of the weight's input or output, the port differs thus, and
-``param_spec`` stays the reference's:
+``param_spec`` stays the reference's. The last column says what a
+rank's gradient of the weight is in the sharded training step
+(:func:`grad_kinds`): **whole** where the rank computes it entire (its
+shard's, or a whole weight's that every rank computes alike), or
+**partial** where it covers only the rank's heads, channels or tokens
+and must be summed over the ranks that hold the weight
+(:func:`sync_grads`):
 
-=======================================  ====================================
-weight                                   what a rank holds or does
-=======================================  ====================================
-``mlp|shared/wi`` (gated)                1/n of gate and 1/n of up
-``mamba/in_proj``, ``mlstm/w_up``        1/n of x and 1/n of z
-``slstm/w_in`` and its bias              1/n of each of z, i, f and o
-``slstm/ffn_wi``                         1/n of gate and 1/n of up
-``wk``/``wv`` (+ bias), replicated KV    the whole KV head its queries read
-                                         (never 1/n of ``head_dim``)
-``mamba/out_proj`` (whole)               ``y`` gathered before it
-``mlstm/w_if`` (whole)                   its heads' i and f gates sliced
-``mlstm/gn`` (whole)                     its channels; the sum of squares
-                                         all-reduced
-``slstm/gn`` (whole)                     ``y`` gathered, then the whole norm
-``slstm/r`` (whole)                      its heads sliced
-``mm_projector`` (whole)                 the whole patches projected
-``unembed``, vocab not dividing          whole: every logit on every rank
-=======================================  ====================================
+======================================  ==============================  =======
+weight                                  what a rank holds or does       grad
+======================================  ==============================  =======
+``mlp|shared/wi`` (gated)               1/n of gate and 1/n of up       whole
+``mamba/in_proj``, ``mlstm/w_up``       1/n of x and 1/n of z           whole
+``slstm/w_in`` and its bias             1/n of each of z, i, f and o    whole
+``slstm/ffn_wi``                        1/n of gate and 1/n of up       whole
+``wk``/``wv`` (+ bias), replicated KV   the whole KV head its queries   partial
+                                        read (never 1/n of              (over
+                                        ``head_dim``)                   its
+                                                                        ranks)
+``mamba/out_proj`` (whole)              ``y`` gathered before it        whole
+``mlstm/w_if`` (whole) and its bias     its heads' i and f gates        partial
+                                        sliced
+``mlstm/gn`` (whole)                    its channels; the sum of        partial
+                                        squares all-reduced
+``slstm/gn`` (whole)                    ``y`` gathered, then the        whole
+                                        whole norm
+``slstm/r`` (whole)                     its heads sliced                partial
+``mm_projector`` (whole)                the whole patches projected     whole
+``unembed``, vocab not dividing         whole: every logit on every     whole
+                                        rank
+``qnorm``/``knorm`` (whole)             applied to its heads            partial
+``moe/router`` (whole)                  routes its tokens               partial
+======================================  ==============================  =======
+
+Every other weight is a plain cut (whole gradient of the shard) or
+replicated and computed alike on every rank (whole): the embedding,
+the norms, the biases of row-parallel projections.
 
 Replicated KV: where the axis is a multiple of the KV heads' count
 (gemma-2b's one KV head), each rank holds the one KV head its query
@@ -65,7 +82,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh as Mesh
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import shape_of
+from repro_torch.launch.mesh import axis_group, shape_of
 
 _state = threading.local()
 
@@ -415,32 +432,58 @@ def _leaf_specs(tree):
             for path, t in tree_paths(convert.nest(tree)).items()}
 
 
-def _shard_tree(tree, r, n, cfg):
+def _rules(tree, n, cfg):
+    """How each leaf of a whole parameter tree (one layer's dict, or the
+    model's top level) is cut over a ``model`` axis of ``n``: ``{id(leaf):
+    rule}``, a rule None (kept whole), ``"kv"`` (replicated KV: the head
+    a rank's queries read) or ``(dim, chunks)`` (:func:`_cut`)."""
     specs = _leaf_specs(tree)
     gated = cfg.mlp_type in ("silu", "geglu")
     rep_kv = kv_replicated(cfg, n)
+    out = {}
 
     def rec(sub):
-        return {k: rec(v) if isinstance(v, dict) else leaf(sub, k, v)
-                for k, v in sub.items()}
+        for k, v in sub.items():
+            if isinstance(v, dict):
+                rec(v)
+            else:
+                out[id(v)] = leaf(sub, k, v)
 
     def leaf(sub, k, t):
         spec, path = specs[id(t)]
         if k.endswith("_b") and k[:-2] in sub:      # a projection's bias
             wspec, path = specs[id(sub[k[:-2]])]
             if _split_dim(wspec) != len(wspec) - 1:
-                return t                            # row-parallel: whole
+                return None                         # row-parallel: whole
             spec = P(*([None] * (t.ndim - 1) + ["model"]))
         if rep_kv and re.search(r"(^|/)(attn|self_attn|cross_attn)/(wk|wv)/w$",
                                    path):
+            return "kv"
+        dim = _split_dim(_fits(t.shape, spec, {"model": n}))
+        if dim is None:
+            return None
+        return dim, _chunks_of(path, gated) if dim == t.ndim - 1 else 1
+
+    rec(tree)
+    return out
+
+
+def _shard_tree(tree, r, n, cfg):
+    rules = _rules(tree, n, cfg)
+
+    def rec(sub):
+        return {k: rec(v) if isinstance(v, dict) else leaf(v)
+                for k, v in sub.items()}
+
+    def leaf(t):
+        rule = rules[id(t)]
+        if rule is None:
+            return t
+        if rule == "kv":
             # replicated KV: the whole head this rank's queries read
             return t.chunk(cfg.num_kv_heads, -1)[
                 kv_head_of(cfg, n, r)].clone()
-        dim = _split_dim(_fits(t.shape, spec, {"model": n}))
-        if dim is None:
-            return t
-        chunks = _chunks_of(path, gated) if dim == t.ndim - 1 else 1
-        return _cut(t, dim, r, n, chunks)
+        return _cut(t, rule[0], r, n, rule[1])
 
     return rec(tree)
 
@@ -464,3 +507,172 @@ def shard_params(params, cfg, mesh):
                       r, n, cfg)
     return {k: [_shard_tree(p, r, n, cfg) for p in v] if k in lists
             else top[k] for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# Port-only: the sharded training step's gradients and checkpoints
+# ---------------------------------------------------------------------------
+
+# whole weights whose gradient a rank computes only for its heads,
+# channels or tokens (the module's table: partial)
+_PARTIAL = re.compile(r"(^|/)((attn|self_attn|cross_attn)/(qnorm|knorm)/scale"
+                      r"|mlstm/(w_if/w|w_if/b|gn/scale)|slstm/r|moe/router)$")
+_KV = re.compile(r"(^|/)(attn|self_attn|cross_attn)/(wk|wv)/(w|b)$")
+
+
+@functools.lru_cache(maxsize=None)
+def whole_meta(cfg):
+    """The whole model's parameters of ``cfg`` on the ``meta`` device
+    (shapes and types, no data): what a rank's shard is cut from."""
+    from repro_torch.models import transformer, whisper
+    init = whisper.init_params if cfg.family == "audio" else \
+        transformer.init_params
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return init(cfg, device="meta", dtype=dt)
+
+
+def _walk(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (the port's
+    params: dicts and lists), in order; returns a tree of its
+    results."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _walk(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, list):
+        return [_walk(fn, *(x[i] for x in trees)) for i in range(len(t))]
+    return fn(*trees)
+
+
+def _per_dict(fn, whole):
+    """``fn(dict)`` -> ``{id(leaf): value}`` of each layer's dict and of
+    the top level's leaves, merged."""
+    lists = {k for k, v in whole.items() if isinstance(v, list)}
+    out = fn({k: v for k, v in whole.items() if k not in lists})
+    for k in lists:
+        for sub in whole[k]:
+            out.update(fn(sub))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def grad_kinds(cfg, n: int):
+    """A tree like the params of ``cfg`` (``whole_meta``'s structure)
+    holding, for each leaf, what a rank's gradient of it is over a
+    ``model`` axis of ``n`` (the module's table): ``"sharded"`` (the
+    rank's cut of a split weight, whole), ``"whole"`` (a whole weight
+    every rank computes alike), ``"partial"`` (summed over the axis) or
+    ``"kv"`` (a replicated KV head: summed over the ranks that hold it).
+    """
+    from repro_torch.models import convert
+    whole = whole_meta(cfg)
+
+    def kinds(tree):
+        paths = {id(t): p for p, t in tree_paths(convert.nest(tree)).items()}
+        rules = _rules(tree, n, cfg) if n > 1 else {}
+        out = {}
+        for i, path in paths.items():
+            if _PARTIAL.search(path):
+                out[i] = "partial"
+            elif rules.get(i) == "kv" or (n > 1 and kv_replicated(cfg, n)
+                                          and _KV.search(path)):
+                out[i] = "kv"
+            else:
+                out[i] = "whole" if rules.get(i) is None else "sharded"
+        return out
+
+    ids = _per_dict(kinds, whole)
+    return _walk(lambda t: ids[id(t)], whole)
+
+
+def sync_grads(grads, cfg, mesh):
+    """Complete a rank's gradients after backward: each ``"partial"``
+    leaf (:func:`grad_kinds`) summed over the ``model`` axis, each
+    replicated KV head's summed over the ranks that hold that head (one
+    all-reduce of a buffer with a slot a head). In place; returns
+    ``grads``. Every rank then holds its shard's gradient and the same
+    bytes of each whole weight's. At axis size 1 the sums are issued and
+    change nothing."""
+    n = model_size(mesh)
+    grp = axis_group(mesh, "model")
+
+    def fix(g, kind):
+        if kind == "partial":
+            grp.all_reduce(g)
+        elif kind == "kv":
+            h = kv_head_of(cfg, n, grp.rank)
+            buf = g.new_zeros((cfg.num_kv_heads,) + tuple(g.shape))
+            buf[h] = g
+            g.copy_(grp.all_reduce(buf)[h])
+
+    _walk(fix, grads, grad_kinds(cfg, n))
+    return grads
+
+
+def norm_share(cfg, mesh):
+    """A tree like the params: how each leaf's squared sum on this rank
+    enters the global gradient norm (``training/optimizer.py:
+    global_norm``): ``"sum"`` (a shard: summed over the ``model`` axis),
+    ``"once"`` (the same bytes on every rank: counted as it is), or, for
+    a replicated KV head, ``"sum"`` on the first rank that holds it and
+    ``"zero"`` on the others."""
+    n = model_size(mesh)
+    rank = axis_group(mesh, "model").rank
+    first = n <= cfg.num_kv_heads or rank % (n // cfg.num_kv_heads) == 0
+    share = {"sharded": "sum", "whole": "once", "partial": "once",
+             "kv": "sum" if first else "zero"}
+    return _walk(lambda k: share[k], grad_kinds(cfg, n))
+
+
+def unshard_leaf(t, rule, grp, cfg):
+    """The whole tensor of a rank's cut ``t`` (:func:`_rules`' ``rule``),
+    gathered over the ``model`` group ``grp``: the inverse of
+    :func:`_cut` (a chunked output's chunks put back in order) and of
+    the replicated KV head's pick (each head from its first rank)."""
+    n = grp.size
+    if rule is None:
+        return t
+    if rule == "kv":
+        g = grp.all_gather(t.contiguous(), -1).unflatten(-1, (n, -1))
+        step = n // cfg.num_kv_heads
+        return g[..., ::step, :].flatten(-2)
+    dim, chunks = rule
+    g = grp.all_gather(t.contiguous(), dim)
+    if chunks == 1:
+        return g
+    dim %= g.ndim
+    return g.unflatten(dim, (n, chunks, -1)).transpose(dim, dim + 1) \
+        .flatten(dim, dim + 2)
+
+
+def unshard_params(params, cfg, mesh, *, device="cpu", keep=True):
+    """The whole model of a rank's shard (params, or AdamW's ``m`` or
+    ``v``, shaped like them): each leaf gathered over the ``model`` axis
+    (:func:`unshard_leaf`), one leaf at a time, and moved to ``device``
+    before the next is gathered, so at most one whole leaf is on the
+    card at a time. Every rank of the axis must call it (the gathers are
+    collectives); ``keep=False`` drops each whole leaf once gathered (a
+    rank that does not write). At axis size 1 the tensors are copied to
+    ``device``."""
+    n = model_size(mesh)
+    grp = axis_group(mesh, "model")
+    whole = whole_meta(cfg)
+    rules = _per_dict(lambda tree: _rules(tree, n, cfg), whole) \
+        if n > 1 else {}
+
+    host = torch.device(device).type == "cpu" and grp.staged
+
+    def one(t, w):
+        # a gloo group gathers on the host anyway: go there first
+        src = t.detach().to("cpu") if host else t.detach()
+        g = unshard_leaf(src, rules.get(id(w)), grp, cfg)
+        if tuple(g.shape) != tuple(w.shape):
+            raise ValueError(f"gathered {tuple(g.shape)}, the whole model's "
+                             f"is {tuple(w.shape)}")
+        if not keep:
+            return None
+        shared = g.untyped_storage().data_ptr() == \
+            t.untyped_storage().data_ptr()
+        return g.to(device, copy=shared)
+
+    return _walk(one, params, whole)
+

@@ -26,11 +26,13 @@ axes where they divide it (the reference's ``_fits``). What the port
 does not shard is refused by ``sharding.check_tp`` and recorded as an
 error with its words (ROADMAP A.9 step two: heads, KV heads, experts or
 a width that the model axis does not divide, such as LLaMA-30B's 52
-heads over 16), as is a train step over a model axis (the training
-forward has no tensor-parallel path yet, A.9 step two). At ``four``
-every prefill, decode and long_500k cell is counted. The port's decode
-step always writes its cache in place, so ``--inplace-decode`` changes
-nothing (ROADMAP C.4).
+heads over 16). A train cell counts the sharded training step
+(``training/optimizer.py: make_train_step`` under the mesh): the
+forward's and backward's collectives (``distributed/comm.py``'s
+differentiable ones), the partial gradients' sums over ``model``, the
+gradients' sums over the data axes and the global norm's. At ``four``
+every cell is counted. The port's decode step always writes its cache
+in place, so ``--inplace-decode`` changes nothing (ROADMAP C.4).
 
 Records: one JSON per cell under ``results/dryrun_torch/`` (the
 reference's are under ``results/dryrun/``), with the reference's keys;
@@ -109,10 +111,6 @@ def trace_cell(arch: str, shape_name: str, mesh, *, moe_shard_map=True,
         ecfg = ecfg.replace(**overrides)
     n_model = sharding.model_size(mesh)
     sharding.check_tp(ecfg, n_model)
-    if shape.kind == "train" and n_model > 1:
-        raise NotImplementedError(
-            f"{ecfg.name}: the training forward has no tensor-parallel path: "
-            f"training {sharding.STEP_TWO}; model axis {n_model}")
     rt = Runtime(mesh=mesh, moe_shard_map=moe_shard_map and bool(
         ecfg.moe_num_experts), inplace_decode=inplace_decode)
     api = registry.build(ecfg, rt=rt)

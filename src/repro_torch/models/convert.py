@@ -211,9 +211,11 @@ def opt_state_to_numpy(state, cfg):
     return _map(_numpy, opt_state_to_tree(state, cfg, "cpu"))
 
 
-def opt_state_from_numpy(tree, cfg, device="cuda"):
+def opt_state_from_numpy(tree, cfg, device="cuda", mesh=None):
     """The inverse of :func:`opt_state_to_tree`: ``m``, ``v`` as the
-    port's params on ``device``, ``step`` an int32 scalar on the host."""
-    return {"m": params_from_numpy(tree["m"], cfg, device),
-            "v": params_from_numpy(tree["v"], cfg, device),
+    port's params on ``device`` (this rank's shard of each under a
+    ``mesh``, cut as the params are), ``step`` an int32 scalar on the
+    host."""
+    return {"m": params_from_numpy(tree["m"], cfg, device, mesh=mesh),
+            "v": params_from_numpy(tree["v"], cfg, device, mesh=mesh),
             "step": _tensor(tree["step"], "cpu")}

@@ -21,6 +21,15 @@ no backward. The functions that reach a kernel take ``kernels=`` (default
 ``ops``, the kernel entry points); the training forward passes
 :data:`PLAIN`, the same names bound to the plain versions in
 ``kernels/ref.py``. :func:`chunked_xent` is the training loss.
+
+Under tensor parallelism (``tp``, the model axis's ``comm.Group``) the
+layers place the collectives through ``distributed/comm.py``'s
+differentiable functions, so the same code runs the sharded training
+step: a replicated input enters each column-parallel projection
+through ``comm.copy_to_model`` (its gradient summed over the axis in
+backward) and each row-parallel sum leaves through
+``comm.reduce_from_model``. Without grad these issue the calls the
+serving paths always made.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops, ref
 
 # the kernels' names bound to their plain versions (the training forward)
@@ -70,12 +80,14 @@ def rmsnorm_split(x, scale, tp, eps: float = 1e-6):
     """The RMSNorm of rows whose channels are split evenly over the
     model axis ``tp``: ``x`` this rank's share of each row, ``scale``
     its slice of the ``(1 + scale)`` gain. Each rank's mean square is
-    summed over the axis (one all-reduce) and divided by its size, the
-    whole row's mean square; the rest is ``ref.rmsnorm_ref``'s f32
-    arithmetic, so at axis size 1 the result is its bits."""
+    summed over the axis (one all-reduce; under autograd its gradient is
+    summed too, since each rank scales its own channels by the sum) and
+    divided by its size, the whole row's mean square; the rest is
+    ``ref.rmsnorm_ref``'s f32 arithmetic, so at axis size 1 the result
+    is its bits."""
     dt = x.dtype
     xf = x.float()
-    ms = tp.all_reduce(xf.square().mean(dim=-1, keepdim=True)) / tp.size
+    ms = comm.sum_over(tp, xf.square().mean(dim=-1, keepdim=True)) / tp.size
     xf = xf * torch.rsqrt(ms + eps)
     return (xf * (1.0 + scale.float())).to(dt)
 
@@ -154,14 +166,39 @@ def proj(p, name, x):
     return dense(p[name], x, p.get(name + "_b"))
 
 
+def _f32_product(x, w):
+    """``x @ w`` with an f32 result: on the card (or meta) without grad,
+    a bf16 or f16 product written in f32 (``torch.mm``'s ``out_dtype``,
+    where this PyTorch has it: the same GEMM, its accumulator kept);
+    otherwise the product of the operands cast to f32 (under autograd,
+    or on the CPU; no cast where they are f32 already)."""
+    if (x.device.type in ("cuda", "meta") and _MM_OUT_DTYPE
+            and x.dtype in (torch.bfloat16, torch.float16)
+            and w.dtype == x.dtype and not comm.needs_grad(x, w)):
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.view(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+# torch.mm(..., out_dtype=) (an f32 result of a half-precision product)
+_MM_OUT_DTYPE = hasattr(torch.ops.aten.mm, "dtype")
+
+
 def row_proj(p, name, x, tp=None):
     """A row-parallel projection (attention's and the MLP's ``wo``): this
     rank's partial product summed over the model axis ``tp``
     (``distributed/comm.py``; none without a mesh), then the bias, once.
-    :func:`proj` where ``tp`` is None."""
-    y = x @ p[name]
-    if tp is not None:
-        tp.all_reduce(y)
+    Above axis size 1 the partial product is f32 (:func:`_f32_product`),
+    summed in f32 and cast once to ``x``'s type, so the sum is rounded
+    once as the unsharded product is (a sum of rounded partials would
+    round again, which compounds through xLSTM's exponential gates); at
+    size 1 the product is ``x``'s type and reduced as it is, so a meshed
+    run at size 1 is the unmeshed run bit for bit. :func:`proj` where
+    ``tp`` is None."""
+    if tp is not None and tp.size > 1:
+        y = comm.reduce_from_model(tp, _f32_product(x, p[name])).to(x.dtype)
+    else:
+        y = comm.reduce_from_model(tp, x @ p[name])
     b = p.get(name + "_b")
     return y if b is None else y + b
 
@@ -190,9 +227,10 @@ def causal_conv1d(x, w, b=None, state=None):
 def mlp_apply(cfg, p, x, tp=None):
     """SwiGLU / GeGLU / GELU MLP; ``wi``'s output splits as (gate, up).
     Under tensor parallelism (``tp``, the model axis's group) ``wi`` holds
-    this rank's columns of gate and of up, ``wo`` the matching rows
+    this rank's columns of gate and of up (``x`` enters through
+    ``comm.copy_to_model``), ``wo`` the matching rows
     (:func:`row_proj`)."""
-    h = proj(p, "wi", x)
+    h = proj(p, "wi", comm.copy_to_model(tp, x))
     if cfg.mlp_type in ("silu", "geglu"):
         g, u = torch.chunk(h, 2, dim=-1)
         act = F.silu(g) if cfg.mlp_type == "silu" else \
@@ -209,14 +247,17 @@ def model_rope(cfg, positions):
                       theta=cfg.rope_theta)
 
 
-def attn_qkv(cfg, p, x, positions, rope=None, *, kernels=ops):
+def attn_qkv(cfg, p, x, positions, rope=None, *, kernels=ops, tp=None):
     """Projections, the q/k norms where ``cfg.qk_norm`` (qwen3: an RMSNorm
     over each head's ``head_dim``, ``p["qnorm"]``/``p["knorm"]`` its
     ``(hd,)`` scales, through ``kernels.rmsnorm`` on rows of
     ``head_dim``), then RoPE. x: (B, S, d) -> q (B,S,H,hd), k/v
     (B,S,Hkv,hd). ``rope`` is the call's :func:`model_rope` table, shared
-    by every layer; without it each rotation builds its own."""
+    by every layer; without it each rotation builds its own. Under
+    ``tp`` (``cfg`` a rank's) the projections hold this rank's heads and
+    ``x`` enters through ``comm.copy_to_model``."""
     B, S, _ = x.shape
+    x = comm.copy_to_model(tp, x)
     q = proj(p, "wq", x).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = proj(p, "wk", x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = proj(p, "wv", x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -230,17 +271,52 @@ def attn_qkv(cfg, p, x, positions, rope=None, *, kernels=ops):
     return q, k, v
 
 
-def _xent_chunk(xc, w, tc, mc):
+def _xent_chunk(xc, w, tc, mc, tp=None, split=None):
     """One chunk's masked NLL sum: f32 logits (the reference's bf16
     operands with f32 accumulation is their f32 product), logsumexp minus
-    the gold logit."""
-    logits = xc.float() @ w.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+    the gold logit. ``split`` (with ``tp``, the model axis) is how the
+    unembedding is cut: ``"vocab"``, this rank's columns of the vocab
+    (each row's max gathered, its sum of exponentials and gold logit
+    summed over the axis, the gold from the rank that owns the target);
+    ``"d"``, a tied table's rows of ``d`` (the rank's slice of ``xc``
+    times its slice of the table, the logits summed over the axis)."""
+    if split == "d":
+        xr = xc.chunk(tp.size, -1)[tp.rank]
+        logits = comm.reduce_from_model(tp, xr.float() @ w.float())
+    else:
+        logits = xc.float() @ w.float()
+    if split != "vocab":
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return ((lse - gold) * mc).sum()
+    with torch.no_grad():         # the shift is any constant: no gradient
+        m = tp.all_gather(logits.amax(-1, keepdim=True), -1).amax(
+            -1, keepdim=True)
+    s = comm.reduce_from_model(tp, torch.exp(logits - m).sum(-1))
+    lse = torch.log(s) + m[..., 0]
+    v = logits.shape[-1]
+    t = tc - tp.rank * v
+    mine = (t >= 0) & (t < v)
+    gold = torch.gather(logits, -1, torch.where(mine, t, 0)[..., None])[
+        ..., 0]
+    gold = comm.reduce_from_model(tp, torch.where(mine, gold, 0.0))
     return ((lse - gold) * mc).sum()
 
 
-def chunked_xent(x, w_unembed, targets, *, chunk: int = 2048, mask=None):
+def xent_split(cfg, tp):
+    """How :func:`chunked_xent` cuts the unembedding of ``cfg`` over the
+    model axis ``tp``, as ``transformer.logits_of`` does: None without an
+    axis above size 1, or where the vocabulary does not divide it
+    (``unembed`` whole, every logit on every rank); ``"d"`` for a tied
+    table; ``"vocab"`` otherwise."""
+    if tp is None or tp.size == 1 or (not cfg.tie_embeddings
+                                      and cfg.vocab_size % tp.size):
+        return None
+    return "d" if cfg.tie_embeddings else "vocab"
+
+
+def chunked_xent(x, w_unembed, targets, *, chunk: int = 2048, mask=None,
+                 tp=None, split=None, data=()):
     """The reference's chunked softmax cross-entropy: x (B, S, d) final
     hiddens, w_unembed (d, V), targets (B, S) ints, mask (B, S) or None.
     The sequence runs in chunks of ``chunk`` (the last one zero-padded,
@@ -248,19 +324,32 @@ def chunked_xent(x, w_unembed, targets, *, chunk: int = 2048, mask=None):
     divided by the mask's sum (at least 1). Each chunk runs under
     ``torch.utils.checkpoint``: its (B, chunk, V) f32 logits are not kept
     for backward but recomputed there, so at a 256k vocab only one
-    chunk's logits exist at a time."""
+    chunk's logits exist at a time.
+
+    Sharded (``tp``, ``split`` as :func:`xent_split`; ``w_unembed`` this
+    rank's part): ``x`` enters through ``comm.copy_to_model`` and each
+    chunk reduces over the axis (:func:`_xent_chunk`), again when
+    backward recomputes it. ``data`` are the data axes' groups: the
+    mask's sum is summed over them before the division, so that the
+    ranks' losses add up to the global batch's mean and their gradients,
+    summed over the data axes, to its gradient."""
     B, S, _ = x.shape
     c = min(chunk, S)
     pad = -(-S // c) * c - S
     ms = torch.ones((B, S), dtype=torch.float32, device=x.device) \
         if mask is None else mask.float()
+    if split is not None:
+        x = comm.copy_to_model(tp, x)
     xs = F.pad(x, (0, 0, 0, pad))
     ts, ms = F.pad(targets.long(), (0, pad)), F.pad(ms, (0, pad))
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S + pad, c):
-        tot = tot + checkpoint(_xent_chunk, xs[:, i:i + c], w_unembed,
-                               ts[:, i:i + c], ms[:, i:i + c],
-                               use_reentrant=False)
+        args = (xs[:, i:i + c], w_unembed, ts[:, i:i + c], ms[:, i:i + c])
+        if split is not None:
+            args += (tp, split)
+        tot = tot + checkpoint(_xent_chunk, *args, use_reentrant=False)
         cnt = cnt + ms[:, i:i + c].sum()
+    for grp in data:
+        cnt = grp.all_reduce(cnt)
     return tot / torch.clamp(cnt, min=1.0)

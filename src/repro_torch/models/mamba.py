@@ -28,12 +28,20 @@ of partial products, all-reduced before the reference's f32 cast. The
 scan and its states run on the rank's channels; ``y`` is gathered before
 the whole ``out_proj`` (the reference's spec leaves it whole), so every
 rank computes the layer's whole output.
+
+Under autograd (the sharded training step) ``h`` enters ``in_proj``
+through ``comm.copy_to_model``, the reduced ``x_proj`` output feeds the
+rank's own channels and so is summed in backward too (``comm.sum_over``
+semantics: ``copy_to_model`` after the reduce), and the gathered ``y``
+gives each rank its channels' slice of the gradient; ``out_proj``, whole
+and computed alike on every rank, takes no collective.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import comm
 from repro_torch.models.layers import causal_conv1d, dense, row_proj
 
 CHUNK = 512            # steps a prefill chunk scans at once
@@ -43,7 +51,7 @@ def _selective_terms(cfg, p, xc, tp=None):
     """dA, dBx (B, S, di, ds) f32 and C (B, S, ds) f32 of the conv's
     output xc (B, S, di)."""
     ds, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
-    proj = row_proj(p, "x_proj", xc, tp).float()
+    proj = comm.copy_to_model(tp, row_proj(p, "x_proj", xc, tp)).float()
     dt_r, Bm, Cm = torch.split(proj, [dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"].float() + p["dt_proj_b"])
     A = -torch.exp(p["A_log"])
@@ -52,9 +60,10 @@ def _selective_terms(cfg, p, xc, tp=None):
     return dA, dBx, Cm
 
 
-def _front(cfg, p, x, conv_state):
+def _front(cfg, p, x, conv_state, tp=None):
     """in_proj, the conv and its SiLU: (xc, z, conv_state)."""
-    x_, z = torch.chunk(dense(p["in_proj"], x), 2, dim=-1)
+    x_, z = torch.chunk(dense(p["in_proj"], comm.copy_to_model(tp, x)), 2,
+                        dim=-1)
     xc, conv_state = causal_conv1d(x_, p["conv_w"], p["conv_b"], conv_state)
     return F.silu(xc.float()).to(x.dtype), z, conv_state
 
@@ -63,7 +72,7 @@ def _back(p, y, xc, z, dtype, tp=None):
     y = y + p["D"] * xc.float()
     y = (y * F.silu(z.float())).to(dtype)
     if tp is not None:
-        y = tp.all_gather(y, -1)
+        y = comm.gather_from_model(tp, y, -1)
     return dense(p["out_proj"], y)
 
 
@@ -110,7 +119,7 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
     conv_state = state[0] if state is not None else None
     h = (state[1] if state is not None else
          torch.zeros((B, di, ds), dtype=torch.float32, device=x.device))
-    xc, z, conv_state = _front(cfg, p, x, conv_state)
+    xc, z, conv_state = _front(cfg, p, x, conv_state, tp)
     c = min(chunk, S)
     n = -(-S // c)
     xcp = F.pad(xc, (0, 0, 0, n * c - S))
@@ -135,7 +144,7 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
 def mamba_decode_step(cfg, p, x, state, tp=None):
     """One token, x (B, 1, d); state (conv_state, ssm_state)."""
     conv_state, h = state
-    xc, z, conv_state = _front(cfg, p, x, conv_state)
+    xc, z, conv_state = _front(cfg, p, x, conv_state, tp)
     dA, dBx, Cm = _selective_terms(cfg, p, xc, tp)    # (B, 1, di, ds)
     h = dA[:, 0] * h + dBx[:, 0]
     y = torch.einsum("bns,bs->bn", h, Cm[:, 0])[:, None]

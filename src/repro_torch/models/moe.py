@@ -41,6 +41,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.distributed import comm
 from repro_torch.launch.mesh import axis_group, shape_of
 from repro_torch.models import layers
 
@@ -166,7 +167,8 @@ def _combine(y_rows, rows, w, T, k):
 
 
 def moe_apply_shard_map(cfg, p, x, *, mesh, expert_axis="model",
-                        data_axis="data", capacity_factor=None):
+                        data_axis="data", capacity_factor=None,
+                        local_batch=False):
     """Expert parallelism with explicit all-to-all (the reference's
     ``moe_apply_shard_map``). ``x (B, S, d)`` is the global batch, whole
     on every rank (the residual stream of a tensor-parallel model); the
@@ -195,7 +197,23 @@ def moe_apply_shard_map(cfg, p, x, *, mesh, expert_axis="model",
     reference applies it outside its shard_map. Under
     :func:`count_drops` each call appends this rank's dropped routes
     (its tokens', or on the replicated path the drops at its experts):
-    their sum over the ranks is the call's."""
+    their sum over the ranks is the call's.
+
+    ``local_batch`` (the sharded training step): ``x`` holds this data
+    rank's rows already, the rows the reference's shard_map gives it of
+    the global batch, so nothing is cut or gathered over the data axes
+    (capacity still counts the rank's tokens). Under autograd the
+    exchanges differentiate (``distributed/comm.py``): ``x`` enters
+    through ``comm.copy_to_model`` (a rank routes only its positions), the
+    all-to-alls return each gradient to its token's rank, the positions'
+    gather gives each rank its slice back; the aux loss's mean over the
+    expert axis passes its gradient through (every rank of a data row
+    computes the same loss) and its mean over the data axes sums it
+    (each data rank's loss holds its part, ``transformer.loss_fn``). The
+    router's gradient on a rank covers its tokens only and is summed
+    over the expert axis after backward (``sharding.sync_grads``). The
+    replicated path (``S < ep``) routes every token on every rank and
+    is refused under autograd."""
     sizes = shape_of(mesh)
     ep = sizes[expert_axis]
     E = p["router"].shape[1]
@@ -211,19 +229,23 @@ def moe_apply_shard_map(cfg, p, x, *, mesh, expert_axis="model",
     data_axes = tuple(a for a in (("pod", data_axis) if "pod" in sizes
                                   else (data_axis,)) if a in sizes)
     n_data = math.prod(sizes[a] for a in data_axes)
-    batch_shard = B % n_data == 0
+    batch_shard = B % n_data == 0 and not local_batch
     b_loc = B // n_data if batch_shard else B
     T_loc = b_loc * (S // ep) if seq_shard else b_loc * S
     capacity = capacity_of(cfg, T_loc, capacity_factor)
 
     grp = axis_group(mesh, expert_axis)
-    xl = x
+    if comm.needs_grad(x) and not seq_shard:
+        raise NotImplementedError(
+            f"the expert exchange under autograd needs the sequence ({S}) "
+            f"to divide over the {ep} ranks of {expert_axis!r}")
+    xl = comm.copy_to_model(grp, x)
     if batch_shard and n_data > 1:
         di = 0
         for a in data_axes:
             di = di * sizes[a] + mesh.get_local_rank(a)
         xl = xl[di * b_loc:(di + 1) * b_loc]
-    if seq_shard:
+    if seq_shard and ep > 1:
         s_loc = S // ep
         xl = xl[:, grp.rank * s_loc:(grp.rank + 1) * s_loc]
     t = xl.shape[0] * xl.shape[1]
@@ -236,12 +258,12 @@ def moe_apply_shard_map(cfg, p, x, *, mesh, expert_axis="model",
         buf = _dispatch(x2d, rows, n_rows, k).view(ep, E_loc, capacity, d)
         # (E, C, d) -> (E/ep, ep*C, d): expert owners gather their slots
         # (peer-major along the capacity axis)
-        got = grp.all_to_all(buf).transpose(0, 1).reshape(
+        got = comm.all_to_all(grp, buf).transpose(0, 1).reshape(
             E_loc, ep * capacity, d)
         y_buf = _expert_ffn(cfg, p["wi"], p["wo"], got)
         # (E/ep, ep*C, d) -> (E, C, d): results return to token owners
         back = y_buf.view(E_loc, ep, capacity, d).transpose(0, 1)
-        y_rows = grp.all_to_all(back.contiguous()).reshape(n_rows, d)
+        y_rows = comm.all_to_all(grp, back.contiguous()).reshape(n_rows, d)
         mine = keep
     else:
         # replicated tokens: each rank serves only its local experts,
@@ -258,18 +280,24 @@ def moe_apply_shard_map(cfg, p, x, *, mesh, expert_axis="model",
                       (~keep & (idx // E_loc == grp.rank)).sum())
     w = (mine.to(x.dtype) * gates.to(x.dtype)).reshape(-1, 1)
     y = _combine(y_rows, rows, w, t, k)
+    # one rank routes every token of the call: the shared expert reads
+    # the router's rows, as moe_apply's does (the same autograd graph)
+    alone = cfg.moe_shared_expert and grp.size == 1 and xl is x
+    if alone:
+        y = y + layers.mlp_apply(cfg, p["shared"], x2d, grp)
     if not seq_shard:
         grp.all_reduce(y)
     for a in sizes:                            # pmean over every axis
-        axis_group(mesh, a).all_reduce(aux)
+        aux = comm.reduce_from_model(axis_group(mesh, a), aux) \
+            if a == expert_axis else comm.sum_over(axis_group(mesh, a), aux)
     aux = aux / math.prod(sizes.values())
 
     y = y.reshape(xl.shape)
     if seq_shard:
-        y = grp.all_gather(y, 1)
+        y = comm.gather_from_model(grp, y, 1)
     if batch_shard and n_data > 1:
         for a in reversed(data_axes):
             y = axis_group(mesh, a).all_gather(y, 0)
-    if cfg.moe_shared_expert:
+    if cfg.moe_shared_expert and not alone:
         y = y + layers.mlp_apply(cfg, p["shared"], x, grp)
     return y, aux

@@ -75,6 +75,9 @@ class ModelApi:
     local_cfg: Optional[ModelConfig] = None
     # the model axis's collectives (None without a mesh)
     tp: Optional[comm.Group] = None
+    # the mesh the functions run over (None without one): the train step
+    # reduces the gradients over its axes
+    mesh: Optional[object] = None
     # a cell's batch and dense decode cache as meta tensors
     input_specs: Optional[Callable] = None
     cache_specs: Optional[Callable] = None
@@ -384,11 +387,11 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
             return whisper.decode_step(cfg, params, cache, tokens, rt=rt)
 
         def loss_fn(params, batch):
-            return whisper.loss_fn(cfg, params, batch)
+            return whisper.loss_fn(cfg, params, batch, rt=rt)
 
         return ModelApi(cfg=cfg, prefill=prefill_fn, decode=decode_fn,
                         decode_chunk=make_decode_chunk(decode_fn),
-                        loss=loss_fn, local_cfg=local, tp=tp,
+                        loss=loss_fn, local_cfg=local, tp=tp, mesh=mesh,
                         input_specs=specs[0], cache_specs=specs[1])
 
     def prefill_fn(params, batch, *, max_seq=None):
@@ -429,11 +432,11 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
         return transformer.decode_step(cfg, params, cache, tokens, rt=rt)
 
     def loss_fn(params, batch):
-        return transformer.loss_fn(cfg, params, batch)
+        return transformer.loss_fn(cfg, params, batch, rt=rt)
 
     return ModelApi(cfg=cfg, prefill=prefill_fn,
                     prefill_suffix=suffix_fn, paged_decode_fns=paged_fns,
                     decode=decode_fn,
                     decode_chunk=make_decode_chunk(decode_fn), loss=loss_fn,
-                    local_cfg=local, tp=tp, input_specs=specs[0],
-                    cache_specs=specs[1])
+                    local_cfg=local, tp=tp, mesh=mesh,
+                    input_specs=specs[0], cache_specs=specs[1])

@@ -58,9 +58,9 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import comm, sharding
 from repro_torch.kernels import ops, ref
-from repro_torch.launch.mesh import axis_group, shape_of
+from repro_torch.launch.mesh import axis_group, data_axes, shape_of
 from repro_torch.models import layers, mamba, moe, xlstm
 from repro_torch.models.layers import dense
 
@@ -320,7 +320,7 @@ def embed(cfg, params, tokens, patch_embeds=None, tp=None):
     slices are gathered over the model axis."""
     x = params["embed"][tokens]
     if tp is not None:
-        x = tp.all_gather(x, -1)
+        x = comm.gather_from_model(tp, x, -1)
     if cfg.embed_scale:
         x = x * _embed_scale(cfg.d_model, x.dtype)
     if cfg.family == "vlm" and patch_embeds is not None:
@@ -484,40 +484,51 @@ def _last_logits(cfg, params, x, last_pos, tp=None):
     return logits_of(cfg, params, h_last, tp)
 
 
-def _train_layer(cfg, kind, p, x, positions, rope):
+def _train_layer(cfg, kind, p, x, positions, rope, rt=None):
     """One layer of the training forward: ``(x, aux)``, aux its MoE
-    layer's Switch loss (0 elsewhere)."""
+    layer's Switch loss (0 elsewhere). Under a mesh (``rt``; ``cfg``
+    this rank's, :func:`shard_view`) the layer runs on the rank's shard
+    with the sharded prefill's layer functions and collectives, which
+    differentiate (``distributed/comm.py``)."""
+    tp = None if rt is None else rt.tp
     mix, ffn = kind.split("+")
     B, S = x.shape[:2]
     h = layers.norm_plain(cfg, p["norm1"], x)
     if mix == "attn":
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope,
-                                  kernels=layers.PLAIN)
+                                  kernels=layers.PLAIN, tp=tp)
         o = ref.flash_attention_ref(q, k, v, causal=True,
                                     window=cfg.sliding_window)
-        out = layers.proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim))
+        out = layers.row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim),
+                              tp)
     elif mix == "mamba":
         out, _ = mamba.mamba_apply(cfg, p["mamba"], h,
-                                   scan=mamba.doubling_scan_out)
+                                   scan=mamba.doubling_scan_out, tp=tp)
     elif mix == "mlstm":
-        out, _ = xlstm.mlstm_apply(cfg, p["mlstm"], h, kernels=layers.PLAIN)
+        out, _ = xlstm.mlstm_apply(cfg, p["mlstm"], h, kernels=layers.PLAIN,
+                                   tp=tp)
     else:
-        out, _ = xlstm.slstm_apply(cfg, p["slstm"], h, kernels=layers.PLAIN)
+        out, _ = xlstm.slstm_apply(cfg, p["slstm"], h, kernels=layers.PLAIN,
+                                   tp=tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = x + out
     if cfg.parallel_block and "mlp" in p:
-        x = x + layers.mlp_apply(cfg, p["mlp"], h)
+        x = x + layers.mlp_apply(cfg, p["mlp"], h, tp)
     elif ffn != "none":
         h = layers.norm_plain(cfg, p["norm2"], x)
-        if ffn == "moe":
+        if ffn == "moe" and rt is not None and rt.moe_shard_map:
+            delta, aux = moe.moe_apply_shard_map(cfg, p["moe"], h,
+                                                 mesh=rt.mesh,
+                                                 local_batch=True)
+        elif ffn == "moe":
             delta, aux = moe.moe_apply(cfg, p["moe"], h)
         else:
-            delta = layers.mlp_apply(cfg, p["mlp"], h)
+            delta = layers.mlp_apply(cfg, p["mlp"], h, tp)
         x = x + delta
     return x, aux
 
 
-def forward(cfg, params, tokens, *, patch_embeds=None):
+def forward(cfg, params, tokens, *, patch_embeds=None, rt=None):
     """The training forward (the reference's ``forward`` without a
     cache): ``(hidden, aux)``, the final-normed hidden states (B, S, d)
     (a VLM's ``patch_embeds`` in front of the text, :func:`embed`) and
@@ -535,9 +546,18 @@ def forward(cfg, params, tokens, *, patch_embeds=None):
     recomputed in backward); the results are the same bits either way.
     A parallel block adds ``(x + attn) + mlp``, the order of the port's
     other paths (ROADMAP C.4); the reference's ``forward`` adds ``x +
-    (attn + mlp)``, which agrees to f32 rounding."""
+    (attn + mlp)``, which agrees to f32 rounding.
+
+    Under a mesh (``rt``) this rank's shard runs the step tensor- and
+    expert-parallel over the ``model`` axis on its data rank's rows
+    (``tokens`` the rank's rows of the global batch): the layers of the
+    sharded prefill, their collectives differentiable; a MoE layer's
+    exchange takes the rows as they are (``local_batch``). Under
+    ``cfg.remat`` backward recomputes each layer and so issues its
+    collectives again, in the same order on every rank."""
     _unported(cfg, "the training forward", layout=False)
-    x = embed(cfg, params, tokens, patch_embeds)
+    cfg, tp = shard_view(cfg, rt)
+    x = embed(cfg, params, tokens, patch_embeds, tp)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     rope = layers.model_rope(cfg, positions)
@@ -545,25 +565,46 @@ def forward(cfg, params, tokens, *, patch_embeds=None):
     for kind, p in zip(cfg.layer_kinds(), params["layers"]):
         if cfg.remat:
             x, a = checkpoint(_train_layer, cfg, kind, p, x, positions,
-                              rope, use_reentrant=False)
+                              rope, rt, use_reentrant=False)
         else:
-            x, a = _train_layer(cfg, kind, p, x, positions, rope)
+            x, a = _train_layer(cfg, kind, p, x, positions, rope, rt)
         aux = aux + a
     return layers.norm_plain(cfg, params["final_norm"], x), aux
 
 
-def loss_fn(cfg, params, batch):
+def data_groups(rt):
+    """The data axes' groups of ``rt``'s mesh (none without one)."""
+    if rt is None or rt.mesh is None:
+        return ()
+    return tuple(axis_group(rt.mesh, a) for a in data_axes(rt.mesh))
+
+
+def loss_fn(cfg, params, batch, rt=None):
     """``batch``: tokens and targets (B, S), optional ``patch_embeds``
     and ``mask``. The chunked cross-entropy of the text positions (a
     VLM's patches come first and are left out) plus 0.01 of the MoE
-    aux loss, as the reference's ``loss_fn``."""
+    aux loss, as the reference's ``loss_fn``.
+
+    Under a mesh (``rt``) ``batch`` is this data rank's rows: the NLL is
+    divided by the mask's sum over the global batch (summed over the
+    data axes first) and the aux loss, a mean over every axis, by the
+    data ranks' count, so the data ranks' losses add up to the global
+    batch's loss and their gradients, summed over the data axes
+    (``training/optimizer.py: make_train_step``), to its gradient, even
+    where the ranks hold unequal token counts. The unembedding is cut
+    as ``logits_of`` cuts it (``layers.xent_split``)."""
     x, aux = forward(cfg, params, batch["tokens"],
-                     patch_embeds=batch.get("patch_embeds"))
+                     patch_embeds=batch.get("patch_embeds"), rt=rt)
     targets = batch["targets"]
     x = x[:, -targets.shape[1]:]
+    local, tp = shard_view(cfg, rt)
+    data = data_groups(rt)
     nll = layers.chunked_xent(x, unembed_matrix(cfg, params), targets,
-                              chunk=cfg.vocab_chunk, mask=batch.get("mask"))
-    return nll + 0.01 * aux
+                              chunk=cfg.vocab_chunk, mask=batch.get("mask"),
+                              tp=tp, split=layers.xent_split(cfg, tp),
+                              data=data)
+    n_data = math.prod(g.size for g in data)
+    return nll + 0.01 * (aux / n_data if data else aux)
 
 
 def _lengths(true_len, B, S, device):

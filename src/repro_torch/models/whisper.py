@@ -45,12 +45,12 @@ import math
 
 import torch
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import comm, sharding
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 from repro_torch.models.layers import norm_apply, proj, row_proj
-from repro_torch.models.transformer import (ParamMaker, embed, logits_of,
-                                           shard_view, write_pos)
+from repro_torch.models.transformer import (ParamMaker, data_groups, embed,
+                                           logits_of, shard_view, write_pos)
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -96,7 +96,7 @@ def encode(cfg, params, frame_embeds, *, kernels=ops, tp=None):
     x = x + layers.sinusoidal_pos(pos[0], d).to(dt)[None]
     for p in params["enc_layers"]:
         h = norm_apply(cfg, p["norm1"], x)
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, pos)
+        q, k, v = layers.attn_qkv(cfg, p["attn"], h, pos, tp=tp)
         o = kernels.flash_attention(q, k, v, causal=False)
         x = x + row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim), tp)
         x = x + layers.mlp_apply(cfg, p["mlp"],
@@ -104,13 +104,15 @@ def encode(cfg, params, frame_embeds, *, kernels=ops, tp=None):
     return norm_apply(cfg, params["enc_norm"], x)
 
 
-def _cross_kv(cfg, p_layer, enc_out):
+def _cross_kv(cfg, p_layer, enc_out, tp=None):
     """One decoder layer's cross K/V of the encoder output, in the type
     the encoder output and the layer's weights promote to (the
-    reference's ``dense`` promotes)."""
+    reference's ``dense`` promotes); under ``tp`` the rank's heads, the
+    encoder output entering through ``comm.copy_to_model``."""
     B, S, _ = enc_out.shape
     a = p_layer["cross_attn"]
-    x = enc_out.to(torch.promote_types(enc_out.dtype, a["wk"].dtype))
+    x = comm.copy_to_model(tp, enc_out.to(
+        torch.promote_types(enc_out.dtype, a["wk"].dtype)))
     shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
     return proj(a, "wk", x).reshape(shape), proj(a, "wv", x).reshape(shape)
 
@@ -122,7 +124,7 @@ def _dec_tail(cfg, p, x, o_self, cross_attend, tp=None):
     B, S = x.shape[:2]
     x = x + row_proj(p["self_attn"], "wo", o_self.reshape(B, S, cfg.q_dim),
                      tp)
-    h = norm_apply(cfg, p["norm2"], x)
+    h = comm.copy_to_model(tp, norm_apply(cfg, p["norm2"], x))
     q = proj(p["cross_attn"], "wq", h).reshape(B, S, cfg.num_heads,
                                                cfg.head_dim)
     o = cross_attend(q)
@@ -142,35 +144,44 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=CACHE_DTYPE, *,
                                    device=device)}
 
 
-def forward(cfg, params, tokens, frame_embeds):
+def forward(cfg, params, tokens, frame_embeds, rt=None):
     """The training forward (the reference's ``forward``): the encoder
     over ``frame_embeds``, then the decoder over ``tokens (B, S)``
     teacher-forced, causal self-attention and cross-attention to the
     encoder, all through the plain attention (the norms are LayerNorms,
     plain on every path). Returns the final-normed hidden states (B, S,
-    d)."""
-    enc_out = encode(cfg, params, frame_embeds, kernels=layers.PLAIN)
+    d). Under a mesh (``rt``) this rank's heads, columns and embedding
+    slice, on its data rank's rows, the collectives differentiable
+    (``distributed/comm.py``) as in ``transformer.forward``."""
+    cfg, tp = shard_view(cfg, rt)
+    enc_out = encode(cfg, params, frame_embeds, kernels=layers.PLAIN, tp=tp)
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = embed(cfg, params, tokens, tp=tp)
     pos = _positions(S, B, tokens.device)
     x = x + layers.sinusoidal_pos(pos[0], cfg.d_model).to(x.dtype)[None]
     for p in params["dec_layers"]:
         h = norm_apply(cfg, p["norm1"], x)
         q, k, v = layers.attn_qkv(cfg, p["self_attn"], h, pos,
-                                  kernels=layers.PLAIN)
+                                  kernels=layers.PLAIN, tp=tp)
         o = ref.flash_attention_ref(q, k, v, causal=True)
-        kc, vc = _cross_kv(cfg, p, enc_out)
+        kc, vc = _cross_kv(cfg, p, enc_out, tp)
         x = _dec_tail(cfg, p, x, o, lambda q_: ref.flash_attention_ref(
-            q_, kc, vc, causal=False))
+            q_, kc, vc, causal=False), tp)
     return norm_apply(cfg, params["final_norm"], x)
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, rt=None):
     """``layers.chunked_xent`` of :func:`forward` over ``unembed``;
-    ``batch``: tokens, targets, frame_embeds and an optional mask."""
-    x = forward(cfg, params, batch["tokens"], batch["frame_embeds"])
+    ``batch``: tokens, targets, frame_embeds and an optional mask. Under
+    a mesh (``rt``) the rank's rows, the mask's sum taken over the data
+    axes and the unembedding cut as ``logits_of`` cuts it
+    (``transformer.loss_fn``)."""
+    x = forward(cfg, params, batch["tokens"], batch["frame_embeds"], rt=rt)
+    _, tp = shard_view(cfg, rt)
     return layers.chunked_xent(x, params["unembed"], batch["targets"],
-                               chunk=cfg.vocab_chunk, mask=batch.get("mask"))
+                               chunk=cfg.vocab_chunk, mask=batch.get("mask"),
+                               tp=tp, split=layers.xent_split(cfg, tp),
+                               data=data_groups(rt))
 
 
 def prefill(cfg, params, tokens, frame_embeds, *, max_seq: int,
@@ -200,7 +211,7 @@ def prefill(cfg, params, tokens, frame_embeds, *, max_seq: int,
         h = norm_apply(cfg, p["norm1"], x)
         q, k, v = layers.attn_qkv(cfg, p["self_attn"], h, pos)
         o = ops.flash_attention(q, k, v, causal=True)
-        kc, vc = _cross_kv(cfg, p, enc_out)
+        kc, vc = _cross_kv(cfg, p, enc_out, tp)
         x = _dec_tail(cfg, p, x, o, lambda q_: ops.flash_attention(
             q_, kc, vc, causal=False), tp)
         for name, t in (("self_k", k), ("self_v", v), ("cross_k", kc),

@@ -41,6 +41,18 @@ column-parallel ``ffn_wi`` needs whole rows anyway), normed whole, and
 ``ffn_wo`` is row-parallel, all-reduced. The states ``C (H, dh, dh)``,
 ``n``, ``m`` and the sLSTM's hold the rank's heads, the conv state its
 channels.
+
+Under autograd (the sharded training step) the collectives are
+``distributed/comm.py``'s differentiable ones: ``x`` enters ``w_up`` and
+``w_in`` through ``comm.copy_to_model``, as do the gathered ``xc`` and
+``xm`` the mLSTM's head projections read and the normed ``y`` the
+sLSTM's ``ffn_wi`` reads; the gathers give each rank its slice of the
+gradient back, the split ``gn``'s mean square is summed both ways
+(``layers.rmsnorm_split``), and the row-parallel sums pass the gradient
+through. A rank's gradient of the whole ``w_if``, ``gn`` (mLSTM) and
+``r`` covers only its heads or channels, so it is summed over the axis
+after backward (``sharding.sync_grads``); the sLSTM's ``gn``, applied
+whole and alike on every rank, is not.
 """
 from __future__ import annotations
 
@@ -49,6 +61,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import split_of
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (causal_conv1d, proj, rmsnorm_split,
@@ -70,8 +83,15 @@ def slstm_dims(cfg):
 
 
 def _gather(tp, *ts):
-    """Each of ``ts`` (this rank's channels) whole, in one all-gather."""
-    return tp.all_gather(torch.stack(ts), -1).unbind(0)
+    """Each of ``ts`` (this rank's channels) whole, in one all-gather;
+    under autograd they then enter the rank's own work through one
+    ``comm.copy_to_model``, and at axis size 1 they are returned as they
+    are (the gather is the identity there; the stacking would change the
+    order in which autograd adds their gradients)."""
+    if tp.size == 1 and comm.needs_grad(*ts):
+        return ts
+    whole = comm.gather_from_model(tp, torch.stack(ts), -1)
+    return comm.copy_to_model(tp, whole).unbind(0)
 
 
 def slstm_ffn_width(cfg) -> int:
@@ -148,7 +168,8 @@ def _mlstm_in(cfg, p, x, conv_state, tp=None):
     the gates. Returns (xc, z, q, k, v, li, lf, conv_state)."""
     B, S, _ = x.shape
     _, H, dh = mlstm_dims(cfg)
-    xm, z = torch.chunk(proj(p, "w_up", x), 2, dim=-1)
+    xm, z = torch.chunk(proj(p, "w_up", comm.copy_to_model(tp, x)), 2,
+                        dim=-1)
     xc, conv_state = causal_conv1d(xm, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc.float()).to(x.dtype)
     xcw, xmw = (xc, xm) if tp is None else _gather(tp, xc, xm)
@@ -247,7 +268,8 @@ def slstm_apply(cfg, p, x, *, state=None, kernels=ops, tp=None):
     decode step."""
     B, S, _ = x.shape
     d, H, dh = slstm_dims(cfg)
-    pre = proj(p, "w_in", x).float().reshape(B, S, 4, H, dh)
+    pre = proj(p, "w_in", comm.copy_to_model(tp, x)).float().reshape(
+        B, S, 4, H, dh)
     # the whole r: this rank's heads
     r = p["r"] if tp is None else p["r"][:, tp.rank * H:(tp.rank + 1) * H]
     if state is None:
@@ -258,8 +280,8 @@ def slstm_apply(cfg, p, x, *, state=None, kernels=ops, tp=None):
         hs.append(state[2])
     y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
     if tp is not None:
-        y = tp.all_gather(y, -1)
-    y = kernels.rmsnorm(y, p["gn"])
+        y = comm.gather_from_model(tp, y, -1)
+    y = comm.copy_to_model(tp, kernels.rmsnorm(y, p["gn"]))
     g, u = torch.chunk(proj(p, "ffn_wi", y), 2, dim=-1)
     return row_proj(p, "ffn_wo", F.gelu(g, approximate="tanh") * u,
                     tp), state

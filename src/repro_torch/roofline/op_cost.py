@@ -9,7 +9,8 @@ too, so a train step's backward is counted.
 
 - FLOPs: the products, ``2 * prod(out) * prod(contracting)`` as
   ``hlo_cost`` counts XLA's dots: ``mm``, ``addmm``, ``bmm``,
-  ``baddbmm``, ``_scaled_mm``, ``mv``, ``addmv``, ``dot`` (einsum and
+  ``baddbmm``, ``_scaled_mm``, ``mv``, ``addmv``, ``dot`` (and ``mm``
+  with an ``out_dtype``, a sharded row-parallel product's; einsum and
   ``matmul`` reach these). No other aten op adds FLOPs (elementwise
   arithmetic is left to the bytes). The port's paths reach no
   convolution or SDPA op; one of those raises rather than go uncounted.
@@ -53,6 +54,8 @@ _MATMUL = {
     aten.baddbmm.default, aten._scaled_mm.default, aten.mv.default,
     aten.addmv.default, aten.dot.default,
 }
+if hasattr(aten.mm, "dtype"):      # a half-precision product's f32 result
+    _MATMUL.add(aten.mm.dtype)
 # ops that carry FLOPs this counter does not count: they must not pass
 _UNCOUNTED = {
     name for name in ("convolution", "_convolution", "convolution_backward",

@@ -75,3 +75,18 @@ class PackedLM:
 
     def restore(self, state: dict):
         self.step = int(state["step"])
+
+
+def rank_rows(batch: Dict[str, np.ndarray], rank: int, n: int
+              ) -> Dict[str, np.ndarray]:
+    """Data rank ``rank``'s rows of a global batch over ``n`` data ranks:
+    the ``rank``-th of ``n`` equal runs of rows, as the reference's pjit
+    splits the batch dim over its data axes (``launch/dryrun.py:
+    rank_batch`` is the rule: the whole batch where ``n`` does not
+    divide it)."""
+    B = len(next(iter(batch.values())))
+    if B % n:
+        return batch
+    b = B // n
+    return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+

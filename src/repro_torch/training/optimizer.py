@@ -15,6 +15,16 @@ caller reads a number.
 loss under autograd, ``torch.autograd.grad`` for the gradients (in the
 params' type, as ``jax.grad`` gives them; a param the loss does not
 reach gets zeros, as there).
+
+Under a mesh (the model API's ``mesh``: ``registry.build(cfg,
+rt=Runtime(mesh))``) the step is the reference's pjit step in explicit
+SPMD: each rank's loss over its data rank's rows, backward on its shard,
+the partial gradients completed over the ``model`` axis
+(``sharding.sync_grads``), every gradient summed over the data axes
+(the reference's pjit reduces them there; :func:`loss_and_grads`), the
+global norm over the shards (:func:`global_norm`), and AdamW on each
+rank's shards in place. Whole weights get the same gradient bytes on
+every rank, so their updates stay bit-identical across the ranks.
 """
 from __future__ import annotations
 
@@ -40,12 +50,13 @@ class AdamWConfig:
 
 
 def tree_leaves(tree):
-    """The tensors of a tree in a fixed order (dict keys sorted)."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
+    """The leaves (tensors) of a tree in a fixed order (dict keys
+    sorted)."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
-    return [t for v in tree for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
 
 
 def _stacked(tree, inside=False):
@@ -105,11 +116,25 @@ def adamw_init(params):
             "step": torch.zeros((), dtype=torch.int32)}
 
 
-def global_norm(tree):
+def global_norm(tree, *, share=None, model=None):
     """sqrt of the sum over the leaves of their f32 squares' sums (a 0-d
-    f32 tensor on the leaves' device)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+    f32 tensor on the leaves' device). Sharded (``share``, a tree like
+    ``tree`` from ``sharding.norm_share``; ``model``, the model axis's
+    group): a shard's square sum is summed over the axis, a replicated KV
+    head's counted on its first rank only and summed, a leaf every rank
+    holds alike counted as it is; one all-reduce carries the sums. The
+    leaves are then added in the unsharded sum's order, so at axis size
+    1 the norm is its bits."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
+    if share is not None:
+        how = tree_leaves(share)
+        pick = [i for i, h in enumerate(how) if h != "once"]
+        if pick:
+            vals = model.all_reduce(torch.stack(
+                [sq[i] * 0.0 if how[i] == "zero" else sq[i] for i in pick]))
+            for j, i in enumerate(pick):
+                sq[i] = vals[j]
+    return torch.sqrt(sum(sq))
 
 
 def _update_one(cfg, g, m, v, p, decay, scale, lr, bc1, bc2):
@@ -124,7 +149,8 @@ def _update_one(cfg, g, m, v, p, decay, scale, lr, bc1, bc2):
     p.copy_(p.float() - delta.mul_(lr))
 
 
-def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, *,
+                 norm_share=None, model=None):
     """One AdamW step: the gradients clipped to ``cfg.grad_clip`` by their
     global norm, bias-corrected moments, decoupled weight decay on tensors
     of two or more dims, the update computed in f32 and cast back to each
@@ -133,10 +159,12 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
     one of the port's per-layer lists) counts the layer axis too, so its
     norm scales and biases decay, as in the reference, while the final
     norm does not. Params, ``m`` and ``v`` are updated in place, one
-    tensor at a time. Returns ``(params, opt_state, {"grad_norm",
-    "lr"})``: the same param tensors, the state with ``step + 1``."""
+    tensor at a time (a rank's shards under a mesh: ``norm_share`` and
+    ``model`` as :func:`global_norm` takes them). Returns ``(params,
+    opt_state, {"grad_norm", "lr"})``: the same param tensors, the state
+    with ``step + 1``."""
     step = int(opt_state["step"]) + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, share=norm_share, model=model)
     scale = torch.clamp(gnorm.new_tensor(cfg.grad_clip) / (gnorm + 1e-9),
                         max=1.0)
     lr = lr_schedule(cfg, step)
@@ -189,15 +217,53 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def loss_and_grads(api, params, batch):
+    """``(loss, grads)`` of the model API's loss (:func:`value_and_grad`);
+    under a mesh (``api.mesh``: ``batch`` this data rank's rows, the
+    params this rank's shards) the gradients completed as the sharded
+    step needs them: ``sharding.sync_grads`` over the ``model`` axis, then
+    each summed over the data axes, and ``loss`` the global batch's (the
+    data ranks' losses summed; their denominators are the global mask
+    count already, ``transformer.loss_fn``)."""
+    loss, grads = value_and_grad(api.loss, params, batch)
+    mesh = getattr(api, "mesh", None)
+    if mesh is None:
+        return loss, grads
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import axis_group, data_axes
+    sharding.sync_grads(grads, api.cfg, mesh)
+    for a in data_axes(mesh):
+        grp = axis_group(mesh, a)
+        for g in tree_leaves(grads):
+            grp.all_reduce(g)
+        loss = grp.all_reduce(loss)
+    return loss, grads
+
+
 def make_train_step(api, opt_cfg: AdamWConfig):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     stats)``, stats ``loss``, ``grad_norm`` (0-d tensors on the params'
     device) and ``lr`` (f32). The params and state are updated in place
-    and returned."""
+    and returned.
+
+    Under a mesh (``api.mesh``) this is the reference's pjit step in
+    explicit SPMD: :func:`loss_and_grads` on this rank's rows and
+    shards, then AdamW on the rank's shards with the global norm over
+    the shards (``sharding.norm_share``). The collectives are issued at
+    every axis size, 1 included, where the step is the unmeshed one bit
+    for bit."""
+    mesh = getattr(api, "mesh", None)
+    kw = {}
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+        from repro_torch.launch.mesh import axis_group
+        kw = dict(norm_share=sharding.norm_share(api.cfg, mesh),
+                  model=axis_group(mesh, "model"))
+
     def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(api.loss, params, batch)
+        loss, grads = loss_and_grads(api, params, batch)
         params, opt_state, stats = adamw_update(opt_cfg, grads, opt_state,
-                                                params)
+                                                params, **kw)
         stats["loss"] = loss
         return params, opt_state, stats
 

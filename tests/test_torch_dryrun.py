@@ -186,10 +186,11 @@ def test_abstract_mesh_counts_a_tp_decode_steps_collectives():
     L = cfg.num_layers
     assert r["coll_counts"] == {"all_reduce": 2 * L, "all_gather": 2}
     assert logits.shape == (2, 1, cfg.vocab_size)
-    # payloads: the (2, 1, d) bf16 partial sums, the gathered (2, 1, d)
-    # embedding rows and (2, 1, V) logits
+    # payloads: the (2, 1, d) partial sums, f32 above axis size 1
+    # (layers.row_proj), the gathered (2, 1, d) bf16 embedding rows and
+    # (2, 1, V) bf16 logits
     d, V = cfg.d_model, cfg.vocab_size
-    ar, ag = 2 * d * 2, 2 * d * 2 + 2 * V * 2
+    ar, ag = 2 * d * 4, 2 * d * 2 + 2 * V * 2
     assert r["coll_payload"] == 2 * L * ar + ag
     assert r["coll_wire"] == 2 * L * analysis.wire_bytes(
         "all_reduce", ar, 4) + analysis.wire_bytes("all_gather", ag, 4)

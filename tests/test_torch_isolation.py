@@ -353,7 +353,8 @@ COPY_DIFFERENCES = {
     "configs/jamba_v01_52b.py": {},
     "configs/xlstm_125m.py": {},
     "configs/whisper_base.py": {},
-    "training/data.py": {},
+    # a data rank's rows of the global batch (the sharded train step)
+    "training/data.py": {"rank_rows": ONE_SIDE},
     "distributed/sharding.py": {
         # a tuple of the port's own for jax's PartitionSpec
         "P": ONE_SIDE,
@@ -368,7 +369,12 @@ COPY_DIFFERENCES = {
             "rank_cfg", "model_size", "local_cfg", "_split_dim", "_cut",
             "_leaf_specs", "_shard_tree", "shard_params", "RankConfig",
             "RankConfig.mamba_d_inner", "split_of", "kv_replicated",
-            "kv_head_of", "_CHUNKED", "_chunks_of")},
+            "kv_head_of", "_CHUNKED", "_chunks_of", "_rules")},
+        # the sharded training step's gradients and checkpoints
+        **{name: ONE_SIDE for name in (
+            "_PARTIAL", "_KV", "whole_meta", "_walk", "_per_dict",
+            "grad_kinds", "sync_grads", "norm_share", "unshard_leaf",
+            "unshard_params")},
     },
     "launch/mesh.py": {
         # torch.distributed's DeviceMesh for jax.make_mesh
