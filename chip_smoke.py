@@ -220,7 +220,8 @@ before the last line:
    must launch in it. Phase 3 also checks and times the kernels at a
    TP-2 rank's shapes (LLaMA-30B's 26 heads, qwen3-moe's 32 over 2);
    (e) the nine other configs at TP 2 (xlstm in f32; in bf16 too, as
-   ROADMAP C.3's probe, printed and not held); (f) the sharded
+   ROADMAP C.3's probe, printed and not held, beside the unsharded
+   run's own sensitivity to one bf16 ulp of every weight); (f) the sharded
    training step (``optimizer.make_train_step`` under the mesh): a
    world-1 NCCL train step of LLaMA-30B cut to one layer bit for bit the
    unmeshed one; LLaMA-30B at TP 2 (4 layers, 4 x 512, 3 steps), at data
@@ -231,7 +232,22 @@ before the last line:
    only where no route dropped; drops printed), the leaves every rank
    holds alike the same bytes on each, host ms a step and gloo's seconds;
    a TP-2 checkpoint of the 1-layer cut read back at TP 1 byte for byte
-   the state the ranks gathered. No kernel launches in (f);
+   the state the ranks gathered. No kernel launches in (f); (g) the
+   kv_seq decode cache (``Runtime(kv_seq=True)``) and heads the model
+   axis does not split: a world-1 NCCL mesh of LLaMA-30B cut to one
+   layer through dense engines in lockstep with the unmeshed ones (the
+   graphed chunk bit for bit), then LLaMA-30B at TP 2 (4 layers, 16
+   kv_seq steps after a 4 x 256 prefill) and at TP 8 (2 layers, its 52
+   heads gathered: the attention columns cut inside heads, a qseq
+   prefill, 8 kv_seq steps) over gloo ranks, teacher-fed, each against
+   the unsharded run of its cut: prefill and step logits within
+   ``CHUNK_REL_TOL``, greedy tokens where the margin clears 0.1, the
+   ranks' weights and peak memory summed, and phase 13's count of a
+   rank's step on meta equal to the card's launches and collectives.
+   Phase 3 checks and times the decode kernel's partial mode
+   (``decode_attention_lse``: ``o`` and the log-sum-exp beside it, a
+   rank holding no position) at LLaMA-30B's and gemma-2b's kv_seq
+   shapes; it must launch in (g);
 13. the counts against the card: LLaMA-30B's int4 paged decode step (4
    slots, phase 5's pages and lengths), a 4 x 256 bucket prefill through
    the model API and the wire, and phase 11's train step (8 of 60
@@ -895,6 +911,129 @@ def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
         f"{r['bound'][0]:.5f} ms ({r['bound'][1]}, {nbytes} B); layers "
         f"cycled, L2 cold")
     return r
+
+
+LSE_TOL = 1e-5     # the partial mode's f32 log-sum-exp: atol = rtol
+
+
+def check_decode_lse(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, *,
+                     timed):
+    """The dense kernel's partial mode (``decode_attention_lse``: ``o``
+    f32 normalised over the call's keys, and each row's f32
+    log-sum-exp), as a kv_seq rank calls it: bf16 q over one layer of a
+    rank's (L, B, S, Hkv, hd) share, kv_len the rank's (a slot at 0: a
+    rank that owns no position yet, which must give o 0 and lse -inf).
+    ``o`` is held as an f32 attention output (``ATTN_TOL_F32``), ``lse``
+    to ``LSE_TOL``; the negative controls (a 64-key split dropped from
+    o, and from lse) must fail. Timed as :func:`check_decode`, SDPA
+    beside it (it computes ``o``, not ``lse``)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5 + B + S + hd)
+    bf16 = torch.bfloat16
+    K = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda").to(bf16)
+    V = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda").to(bf16)
+    q = torch.randn((B, Hkv, g, hd), generator=gen, device="cuda").to(bf16)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    layer = [(q, K[i].permute(0, 2, 1, 3), V[i].permute(0, 2, 1, 3), kl)
+             for i in range(L)]
+
+    def fn_ref(a, b, c, n):
+        return ref.decode_attention_ref(a, b, c, kv_len=n, return_lse=True)
+
+    (o, lse), (wo, wl) = da.decode_attention_lse(*layer[0]), \
+        fn_ref(*layer[0])
+    empty = kl == 0
+
+    def lse_close(got, want):
+        fin = torch.isfinite(want)
+        same_inf = bool((torch.isfinite(got) == fin).all())
+        err = (got[fin] - want[fin]).abs()
+        worst = float((err / (LSE_TOL + LSE_TOL * want[fin].abs())).max()) \
+            if fin.any() else 0.0
+        return same_inf and worst <= 1, worst
+
+    ok_o, worst_o = attn_close(torch, o, wo)
+    ok_l, worst_l = lse_close(lse, wl)
+    zero = bool((o[empty] == 0).all()) and bool(
+        (lse[empty] == float("-inf")).all())
+    log(f"  decode_attention_lse B={B} Hkv={Hkv} g={g} hd={hd} S={S} "
+        f"kv_len={kv_len}: o max |err| "
+        f"{float((o - wo).abs().max()):.3e}, worst |err| / tol "
+        f"{worst_o:.3g} ({ATTN_TOL_TEXT['float32']}); lse worst |err| / "
+        f"tol {worst_l:.3g} (atol = rtol = {LSE_TOL}); the empty rows o "
+        f"= 0, lse = -inf: {zero}")
+    if not (ok_o and ok_l and zero and o.dtype == torch.float32):
+        raise AssertionError("the partial mode differs from its plain "
+                             "version")
+    if max(kv_len) > 64:
+        short = torch.where(kl > 64, kl - 64, kl)
+        wrong_o, wrong_l = fn_ref(q, layer[0][1], layer[0][2], short)
+        negative_controls(torch, o, {"kv_len - 64": lambda: wrong_o})
+        bad, w = lse_close(lse, wrong_l)
+        log(f"    negative control (lse of kv_len - 64): worst |err| / tol "
+            f"{w:.3g}, rejected: {not bad}")
+        if bad:
+            raise AssertionError("the lse check cannot tell a dropped "
+                                 "split")
+    r = {"err": max(float((o - wo).abs().max()),
+                    float((lse - wl)[torch.isfinite(wl)].abs().max()))}
+    if not timed:
+        return r
+    nbytes = cost_bytes("decode_attention_lse", *layer[0], kv_len=kv_len)
+
+    def sdpa(a, b, c, n):
+        mask = (torch.arange(S, device="cuda")[None] < n[:, None])
+        return F.scaled_dot_product_attention(a, b, c,
+                                              attn_mask=mask[:, None, None])
+
+    r.update(ms=cuda_ms(torch, da.decode_attention_lse, layer, 3 * L),
+             plain_ms=cuda_ms(torch, fn_ref, layer, L),
+             library_ms=cuda_ms(torch, sdpa, layer, 3 * L),
+             bound=cost_bound("decode_attention_lse", *layer[0],
+                              kv_len=kv_len, peak=BF16_FLOP_PER_S))
+    r["eager_ms"] = eager_ms(torch, da.decode_attention_lse, layer, 3 * L)
+    log(f"  decode_attention_lse at kv_len {kv_len}: {r['ms']:.5f} ms/layer "
+        f"({r['eager_ms']:.5f} ms launched eagerly), plain "
+        f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms (SDPA "
+        f"over the 256 rows, each slot's kv_len a mask; o only), bound "
+        f"{r['bound'][0]:.5f} ms "
+        f"({r['bound'][1]}, {nbytes} B); layers cycled, L2 cold")
+    return r
+
+
+def lse_shapes(torch, ref, da):
+    """The partial mode at the kv_seq ranks' shapes: LLaMA-30B's decode
+    step (4 slots, 52 heads of 128) on a TP-2 rank's half of a 512-row
+    cache, phase 5's kv_len with slot 0 moved past 256 (360, 123, 56,
+    17): rank 0's share (positions 0-255: 256, 123, 56, 17 keys), timed,
+    the row of the kernels line; a full 256-row share on every slot,
+    timed; rank 1's (positions 256-511: slot 0's 104 keys, the others
+    none yet), checked only, its time the launch's; and gemma-2b's 8
+    query heads over its one KV head at hd 256 on a 256-row share (one
+    slot at 0), timed. Returns ``[(kernel, arch, shape, result)]``,
+    LLaMA-30B's rank 0 first."""
+    from repro_torch.configs import get_config
+    cfg, gem = get_config("llama-30b"), get_config("gemma-2b")
+    rows = []
+    for c, L, kv, what, timed in (
+            (cfg, cfg.num_layers, [256, 123, 56, 17],
+             "TP-2 rank 0 of a 512-row kv_seq cache", True),
+            (cfg, cfg.num_layers, [256] * 4,
+             "a full 256-row kv_seq share on every slot", True),
+            (cfg, cfg.num_layers, [104, 0, 0, 0],
+             "TP-2 rank 1 of the same step", False),
+            (gem, gem.num_layers, [232, 123, 0, 17],
+             "a 256-row kv_seq share, one slot empty", True)):
+        g = c.num_heads // c.num_kv_heads
+        S = 256
+        shape = f"4 slots x {c.num_heads} heads over {c.num_kv_heads}, " \
+            f"hd {c.head_dim}, {what}, kv_len {kv}"
+        rows.append(("decode_attention_lse", c.name, shape,
+                     check_decode_lse(torch, ref, da, L, 4, c.num_kv_heads,
+                                      g, c.head_dim, S, kv, timed=timed)))
+    check_decode_lse(torch, ref, da, 2, 3, 2, 4, 16, 40, [1, 0, 23],
+                     timed=False)
+    return rows
 
 
 def decode_split_anatomy(torch, da, L, B, Hkv, hd, S):
@@ -3096,7 +3235,8 @@ def same_state(torch, a, b, what):
         raise AssertionError(f"{what}: cache bytes differ")
 
 
-def mesh_world1(torch, cfg, params, device="cuda", name="(a)"):
+def mesh_world1(torch, cfg, params, device="cuda", name="(a)",
+                kv_seq=False):
     """Phase 12 (a), and (e)'s world-1 runs: ``Runtime(mesh)`` over a
     1-D ``model`` mesh of the one rank of a process group over NCCL (gloo
     on the CPU), through a prefill engine and a graphed and an eager
@@ -3106,8 +3246,13 @@ def mesh_world1(torch, cfg, params, device="cuda", name="(a)"):
     cache bytes equal after every chunk; the graphed chunk one graph
     holding its collectives, as many as the eager chunk made; the
     collectives a step and one replay's time (CUDA events) beside the
-    unmeshed replay's, turn by turn. Returns (the kernel launches of the
-    run, the replay times)."""
+    unmeshed replay's, turn by turn. ``kv_seq``: the meshed engines run
+    ``Runtime(kv_seq=True)``, every engine on the dense cache (the paged
+    ones refuse the layout); at axis size 1 ``sharding.local_cfg`` drops
+    the setting, so this runs the head-split step and no kv_seq code: it
+    shows that asking for the layout changes nothing there
+    (:func:`p12g_shares` graphs the kv_seq step's own code). Returns
+    (the kernel launches of the run, the replay times)."""
     import torch.distributed as dist
     from repro_torch.distributed import comm
     from repro_torch.kernels import ops
@@ -3120,7 +3265,7 @@ def mesh_world1(torch, cfg, params, device="cuda", name="(a)"):
                             rank=0, world_size=1)
     try:
         rt = Runtime(make_mesh((1,), ("model",), device=device),
-                     moe_shard_map=bool(cfg.moe_num_experts))
+                     moe_shard_map=bool(cfg.moe_num_experts), kv_seq=kv_seq)
         before = ops.launch_counts()
         comm.reset_counts()
         pres = {m: prefill_engine(torch, cfg, params, max_seq=256,
@@ -3130,7 +3275,8 @@ def mesh_world1(torch, cfg, params, device="cuda", name="(a)"):
                 "eager": (True, False)}
         decs = {a: E.DecodeEngine(cfg, params, max_slots=4, max_seq=256,
                                   device=device, rt=rt if m else None,
-                                  cuda_graph=g and on_card)
+                                  cuda_graph=g and on_card,
+                                  paged=not kv_seq)
                 for a, (m, g) in arms.items()}
         rng = np.random.default_rng(SEED + 12)
         prompts = [rng.integers(1, cfg.vocab_size, n)
@@ -3508,6 +3654,35 @@ def p12e_cfg(arch, reduced=False):
         cfg = cfg.replace(num_layers=keep)
     return cfg.replace(dtype="float32") if arch in P12E_F32 and not probe \
         else cfg
+
+
+def c3_sensitivity(torch, cfg, params, device="cuda", reduced=False):
+    """C.3's yardstick: the unsharded run's own sensitivity, the relative
+    L2 between its prefill logits (:func:`p12e_batch`) and those of the
+    same run with every weight moved by one bf16 ulp, up or down at
+    random (seeded): a bf16 weight's bits one step in magnitude (zeros
+    stay), an f32 one by the bf16 ulp at its magnitude."""
+    from repro_torch.models import build
+    from repro_torch.training.optimizer import tree_map
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+
+    def moved(t):
+        step = torch.randint(0, 2, t.shape, generator=gen,
+                             device=t.device) * 2 - 1
+        if t.dtype == torch.bfloat16:
+            bits = t.view(torch.int16)
+            step = torch.where((bits & 0x7FFF) != 0, step, 0)
+            return (bits + step.to(torch.int16)).view(torch.bfloat16)
+        ulp = torch.exp2(torch.floor(torch.log2(t.abs())) - 7)
+        return torch.where(t != 0, t + step * ulp, t)
+
+    api = build(cfg)
+    S, batch = p12e_batch(torch, cfg, device, reduced)
+    base = api.prefill(params, batch, max_seq=S)[0]
+    other = tree_map(moved, params)
+    got = api.prefill(other, batch, max_seq=S)[0]
+    del other
+    return rel_l2(torch, base, got)
 
 
 def p12e_params(torch, cfg, device="cuda", mesh=None):
@@ -3897,11 +4072,14 @@ def phase12(torch, *, device="cuda", reduced=False):
         del params, seq, x
         if device == "cuda":
             settled(torch)
+        sens = None
         for arch in P12E:
             ecfg = p12e_cfg(arch, reduced)
             params = p12e_params(torch, ecfg, device)
             refs[arch] = tp_family_case(torch, ecfg, params, device=device,
                                         reduced=reduced)
+            if arch == P12E_PROBE:
+                sens = c3_sensitivity(torch, ecfg, params, device, reduced)
             torch.save(refs[arch], os.path.join(tmp, f"e_{arch}.pt"))
             del params
             if device == "cuda":
@@ -3987,6 +4165,12 @@ def phase12(torch, *, device="cuda", reduced=False):
             f"{r['engine_equal']}/4 | "
             f"{', '.join(f'{s:.2f}' for s in r['coll_s'])} | "
             f"{', '.join(f'{s:.1f}' for s in r['rank_s'])}")
+    probe = next(r for r in rows if r["arch"] == P12E_PROBE)
+    log(f"  (e) C.3: {P12E_PROBE} at TP 2, prefill logits relative L2 "
+        f"{probe['logit_rel_l2']:.3e} (row-parallel sums in f32 above "
+        f"axis size 1), beside the "
+        f"unsharded run's own sensitivity to one bf16 ulp of every weight: "
+        f"{sens:.3e}; the other configs' bound 2e-2")
     for arch, times in replay.items():
         log(f"  (e) {arch} world 1, one replay of the graphed chunk (ms): "
             f"meshed {times.get('graphed')}, unmeshed "
@@ -4271,9 +4455,10 @@ def p12f_checkpoint(torch, rank, mesh, tmp, reduced, device):
     return out
 
 
-def p12f_spawn(torch, part, world, tmp, reduced, device):
-    """Run :func:`p12f_rank` over ``world`` processes (gloo, one card);
-    a rank that fails ends the others. Returns the ranks' results."""
+def p12f_spawn(torch, part, world, tmp, reduced, device, fn="p12f_rank"):
+    """Run :func:`p12f_rank` (or ``fn``, :func:`p12g_rank`) over ``world``
+    processes (gloo, one card); a rank that fails ends the others.
+    Returns the ranks' results (``tmp/f_{part}_rank{r}.pt``)."""
     port, root = free_port(), os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(root, "src"), root]))
@@ -4281,7 +4466,7 @@ def p12f_spawn(torch, part, world, tmp, reduced, device):
     outs = [open(path, "w") for path in logs]
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke; chip_smoke."
-         f"p12f_rank({r}, {world}, {port}, {tmp!r}, {part!r}, {reduced}, "
+         f"{fn}({r}, {world}, {port}, {tmp!r}, {part!r}, {reduced}, "
          f"{device!r})"], cwd=root, env=env, stdout=outs[r],
         stderr=subprocess.STDOUT) for r in range(world)]
     try:
@@ -4384,6 +4569,436 @@ def phase12f(torch, *, device="cuda", reduced=False):
                     os.remove(os.path.join(tmp, name))
             log(f"  (f) {part}: {time.perf_counter() - t:.1f} s")
     return rows
+
+
+# -- phase 12 (g): the kv_seq decode cache, heads the axis does not split ------
+
+# ranks, LLaMA-30B's layers kept, teacher-fed kv_seq decode steps: TP 2
+# over its 52 heads, and TP 8, which does not split them (gathered: the
+# attention columns cut inside heads, the prefill the qseq way)
+P12G = {"tp2": (2, 4, 16), "tp8": (8, 2, 8)}
+P12G_MAX_SEQ = 512      # the decode cache: 256 rows a rank at TP 2, 64 at 8
+
+
+def p12g_cfg(part, reduced=False):
+    from repro_torch.configs import get_config, get_reduced
+    if reduced:   # the reduced 4 heads split over 8 ranks; 6 do not
+        cfg = get_reduced("llama-30b")
+        return cfg.replace(num_heads=6, num_kv_heads=6) if part == "tp8" \
+            else cfg
+    layers = 1 if part == "world1" else P12G[part][1]
+    return get_config("llama-30b").replace(num_layers=layers)
+
+
+def p12g_run(torch, cfg, params, device, reduced, steps, rt=None,
+             teacher=None):
+    """(g)'s run of ``cfg`` on this process's shard (unsharded without
+    ``rt``): the model-API prefill of :func:`p12_batch`'s 4 right-padded
+    prompts, their raw wires inserted into a dense decode cache of
+    P12G_MAX_SEQ rows (under ``rt`` the kv_seq cache: each rank its
+    share of every KV head's positions, ``insert_batch(seq_part=)``; the
+    prefill's cache is its share too, gathered for the wires),
+    then ``steps`` decode steps fed ``teacher``'s tokens (the unsharded
+    run's greedy ones; its own without). Returns the prefill's and each
+    step's last logits (f32, host), the tokens fed, the kernel launches
+    and collectives of the first step."""
+    from repro_torch.distributed import comm, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, transformer
+    from repro_torch.serving import kv_transfer
+    api = build(cfg, rt=rt)
+    S, batch = p12_batch(torch, cfg, device, reduced)
+    B = batch["tokens"].shape[0]
+    start = ops.launch_counts()
+    logits, pc = api.prefill(params, batch, max_seq=S)
+    lens = batch["true_len"].tolist()
+    part = (rt.tp.rank, rt.tp.size) if rt is not None and \
+        sharding.kv_seq(api.local_cfg) else None
+    pre_bytes = sum(t.numel() * t.element_size()
+                    for t in pc["slot0"].values())
+    if part:        # the prefill's share, gathered for the wires
+        pc = kv_transfer.gather_seq(pc, rt.tp)
+    wires = kv_transfer.extract_batch(pc, list(enumerate(lens)),
+                                      compress=False)
+    max_seq = 64 if reduced else P12G_MAX_SEQ
+    cache = transformer.init_cache(api.local_cfg, B, max_seq, device=device)
+    kv_transfer.insert_batch(cache, [(w, b) for b, w in enumerate(wires)],
+                             seq_part=part)
+    del pc, wires
+    out = {"prefill": logits[:, -1].float().cpu(), "steps": [],
+           "tokens": [], "prefill_cache_bytes": pre_bytes, "cache_bytes": sum(
+               t.numel() * t.element_size()
+               for t in cache["slot0"].values())}
+    cur = logits[:, -1].argmax(-1)
+    for t in range(steps):
+        tok = cur if teacher is None else teacher[t].to(device)
+        if t == 0:
+            before, c0 = ops.launch_counts(), comm.counts()
+        lg, cache = api.decode(params, cache, tok[:, None].to(torch.int32))
+        if t == 0:
+            out["launches"] = {k: n - before[k] for k, n in
+                               ops.launch_counts().items() if n != before[k]}
+            out["collectives"] = {k: n - c0.get(k, 0) for k, n in
+                                  comm.counts().items()
+                                  if n != c0.get(k, 0)}
+        out["steps"].append(lg[:, -1].float().cpu())
+        out["tokens"].append(tok.cpu())
+        cur = lg[:, -1].argmax(-1)
+    out["run_launches"] = {k: n - start[k] for k, n in
+                           ops.launch_counts().items()}
+    return out
+
+
+def p12g_counted(torch, cfg, n, reduced):
+    """Phase 13's count of (g)'s decode step: one rank's step over an
+    abstract ``1 x n`` mesh under ``Runtime(kv_seq=True)`` on meta
+    tensors (``roofline/op_cost.py``): its kernel calls and
+    collectives."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import build, transformer
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.roofline.op_cost import OpCounter
+    mesh = abstract_mesh((1, n), ("data", "model"))
+    api = build(cfg, rt=Runtime(mesh, kv_seq=True))
+    params = transformer.init_params(cfg, device="meta", mesh=mesh)
+    cache = transformer.init_cache(api.local_cfg, 4,
+                                   64 if reduced else P12G_MAX_SEQ,
+                                   device="meta")
+    tok = torch.empty((4, 1), dtype=torch.int32, device="meta")
+    with OpCounter() as c:
+        api.decode(params, cache, tok)
+    r = c.result()
+    return r["kernels"], r["coll_counts"], r["coll_wire"]
+
+
+def p12g_reference(torch, part, tmp, device, reduced):
+    """The unsharded run of (g)'s ``part`` on the card, saved for its
+    ranks (``tmp/g_{part}.pt``): the teacher's tokens and logits."""
+    cfg = p12g_cfg(part, reduced)
+    t = time.perf_counter()
+    params = make_params(torch, cfg, device=device)
+    out = p12g_run(torch, cfg, params, device, reduced, P12G[part][2])
+    del params
+    if device == "cuda":
+        settled(torch)
+    torch.save(out, os.path.join(tmp, f"g_{part}.pt"))
+    log(f"  (g) {part}: the unsharded run of {cfg.name} ({cfg.num_layers} "
+        f"layers; {time.perf_counter() - t:.1f} s)")
+    return out
+
+
+def p12g_rank(rank, world, port, tmp, part, reduced, device):
+    """One rank of (g)'s ``part`` (``g_tp2``, ``g_tp8``): its shard of
+    LLaMA-30B drawn rank after rank, :func:`p12g_run` under
+    ``Runtime(kv_seq=True)`` fed the unsharded run's tokens, its peak
+    memory, and phase 13's count of the step beside the step's real
+    launches and collectives (:func:`p12g_counted`). Saves
+    ``tmp/f_{part}_rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.training.optimizer import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    name = part[2:]
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), device=device)
+        cfg = p12g_cfg(name, reduced)
+        for r in range(world):
+            if r == rank:
+                params = make_params(torch, cfg, device=device, mesh=mesh)
+                if device == "cuda":
+                    settled(torch)
+            dist.barrier()
+        ref = torch.load(os.path.join(tmp, f"g_{name}.pt"),
+                         weights_only=False)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with CollectiveClock(torch) as clock:
+            out = p12g_run(torch, cfg, params, device, reduced,
+                           P12G[name][2], Runtime(mesh, kv_seq=True),
+                           teacher=ref["tokens"])
+        local = sharding.local_cfg(cfg, mesh, True)
+        out.update(s=time.perf_counter() - t, setup_s=t - t0,
+                   coll_s=clock.s, gathered=sharding.gathered(local),
+                   peak=torch.cuda.max_memory_allocated()
+                   if device == "cuda" else 0,
+                   param_bytes=sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(params)),
+                   counted=p12g_counted(torch, cfg, world, reduced))
+        del params
+        torch.save(out, os.path.join(tmp, f"f_{part}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def p12g_compare(part, ref, got, device="cuda"):
+    """(g)'s bounds: every rank's prefill and decode-step logits within
+    CHUNK_REL_TOL (bf16 0.05) relative L2 of the unsharded run's, greedy
+    tokens equal where its top-2 margin clears P12_MARGIN; phase 13's
+    count of a step equal to the real step's collectives and, on the
+    card, its kernel launches (the CPU runs the plain versions). Returns
+    a row."""
+    import torch
+    tol = CHUNK_REL_TOL["bfloat16"]
+    pre = max(rel_l2(torch, ref["prefill"], g["prefill"]) for g in got)
+    steps = [max(rel_l2(torch, ref["steps"][t], g["steps"][t]) for g in got)
+             for t in range(len(ref["steps"]))]
+    clear = same = 0
+    for t, want in enumerate(ref["steps"]):
+        top2 = want.topk(2, dim=-1).values
+        ok = (top2[:, 0] - top2[:, 1]) > P12_MARGIN
+        clear += int(ok.sum())
+        same += int(sum(bool((g["steps"][t].argmax(-1) == want.argmax(-1))[
+            ok].all()) for g in got) == len(got)) * int(ok.sum())
+    kernels, colls, wire = got[0]["counted"]
+    real_k, real_c = got[0]["launches"], got[0]["collectives"]
+    held = colls == real_c and (kernels == real_k or device != "cuda")
+    row = {"part": part, "ranks": len(got), "prefill_rel": pre,
+           "step_rel": max(steps), "tokens": (same, clear),
+           "gathered": got[0]["gathered"],
+           "peak": [g["peak"] for g in got],
+           "param_bytes": [g["param_bytes"] for g in got],
+           "cache_bytes": got[0]["cache_bytes"],
+           "coll_s": [g["coll_s"] for g in got], "s": [g["s"] for g in got]}
+    log(f"  (g) {part}: {len(got)} ranks "
+        f"({'heads gathered' if row['gathered'] else 'heads split'}, "
+        f"kv_seq cache {row['cache_bytes']:,} bytes a rank, unsharded "
+        f"{ref['cache_bytes']:,}; the prefill's "
+        f"{got[0]['prefill_cache_bytes']:,} a rank, unsharded "
+        f"{ref['prefill_cache_bytes']:,}): prefill logits relative L2 "
+        f"{pre:.3e}, "
+        f"decode steps worst {max(steps):.3e} (bound {tol}; each "
+        f"{[round(x, 5) for x in steps]}); greedy tokens equal where the "
+        f"margin clears {P12_MARGIN}: {same}/{clear}; weights "
+        f"{sum(row['param_bytes']):,} bytes over the ranks "
+        f"({row['param_bytes'][0]:,} a rank), peak allocated "
+        f"{sum(row['peak']):,} bytes summed over the ranks (a rank's "
+        f"{row['peak']}); gloo's collectives "
+        f"{[round(x, 2) for x in row['coll_s']]} s of "
+        f"{[round(x, 1) for x in row['s']]} s a rank")
+    log(f"  (13 g) a {part} rank's kv_seq decode step counted on meta over "
+        f"an abstract 1 x {len(got)} mesh: kernels {json.dumps(kernels)}, "
+        f"collectives {json.dumps(colls)} ({wire:,.0f} wire bytes); the "
+        f"card's step launched {json.dumps(real_k)} and issued "
+        f"{json.dumps(real_c)}: equal {held}")
+    if pre > tol or max(steps) > tol or same != clear or not held:
+        raise AssertionError(f"(g) {part}: off the unsharded run, or the "
+                             f"count differs from the card's step")
+    return row
+
+
+class LocalShares:
+    """A stand-in for the model axis's group with its ``size`` ranks'
+    shares held in one process (:func:`p12g_shares`): ``rank`` is the
+    rank being computed, ``all_gather`` hands back ``every`` (the stack of
+    every rank's value, which the caller computed first), and
+    ``all_reduce`` keeps each rank's term in ``terms`` and returns it
+    (the caller sums them, in rank order)."""
+
+    def __init__(self, size):
+        self.size, self.rank, self.every, self.terms = size, 0, None, []
+
+    def all_gather(self, x, dim):
+        return self.every
+
+    def all_reduce(self, x):
+        self.terms.append(x)
+        return x
+
+
+def shares_step(torch, cfg, Ks, Vs, q, k, v, lengths, grp, owner=None):
+    """One layer's kv_seq decode step over ``len(Ks)`` shares held in one
+    process, as the ranks run it, from device values only: each share's
+    masked write of this step's ``k``/``v`` (``transformer.seq_write``),
+    its partial softmax over its rows (``transformer.seq_partial``, the
+    kernel's partial mode), and the merge (``comm.merge_partials`` over
+    :class:`LocalShares`). ``owner``: the negative control's write, into
+    that one share only, chosen on the host (a branch a graph freezes).
+    Returns the merged output (B, Hkv, g, hd) f32."""
+    from repro_torch.distributed import comm
+    from repro_torch.models import transformer
+    R = Ks[0].shape[1]
+    w_pos, kv_len = transformer.write_pos(cfg, lengths, R * len(Ks))
+    parts = []
+    for r, (K, V) in enumerate(zip(Ks, Vs)):
+        if owner is None or r == owner:
+            transformer.seq_write(K, V, k, v, w_pos, r * R)
+        parts.append(transformer.seq_partial(q, K, V, kv_len, r * R))
+    grp.every, grp.terms = torch.stack([lse for _, lse in parts]), []
+    for r, (o, lse) in enumerate(parts):
+        grp.rank = r
+        comm.merge_partials(grp, o, lse)
+    return torch.stack(grp.terms).sum(0)
+
+
+def p12g_shares(torch, n, steps=16):
+    """(g)'s graph check of the kv_seq step's own code at LLaMA-30B's step
+    shape (4 slots, 52 heads of 128, bf16): :func:`shares_step` over the
+    ``n`` shares of a P12G_MAX_SEQ-row cache, captured in one CUDA graph
+    and replayed ``steps`` times at advancing lengths (slot 0 crosses
+    from share 0 to share 1, slot 1 writes into the last share, slot 3
+    starts empty, so its other shares hold no position), against the same
+    steps run eagerly: every step's output and the shares at the end bit
+    for bit; the shares end to end equal to the whole cache written
+    plainly, bit for bit; each step's output within ``ATTN_TOL_F32`` of
+    the plain version over the whole cache. Negative control: the write
+    into the share that owned slot 0's row at capture, as a host branch
+    would choose it, must leave the shares off the plain cache. Returns a
+    row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    cfg = get_config("llama-30b")
+    B, Hkv, hd, rows = 4, cfg.num_kv_heads, cfg.head_dim, P12G_MAX_SEQ
+    R = rows // n
+    start = [R - 6, rows - steps - 1, R // 2, 0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27 + n)
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    Kw, Vw = rand(B, rows, Hkv, hd), rand(B, rows, Hkv, hd)
+    Q, Kn, Vn = (rand(steps, B, Hkv, 1, hd), rand(steps, B, Hkv, hd),
+                 rand(steps, B, Hkv, hd))
+
+    def shares():
+        return ([Kw[:, r * R:(r + 1) * R].clone() for r in range(n)],
+                [Vw[:, r * R:(r + 1) * R].clone() for r in range(n)])
+
+    def static():
+        return (Q[0].clone(), Kn[0].clone(), Vn[0].clone(),
+                torch.tensor(start, dtype=torch.int32, device="cuda"))
+
+    def feed(buf, t):
+        for dst, src in zip(buf[:3], (Q[t], Kn[t], Vn[t])):
+            dst.copy_(src)
+
+    def graphed(owner=None):
+        Ks, Vs = shares()
+        buf = static()
+        grp = LocalShares(n)
+
+        def step():
+            o = shares_step(torch, cfg, Ks, Vs, *buf, grp, owner=owner)
+            buf[3].add_(1)
+            return o
+
+        side = torch.cuda.Stream()          # warm up off the capture
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            Kc, Vc = [K.clone() for K in Ks], [V.clone() for V in Vs]
+            shares_step(torch, cfg, Kc, Vc, *buf, grp, owner=owner)
+        torch.cuda.current_stream().wait_stream(side)
+        del Kc, Vc
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = step()
+        outs = []
+        for t in range(steps):
+            feed(buf, t)
+            g.replay()
+            outs.append(out.clone())
+        torch.cuda.synchronize()
+        return outs, Ks, Vs
+
+    Ks, Vs = shares()
+    buf, grp = static(), LocalShares(n)
+    eager = []
+    for t in range(steps):
+        feed(buf, t)
+        eager.append(shares_step(torch, cfg, Ks, Vs, *buf, grp))
+        buf[3].add_(1)
+    got, Kg, Vg = graphed()
+    owner = start[0] // R
+    _, Kx, Vx = graphed(owner)
+    # the plain cache: each step's k/v at its slot's row, then attention
+    Kp, Vp = Kw.clone(), Vw.clone()
+    worst, lens = 0.0, torch.tensor(start, device="cuda")
+    for t in range(steps):
+        b = torch.arange(B, device="cuda")
+        Kp[b, lens], Vp[b, lens] = Kn[t], Vn[t]
+        lens = lens + 1
+        want = ref.decode_attention_ref(
+            Q[t].float(), Kp.permute(0, 2, 1, 3), Vp.permute(0, 2, 1, 3),
+            kv_len=lens.to(torch.int32), return_lse=True)[0]
+        ok, w = attn_close(torch, eager[t], want)
+        worst = max(worst, w)
+        if not ok:
+            raise AssertionError(f"(g) shares n={n}: step {t} off the "
+                                 f"plain version ({w:.3g} of its tol)")
+    same_out = all(torch.equal(a, b) for a, b in zip(got, eager))
+    same_shares = all(torch.equal(a, b) for a, b in zip(Kg + Vg, Ks + Vs))
+    plain = torch.equal(torch.cat(Kg, 1), Kp) and \
+        torch.equal(torch.cat(Vg, 1), Vp)
+    control = torch.equal(torch.cat(Kx, 1), Kp) and \
+        torch.equal(torch.cat(Vx, 1), Vp)
+    crossed = sorted({(s + t) // R for s in start for t in range(steps)})
+    log(f"  (g) the kv_seq step's device half over {n} shares of a "
+        f"{rows}-row cache in one process (seq_write, the partial mode, "
+        f"merge_partials over a stand-in group), one CUDA graph replayed "
+        f"{steps} times from lengths {start} (shares written: {crossed}): "
+        f"outputs bit for bit the eager steps: {same_out}; shares bit for "
+        f"bit: {same_shares}; end to end the plain cache: {plain}; worst "
+        f"|err| / tol against the plain attention {worst:.3g} "
+        f"({ATTN_TOL_TEXT['float32']}); negative control (the write into "
+        f"share {owner} only, as a host branch at capture would pick it): "
+        f"the plain cache {control}, rejected: {not control}")
+    if not (same_out and same_shares and plain) or control:
+        raise AssertionError(f"(g) shares n={n}: the graphed kv_seq step "
+                             f"differs from the eager one or the plain "
+                             f"cache, or the control passed")
+    return {"n": n, "steps": steps, "worst": worst}
+
+
+def phase12g(torch, *, device="cuda", reduced=False):
+    """Phase 12 (g), the kv_seq decode cache and heads the model axis does
+    not split: a world-1 NCCL mesh under ``Runtime(kv_seq=True)``
+    (LLaMA-30B cut to one layer, :func:`mesh_world1` on the dense cache:
+    the graphed chunk bit for bit the unmeshed one; at axis size 1 that
+    is the head-split step); the kv_seq step's own code graphed over 2
+    and 8 shares held in one process (:func:`p12g_shares`); LLaMA-30B at
+    TP 2 (4 layers, 16 kv_seq steps) and at TP 8 (2 layers, its 52 heads
+    gathered, a qseq prefill and 8 kv_seq steps), gloo ranks on the one
+    card against the unsharded run of each cut. Returns (the kernel
+    launches of its runs, its rows). (The CPU rehearsal: ``device="cpu",
+    reduced=True``.)"""
+    import tempfile
+    t = time.perf_counter()
+    cfg = p12g_cfg("world1", reduced)
+    params = make_params(torch, cfg, device=device)
+    launches = mesh_world1(torch, cfg, params, device, name="(g)",
+                           kv_seq=True)[0]
+    del params
+    if device == "cuda":
+        settled(torch)
+    log(f"  (g) world 1: {time.perf_counter() - t:.1f} s")
+    rows = []
+    if device == "cuda":        # CUDA graphs: the card only
+        t = time.perf_counter()
+        rows += [p12g_shares(torch, n) for n in (2, 8)]
+        log(f"  (g) the kv_seq step graphed over shares: "
+            f"{time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, (world, _, _) in P12G.items():
+            t = time.perf_counter()
+            ref = p12g_reference(torch, part, tmp, device, reduced)
+            got = p12f_spawn(torch, f"g_{part}", world, tmp, reduced, device,
+                             fn="p12g_rank")
+            rows.append(p12g_compare(part, ref, got, device))
+            for g in got:
+                launches = {k: launches.get(k, 0) + n for k, n in
+                            g["run_launches"].items()}
+            log(f"  (g) {part}: {time.perf_counter() - t:.1f} s")
+    return launches, rows
 
 
 # -- phase 13: the counts against the card ------------------------------------
@@ -4898,6 +5513,8 @@ def main() -> int:
     arch_rows = check_arch_shapes(torch, ref, fa, da, pa, kq, rn)
     arch_rows += check_recurrent_shapes(torch, ref, fa, da, rn)
     arch_rows += check_local_shapes(torch, ref, fa, da, pa, kq, rn)
+    lse_rows = lse_shapes(torch, ref, da)
+    arch_rows += lse_rows
     torch.cuda.empty_cache()
 
     log("[4/13] reduced configs, float32: card vs plain versions on the CPU")
@@ -5003,7 +5620,9 @@ def main() -> int:
         if mem > base_mem:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
-    missing = [k for k, n in launches.items() if n == 0]
+    # the partial mode runs on the kv_seq cache only: phase 12 (g)
+    missing = [k for k, n in launches.items()
+               if n == 0 and k != "decode_attention_lse"]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -5051,7 +5670,10 @@ def main() -> int:
         "the sharded training step: a world-1 NCCL step of LLaMA-30B, "
         f"LLaMA-30B at TP 2 ({P12F_LAYERS['tp']} layers) and at data 2 x "
         f"model 2 ({P12F_LAYERS['dp']}), qwen3-moe at EP 2 + TP 2 "
-        f"({P12F_LAYERS['moe']}), a TP-2 checkpoint read back at TP 1")
+        f"({P12F_LAYERS['moe']}), a TP-2 checkpoint read back at TP 1; "
+        f"(g) the kv_seq decode cache: a world-1 NCCL mesh, LLaMA-30B at "
+        f"TP 2 ({P12G['tp2'][1]} layers) and at TP 8 ({P12G['tp8'][1]} "
+        f"layers, 52 heads gathered)")
     log(smi.splitlines()[0])
     t12 = time.perf_counter()
     got = phase12(torch)[0]
@@ -5071,6 +5693,17 @@ def main() -> int:
         raise AssertionError(f"(f) left {settled(torch) - mem} bytes "
                              f"allocated")
     log(f"  (f): {time.perf_counter() - t12f:.1f} s; no kernel launched")
+    t12g = time.perf_counter()
+    mem = settled(torch)
+    got = phase12g(torch)[0]
+    launches = {k: launches[k] + got.get(k, 0) for k in launches}
+    log(f"  (g) launches: {json.dumps({k: n for k, n in got.items() if n})}")
+    if not got.get("decode_attention_lse"):
+        raise AssertionError("(g) never launched the partial mode")
+    if settled(torch) > mem:
+        raise AssertionError(f"(g) left {settled(torch) - mem} bytes "
+                             f"allocated")
+    log(f"  (g): {time.perf_counter() - t12g:.1f} s")
     log(smi.splitlines()[0])
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
@@ -5110,6 +5743,9 @@ def main() -> int:
             ("decode_attention",
              "src/repro_torch/kernels/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:96", rdec),
+            ("decode_attention_lse",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:96", lse_rows[0][3]),
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:24", rn_pre),
             ("add_rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",

@@ -38,7 +38,16 @@ backward (partial sums whose total every rank then uses alike),
 backward, :func:`all_to_all` and :func:`exchange` their own reverse.
 A region that every rank computes whole and alike (a whole ``unembed``,
 a gathered norm) takes none of them: reducing its gradient would count
-it once a rank. Without grad (serving, or a tensor that needs none)
+it once a rank.
+
+Heads the model axis does not split (``sharding.gathered``, and the
+``kv_seq`` decode cache) are gathered whole by :func:`gather_cols` (one
+all-gather of a rank's columns of q, k and v; under autograd the whole
+tensors enter work of the rank's own, so their gradient is summed
+before the rank keeps its columns), the qseq attention's output goes
+back from a rank's rows to its columns by :func:`rows_to_cols` (one
+all-to-all, its own adjoint), and the partial softmaxes of the ranks'
+shares of a ``kv_seq`` cache are merged by :func:`merge_partials`. Without grad (serving, or a tensor that needs none)
 each function issues exactly the :class:`Group` call the layers made
 before, in place where that call is. The backward collectives go
 through the same group, so they are counted too, and on an abstract
@@ -160,8 +169,8 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class CountingGroup:
-    """One axis of an abstract mesh: ``size`` ranks, this one rank 0, no
-    process group. Each call runs nothing, returns what the real call
+    """One axis of an abstract mesh: ``size`` ranks, this one ``rank``
+    (0 unless the mesh names another), no process group. Each call runs nothing, returns what the real call
     returns in shape and type (meta tensors), and adds ``(op, payload
     bytes, size)`` to the active op counter; outside a counter it
     raises. Payloads are the reference's (``roofline/analysis.py``): an
@@ -171,8 +180,8 @@ class CountingGroup:
     backend = "abstract"
     staged = graphable = False
 
-    def __init__(self, size: int, name: str):
-        self.size, self.name, self.rank = size, name, 0
+    def __init__(self, size: int, name: str, rank: int = 0):
+        self.size, self.name, self.rank = size, name, rank
 
     def global_rank(self, r: int) -> int:
         return r
@@ -345,3 +354,59 @@ def exchange(grp, sends, recvs):
     return list(_Exchange.apply(grp, [peer for _, peer in sends],
                                 list(recvs), *(t for t, _ in sends)))
 
+
+
+# -- whole heads over the model axis (sharding.gathered, kv_seq) --------------
+
+
+def gather_cols(grp, *ts):
+    """Each of ``ts`` (..., c_i), this rank's columns of a tensor split
+    evenly over ``grp`` along its last dim, whole (..., n * c_i, the
+    ranks' columns in rank order), from one all-gather of their
+    concatenation. Under autograd the whole tensors enter work of the
+    rank's own (attention over its query rows, its channels of a
+    recurrent block), so their gradient is summed over the group
+    (:func:`copy_to_model`) before the gather's backward keeps the rank's
+    columns. At a group of one rank under autograd ``ts`` come back as
+    they are (the gather is the identity there; the concatenation would
+    change the order in which autograd adds their gradients, and a
+    size-1 mesh trains bit for bit as no mesh)."""
+    if grp.size == 1 and needs_grad(*ts):
+        return list(ts)
+    widths = [t.shape[-1] for t in ts]
+    cat = torch.cat(ts, dim=-1) if len(ts) > 1 else ts[0]
+    whole = copy_to_model(grp, gather_from_model(grp, cat, -1))
+    parts = whole.unflatten(-1, (grp.size, sum(widths))).split(widths, -1)
+    return [t.flatten(-2) for t in parts]
+
+
+def rows_to_cols(grp, o):
+    """``o`` (B, m, C): this rank's m rows (of n * m, rank r's the r-th
+    run) of every column. Returns (B, n * m, C / n): every row of this
+    rank's columns, from one all-to-all (the qseq attention's output
+    handed back to the column slices its row-parallel ``wo`` reads)."""
+    B, m, C = o.shape
+    n = grp.size
+    x = o.reshape(B, m, n, C // n).permute(2, 0, 1, 3).contiguous()
+    y = all_to_all(grp, x)               # chunk i: rank i's rows
+    return y.permute(1, 0, 2, 3).reshape(B, n * m, C // n)
+
+
+def merge_partials(grp, o, lse):
+    """The softmax over every rank's keys from each rank's partial one
+    (the kv_seq decode step: each rank attends its share of a cache's
+    positions, ``ops.decode_attention(return_lse=True)``). ``o`` (..., hd)
+    f32, normalised over this rank's keys; ``lse`` (...) f32 their
+    log-sum-exp, ``-inf`` where the rank holds none. Returns ``sum_r
+    exp(lse_r - M) o_r / sum_r exp(lse_r - M)`` (M the rows' largest
+    ``lse``), f32: one all-gather of ``lse`` and one all-reduce of the
+    weighted ``o``. A rank with no key weighs 0; a row no rank holds a
+    key of gives 0, as the kernel does. All on the device: a graph
+    captures it."""
+    every = grp.all_gather(lse[None], 0)                 # (n, ...)
+    top = every.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(every - top)
+    den = w.sum(dim=0)
+    mine = w[grp.rank] / torch.where(den > 0, den, torch.ones_like(den))
+    return grp.all_reduce(o * mine[..., None])

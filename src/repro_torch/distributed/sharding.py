@@ -21,8 +21,32 @@ the FFN width, the experts and the recurrent widths divided by the
 ``model`` axis), so the layer code runs unchanged on a rank's shard;
 :func:`shard_params` cuts each weight to this rank's slice by its spec;
 :func:`check_tp` refuses what the port does not shard (ROADMAP A.9 step
-two: heads, KV heads, experts, ``d_model`` or an FFN width that the axis
-does not divide).
+two: experts, ``d_model``, an FFN width, or attention columns that the
+axis does not divide).
+
+Heads the axis does not divide (LLaMA-30B's 52 at 8 or 16, gemma-2b's 8
+and its one KV head at 16, xlstm's 4 at 8 or 16): the rank's config is
+*gathered* (:func:`heads_split` false). Its ``wq``/``wk``/``wv`` take the
+reference's plain column cut and ``wo`` its row cut, even where the cut
+falls inside a head, and a head-wise mixer runs on whole heads gathered
+over ``model``: prefill and training attend the reference's
+``ATTN_QSEQ_RULES`` way (each rank all heads for its share of the query
+rows, ``layers.qseq_attention``), decode over the ``kv_seq`` cache; the
+xLSTM blocks run their recurrences on every head, their states whole on
+every rank (the reference's cache spec replicates ``C``).
+
+The ``kv_seq`` decode cache (the reference's ``DEFAULT_RULES["kv_seq"]``,
+``transformer.Runtime(kv_seq=True)``, and every gathered config): rank r
+holds positions ``[r R, (r + 1) R)`` of every KV head, ``R`` the cache's
+rows over the axis (rounded up; a ring's rows must divide); whisper's
+cross cache of ``encoder_seq`` frames is split the same way where the
+axis divides them and stays whole where not (``_fits``). A decode step
+gathers q, k and v to whole heads, writes the new K/V on the rank that
+owns its position and merges the ranks' partial softmaxes
+(``comm.merge_partials``); a prefill under it attends the qseq way and
+its cache holds every KV head at every position (the wire a ``kv_seq``
+decode engine inserts its share of). The paged engines keep the head
+split and refuse it.
 
 Where a rank's shard is not the plain cut of the reference's spec
 (``_shard_tree``), or the spec leaves a weight whole and the layer takes
@@ -46,6 +70,10 @@ weight                                  what a rank holds or does       grad
                                         read (never 1/n of              (over
                                         ``head_dim``)                   its
                                                                         ranks)
+``wq``/``wk``/``wv`` (+ bias), gathered  1/n of the columns, a cut       whole
+                                        inside a head; gathered to      (summed
+                                        whole heads, ``wo`` row cut     in the
+                                                                        gather)
 ``mamba/out_proj`` (whole)              ``y`` gathered before it        whole
 ``mlstm/w_if`` (whole) and its bias     its heads' i and f gates        partial
                                         sliced
@@ -53,7 +81,9 @@ weight                                  what a rank holds or does       grad
                                         squares all-reduced
 ``slstm/gn`` (whole)                    ``y`` gathered, then the        whole
                                         whole norm
-``slstm/r`` (whole)                     its heads sliced                partial
+``slstm/r`` (whole)                     its heads sliced (gathered:     partial
+                                        every head, whole: the input's  (whole)
+                                        gates gathered)
 ``mm_projector`` (whole)                the whole patches projected     whole
 ``unembed``, vocab not dividing         whole: every logit on every     whole
                                         rank
@@ -285,28 +315,39 @@ STEP_TWO = "is not sharded over a model axis larger than 1 yet " \
     "(ROADMAP A.9 step two)"
 
 
+def heads_split(cfg, n: int) -> bool:
+    """Whether a ``model`` axis of ``n`` splits ``cfg``'s attention (or
+    xLSTM) heads: the axis divides the query heads, and the KV heads or
+    their count divides the axis (replicated KV needs whole query groups
+    a rank). Otherwise the rank's config is gathered (the module's
+    docstring)."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    return H % n == 0 and (Hkv % n == 0 or n % Hkv == 0)
+
+
 def tp_refusals(cfg, n: int):
     """What keeps ``cfg`` from running tensor- and expert-parallel over a
-    ``model`` axis of ``n`` ranks (empty at ``n == 1``): query heads that
-    the axis does not divide, KV heads where neither the axis nor their
-    count divides the other (replicated KV needs whole query groups a
-    rank), experts or a ``d_model`` that the axis does not divide, and an
-    FFN width, a shared expert's or an sLSTM's, whose gate and up halves
-    it does not divide (a whole row-parallel ``wo`` would be summed ``n``
-    times). A vocabulary that does not divide leaves ``unembed`` whole
-    (``_fits``), which needs nothing."""
+    ``model`` axis of ``n`` ranks (empty at ``n == 1``): experts or a
+    ``d_model`` that the axis does not divide, an FFN width, a shared
+    expert's or an sLSTM's, whose gate and up halves it does not divide
+    (a whole row-parallel ``wo`` would be summed ``n`` times), and, where
+    it does not split the heads (:func:`heads_split`), attention columns
+    ``q_dim``/``kv_dim`` that it does not divide (no column cut). Heads
+    the axis does not divide are no refusal: they run gathered. A
+    vocabulary that does not divide leaves ``unembed`` whole (``_fits``),
+    which needs nothing."""
     from repro_torch.models import xlstm
     if n == 1:
         return []
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
     widths = [("an FFN of", cfg.d_ff)]
     if cfg.moe_shared_expert:
         widths.append(("a shared expert of", cfg.moe_d_ff))
     if cfg.family == "ssm":
         widths.append(("an sLSTM FFN of", xlstm.slstm_ffn_width(cfg) // 2))
+    elif not heads_split(cfg, n):
+        widths += [(f"{cfg.num_heads} heads over q_dim", cfg.q_dim),
+                   (f"{cfg.num_kv_heads} KV heads over kv_dim", cfg.kv_dim)]
     why = [name for name, on in (
-        (f"{H} heads", H % n),
-        (f"{Hkv} KV heads", Hkv % n and n % Hkv),
         (f"{cfg.moe_num_experts} experts",
          cfg.moe_num_experts and cfg.moe_num_experts % n),
         (f"d_model {cfg.d_model}", cfg.d_model % n),
@@ -328,8 +369,19 @@ class RankConfig(ModelConfig):
     FFN width and experts are the rank's, and whose recurrent widths
     follow ``model_axis``: the Mamba inner width here, the mLSTM and
     sLSTM widths in ``models/xlstm.py`` (:func:`split_of`). ``d_model``
-    stays whole: the residual stream is whole on every rank."""
+    stays whole: the residual stream is whole on every rank.
+
+    ``gathered``: the axis does not split the heads; ``num_heads`` and
+    ``num_kv_heads`` are then the whole model's, the rank holding
+    ``q_dim / n`` and ``kv_dim / n`` columns of the projections.
+    ``kv_seq``: the dense decode cache is split by sequence and holds
+    every KV head (always where gathered). ``heads_whole`` and
+    ``kv_heads_whole``: the whole model's counts (:func:`whole_heads`)."""
     model_axis: int = 1
+    gathered: bool = False
+    kv_seq: bool = False
+    heads_whole: int = 0
+    kv_heads_whole: int = 0
 
     @property
     def mamba_d_inner(self) -> int:
@@ -342,20 +394,47 @@ def split_of(cfg) -> int:
     return getattr(cfg, "model_axis", 1)
 
 
+def gathered(cfg) -> bool:
+    """Whether a rank's config runs its heads gathered (:class:`RankConfig`;
+    False for a whole model's config)."""
+    return getattr(cfg, "gathered", False)
+
+
+def kv_seq(cfg) -> bool:
+    """Whether a rank's config splits its dense decode cache by sequence
+    and attends whole heads the kv_seq and qseq way (False for a whole
+    model's config)."""
+    return getattr(cfg, "kv_seq", False)
+
+
+def whole_heads(cfg):
+    """``(query heads, KV heads)`` of the whole model a config is a rank
+    of (its own where it is whole)."""
+    return (getattr(cfg, "heads_whole", 0) or cfg.num_heads,
+            getattr(cfg, "kv_heads_whole", 0) or cfg.num_kv_heads)
+
+
 @functools.lru_cache(maxsize=None)
-def rank_cfg(cfg, n: int):
+def rank_cfg(cfg, n: int, kv_seq: bool = False):
     """:func:`local_cfg` for a ``model`` axis of ``n`` ranks: ``n``-th of
     the query heads, the KV heads (one where the axis is a multiple of
     their count: replicated KV), the dense FFN width and the experts
     (MoE interleaved with dense layers divides both), and of the
-    recurrent widths (:class:`RankConfig`)."""
+    recurrent widths (:class:`RankConfig`); where the axis does not split
+    the heads (:func:`heads_split`) the head counts stay whole and the
+    config is gathered, its decode cache ``kv_seq``. ``kv_seq`` asks for
+    that cache (and the qseq prefill) where the heads split too."""
     check_tp(cfg, n)
     if n == 1:
         return cfg
+    split = heads_split(cfg, n)
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    kw.update(num_heads=cfg.num_heads // n,
-              num_kv_heads=max(cfg.num_kv_heads // n, 1),
-              d_ff=cfg.d_ff // n, model_axis=n)
+    kw.update(d_ff=cfg.d_ff // n, model_axis=n, gathered=not split,
+              kv_seq=kv_seq or not split, heads_whole=cfg.num_heads,
+              kv_heads_whole=cfg.num_kv_heads)
+    if split:
+        kw.update(num_heads=cfg.num_heads // n,
+                  num_kv_heads=max(cfg.num_kv_heads // n, 1))
     if cfg.moe_num_experts:
         kw["moe_num_experts"] = cfg.moe_num_experts // n
     return RankConfig(**kw)
@@ -365,19 +444,23 @@ def model_size(mesh) -> int:
     return 1 if mesh is None else shape_of(mesh).get("model", 1)
 
 
-def local_cfg(cfg, mesh):
+def local_cfg(cfg, mesh, kv_seq: bool = False):
     """The config one rank of ``mesh``'s ``model`` axis computes
-    (:func:`rank_cfg`). ``cfg`` itself at axis size 1 or without a mesh;
-    raises (:func:`check_tp`) for what this step does not shard."""
-    return rank_cfg(cfg, model_size(mesh))
+    (:func:`rank_cfg`; ``kv_seq``: the sequence-split decode cache).
+    ``cfg`` itself at axis size 1 or without a mesh, where the kv_seq
+    layout is the whole cache; raises (:func:`check_tp`) for what this
+    step does not shard."""
+    return rank_cfg(cfg, model_size(mesh), kv_seq)
 
 
 def kv_replicated(cfg, n: int) -> bool:
     """Whether a ``model`` axis of ``n`` replicates ``cfg``'s KV heads:
-    fewer of them than ranks, so each rank holds the one its query heads
-    read (the reference's ``ATTN_QSEQ_RULES`` replicate the KV whole
-    rather than split ``head_dim``)."""
-    return cfg.num_kv_heads % n != 0 and n % cfg.num_kv_heads == 0
+    the axis splits the query heads but has more ranks than KV heads, so
+    each rank holds the one its query heads read (the reference's
+    ``ATTN_QSEQ_RULES`` replicate the KV whole rather than split
+    ``head_dim``). A gathered config cuts the KV columns instead."""
+    return (cfg.num_kv_heads % n != 0 and n % cfg.num_kv_heads == 0
+            and cfg.num_heads % n == 0)
 
 
 def kv_head_of(cfg, n: int, r: int) -> int:
@@ -518,6 +601,7 @@ def shard_params(params, cfg, mesh):
 _PARTIAL = re.compile(r"(^|/)((attn|self_attn|cross_attn)/(qnorm|knorm)/scale"
                       r"|mlstm/(w_if/w|w_if/b|gn/scale)|slstm/r|moe/router)$")
 _KV = re.compile(r"(^|/)(attn|self_attn|cross_attn)/(wk|wv)/(w|b)$")
+_SLSTM_R = re.compile(r"(^|/)slstm/r$")
 
 
 @functools.lru_cache(maxsize=None)
@@ -559,19 +643,25 @@ def grad_kinds(cfg, n: int):
     """A tree like the params of ``cfg`` (``whole_meta``'s structure)
     holding, for each leaf, what a rank's gradient of it is over a
     ``model`` axis of ``n`` (the module's table): ``"sharded"`` (the
-    rank's cut of a split weight, whole), ``"whole"`` (a whole weight
-    every rank computes alike), ``"partial"`` (summed over the axis) or
-    ``"kv"`` (a replicated KV head: summed over the ranks that hold it).
+    rank's cut of a split weight, whole; a column cut inside a head too,
+    whose gathered columns are summed in backward), ``"whole"`` (a whole
+    weight every rank computes alike: the gathered sLSTM's ``r``),
+    ``"partial"`` (summed over the axis) or ``"kv"`` (a replicated KV
+    head: summed over the ranks that hold it).
     """
     from repro_torch.models import convert
     whole = whole_meta(cfg)
+    # gathered sLSTM: every rank runs every head of the whole r alike
+    whole_r = n > 1 and not heads_split(cfg, n)
 
     def kinds(tree):
         paths = {id(t): p for p, t in tree_paths(convert.nest(tree)).items()}
         rules = _rules(tree, n, cfg) if n > 1 else {}
         out = {}
         for i, path in paths.items():
-            if _PARTIAL.search(path):
+            if whole_r and _SLSTM_R.search(path):
+                out[i] = "whole"
+            elif _PARTIAL.search(path):
                 out[i] = "partial"
             elif rules.get(i) == "kv" or (n > 1 and kv_replicated(cfg, n)
                                           and _KV.search(path)):

@@ -88,13 +88,24 @@ def paged_decode_attention_bf16(shapes, dtypes, *, page_size, kv_len=None):
             + 2 * _n(shapes[0]) * dtypes[0].itemsize + 4 * (B * W + B))
 
 
-def decode_attention(shapes, dtypes, *, kv_len=None):
-    """q (B, Hkv, g, hd) over k, v (B, Hkv, S, hd) up to kv_len (B,)."""
+def decode_attention(shapes, dtypes, *, kv_len=None, return_lse=False):
+    """q (B, Hkv, g, hd) over k, v (B, Hkv, S, hd) up to kv_len (B,).
+    The partial mode (``return_lse``) writes ``o`` in f32 and one f32
+    log-sum-exp a query row."""
     B, Hkv, g, hd = shapes[0]
     tokens = _tokens(kv_len, B, shapes[1][2])
+    q_bytes = _n(shapes[0]) * dtypes[0].itemsize
+    out_bytes = 4 * _n(shapes[0]) + 4 * B * Hkv * g if return_lse \
+        else q_bytes
     return (4 * Hkv * g * hd * tokens,
             tokens * Hkv * hd * 2 * dtypes[1].itemsize
-            + 2 * _n(shapes[0]) * dtypes[0].itemsize + 4 * B)
+            + q_bytes + out_bytes + 4 * B)
+
+
+def decode_attention_lse(shapes, dtypes, *, kv_len=None):
+    """The partial mode of :func:`decode_attention` (q read in its own
+    type, ``o`` written in f32 beside one f32 log-sum-exp a query row)."""
+    return decode_attention(shapes, dtypes, kv_len=kv_len, return_lse=True)
 
 
 def flash_pairs(B, Sq, Sk, *, causal=True, window=0, prefix_len=None):
@@ -147,6 +158,7 @@ COSTS: Dict[str, Callable] = {
     "paged_decode_attention_bf16": paged_decode_attention_bf16,
     "flash_attention": flash_attention,
     "decode_attention": decode_attention,
+    "decode_attention_lse": decode_attention_lse,
     "rmsnorm": rmsnorm,
     "add_rmsnorm": add_rmsnorm,
 }

@@ -14,8 +14,18 @@
 // at or past kv_len[b] never loaded, masked scores -1e30, f32 online
 // softmax, out = acc / max(l, 1e-30) in q's type (so kv_len = 0 gives 0).
 //
+// Partial mode (dense only; lse non-null): each row also writes the
+// log-sum-exp of its scaled scores, lse = m + log(l) in f32 (-inf where
+// the row saw no key, kv_len = 0), beside its normalised out, written in
+// f32 whatever q's type (q is read as it is). A caller
+// holding (out, lse) of disjoint key ranges -- the kv_seq decode cache,
+// each rank a run of positions -- merges them exactly:
+// out = sum_r exp(lse_r - M) out_r / sum_r exp(lse_r - M)
+// (distributed/comm.py: merge_partials).
+//
 // Shapes: q/out (B, Hkv, g, hd) contiguous, bf16 or f32; K/V bf16 or f32
-// (dense) or bf16 (paged); kv_len (B,) i32; page_table (B, W) i32.
+// (dense) or bf16 (paged); kv_len (B,) i32; page_table (B, W) i32; out f32
+// in the partial mode.
 //
 // Bound on the H100: memory. The work is ~4*g*hd FLOP for every key and
 // head against 2*hd*sizeof(kv) bytes read (about 1 FLOP per byte at g = 1,
@@ -55,6 +65,7 @@
 // merge (partial store, fence, counter, reload).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -151,12 +162,13 @@ struct PagedKeys {
   }
 };
 
-template <int HD, typename Tq, typename Keys>
+template <int HD, typename Tq, typename To, typename Keys>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const Tq* __restrict__ q, Keys keys,
-                  const int* __restrict__ kv_len, Tq* __restrict__ out,
-                  float* __restrict__ part, int* __restrict__ counters,
-                  int Hkv, int g, int split_len, float sm_scale) {
+                  const int* __restrict__ kv_len, To* __restrict__ out,
+                  float* __restrict__ lse, float* __restrict__ part,
+                  int* __restrict__ counters, int Hkv, int g, int split_len,
+                  float sm_scale) {
   using Tkv = typename Keys::Elem;
   constexpr int EPL = Lanes<HD>::EPL;  // elements per lane of a half-warp
   __shared__ float s_m[kHalfWarps], s_l[kHalfWarps];
@@ -257,6 +269,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (n_active <= 1) {
     if (tid < HD) from_f(&out[row * HD + tid], o / fmaxf(L, 1e-30f));
+    if (lse != nullptr && tid == 0)
+      lse[row] = L > 0.0f ? M + logf(L) : -INFINITY;
     return;
   }
   const int stride = HD + 2;  // (m, l, acc)
@@ -289,17 +303,20 @@ __global__ void __launch_bounds__(kThreads)
       mx = m_new;
     }
     from_f(&out[row * HD + tid], acc_o / fmaxf(sum, 1e-30f));
+    if (lse != nullptr && tid == 0)
+      lse[row] = sum > 0.0f ? mx + logf(sum) : -INFINITY;
   }
 }
 
 // split_len/n_split: kernels/decode_attention.py launch_shape; part: (B*Hkv*g,
 // n_split, hd + 2) f32 scratch; counters: B*Hkv*g i32, all 0 between
-// launches (each launch leaves them at 0).
-template <typename Tq, typename Keys>
+// launches (each launch leaves them at 0). out is To: q's type, or f32 in
+// the partial mode.
+template <typename Tq, typename To, typename Keys>
 cudaError_t launch(int hd, const void* q, const Keys& keys,
-                   const void* kv_len, void* out, void* part, void* counters,
-                   int B, int Hkv, int g, int split_len, int n_split,
-                   float sm_scale, cudaStream_t st) {
+                   const void* kv_len, void* out, void* lse, void* part,
+                   void* counters, int B, int Hkv, int g, int split_len,
+                   int n_split, float sm_scale, cudaStream_t st) {
   if (split_len <= 0 || keys.max_len <= 0 ||
       n_split != (keys.max_len + split_len - 1) / split_len ||
       (long long)B * Hkv > 65535 || g > 65535)
@@ -307,13 +324,14 @@ cudaError_t launch(int hd, const void* q, const Keys& keys,
   const dim3 grid(n_split, B * Hkv, g);
   const Tq* qp = (const Tq*)q;
   const int* lp = (const int*)kv_len;
-  Tq* op = (Tq*)out;
+  To* op = (To*)out;
   float* pp = (float*)part;
   int* cp = (int*)counters;
+  float* ep = (float*)lse;
 #define DECODE_HD(HD)                                                      \
   case HD:                                                                 \
-    decode_kernel<HD, Tq, Keys><<<grid, kThreads, 0, st>>>(                \
-        qp, keys, lp, op, pp, cp, Hkv, g, split_len, sm_scale);            \
+    decode_kernel<HD, Tq, To, Keys><<<grid, kThreads, 0, st>>>(            \
+        qp, keys, lp, op, ep, pp, cp, Hkv, g, split_len, sm_scale);        \
     break;
   switch (hd) {
     DECODE_HD(16)
@@ -333,26 +351,33 @@ cudaError_t launch(int hd, const void* q, const Keys& keys,
 template <typename Tkv>
 cudaError_t launch_dense(int q_is_bf16, const void* q, const void* k,
                          const void* v, const void* kv_len, void* out,
-                         void* part, void* counters, int B, int Hkv, int g,
-                         int hd, int S, long long sb, long long ss,
-                         long long sh, int split_len, int n_split,
-                         float sm_scale, cudaStream_t st) {
+                         void* lse, void* part, void* counters, int B,
+                         int Hkv, int g, int hd, int S, long long sb,
+                         long long ss, long long sh, int split_len,
+                         int n_split, float sm_scale, cudaStream_t st) {
   DenseKeys<Tkv> keys{(const Tkv*)k, (const Tkv*)v, sb, ss, sh, S};
-  return q_is_bf16
-             ? launch<__nv_bfloat16>(hd, q, keys, kv_len, out, part,
-                                     counters, B, Hkv, g, split_len, n_split,
-                                     sm_scale, st)
-             : launch<float>(hd, q, keys, kv_len, out, part, counters, B,
-                             Hkv, g, split_len, n_split, sm_scale, st);
+  if (!q_is_bf16)
+    return launch<float, float>(hd, q, keys, kv_len, out, lse, part,
+                                counters, B, Hkv, g, split_len, n_split,
+                                sm_scale, st);
+  // the partial mode's out is f32 (the cross-rank merge reads it unrounded)
+  return lse != nullptr
+             ? launch<__nv_bfloat16, float>(hd, q, keys, kv_len, out, lse,
+                                            part, counters, B, Hkv, g,
+                                            split_len, n_split, sm_scale, st)
+             : launch<__nv_bfloat16, __nv_bfloat16>(
+                   hd, q, keys, kv_len, out, lse, part, counters, B, Hkv, g,
+                   split_len, n_split, sm_scale, st);
 }
 
 }  // namespace
 
 // Dense decode attention; sb/ss/sh are K's and V's batch, sequence and head
-// strides in elements (the head dimension is contiguous).
+// strides in elements (the head dimension is contiguous). lse: null, or
+// (B*Hkv*g) f32 for the partial mode's log-sum-exp of each row.
 extern "C" int decode_attention_launch(
     const void* q, int q_is_bf16, const void* k, const void* v,
-    int kv_is_bf16, const void* kv_len, void* out, void* part,
+    int kv_is_bf16, const void* kv_len, void* out, void* lse, void* part,
     void* counters, int B, int Hkv, int g, int hd, int S, long long sb,
     long long ss, long long sh, int split_len, int n_split, float sm_scale,
     void* stream) {
@@ -360,12 +385,12 @@ extern "C" int decode_attention_launch(
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(kv_is_bf16
                    ? launch_dense<__nv_bfloat16>(
-                         q_is_bf16, q, k, v, kv_len, out, part, counters, B,
-                         Hkv, g, hd, S, sb, ss, sh, split_len, n_split,
-                         sm_scale, st)
+                         q_is_bf16, q, k, v, kv_len, out, lse, part,
+                         counters, B, Hkv, g, hd, S, sb, ss, sh, split_len,
+                         n_split, sm_scale, st)
                    : launch_dense<float>(q_is_bf16, q, k, v, kv_len, out,
-                                         part, counters, B, Hkv, g, hd, S,
-                                         sb, ss, sh, split_len, n_split,
+                                         lse, part, counters, B, Hkv, g, hd,
+                                         S, sb, ss, sh, split_len, n_split,
                                          sm_scale, st));
 }
 
@@ -382,10 +407,11 @@ extern "C" int paged_attention_bf16_launch(
                  (const __nv_bfloat16*)v_pages,
                  (const int*)page_table, W, ps, Hkv, hd, W * ps};
   return (int)(q_is_bf16
-                   ? launch<__nv_bfloat16>(hd, q, keys, kv_len, out, part,
-                                           counters, B, Hkv, g, split_len,
-                                           n_split, sm_scale, st)
-                   : launch<float>(hd, q, keys, kv_len, out, part, counters,
-                                   B, Hkv, g, split_len, n_split, sm_scale,
-                                   st));
+                   ? launch<__nv_bfloat16, __nv_bfloat16>(
+                         hd, q, keys, kv_len, out, nullptr, part, counters,
+                         B, Hkv, g, split_len, n_split, sm_scale, st)
+                   : launch<float, float>(hd, q, keys, kv_len, out, nullptr,
+                                          part, counters, B, Hkv, g,
+                                          split_len, n_split, sm_scale,
+                                          st));
 }

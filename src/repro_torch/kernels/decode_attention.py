@@ -101,12 +101,34 @@ def decode_attention(q, k, v, kv_len, *, sm_scale=None):
     ``kv_len`` 0 gives zeros (the plain version's softmax over an all-masked
     row gives the mean of V instead; the model never asks: its kv_len is
     at least 1). Returns (B, Hkv, g, hd) in ``q.dtype``."""
-    no_grad_inputs("decode_attention", q, k, v)
-    _require_cuda("decode_attention", q=q, kv_len=kv_len)
-    for name, t in (("k", k), ("v", v)):
+    out = _launch("decode_attention", q, k, v, kv_len, sm_scale, False)
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention_lse(q, k, v, kv_len, *, sm_scale=None):
+    """The partial mode of :func:`decode_attention` (the same kernel with
+    its log-sum-exp output on; its own launch count): ``(o, lse)``, ``o``
+    (B, Hkv, g, hd) f32 whatever q's type, normalised over this call's
+    keys (so the merge reads it unrounded), and ``lse``
+    (B, Hkv, g) f32, the log-sum-exp of each row's scaled scores, ``-inf``
+    where ``kv_len`` is 0 (``o`` 0 there): what ``comm.merge_partials``
+    needs to merge rows over disjoint key ranges held by different ranks
+    (the kv_seq decode cache)."""
+    out = _launch("decode_attention_lse", q, k, v, kv_len, sm_scale, True)
+    decode_attention_lse.launches += 1
+    return out
+
+
+def _launch(name, q, k, v, kv_len, sm_scale, with_lse):
+    """One launch of the dense body: ``out`` in q's type, and with
+    ``with_lse`` f32 with the f32 log-sum-exp of each row beside it."""
+    no_grad_inputs(name, q, k, v)
+    _require_cuda(name, q=q, kv_len=kv_len)
+    for arg, t in (("k", k), ("v", v)):
         if not t.is_cuda:
-            raise ValueError(f"decode_attention: {name} must be a CUDA "
-                             f"tensor, got {t.device}")
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor, got "
+                             f"{t.device}")
     B, Hkv, g, hd = q.shape
     S = k.shape[2]
     epl = lane_elems(hd) if hd in HEAD_DIMS else 1
@@ -120,23 +142,26 @@ def decode_attention(q, k, v, kv_len, *, sm_scale=None):
           and kv_len.dtype == torch.int32 and tuple(kv_len.shape) == (B,))
     if not ok:
         raise ValueError(
-            f"decode_attention: bad operands q {tuple(q.shape)} {q.dtype}, "
+            f"{name}: bad operands q {tuple(q.shape)} {q.dtype}, "
             f"k {tuple(k.shape)} {k.dtype} strides {k.stride()}, v "
             f"{tuple(v.shape)} {v.dtype} strides {v.stride()}, kv_len "
             f"{tuple(kv_len.shape)} {kv_len.dtype}; want a contiguous head "
             f"dimension in {HEAD_DIMS}, 16-byte aligned rows, and no copy")
     sb, sh, ss, _ = k.stride()
-    out = torch.empty_like(q)
+    lse = torch.empty((B, Hkv, g), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    out = torch.empty_like(q, dtype=torch.float32 if with_lse else None)
     split_len, n_split, part, counters = split_operands(q, B, Hkv, g, hd, S)
     status = build.library().decode_attention_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
         v.data_ptr(), int(k.dtype == torch.bfloat16), kv_len.data_ptr(),
-        out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, Hkv, g, hd,
-        S, sb, ss, sh, split_len, n_split, sm_scale or 1.0 / math.sqrt(hd),
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        part.data_ptr(), counters.data_ptr(), B, Hkv, g, hd, S, sb, ss, sh,
+        split_len, n_split, sm_scale or 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, "decode_attention")
-    decode_attention.launches += 1
-    return out
+    build.check(status, name)
+    return out if lse is None else (out, lse)
 
 
 decode_attention.launches = 0
+decode_attention_lse.launches = 0

@@ -37,6 +37,7 @@ KERNELS = {
     "paged_decode_attention_bf16": _pa.paged_decode_attention_bf16,
     "flash_attention": _fa.flash_attention,
     "decode_attention": _da.decode_attention,
+    "decode_attention_lse": _da.decode_attention_lse,
     "rmsnorm": _rn.rmsnorm,
     "add_rmsnorm": _rn.add_rmsnorm,
 }
@@ -129,17 +130,26 @@ def kv_quant_append(k, v, kpages, vpages, page_table, lengths, *,
                                page_size=page_size)
 
 
-def decode_attention(q, k, v, kv_len, *, backend: str = "auto"):
+def decode_attention(q, k, v, kv_len, *, return_lse=False,
+                     backend: str = "auto"):
     """Dense flash-decode: q (B, Hkv, g, hd), k/v (B, Hkv, S, hd) read in
     place through their strides (never copied), keys at or past
-    ``kv_len (B,)`` masked."""
-    got = _meta("decode_attention", q, (q, k, v, kv_len), {},
-                lambda: _empty(q))
+    ``kv_len (B,)`` masked. ``return_lse``: the partial mode, ``(o f32,
+    lse (B, Hkv, g) f32)`` over this call's keys (-inf and 0 for a row
+    with ``kv_len`` 0), for ``comm.merge_partials``."""
+    B, Hkv, g = q.shape[:3]
+    name = "decode_attention_lse" if return_lse else "decode_attention"
+    got = _meta(name, q, (q, k, v, kv_len), {},
+                lambda: (_empty(q, dtype=torch.float32),
+                         _empty(q, (B, Hkv, g), torch.float32))
+                if return_lse else _empty(q))
     if got is not None:
         return got
     if _on_cpu(q):
-        return _ref.decode_attention_ref(q, k, v, kv_len=kv_len)
-    return _da.decode_attention(q, k, v, kv_len.to(torch.int32))
+        return _ref.decode_attention_ref(q, k, v, kv_len=kv_len,
+                                         return_lse=return_lse)
+    fn = _da.decode_attention_lse if return_lse else _da.decode_attention
+    return fn(q, k, v, kv_len.to(torch.int32))
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,

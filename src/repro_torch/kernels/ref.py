@@ -23,12 +23,19 @@ from repro_torch.kernels.kv_layout import interleave_nibbles, pack_nibbles
 NEG_INF = -1e30
 
 
-def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None):
+def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None,
+                         return_lse=False):
     """q: (B, Hkv, g, hd); k/v: (B, Hkv, S, hd) (any strided view);
     kv_len: (B,) valid lengths. f32 softmax; output in ``q.dtype``. A row
     with ``kv_len`` 0 is all masked and gives the mean of V (the kernel
     gives zeros there, as the TPU kernel does; the model's kv_len is at
-    least 1)."""
+    least 1).
+
+    ``return_lse``: the kernel's partial mode, ``(o, lse)``: ``o`` f32
+    (not cast to q's type), ``lse`` (B, Hkv, g) f32 the log-sum-exp of
+    each row's scaled, unmasked scores; a row with ``kv_len`` 0 gives
+    ``o`` 0 and ``lse`` -inf, as the kernel does (a kv_seq rank may hold
+    no position of a slot yet)."""
     B, Hkv, g, hd = q.shape
     S = k.shape[2]
     sm_scale = sm_scale or 1.0 / math.sqrt(hd)
@@ -39,7 +46,14 @@ def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None):
         s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bhkd->bhgd", w, v.float())
-    return o.to(q.dtype)
+    if not return_lse:
+        return o.to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1)
+    if kv_len is not None:
+        empty = (kv_len <= 0)[:, None, None]
+        lse = torch.where(empty, float("-inf"), lse)
+        o = torch.where(empty[..., None], 0.0, o)
+    return o, lse
 
 
 def paged_gather_ref(pages, page_table, *, page_size):

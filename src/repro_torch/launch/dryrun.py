@@ -21,12 +21,18 @@ TPU mesh; here :func:`trace_cell` runs the port's own step under
 
 A rank's config is ``sharding.local_cfg``'s (its heads, KV heads, FFN
 columns, experts and recurrent channels; every family shards, whisper's
-encoder-decoder too) and its batch the global one divided over the data
-axes where they divide it (the reference's ``_fits``). What the port
-does not shard is refused by ``sharding.check_tp`` and recorded as an
-error with its words (ROADMAP A.9 step two: heads, KV heads, experts or
-a width that the model axis does not divide, such as LLaMA-30B's 52
-heads over 16). A train cell counts the sharded training step
+encoder-decoder too; heads the model axis does not divide, such as
+LLaMA-30B's 52 over 16, run gathered: their attention columns cut as
+the reference's specs cut them, prefill and training attending the
+reference's qseq way) and its batch the global one divided over the
+data axes where they divide it (the reference's ``_fits``). A decode
+cell counts the reference's ``kv_seq`` layout (``Runtime(kv_seq=True)``:
+the dense cache's positions split over ``model``, every KV head; the
+q/k/v gathers and the partial softmaxes' merge) at every mesh; at
+``one`` that is the whole cache. What the port does not shard is
+refused by ``sharding.check_tp`` and recorded as an error with its words
+(ROADMAP A.9 step two: experts or a width that the model axis does not
+divide). A train cell counts the sharded training step
 (``training/optimizer.py: make_train_step`` under the mesh): the
 forward's and backward's collectives (``distributed/comm.py``'s
 differentiable ones), the partial gradients' sums over ``model``, the
@@ -39,7 +45,8 @@ reference's are under ``results/dryrun/``), with the reference's keys;
 ``trace_s`` stands for its ``lower_s``/``compile_s``, ``memory_analysis``
 holds a rank's ``argument_size_in_bytes`` (params, AdamW state, cache,
 batch), ``output_size_in_bytes`` and ``temp_size_in_bytes`` (the peak of
-live bytes the counted ops made), and ``fits_hbm`` whether arguments and
+live bytes the counted ops made), ``cache_bytes`` a rank's decode cache
+(0 for train and prefill), and ``fits_hbm`` whether arguments and
 temporaries fit in ``roofline.hw.H100.hbm_bytes``. Exits 1 if any cell
 failed.
 """
@@ -75,8 +82,13 @@ MESHES = {"single": ((16, 16), ("data", "model")),
 
 
 def make_mesh(kind: str):
+    """The abstract mesh of ``kind``, this process the last rank of its
+    ``model`` axis: the critical one where a causal qseq split loads the
+    ranks unevenly (rank r's query rows attend keys ``[0, (r + 1) S /
+    n)``); every other count is the same on every rank."""
     shape, axes = MESHES[kind]
-    return abstract_mesh(shape, axes)
+    return abstract_mesh(shape, axes,
+                         {"model": shape[axes.index("model")] - 1})
 
 
 def tree_bytes(tree) -> int:
@@ -112,7 +124,8 @@ def trace_cell(arch: str, shape_name: str, mesh, *, moe_shard_map=True,
     n_model = sharding.model_size(mesh)
     sharding.check_tp(ecfg, n_model)
     rt = Runtime(mesh=mesh, moe_shard_map=moe_shard_map and bool(
-        ecfg.moe_num_experts), inplace_decode=inplace_decode)
+        ecfg.moe_num_experts), inplace_decode=inplace_decode,
+        kv_seq=shape.kind == "decode")
     api = registry.build(ecfg, rt=rt)
     b_loc = rank_batch(shape.global_batch, mesh)
     batch = {k: torch.empty((b_loc,) + tuple(v.shape[1:]), dtype=v.dtype,
@@ -143,7 +156,9 @@ def trace_cell(arch: str, shape_name: str, mesh, *, moe_shard_map=True,
             out = api.decode(params, args[2], batch["tokens"])
     return counter.result(), {"cfg": ecfg, "shape": shape,
                               "arg": tree_bytes(args),
-                              "out": tree_bytes(out), "batch": b_loc}
+                              "out": tree_bytes(out), "batch": b_loc,
+                              "cache": tree_bytes(args[2]) if shape.kind
+                              not in ("train", "prefill") else 0}
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *, force=False,
@@ -179,6 +194,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, force=False,
                "fits_hbm": info["arg"] + counted["peak_bytes"]
                <= H100.hbm_bytes,
                "rank_batch": info["batch"],
+               "cache_bytes": info["cache"],
                "kernel_calls": counted["kernels"],
                "by_class": counted["by_class"], **roof.to_json()}
     except Exception as e:  # record failures — they are bugs to fix

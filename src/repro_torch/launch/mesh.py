@@ -15,8 +15,9 @@ collectives (``distributed/comm.py``).
 :func:`abstract_mesh` is a mesh with no process group, the dry-run's
 (``launch/dryrun.py``; the counterpart of the reference's 512 forced
 host devices): the same ``shape_of``/``data_axes``/``axis_group``
-interface, this process rank 0 of every axis, and each axis's
-collectives counted, not run (``comm.CountingGroup``).
+interface, this process rank 0 of every axis unless the caller names
+another, and each axis's collectives counted, not run
+(``comm.CountingGroup``).
 """
 from __future__ import annotations
 
@@ -59,20 +60,22 @@ class AbstractMesh:
     """A mesh of ``shape`` with axes ``axes`` and no process group (see
     :func:`abstract_mesh`)."""
 
-    def __init__(self, shape, axes):
+    def __init__(self, shape, axes, ranks=None):
         if len(shape) != len(axes):
             raise ValueError(f"mesh shape {shape} for axes {axes}")
         self.mesh_dim_names = tuple(axes)
         self.mesh = types.SimpleNamespace(shape=tuple(int(n) for n in shape))
+        self.ranks = dict(ranks or {})
 
     def get_local_rank(self, name: str) -> int:
-        return 0
+        return self.ranks.get(name, 0)
 
 
-def abstract_mesh(shape, axes) -> AbstractMesh:
+def abstract_mesh(shape, axes, ranks=None) -> AbstractMesh:
     """A mesh of ``shape`` named ``axes`` that needs no process group:
-    rank 0 of every axis, its collectives counted on meta tensors."""
-    return AbstractMesh(shape, axes)
+    this process the rank ``ranks`` names on an axis (``{axis: index}``),
+    else 0, its collectives counted on meta tensors."""
+    return AbstractMesh(shape, axes, ranks)
 
 
 def shape_of(mesh) -> Dict[str, int]:
@@ -94,7 +97,8 @@ def axis_group(mesh, name: str) -> Group:
     mesh and axis."""
     groups = mesh.__dict__.setdefault("_repro_groups", {})
     if name not in groups:
-        groups[name] = CountingGroup(shape_of(mesh)[name], name) \
+        groups[name] = CountingGroup(shape_of(mesh)[name], name,
+                                     mesh.get_local_rank(name)) \
             if isinstance(mesh, AbstractMesh) else \
             Group(mesh.get_group(name), name)
     return groups[name]

@@ -30,6 +30,13 @@ through ``comm.copy_to_model`` (its gradient summed over the axis in
 backward) and each row-parallel sum leaves through
 ``comm.reduce_from_model``. Without grad these issue the calls the
 serving paths always made.
+
+Where the heads are not split over the axis (``sharding.kv_seq``: heads
+the axis does not divide, or the kv_seq decode cache asked for),
+:func:`attn_qkv_whole` gathers a rank's columns of q, k and v to whole
+heads and :func:`qseq_attention` attends the reference's
+``ATTN_QSEQ_RULES`` way: each rank all heads for its share of the query
+rows, its output handed back to the rank's columns for ``wo``.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed import comm
+from repro_torch.distributed import comm, sharding
 from repro_torch.kernels import ops, ref
 
 # the kernels' names bound to their plain versions (the training forward)
@@ -269,6 +276,67 @@ def attn_qkv(cfg, p, x, positions, rope=None, *, kernels=ops, tp=None):
     k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct,
                    theta=cfg.rope_theta, table=rope)
     return q, k, v
+
+
+def attn_qkv_whole(cfg, p, x, positions, rope=None, *, kernels=ops,
+                   tp=None):
+    """:func:`attn_qkv` on whole heads where the axis does not split them
+    (``sharding.kv_seq``): this rank's columns of q, k and v projected
+    (a cut inside a head where the config is gathered, its heads where
+    split), gathered over ``tp`` in one all-gather, a replicated KV head
+    (which each of its ranks shipped) kept once, then the q/k norms and
+    RoPE on whole heads. x: (B, S, d) -> q (B, S, H, hd), k/v (B, S,
+    Hkv, hd), the whole model's heads."""
+    B, S, _ = x.shape
+    H, Hkv = sharding.whole_heads(cfg)
+    hd = cfg.head_dim
+    x = comm.copy_to_model(tp, x)
+    q, k, v = comm.gather_cols(tp, proj(p, "wq", x), proj(p, "wk", x),
+                               proj(p, "wv", x))
+    q = q.reshape(B, S, H, hd)
+    k, v = (t.reshape(B, S, -1, hd) for t in (k, v))
+    if k.shape[2] != Hkv:
+        step = k.shape[2] // Hkv
+        k, v = k[:, :, ::step], v[:, :, ::step]
+    if cfg.qk_norm:
+        q = kernels.rmsnorm(q, p["qnorm"])
+        k = kernels.rmsnorm(k, p["knorm"])
+    q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct,
+                   theta=cfg.rope_theta, table=rope)
+    k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct,
+                   theta=cfg.rope_theta, table=rope)
+    return q, k, v
+
+
+def qseq_attention(tp, q, k, v, *, causal=True, window=0, kernels=ops):
+    """Attention over whole heads (:func:`attn_qkv_whole`) the reference's
+    ``ATTN_QSEQ_RULES`` way, returning this rank's columns of the output
+    (B, S, H * hd / n) for its row-parallel ``wo``. q: (B, S, H, hd);
+    k/v: (B, Sk, Hkv, hd), whole on every rank. Where the axis divides S
+    (and no window), rank r attends its S / n query rows: causal, over
+    keys ``[0, (r + 1) S / n)`` (``kernels.flash_attention``'s suffix call
+    with ``prefix_len = r S / n``, every prefix key visible: exactly the
+    causal mask of those rows), or bidirectional over every key; the
+    rows' outputs go back to the ranks' columns in one all-to-all
+    (``comm.rows_to_cols``). Otherwise every rank attends every row and
+    keeps its columns."""
+    B, S, H, hd = q.shape
+    n, r = tp.size, tp.rank
+    if S % n or window:
+        o = kernels.flash_attention(q, k, v, causal=causal, window=window)
+        return o.reshape(B, S, H * hd).chunk(n, -1)[r]
+    m = S // n
+    lo = r * m
+    qr = q[:, lo:lo + m]
+    if not causal:
+        o = kernels.flash_attention(qr, k, v, causal=False)
+    elif lo == 0:
+        o = kernels.flash_attention(qr, k[:, :m], v[:, :m], causal=True)
+    else:
+        plen = torch.full((B,), lo, dtype=torch.int32, device=q.device)
+        o = kernels.flash_attention(qr, k[:, :lo + m], v[:, :lo + m],
+                                    prefix_len=plen)
+    return comm.rows_to_cols(tp, o.reshape(B, m, H * hd))
 
 
 def _xent_chunk(xc, w, tc, mc, tp=None, split=None):

@@ -28,8 +28,10 @@ expert-parallel over the mesh's ``model`` axis, every family (whisper's
 encoder-decoder and the recurrent stacks too): the functions take this
 rank's shard of the params and the caches that ``ModelApi.local_cfg``
 (``sharding.local_cfg``: this rank's heads, KV heads, FFN columns,
-experts and recurrent channels) lays out, and place the collectives
-(``distributed/comm.py``).
+experts and recurrent channels; under ``Runtime(kv_seq=True)``, or where
+the axis does not split the heads, the kv_seq decode cache) lays out,
+and place the collectives (``distributed/comm.py``). The paged decode
+step refuses the kv_seq layout.
 On NCCL a graphed chunk captures them with the rest; a gloo group cannot
 be captured, and :class:`GraphedDecodeChunk` refuses it.
 
@@ -372,7 +374,7 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
     audio model's too (``whisper.prefill``/``decode_step`` take ``rt``),
     and ``local_cfg`` is what this rank's caches hold."""
     mesh = None if rt is None else rt.mesh
-    local = sharding.local_cfg(cfg, mesh)
+    local = sharding.local_cfg(cfg, mesh, rt is not None and rt.kv_seq)
     tp = None if rt is None else rt.tp
     specs = _spec_fns(cfg)
     if cfg.family == "audio":
@@ -422,6 +424,13 @@ def build(cfg: ModelConfig, *, rt=None) -> ModelApi:
                 true_len=batch.get("true_len"), rt=rt)
 
         def paged_fns(page_size: int, backend: str = "auto"):
+            if sharding.kv_seq(local):
+                raise NotImplementedError(
+                    f"{cfg.name}: the paged decode step splits its pages by "
+                    f"KV heads, not by sequence; the kv_seq cache this "
+                    f"runtime lays out is dense only (paged=False; ROADMAP "
+                    f"C.4)")
+
             def step_fn(params, cache, tokens):
                 return paged.decode_step_paged(
                     cfg, params, cache, tokens, page_size=page_size,

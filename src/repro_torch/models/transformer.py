@@ -232,15 +232,27 @@ class Runtime:
     The collectives are issued at axis size 1 too, where the results
     equal the run without a mesh bit for bit. ``inplace_decode`` is the
     reference's flag: the port's decode steps always write their cache
-    in place, so it must be True."""
+    in place, so it must be True.
 
-    def __init__(self, mesh=None, moe_shard_map=False, inplace_decode=True):
+    ``kv_seq`` mirrors the reference's ``DEFAULT_RULES["kv_seq"] =
+    "model"``: the dense decode cache of a rank holds its share of the
+    positions of every KV head (:func:`init_cache`), a decode step
+    attends whole heads over it and merges the ranks' partial softmaxes
+    (:func:`_decode_attend_seq`), and prefill attends the qseq way
+    (``layers.qseq_attention``), its cache holding every KV head. A
+    config whose heads the model axis does not split runs so whatever
+    the flag (``sharding.rank_cfg``: gathered). At axis size 1 it changes
+    nothing: the whole cache is one rank's share."""
+
+    def __init__(self, mesh=None, moe_shard_map=False, inplace_decode=True,
+                 kv_seq=False):
         if not inplace_decode:
             raise ValueError("the port's decode steps write their cache in "
                              "place (inplace_decode=True)")
         self.mesh = mesh
         self.moe_shard_map = moe_shard_map
         self.inplace_decode = inplace_decode
+        self.kv_seq = kv_seq
         self.tp = axis_group(mesh, "model") \
             if mesh is not None and "model" in shape_of(mesh) else None
 
@@ -250,7 +262,7 @@ def shard_view(cfg, rt):
     None)`` of a model call under ``rt``."""
     if rt is None or rt.tp is None:
         return cfg, None
-    local = sharding.local_cfg(cfg, rt.mesh)
+    local = sharding.local_cfg(cfg, rt.mesh, rt.kv_seq)
     if rt.tp.size > 1 and cfg.moe_num_experts and not rt.moe_shard_map:
         raise ValueError(f"{cfg.name}: experts split over a model axis of "
                          f"{rt.tp.size} need Runtime(moe_shard_map=True)")
@@ -341,20 +353,61 @@ def cache_rows(cfg, max_seq: int) -> int:
         else max_seq
 
 
+def seq_rows(cfg, rows: int) -> int:
+    """The rows of a positional cache of ``rows`` positions that one rank
+    holds: ``rows`` itself unless the config splits its decode cache by
+    sequence (``sharding.kv_seq``), then ``rows / n`` rounded up, rank r
+    holding positions ``[r R, (r + 1) R)`` (a position past the whole
+    cache's rows is never written: the engines retire a slot first). A
+    sliding-window ring's rows must divide, or positions would leave the
+    ring's order."""
+    n = sharding.split_of(cfg)
+    if not sharding.kv_seq(cfg) or n == 1:
+        return rows
+    if cfg.sliding_window and rows == cfg.sliding_window and rows % n:
+        raise ValueError(f"{cfg.name}: a ring of {rows} rows is not split "
+                         f"over a model axis of {n}")
+    return -(-rows // n)
+
+
+def seq_share(cfg, t, tp):
+    """What a rank keeps of a positional tensor ``t`` (B, rows, ...)
+    that it computed whole: under kv_seq (``sharding.kv_seq``) its share,
+    rows ``[r R, (r + 1) R)`` (:func:`seq_rows`), zeros past ``rows``;
+    else ``t``. A kv_seq prefill's cache is the reference's, split by
+    sequence."""
+    if not sharding.kv_seq(cfg) or tp is None or tp.size == 1:
+        return t
+    R = seq_rows(cfg, t.shape[1])
+    part = t[:, tp.rank * R:(tp.rank + 1) * R]
+    if part.shape[1] < R:
+        part = torch.cat([part, part.new_zeros(
+            (part.shape[0], R - part.shape[1]) + tuple(part.shape[2:]))], 1)
+    return part
+
+
+def cache_kv_heads(cfg) -> int:
+    """KV heads a rank's attention cache holds: every one under kv_seq,
+    else the rank's."""
+    return sharding.whole_heads(cfg)[1] if sharding.kv_seq(cfg) \
+        else cfg.num_kv_heads
+
+
 def recurrent(cfg) -> bool:
     """Whether the stack holds a recurrent mixer (jamba's Mamba layers,
     xLSTM's mLSTM and sLSTM blocks)."""
     return any(k.split("+")[0] != "attn" for k in cfg.layer_kinds())
 
 
-def _slot_cache(cfg, mix, n, batch, max_seq, dtype, device):
+def _slot_cache(cfg, mix, n, batch, max_seq, dtype, device, whole=False):
     """The cache of one slot of a recurrent stack: its ``n`` layers'
-    attention K/V (``dtype``) or recurrent states (the reference's
-    ``_mix_cache_init``: conv states in ``dtype``, the others f32, ``m``
-    at -1e30)."""
+    attention K/V (``dtype``; :func:`init_cache` on ``whole``) or
+    recurrent states (the reference's ``_mix_cache_init``: conv states in
+    ``dtype``, the others f32, ``m`` at -1e30)."""
     if mix == "attn":
-        shape = (n, batch, cache_rows(cfg, max_seq), cfg.num_kv_heads,
-                 cfg.head_dim)
+        rows = cache_rows(cfg, max_seq)
+        shape = (n, batch, rows if whole else seq_rows(cfg, rows),
+                 cache_kv_heads(cfg), cfg.head_dim)
         return {key: torch.zeros(shape, dtype=dtype, device=device)
                 for key in ("k", "v")}
     if mix == "mamba":
@@ -370,24 +423,28 @@ def _slot_cache(cfg, mix, n, batch, max_seq, dtype, device):
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
-               device="cuda"):
+               device="cuda", whole=False):
     """The dense decode cache. A pure-attention stack's is ``{"slot0":
     {"k", "v": (L, B, rows, Hkv, hd)}, "lengths"}``; a recurrent stack's
     is the reference's slotted one: ``{"slot{s}": ...}`` for each slot s
     of the period, stacked over its ``L / period`` layers (layer i is
     slot ``i % period``, index ``i // period``), holding attention K/V or
-    the recurrent states (:func:`_slot_cache`)."""
+    the recurrent states (:func:`_slot_cache`). Under kv_seq (a rank's
+    config, ``sharding.kv_seq``) the K/V hold every KV head and the
+    rank's share of the rows (:func:`seq_rows`); ``whole`` keeps every
+    row (a suffix prefill's cache, which holds its own positions)."""
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
     if recurrent(cfg):
         kinds = slot_kinds(cfg)
         n = cfg.num_layers // len(kinds)
         cache = {f"slot{s}": _slot_cache(cfg, kind.split("+")[0], n, batch,
-                                         max_seq, dtype, device)
+                                         max_seq, dtype, device, whole)
                  for s, kind in enumerate(kinds)}
         cache["lengths"] = lengths
         return cache
-    shape = (cfg.num_layers, batch, cache_rows(cfg, max_seq),
-             cfg.num_kv_heads, cfg.head_dim)
+    rows = cache_rows(cfg, max_seq)
+    shape = (cfg.num_layers, batch, rows if whole else seq_rows(cfg, rows),
+             cache_kv_heads(cfg), cfg.head_dim)
     return {"slot0": {"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)},
             "lengths": lengths}
@@ -494,7 +551,13 @@ def _train_layer(cfg, kind, p, x, positions, rope, rt=None):
     mix, ffn = kind.split("+")
     B, S = x.shape[:2]
     h = layers.norm_plain(cfg, p["norm1"], x)
-    if mix == "attn":
+    if mix == "attn" and sharding.kv_seq(cfg):
+        q, k, v = layers.attn_qkv_whole(cfg, p["attn"], h, positions, rope,
+                                        kernels=layers.PLAIN, tp=tp)
+        o = layers.qseq_attention(tp, q, k, v, window=cfg.sliding_window,
+                                  kernels=layers.PLAIN)
+        out = layers.row_proj(p["attn"], "wo", o, tp)
+    elif mix == "attn":
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope,
                                   kernels=layers.PLAIN, tp=tp)
         o = ref.flash_attention_ref(q, k, v, causal=True,
@@ -624,7 +687,10 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
     A VLM's ``patch_embeds (B, P, d)`` come first (:func:`embed`): the
     sequence is P + S long, and ``last_pos``/``true_len`` count the
     patches (``registry.build``'s prefill shifts them). Under a mesh
-    (``rt``) the cache holds this rank's KV heads."""
+    (``rt``) the cache holds this rank's KV heads; under kv_seq
+    (``sharding.kv_seq``) its share of every KV head's positions
+    (:func:`seq_share`), the attention the qseq way
+    (:func:`_prefill_attend`)."""
     _unported(cfg, "prefill", layout=False)
     cfg, tp = shard_view(cfg, rt)
     if recurrent(cfg):
@@ -638,26 +704,40 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
         raise ValueError(f"prompt bucket {S} exceeds max_seq={max_seq}")
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
-    rows = cache["slot0"]["k"].shape[2]
+    rows = cache_rows(cfg, S)
 
     rope = layers.model_rope(cfg, positions)   # once for every layer
 
     def attend(i, p, h):
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
-        o = ops.flash_attention(q, k, v, causal=True,
-                                window=cfg.sliding_window)
+        q, k, v, o = _prefill_attend(cfg, p, h, positions, rope, tp)
         if rows < S:
             # the last `rows` positions, position p at ring row p % rows
             k = torch.roll(k[:, -rows:], S % rows, dims=1)
             v = torch.roll(v[:, -rows:], S % rows, dims=1)
-        cache["slot0"]["k"][i] = k
-        cache["slot0"]["v"][i] = v
-        return layers.row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim),
-                               tp)
+        cache["slot0"]["k"][i] = seq_share(cfg, k, tp)
+        cache["slot0"]["v"][i] = seq_share(cfg, v, tp)
+        return layers.row_proj(p["attn"], "wo", o, tp)
 
     x, _ = run_layers(cfg, params, x, attend, final_norm=False, rt=rt)
     cache["lengths"] = _lengths(true_len, B, S, dev)
     return _last_logits(cfg, params, x, last_pos, tp), cache
+
+
+def _prefill_attend(cfg, p, h, positions, rope, tp, *, window=None):
+    """One layer's causal prefill attention: ``(q, k, v, o)``, ``o`` (B,
+    S, ·) what the row-parallel ``wo`` reads. Under kv_seq
+    (``sharding.kv_seq``) q, k and v are whole heads
+    (``layers.attn_qkv_whole``) and ``o`` the rank's columns of the qseq
+    attention; else the rank's heads and their output."""
+    B, S = h.shape[:2]
+    window = cfg.sliding_window if window is None else window
+    if sharding.kv_seq(cfg):
+        q, k, v = layers.attn_qkv_whole(cfg, p["attn"], h, positions, rope,
+                                        tp=tp)
+        return q, k, v, layers.qseq_attention(tp, q, k, v, window=window)
+    q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    return q, k, v, o.reshape(B, S, cfg.q_dim)
 
 
 def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
@@ -681,19 +761,26 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     pk_all, pv_all = prefix_kv["slot0"]
     x = embed(cfg, params, tokens, tp=tp)
     positions = prefix_len[:, None].long() + torch.arange(S, device=dev)[None]
-    cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev)
+    cache = init_cache(cfg, B, S, cache_dtype(cfg), device=dev, whole=True)
+    seq = sharding.kv_seq(cfg)
 
     rope = layers.model_rope(cfg, positions)   # once for every layer
 
     def attend(i, p, h):
-        q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
+        if seq:     # whole heads: every rank every row, its columns kept
+            q, k, v = layers.attn_qkv_whole(cfg, p["attn"], h, positions,
+                                            rope, tp=tp)
+        else:
+            q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
         K = torch.cat([pk_all[i].to(k.dtype), k], dim=1)
         V = torch.cat([pv_all[i].to(v.dtype), v], dim=1)
-        o = ops.flash_attention(q, K, V, prefix_len=prefix_len)
+        o = ops.flash_attention(q, K, V, prefix_len=prefix_len).reshape(
+            B, S, -1)
+        if seq:
+            o = o.chunk(tp.size, -1)[tp.rank]
         cache["slot0"]["k"][i] = k
         cache["slot0"]["v"][i] = v
-        return layers.row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim),
-                               tp)
+        return layers.row_proj(p["attn"], "wo", o, tp)
 
     x, _ = run_layers(cfg, params, x, attend, final_norm=False, rt=rt)
     cache["lengths"] = _lengths(true_len, B, S, dev)
@@ -734,7 +821,9 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto",
     care in which order the window's keys lie, and each key was rotated
     at its own position before it was written. Returns (logits (B, 1, V)
     f32, cache) with ``lengths + 1``. Under a mesh (``rt``) the cache
-    holds this rank's KV heads. A recurrent stack with a window (the
+    holds this rank's KV heads, or under kv_seq its share of every KV
+    head's positions (:func:`_decode_attend_seq`). A recurrent stack
+    with a window (the
     reference's jamba long_500k cell) keeps its attention layers' K/V in
     the same ring (:func:`_decode_step_recurrent`), as the reference's
     in-place step does; its prefill is not ported (ROADMAP A.15)."""
@@ -748,18 +837,30 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto",
     positions = lengths[:, None]
     K, V = cache["slot0"]["k"], cache["slot0"]["v"]
     # once for every layer: the write rows, kv_len and the RoPE table
-    w_pos, kv_len = write_pos(cfg, lengths, K.shape[2])
+    w_pos, kv_len = write_pos(cfg, lengths, whole_rows(cfg, K.shape[2]))
     rope = layers.model_rope(cfg, positions)
 
     def attend(i, p, h):
-        return _decode_attend(cfg, p, h, positions, rope, K[i], V[i],
-                              w_pos, kv_len, backend, tp)
+        return _attend_fn(cfg)(cfg, p, h, positions, rope, K[i], V[i],
+                               w_pos, kv_len, backend, tp)
 
     _, h = run_layers(cfg, params, x, attend, backend=backend, rt=rt)
     logits = logits_of(cfg, params, h, tp)
     new_cache = dict(cache)
     new_cache["lengths"] = lengths + 1
     return logits, new_cache
+
+
+def whole_rows(cfg, rows: int) -> int:
+    """The whole cache's rows of a rank's share of ``rows`` (kv_seq: the
+    ranks' shares end to end; :func:`seq_rows`)."""
+    return rows * sharding.split_of(cfg) if sharding.kv_seq(cfg) else rows
+
+
+def _attend_fn(cfg):
+    """A layer's dense decode attention: the kv_seq one where the rank's
+    config splits its cache by sequence, else the head-split one."""
+    return _decode_attend_seq if sharding.kv_seq(cfg) else _decode_attend
 
 
 def write_pos(cfg, lengths, rows):
@@ -792,6 +893,65 @@ def _decode_attend(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
                            o.reshape(B, 1, cfg.q_dim).to(h.dtype), tp)
 
 
+def seq_write(K, V, k, v, w_pos, lo):
+    """The kv_seq cache's write of this step's k/v (B, Hkv, hd): each
+    slot's row ``w_pos`` of the whole cache lands in this rank's share
+    ``K``/``V`` (B, R, Hkv, hd), which holds rows ``[lo, lo + R)``, only
+    where the rank owns it; elsewhere the rank's nearest row is written
+    back as it was. Device values only (no branch on the host), so a
+    captured chunk writes where each replay's lengths say."""
+    bidx, row = w_pos
+    R = K.shape[1]
+    loc = row - lo
+    own = ((loc >= 0) & (loc < R))[:, None, None]
+    loc = loc.clamp(0, R - 1)
+    K[bidx, loc] = torch.where(own, k.to(K.dtype), K[bidx, loc])
+    V[bidx, loc] = torch.where(own, v.to(V.dtype), V[bidx, loc])
+
+
+def seq_partial(q, K, V, kv_len, lo, backend="auto"):
+    """Whole query heads q (B, Hkv, g, hd) over a kv_seq share ``K``/``V``
+    (B, R, Hkv, hd) holding rows ``[lo, lo + R)`` of a cache whose first
+    ``kv_len`` rows are valid: the partial mode of the decode kernel over
+    the rank's ``clamp(kv_len - lo, 0, R)`` rows, ``(o, lse)``."""
+    R = K.shape[1]
+    local = torch.clamp(kv_len - lo, 0, R).to(torch.int32)
+    return ops.decode_attention(q, K.permute(0, 2, 1, 3),
+                                V.permute(0, 2, 1, 3), local,
+                                return_lse=True, backend=backend)
+
+
+def seq_attention(q, K, V, kv_len, lo, tp, backend="auto"):
+    """:func:`seq_partial` merged over ``tp`` (``comm.merge_partials``):
+    (B, Hkv, g, hd) f32, every rank the same."""
+    return comm.merge_partials(tp, *seq_partial(q, K, V, kv_len, lo,
+                                                backend))
+
+
+def _decode_attend_seq(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
+                       backend, tp):
+    """:func:`_decode_attend` over the kv_seq cache: this rank's share
+    ``K``/``V`` (B, R, Hkv, hd) of every KV head's positions ``[r R, (r +
+    1) R)``. The rank projects its columns of q, k and v and gathers them
+    to whole heads (``layers.attn_qkv_whole``: one token each), writes
+    the new K/V where it owns the write row (:func:`seq_write`), attends
+    every query head over its rows and merges the ranks' partials
+    (:func:`seq_attention`), and keeps its ``q_dim / n`` columns of the
+    output for the row-parallel ``wo``."""
+    B = h.shape[0]
+    H, Hkv = sharding.whole_heads(cfg)
+    hd, n = cfg.head_dim, tp.size
+    q, k, v = layers.attn_qkv_whole(cfg, p["attn"], h, positions, rope,
+                                    tp=tp)
+    lo = tp.rank * K.shape[1]
+    seq_write(K, V, k[:, 0], v[:, 0], w_pos, lo)
+    o = seq_attention(q[:, 0].reshape(B, Hkv, H // Hkv, hd).contiguous(),
+                      K, V, kv_len, lo, tp, backend)
+    c = H * hd // n
+    o = o.reshape(B, 1, H * hd)[..., tp.rank * c:(tp.rank + 1) * c]
+    return layers.row_proj(p["attn"], "wo", o.to(h.dtype), tp)
+
+
 # -- recurrent stacks (jamba, xLSTM) ------------------------------------------
 
 
@@ -813,7 +973,8 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
     holds the S computed positions. Right padding would run through the
     recurrences: ``PrefillEngine`` prefills these stacks at exact
     lengths. Under a mesh (``rt``) each layer runs on this rank's heads
-    or channels, and the cache holds the rank's KV heads and states."""
+    or channels, and the cache holds the rank's KV heads (under kv_seq
+    its share of every head's positions) and states."""
     tp = None if rt is None else rt.tp
     dev = tokens.device
     x = embed(cfg, params, tokens, tp=tp)
@@ -827,12 +988,11 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
     def mix(i, p, h):
         kind = _mix_of(cfg, i)[0]
         if kind == "attn":
-            q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
-            o = ops.flash_attention(q, k, v, causal=True)
-            got[i] = {"k": k.to(cache_dtype(cfg)),
-                      "v": v.to(cache_dtype(cfg))}
-            return layers.row_proj(p["attn"], "wo",
-                                   o.reshape(B, S, cfg.q_dim), tp)
+            _, k, v, o = _prefill_attend(cfg, p, h, positions, rope, tp,
+                                         window=0)
+            got[i] = {"k": seq_share(cfg, k.to(cache_dtype(cfg)), tp),
+                      "v": seq_share(cfg, v.to(cache_dtype(cfg)), tp)}
+            return layers.row_proj(p["attn"], "wo", o, tp)
         if kind == "mamba":
             o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h, tp=tp)
             got[i] = {"conv": conv, "ssm": ssm}
@@ -873,14 +1033,16 @@ def _decode_step_recurrent(cfg, params, cache, tokens, *, backend, rt=None):
                   for s, kind in enumerate(slot_kinds(cfg))
                   if kind.startswith("attn")]
     if attn_slots:
-        w_pos, kv_len = write_pos(cfg, lengths, attn_slots[0])
+        w_pos, kv_len = write_pos(cfg, lengths,
+                                  whole_rows(cfg, attn_slots[0]))
 
     def mix(i, p, h):
         kind, name, j = _mix_of(cfg, i)
         slot = cache[name]
         if kind == "attn":
-            return _decode_attend(cfg, p, h, positions, rope, slot["k"][j],
-                                  slot["v"][j], w_pos, kv_len, backend, tp)
+            return _attend_fn(cfg)(cfg, p, h, positions, rope,
+                                   slot["k"][j], slot["v"][j], w_pos,
+                                   kv_len, backend, tp)
         if kind == "mamba":
             o, st = mamba.mamba_decode_step(
                 cfg, p["mamba"], h, (slot["conv"][j], slot["ssm"][j]),

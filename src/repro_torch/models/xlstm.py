@@ -29,11 +29,11 @@ Under tensor parallelism (``tp``, the model axis's ``comm.Group``; the
 config a rank's, ``sharding.local_cfg``: its heads, its widths from
 :func:`mlstm_dims` and :func:`slstm_dims`) each block runs on the rank's
 heads. The mLSTM's ``w_up`` holds the rank's channels of x and of z and
-the conv runs on them; ``xc`` and ``xm`` are gathered (one all-gather)
-for ``wq``/``wk``/``wv``, which hold the rank's heads' columns, and for
-the whole ``w_if``, whose gates the rank slices to its heads; ``gn``
-normalizes over the whole inner width, so each rank's mean square is
-all-reduced (``layers.rmsnorm_split``); ``skip`` is the rank's channels
+the conv runs on them; ``xc`` and ``xm`` are gathered (one all-gather,
+``comm.gather_cols``) for ``wq``/``wk``/``wv``, which hold the rank's
+heads' columns, and for the whole ``w_if``, whose gates the rank slices
+to its heads; ``gn`` normalizes over the whole inner width, so each
+rank's mean square is all-reduced (``layers.rmsnorm_split``); ``skip`` is the rank's channels
 and ``w_down`` row-parallel, all-reduced. The sLSTM's ``w_in`` holds the
 rank's heads of each of z, i, f and o (bias too) and the recurrence runs
 on the rank's heads of ``r``; ``y`` is gathered (the GeGLU FFN's
@@ -41,6 +41,19 @@ column-parallel ``ffn_wi`` needs whole rows anyway), normed whole, and
 ``ffn_wo`` is row-parallel, all-reduced. The states ``C (H, dh, dh)``,
 ``n``, ``m`` and the sLSTM's hold the rank's heads, the conv state its
 channels.
+
+Where the axis does not split the heads (``sharding.gathered``: xlstm's
+4 heads at 8 or 16) each block runs every head on every rank, its states
+whole (the reference's cache spec replicates ``C``). The mLSTM gathers
+its rank's columns of q, k and v (a cut inside a head) to whole heads
+(``comm.gather_cols``), takes every head's gates from the whole
+``w_if``, norms the whole ``y`` and keeps its channels for the skip, the
+output gate and the row-parallel ``w_down``; the sLSTM gathers its
+rank's channels of the four gates' pre-activations and runs the whole
+recurrence, so ``y`` is whole without a gather after it. A rank's
+gradient of the sLSTM's ``r`` is then whole (every rank computes it
+alike), of the mLSTM's ``w_if`` and ``gn`` still partial (each rank's
+channels of ``y`` reach its loss).
 
 Under autograd (the sharded training step) the collectives are
 ``distributed/comm.py``'s differentiable ones: ``x`` enters ``w_up`` and
@@ -62,7 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import comm
-from repro_torch.distributed.sharding import split_of
+from repro_torch.distributed.sharding import gathered, split_of
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (causal_conv1d, proj, rmsnorm_split,
                                        row_proj)
@@ -70,28 +83,20 @@ from repro_torch.models.layers import (causal_conv1d, proj, rmsnorm_split,
 
 def mlstm_dims(cfg):
     """(inner width 2 d, heads, head width); a rank's share of the
-    inner width and its heads under a model axis."""
+    inner width and its heads under a model axis (gathered: the rank's
+    share of the channels, and every head at its whole width)."""
     di = 2 * cfg.d_model // split_of(cfg)
+    if gathered(cfg):
+        return di, cfg.num_heads, 2 * cfg.d_model // cfg.num_heads
     return di, cfg.num_heads, di // cfg.num_heads
 
 
 def slstm_dims(cfg):
     """(width d, heads, head width) of the sLSTM's recurrence; a rank's
-    share of ``d`` and its heads under a model axis."""
-    d = cfg.d_model // split_of(cfg)
+    share of ``d`` and its heads under a model axis (gathered: the whole
+    recurrence on every rank)."""
+    d = cfg.d_model if gathered(cfg) else cfg.d_model // split_of(cfg)
     return d, cfg.num_heads, d // cfg.num_heads
-
-
-def _gather(tp, *ts):
-    """Each of ``ts`` (this rank's channels) whole, in one all-gather;
-    under autograd they then enter the rank's own work through one
-    ``comm.copy_to_model``, and at axis size 1 they are returned as they
-    are (the gather is the identity there; the stacking would change the
-    order in which autograd adds their gradients)."""
-    if tp.size == 1 and comm.needs_grad(*ts):
-        return ts
-    whole = comm.gather_from_model(tp, torch.stack(ts), -1)
-    return comm.copy_to_model(tp, whole).unbind(0)
 
 
 def slstm_ffn_width(cfg) -> int:
@@ -172,12 +177,13 @@ def _mlstm_in(cfg, p, x, conv_state, tp=None):
                         dim=-1)
     xc, conv_state = causal_conv1d(xm, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc.float()).to(x.dtype)
-    xcw, xmw = (xc, xm) if tp is None else _gather(tp, xc, xm)
-    q = proj(p, "wq", xcw).reshape(B, S, H, dh)
-    k = proj(p, "wk", xcw).reshape(B, S, H, dh)
-    v = proj(p, "wv", xmw).reshape(B, S, H, dh)
+    xcw, xmw = (xc, xm) if tp is None else comm.gather_cols(tp, xc, xm)
+    q, k, v = (proj(p, "wq", xcw), proj(p, "wk", xcw), proj(p, "wv", xmw))
+    if gathered(cfg):               # columns inside a head: whole heads
+        q, k, v = comm.gather_cols(tp, q, k, v)
+    q, k, v = (t.reshape(B, S, H, dh) for t in (q, k, v))
     li, lfraw = torch.chunk(proj(p, "w_if", xmw).float(), 2, dim=-1)
-    if tp is not None:              # the whole w_if: this rank's heads
+    if tp is not None and not gathered(cfg):    # the whole w_if: its heads
         li, lfraw = (t[..., tp.rank * H:(tp.rank + 1) * H]
                      for t in (li, lfraw))
     return xc, z, q, k, v, li, F.logsigmoid(lfraw), conv_state
@@ -185,11 +191,14 @@ def _mlstm_in(cfg, p, x, conv_state, tp=None):
 
 def _mlstm_out(p, y, xc, z, kernels=ops, tp=None):
     """The block's back half: per-block norm, skip, output gate, down
-    projection."""
+    projection. ``y`` wider than the rank's channels ``xc`` (gathered:
+    every head) is normed whole and the rank keeps its channels."""
+    c = xc.shape[-1]
     if tp is None:
         y = kernels.rmsnorm(y, p["gn"])
+    elif y.shape[-1] != c:          # every head: norm whole, keep its own
+        y = kernels.rmsnorm(y, p["gn"])[..., tp.rank * c:(tp.rank + 1) * c]
     else:                           # the whole gn: this rank's channels
-        c = y.shape[-1]
         y = rmsnorm_split(y, p["gn"][tp.rank * c:(tp.rank + 1) * c], tp)
     y = y + p["skip"].to(y.dtype) * xc
     y = y * F.silu(z.float()).to(y.dtype)
@@ -206,7 +215,7 @@ def mlstm_apply(cfg, p, x, *, state=None, conv_state=None, kernels=ops,
     if state is None:
         state = mlstm_state_init(cfg, B, x.device)
     y, state = mlstm_cell(q, k, v, lf, li, state, cfg.xlstm_chunk)
-    y = y.reshape(B, S, mlstm_dims(cfg)[0]).to(x.dtype)
+    y = y.reshape(B, S, -1).to(x.dtype)
     return _mlstm_out(p, y, xc, z, kernels, tp), (state, conv_state)
 
 
@@ -214,7 +223,7 @@ def mlstm_decode_step(cfg, p, x, state, conv_state, tp=None):
     """One token, x (B, 1, d): the recurrence itself, no chunking.
     Returns (out, (C, n, m), conv_state)."""
     B = x.shape[0]
-    di, H, dh = mlstm_dims(cfg)
+    _, H, dh = mlstm_dims(cfg)
     xc, z, q, k, v, li, lf, conv_state = _mlstm_in(cfg, p, x, conv_state,
                                                    tp)
     q = q.reshape(B, H, dh).float() / math.sqrt(dh)
@@ -229,7 +238,7 @@ def mlstm_decode_step(cfg, p, x, state, conv_state, tp=None):
     num = torch.einsum("bhde,bhd->bhe", C, q)
     den = torch.maximum(torch.einsum("bhd,bhd->bh", n, q).abs(),
                         torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(B, 1, di).to(x.dtype)
+    y = (num / den[..., None]).reshape(B, 1, H * dh).to(x.dtype)
     return _mlstm_out(p, y, xc, z, tp=tp), (C, n, m_new), conv_state
 
 
@@ -268,10 +277,14 @@ def slstm_apply(cfg, p, x, *, state=None, kernels=ops, tp=None):
     decode step."""
     B, S, _ = x.shape
     d, H, dh = slstm_dims(cfg)
-    pre = proj(p, "w_in", comm.copy_to_model(tp, x)).float().reshape(
-        B, S, 4, H, dh)
-    # the whole r: this rank's heads
-    r = p["r"] if tp is None else p["r"][:, tp.rank * H:(tp.rank + 1) * H]
+    whole = gathered(cfg)
+    pre = proj(p, "w_in", comm.copy_to_model(tp, x)).float()
+    if whole:       # the rank's channels of each gate: every head's
+        pre = comm.gather_from_model(tp, pre.unflatten(-1, (4, -1)), -1)
+    pre = pre.reshape(B, S, 4, H, dh)
+    # the whole r: this rank's heads (gathered: every head)
+    r = p["r"] if tp is None or whole else \
+        p["r"][:, tp.rank * H:(tp.rank + 1) * H]
     if state is None:
         state = slstm_state_init(cfg, B, x.device)
     hs = []
@@ -279,7 +292,7 @@ def slstm_apply(cfg, p, x, *, state=None, kernels=ops, tp=None):
         state = _slstm_step(r, state, pre[:, t])
         hs.append(state[2])
     y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    if tp is not None:
+    if tp is not None and not whole:
         y = comm.gather_from_model(tp, y, -1)
     y = comm.copy_to_model(tp, kernels.rmsnorm(y, p["gn"]))
     g, u = torch.chunk(proj(p, "ffn_wi", y), 2, dim=-1)

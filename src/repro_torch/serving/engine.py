@@ -31,6 +31,14 @@ wires hold this rank's KV heads, or the one KV head its query heads
 read where the KV heads are fewer than the ranks, and a recurrent
 stack's states on this rank's channels or heads (``kv_cfg``,
 ``sharding.local_cfg``), so a page pool's bytes are the local KV's.
+Under the kv_seq decode cache (``Runtime(kv_seq=True)``, and every
+config whose heads the axis does not split) a prefill's cache and a
+dense engine's hold the rank's share of every KV head's positions: both
+are gathered whole before a wire is extracted
+(``kv_transfer.gather_seq``), so wires carry every head at every
+position, and a rank inserts its share of them
+(``kv_transfer.insert_batch(seq_part=)``); the paged engines keep the head split and
+refuse it (ROADMAP C.4).
 Every rank of the ``model`` axis makes the same engine calls in the
 same order (SPMD); the greedy tokens come from
 the gathered logits, and the engines check that every rank chose the
@@ -48,6 +56,7 @@ import torch
 
 from repro_torch.analysis import sanitizers
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import paged as paged_fmt
 from repro_torch.models import registry, transformer, whisper
 from repro_torch.serving import kv_transfer, page_pool, protocol
@@ -227,6 +236,15 @@ class PrefillEngine:
     def _bucket_of(self, n: int) -> int:
         return min(max(_next_pow2(n), self.min_bucket), self.max_seq)
 
+    def _whole(self, out):
+        """A prefill's ``(logits, cache)`` with a kv_seq cache (the rank's
+        share of the positions) gathered whole, the wire's layout."""
+        logits, cache = out
+        if sharding.kv_seq(self.api.local_cfg):
+            cache = kv_transfer.gather_seq(cache, self.api.tp,
+                                           frames=self.cfg.encoder_seq)
+        return logits, cache
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
@@ -318,9 +336,9 @@ class PrefillEngine:
                 sub = group[lo:lo + self.max_batch]
                 toks = np.stack([np.asarray(r.tokens) for r in sub]).astype(
                     np.int64)
-                logits, cache = self.api.prefill(
+                logits, cache = self._whole(self.api.prefill(
                     self.params, {"tokens": self._tensor(toks)},
-                    max_seq=self.max_seq)
+                    max_seq=self.max_seq))
                 first = _first_tokens(logits, self.api.tp)
                 wires = kv_transfer.extract_batch(
                     cache, [(i, n) for i in range(len(sub))],
@@ -359,8 +377,8 @@ class PrefillEngine:
     def _run_one_bucket(self, group, Lb, *, compress, backend):
         lens = [min(len(r.tokens), Lb) for r in group]
         _, batch = self._bucket_batch(group, Lb, lens, [0] * len(group))
-        logits, cache = self.api.prefill(self.params, batch,
-                                         max_seq=self.max_seq)
+        logits, cache = self._whole(self.api.prefill(
+            self.params, batch, max_seq=self.max_seq))
         first = _first_tokens(logits, self.api.tp)
         wires = kv_transfer.extract_batch(
             cache, [(i, lens[i]) for i in range(len(group))],
@@ -468,11 +486,17 @@ class DecodeEngine:
         self.chunk_size = chunk_size
         supported = self.api.paged_decode_fns is not None
         self.paged = bool(paged) and supported
+        # the kv_seq cache: this rank's share of every KV head's positions
+        # (the paged step refuses it: registry.build's paged_decode_fns)
+        self._seq_part = (self.api.tp.rank, self.api.tp.size) \
+            if sharding.kv_seq(self.kv_cfg) else None
         self.paged_fallback = (
             None if (not paged or supported) else
             f"{cfg.name}: arch cannot page its decode cache (recurrent "
             f"state / SWA ring buffer / audio / softcap)")
         if self.paged:
+            self._decode, self._chunk = self.api.paged_decode_fns(
+                page_size, paged_backend)
             self.page_size = page_size
             self.table_w = paged_fmt.table_width(max_seq, page_size)
             if num_pages is None:
@@ -489,8 +513,6 @@ class DecodeEngine:
                 self.kv_cfg, max_slots, max_seq, num_pages,
                 page_size=page_size,
                 resident=kv_resident, device=self.device)
-            self._decode, self._chunk = self.api.paged_decode_fns(
-                page_size, paged_backend)
             self._slot_pages: Dict[int, List[int]] = {}
             self._need_sum = 0      # pages reserved across admissions
             self._need_n = 0
@@ -586,7 +608,7 @@ class DecodeEngine:
         if placed:
             self.cache = kv_transfer.insert_batch(
                 self.cache, [(it.wire, slot) for it, slot in placed],
-                backend=backend)
+                backend=backend, seq_part=self._seq_part)
             for it, slot in placed:
                 self.slots[slot] = it.req
                 self.cur_token[slot] = it.token
@@ -761,6 +783,9 @@ class DecodeEngine:
         if self.active == 0:
             return out
         lengths = self.cache["lengths"].cpu().numpy()
+        cache = self.cache if self._seq_part is None else \
+            kv_transfer.gather_seq(self.cache, self.api.tp,
+                                   frames=self.cfg.encoder_seq)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -769,7 +794,7 @@ class DecodeEngine:
                 wire = page_pool.extract_slot_wire(
                     self.cache, self.kv_cfg, ln, self._slot_pages[slot])
             else:
-                wire = kv_transfer.extract(self.cache, slot, ln,
+                wire = kv_transfer.extract(cache, slot, ln,
                                            compress=compress,
                                            backend=backend)
             out.append((slot, req, wire, int(self.cur_token[slot])))

@@ -25,7 +25,12 @@ shard: its KV heads (or its one replicated KV head, which each rank that
 shares it ships again), its recurrent states' channels or heads, raw,
 and whisper's flat tensors on its heads. Nothing here knows the mesh:
 the shapes carry it, and an int4 group follows the rank's span
-(``kv_layout``'s rule: the largest of 128..2 that divides it).
+(``kv_layout``'s rule: the largest of 128..2 that divides it). Under the
+kv_seq decode cache (``sharding.kv_seq``) the wire holds every KV head at
+every position: a kv_seq prefill's cache, which holds the rank's share
+of them as the decode cache does, is gathered whole first
+(:func:`gather_seq`), and each rank inserts its share of the positions
+(``insert_batch(seq_part=)``).
 """
 from __future__ import annotations
 
@@ -327,14 +332,58 @@ def insert(cache, wire: KVWire, batch_index: int, *,
     return insert_batch(cache, [(wire, batch_index)], backend=backend)
 
 
+def gather_seq(cache, tp, *, frames: int = 0):
+    """A kv_seq cache (each rank of ``tp`` holding its share of the
+    positions, ``transformer.seq_rows``) with the shares gathered end to
+    end: attention K/V and whisper's self K/V along their rows, its cross
+    K/V where they hold fewer than the encoder's ``frames`` (the axis
+    divides them), the recurrent states and ``lengths`` as they are. Rows
+    past a prefill's length (the last share's padding) are zeros that no
+    extraction reaches. What a kv_seq prefill's wires and a dense
+    engine's migration snapshot are extracted from."""
+
+    def one(name, key, t):
+        if key in ("k", "v") or (key is None and (
+                name.startswith("self_") or t.shape[2] != frames)):
+            return tp.all_gather(t.contiguous(), 2)
+        return t
+
+    out = {}
+    for name, slot in cache.items():
+        if name == "lengths":
+            out[name] = slot
+        elif isinstance(slot, dict):
+            out[name] = {k: one(name, k, t) for k, t in slot.items()}
+        else:
+            out[name] = one(name, None, slot)
+    return out
+
+
+def _share(x, rows: int, seq_part) -> torch.Tensor:
+    """The rows (dim 1) of a wire's positional tensor ``x`` that a cache
+    of ``rows`` rows holds: all of them, or under ``seq_part = (r, n)``
+    (a kv_seq cache: rank r of n, each holding ``rows`` of the ``n *
+    rows`` positions) the run ``[r rows, (r + 1) rows)``, where ``x``
+    reaches it (a cache whose rows are the wire's whole length, such as
+    whisper's cross frames that the axis does not divide, holds them
+    all)."""
+    if seq_part is None:
+        return x[:, -min(x.shape[1], rows):]
+    r, n = seq_part
+    return x[:, -min(x.shape[1], rows * n):][:, r * rows:(r + 1) * rows]
+
+
 def insert_batch(cache, items: Sequence[Tuple[KVWire, int]], *,
-                 backend: str = "auto"):
+                 backend: str = "auto", seq_part=None):
     """Insert (wire, slot_index) pairs into a dense decode cache, in place
     (every tensor stays where it was: a captured decode chunk reads it
     there), with one ``ops.kv_dequant`` launch per distinct packed shape
     across all wires and layers. Attention K/V fills the slot's first
     rows; recurrent states overwrite all of the slot's state, cast to the
-    cache's types (an f32 conv state to the cache's bf16)."""
+    cache's types (an f32 conv state to the cache's bf16). ``seq_part``
+    ``(r, n)``: the cache is rank r's share of a kv_seq cache split over
+    n ranks, and takes its run of the wire's positions (whisper's cross
+    frames too, where the cache holds a share of them)."""
     jobs = [(wi, name, key, wt) for wi, (wire, _) in enumerate(items)
             for name, slot_wire in wire.slots.items()
             for key, wt in slot_wire.items() if wt.kind == "int4"]
@@ -364,13 +413,16 @@ def insert_batch(cache, items: Sequence[Tuple[KVWire, int]], *,
                     _dequantize(slot_wire[key], backend)
 
             if "k" in slot_wire:                      # attention K/V
-                upd = min(L, slot["k"].shape[2])
                 for key in ("k", "v"):
-                    slot[key][:, batch_index, :upd] = floats(key)[:, -upd:]
+                    x = _share(floats(key), slot[key].shape[2], seq_part)
+                    slot[key][:, batch_index, :x.shape[1]] = x
             elif isinstance(slot, torch.Tensor):      # whisper's flat K/V
                 x = floats("x")                       # cross_*: own length
-                upd = min(x.shape[1], slot.shape[2])
-                slot[:, batch_index, :upd] = x[:, -upd:]
+                # the cross frames: a share where the cache holds one
+                part = seq_part if name.startswith("self_") or \
+                    slot.shape[2] != x.shape[1] else None
+                x = _share(x, slot.shape[2], part)
+                slot[:, batch_index, :x.shape[1]] = x
             else:                                     # recurrent states
                 for key in slot_wire:
                     slot[key][:, batch_index] = floats(key)

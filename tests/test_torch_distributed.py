@@ -544,35 +544,43 @@ def test_axis_size_one_is_bit_identical(runs, arch):
 @pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
                                   if a not in (LLAMA, QWEN)])
 def test_unported_configs_are_refused_above_size_one(arch):
-    """The nine configs A.9 step one left whole now shard at a model
-    axis of 1, 2 and 4 (full widths; the reduced ones where their heads
-    divide), and only what does not divide the axis is refused: an axis
-    of twice the heads, reduced xlstm's 2 heads at 4."""
+    """The nine configs A.9 step one left whole shard at a model axis of
+    1, 2 and 4 (full and reduced widths). Heads that the axis does not
+    divide are no longer refused (A.9 step two, items 3 and 4): at twice
+    the heads, and reduced xlstm's 2 heads at 4, a config runs gathered
+    wherever its columns divide (``sharding.rank_cfg``: whole heads, the
+    kv_seq cache); what no cut divides is refused, an axis of twice
+    ``d_model``."""
     full, small = get_config(arch), get_reduced(arch)
     for n in (1, 2, 4):
         sharding.check_tp(full, n)
-        assert sharding.local_cfg(full, None) is full
-    for n in (1, 2) + ((4,) if small.num_heads % 4 == 0 else ()):
         sharding.check_tp(small, n)
+        assert sharding.local_cfg(full, None) is full
     for cfg in (full, small):
+        n = 2 * cfg.num_heads
+        if not sharding.tp_refusals(cfg, n):
+            local = sharding.rank_cfg(cfg, n)
+            assert sharding.gathered(local) and sharding.kv_seq(local)
+            assert local.num_heads == cfg.num_heads
         with pytest.raises(NotImplementedError, match="A.9 step two"):
-            sharding.check_tp(cfg, 2 * cfg.num_heads)
+            sharding.check_tp(cfg, 2 * cfg.d_model)
     if arch == "xlstm-125m":
-        with pytest.raises(NotImplementedError, match="2 heads"):
-            sharding.check_tp(small, 4)
+        assert sharding.gathered(sharding.rank_cfg(small, 4))
 
 
 def test_sharded_configs_run_at_their_axis_sizes():
     for arch, sizes in ((LLAMA, (1, 2, 4)), (QWEN, (1, 2, 4, 8, 16))):
         for n in sizes:
             sharding.check_tp(get_config(arch), n)
-    # 52 heads over 8 and 16 (--mesh single|multi); an expert count the
-    # axis does not divide; reduced xlstm's 2 heads over 4
-    for cfg, n, why in ((get_config(LLAMA), 8, "52 heads"),
-                        (get_config(LLAMA), 16, "52 KV heads"),
-                        (get_reduced(QWEN).replace(moe_num_experts=6), 4,
-                         "6 experts"),
-                        (get_reduced("xlstm-125m"), 4, "2 heads")):
+    # 52 heads over 8 and 16 (--mesh single|multi) and reduced xlstm's 2
+    # heads over 4 run gathered; an expert count the axis does not divide
+    # is refused
+    for cfg, n in ((get_config(LLAMA), 8), (get_config(LLAMA), 16),
+                   (get_reduced("xlstm-125m"), 4)):
+        sharding.check_tp(cfg, n)
+        assert sharding.gathered(sharding.rank_cfg(cfg, n))
+    for cfg, n, why in ((get_reduced(QWEN).replace(moe_num_experts=6), 4,
+                         "6 experts"),):
         with pytest.raises(NotImplementedError, match="A.9 step two"):
             sharding.check_tp(cfg, n)
         assert any(why in w for w in sharding.tp_refusals(cfg, n))

@@ -92,8 +92,11 @@ def _cfg(case):
 
 
 def _sizes(case):
-    """The model axes the case's heads divide."""
-    return [n for n in TP_SHAPES if not sharding.tp_refusals(_cfg(case), n)]
+    """The model axes the case's heads divide (the gathered ones are
+    tests/test_torch_distributed_seq.py's)."""
+    cfg = _cfg(case)
+    return [n for n in TP_SHAPES if not sharding.tp_refusals(cfg, n)
+            and sharding.heads_split(cfg, n)]
 
 
 def _modes(cfg):

@@ -18,9 +18,12 @@
   prefill (an all-gather of the embedding, of each mLSTM's ``xc`` and
   ``xm`` and of each sLSTM's ``y``, of the logits; two all-reduces an
   mLSTM, its norm's mean squares and ``w_down``, one an sLSTM) and
-  whisper-base's prefill and decode (three all-reduces a decoder layer,
-  two an encoder layer; its vocabulary of 51865 leaves ``unembed``
-  whole, so no logits are gathered).
+  whisper-base's prefill (three all-reduces a decoder layer, two an
+  encoder layer; its vocabulary of 51865 leaves ``unembed`` whole, so no
+  logits are gathered) and its decode step in the reference's kv_seq
+  layout (each self and cross attention gathers q, k and v, or q, and
+  merges its ranks' partial softmaxes: an all-gather of their
+  log-sum-exps and an all-reduce of the weighted outputs).
 * The jamba decode step with a sliding window (the reference's
   long_500k cell, a ring of ``window`` rows in its attention layers)
   matches the reference's in-place step on the reduced config in f32,
@@ -28,9 +31,16 @@
   largest, tokens equal where the top-2 margin clears 1e-3.
 * ``run_cell`` at full width on meta: llama-30b x decode_32k @ one,
   qwen3-moe x decode_32k @ four, jamba x long_500k @ one and
-  whisper-base x train_4k @ one are ``ok`` with the reference's keys; a
-  ``single``-mesh cell is an error naming A.9 step two; and
+  whisper-base x train_4k @ one are ``ok`` with the reference's keys;
+  llama-30b x decode_32k @ single (52 heads over 16, which A.9 step two
+  refused before items 3 and 4) is ``ok`` too, its cache a rank's
+  sixteenth of the whole cache at its batch, its collectives the q/k/v
+  gathers and the partial softmaxes' merge (two all-gathers and an
+  all-reduce a layer beside the row-parallel sums); and
   ``report.table`` over those records is the reference's text.
+* The five archs the production meshes could not count before count
+  ``ok`` at ``single`` (decode_32k, and train_4k for LLaMA-30B, 52 heads
+  over 16 the qseq way), and a ``multi`` cell too.
 """
 import json
 
@@ -203,7 +213,8 @@ def test_abstract_mesh_counts_a_tp_decode_steps_collectives():
                                "all_reduce": 2 * 10 + 2}),
     ("whisper-base", "prefill", {"all_gather": 1,
                                  "all_reduce": 2 * 6 + 3 * 6}),
-    ("whisper-base", "decode", {"all_gather": 1, "all_reduce": 3 * 6})])
+    ("whisper-base", "decode", {"all_gather": 1 + 4 * 6,
+                                "all_reduce": 3 * 6 + 2 * 6})])
 def test_abstract_mesh_counts_a_recurrent_and_an_audio_cell(
         monkeypatch, arch, kind, want):
     name = f"{kind}_64"
@@ -216,9 +227,9 @@ def test_abstract_mesh_counts_a_recurrent_and_an_audio_cell(
         # each mLSTM gathers (2, B, S, 2d / 4) bf16 into (2, B, S, 2d)
         assert counted["coll_payload"] >= 10 * 2 * 2 * 64 * 2 * 768 * 2
         assert counted["kernels"] == {"rmsnorm": 2}    # the sLSTM norms
-    else:
+    else:   # a decode step's attention: the kv_seq partial mode
         assert counted["kernels"]["flash_attention" if kind == "prefill"
-                                  else "decode_attention"] > 0
+                                  else "decode_attention_lse"] > 0
 
 
 # -- (i) the jamba window in the dense decode step ------------------------------
@@ -304,16 +315,81 @@ def test_run_cell_at_full_width(records):
                               ).read_text())
         assert on_disk == r
     llama, qwen, jamba, whisper = recs
-    # one card: every layer's dense decode attention and norms, no wire
+    # one card: every layer's dense decode attention and norms, no wire;
+    # the kv_seq layout at one rank is the whole cache
     assert llama["kernel_calls"] == {"rmsnorm": 1, "add_rmsnorm": 120,
                                      "decode_attention": 60}
     assert llama["collective_wire"] == 0 and not llama["fits_hbm"]
-    # four cards: a rank's quarter of the heads; experts exchanged
+    cfg = get_config("llama-30b")
+    whole = 2 * cfg.num_layers * 128 * 32768 * cfg.kv_dim * 2
+    assert llama["cache_bytes"] == whole + 4 * 128      # and the lengths
+    # four cards: the kv_seq partial mode over a rank's quarter of the
+    # positions of every KV head; experts exchanged
     assert qwen["n_chips"] == 4 and qwen["collective_wire"] > 0
+    assert qwen["kernel_calls"]["decode_attention_lse"] == 94
     # jamba's 4 attention layers read a 4096-row ring
     assert jamba["kernel_calls"]["decode_attention"] == 4
     assert whisper["kernel_calls"] == {} and whisper["bottleneck"]
-    assert bad["status"] == "error" and "A.9 step two" in bad["error"]
+    # the production mesh: 52 heads over 16, a rank's share of the cache
+    # of its 8 rows of the batch; each layer gathers q, k and v and
+    # merges the partials (lse all-gather, output all-reduce) beside its
+    # two row-parallel sums; the embedding and the logits gathered
+    L = cfg.num_layers
+    assert bad["status"] == "ok" and bad["rank_batch"] == 128 // 16
+    assert bad["cache_bytes"] == whole // 16 // 16 + 4 * 8
+    assert bad["kernel_calls"] == {"rmsnorm": 1, "add_rmsnorm": 2 * L,
+                                   "decode_attention_lse": L}
+    assert bad["collective_counts"] == {"all_gather": 2 * L + 2,
+                                        "all_reduce": 3 * L}
+
+
+@pytest.mark.parametrize("arch,shape,mesh", [
+    ("llama-30b", "decode_32k", "single"), ("llama-30b", "train_4k", "single"),
+    ("llama4-maverick-400b-a17b", "decode_32k", "single"),
+    ("gemma-2b", "decode_32k", "single"), ("whisper-base", "decode_32k",
+                                           "single"),
+    ("xlstm-125m", "decode_32k", "single"), ("gemma-2b", "decode_32k",
+                                             "multi")])
+def test_production_mesh_cells_count(tmp_path, monkeypatch, arch, shape,
+                                     mesh):
+    """The archs whose heads 16 does not divide count at the reference's
+    production meshes: gathered heads (whole head counts on a rank, the
+    columns cut), decode in the kv_seq layout (a rank's sixteenth of the
+    positions, the partial mode, its merge's collectives)."""
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    r = dryrun.run_cell(arch, shape, mesh, force=True)
+    assert r["status"] == "ok", r.get("error")
+    assert r["n_chips"] == (256 if mesh == "single" else 512)
+    assert r["hlo_flops"] > 0 and r["collective_wire"] > 0
+    if shape == "train_4k":
+        assert r["collective_counts"]["all_to_all"] > 0  # qseq's exchange
+        return
+    cfg = get_config(arch)
+    if cfg.family != "ssm":
+        assert r["kernel_calls"]["decode_attention_lse"] > 0
+        assert r["collective_counts"]["all_gather"] >= 2 * cfg.num_layers
+
+
+def test_gathered_prefill_cell_keeps_its_share_on_the_critical_rank():
+    """A gathered prefill cell at ``single`` (gemma-2b's 8 heads over 16,
+    2 rows of the batch a rank): its cache is the rank's sixteenth of the
+    positions of the one KV head, as the reference's kv_seq-sharded
+    prefill output, beside the gathered logits; and it counts the model
+    axis's last rank, whose qseq query rows attend every key before them
+    (the flash kernel's suffix call over all 32768), where rank 0's
+    attend their own 2048: about 2n - 1 = 31 times the attention."""
+    from repro_torch.launch.mesh import abstract_mesh
+    cfg = get_config("gemma-2b")
+    last, info = dryrun.trace_cell("gemma-2b", "prefill_32k",
+                                   dryrun.make_mesh("single"))
+    first, _ = dryrun.trace_cell("gemma-2b", "prefill_32k", abstract_mesh(
+        (16, 16), ("data", "model")))
+    b, S = info["batch"], 32768
+    whole = 2 * cfg.num_layers * b * S * cfg.num_kv_heads * cfg.head_dim * 2
+    assert info["out"] == whole // 16 + b * cfg.vocab_size * 4 + 4 * b
+    fl = [c["kernel_cost"]["flash_attention"]["flops"]
+          for c in (first, last)]
+    assert 30 < fl[1] / fl[0] < 32
 
 
 def test_report_table_is_the_reference_text(records, monkeypatch):

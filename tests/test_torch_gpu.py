@@ -570,6 +570,43 @@ def test_decode_attention_kernel_matches_plain(cuda, B, Hkv, g, hd, S, lens,
                                rtol=tol)
 
 
+LSE_CASES = [
+    # (B, Hkv, g, hd, S, kv_len): a kv_seq rank's share of a cache
+    (4, 52, 1, 128, 256, [256, 123, 56, 17]),    # LLaMA-30B, TP-2 rank 0
+    (4, 52, 1, 128, 256, [104, 0, 0, 0]),        # rank 1: 3 slots hold none
+    (4, 1, 8, 256, 256, [232, 123, 0, 17]),      # gemma-2b: MQA
+    (3, 2, 4, 16, 40, [1, 0, 23]),
+]
+
+
+@pytest.mark.parametrize("B,Hkv,g,hd,S,lens", LSE_CASES)
+@pytest.mark.parametrize("qdt,kvdt", DTYPE_PAIRS)
+def test_decode_attention_partial_mode_matches_plain(cuda, B, Hkv, g, hd, S,
+                                                     lens, qdt, kvdt):
+    """The partial mode (``return_lse``): ``o`` f32 whatever q's type (q
+    read as it is), normalised over the call's keys, and each row's f32
+    log-sum-exp, both within 1e-5 of the plain version (which reads the
+    same q values in f32); a row with kv_len 0 gives o 0 and lse -inf."""
+    q, k, v, kv_len, _ = _decode_inputs(
+        B, Hkv, g, hd, S, lens, getattr(torch, qdt), getattr(torch, kvdt),
+        "cache", seed=B * 7 + hd + sum(lens))
+    before = da.decode_attention_lse.launches
+    o, lse = ops.decode_attention(q, k, v, kv_len, return_lse=True)
+    want_o, want_l = ref.decode_attention_ref(q, k, v, kv_len=kv_len,
+                                              return_lse=True)
+    torch.cuda.synchronize()
+    assert da.decode_attention_lse.launches == before + 1
+    assert o.dtype == lse.dtype == torch.float32
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+    torch.testing.assert_close(o, want_o, atol=1e-5, rtol=1e-5)
+    fin = torch.isfinite(want_l)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], want_l[fin], atol=1e-5, rtol=1e-5)
+    empty = kv_len == 0
+    assert bool((lse[empty] == float("-inf")).all())
+    assert bool((o[empty] == 0).all())
+
+
 def test_decode_attention_reads_the_cache_in_place(cuda, monkeypatch):
     """The kernel gets the cache's own addresses: no copy of K/V."""
     q, k, v, kv_len, cache = _decode_inputs(4, 8, 1, 128, 64, [5, 64, 1, 30],

@@ -370,9 +370,14 @@ COPY_DIFFERENCES = {
             "_leaf_specs", "_shard_tree", "shard_params", "RankConfig",
             "RankConfig.mamba_d_inner", "split_of", "kv_replicated",
             "kv_head_of", "_CHUNKED", "_chunks_of", "_rules")},
+        # heads the model axis does not split (gathered, the qseq
+        # attention) and the kv_seq decode cache
+        **{name: ONE_SIDE for name in (
+            "heads_split", "gathered", "kv_seq", "whole_heads")},
         # the sharded training step's gradients and checkpoints
         **{name: ONE_SIDE for name in (
-            "_PARTIAL", "_KV", "whole_meta", "_walk", "_per_dict",
+            "_PARTIAL", "_KV", "_SLSTM_R", "whole_meta", "_walk",
+            "_per_dict",
             "grad_kinds", "sync_grads", "norm_share", "unshard_leaf",
             "unshard_params")},
     },

@@ -19,6 +19,14 @@
   visible causal pairs).
 * ``kernels/cost.py`` gives ``PERF.md``'s bound column for rows 1, 1a,
   2, 3, 4, 5, 6, 7 and 7a to its printed digits.
+* A kv_seq decode step's collectives on an abstract ``1 x n`` mesh (n =
+  4, 16, and a ``2 x 16 x 16`` production mesh's model axis) carry the
+  payloads a rank's shapes give, by hand: the q/k/v gather's whole
+  columns, the merge's gathered log-sum-exps (one f32 a query row and
+  rank) and its f32 output all-reduce, the f32 row-parallel sums, the
+  embedding's and the logits' gathers; the wire bytes are the ring
+  model's over the model axis; the partial mode's kernel cost counts an
+  f32 ``o`` and one f32 log-sum-exp a row.
 """
 import dataclasses
 import math
@@ -315,3 +323,48 @@ def test_analyze_terms():
     assert math.isclose(r.useful_ratio, 0.5)
     assert r.memory_estimate_bytes == 15 and r.per_device_output_bytes == 2
     assert set(r.to_json()) == set(j_analysis.Roofline.__dataclass_fields__)
+
+
+# -- (h) the kv_seq decode step's collectives ----------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (1, 16), (2, 16, 16)])
+def test_kv_seq_decode_collectives_by_hand(shape):
+    from repro_torch.launch.mesh import abstract_mesh
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                      "model")
+    mesh = abstract_mesh(shape, axes)
+    n = shape[-1]
+    # 52 heads over 16 run gathered; over 4 they split (kv_seq asked for)
+    cfg = t_configs.get_config("llama-30b").replace(num_layers=2)
+    api = build(cfg, rt=t_tf.Runtime(mesh, kv_seq=True))
+    params = t_tf.init_params(cfg, device="meta", mesh=mesh)
+    B = 4
+    cache = t_tf.init_cache(api.local_cfg, B, 4096, device="meta")
+    assert cache["slot0"]["k"].shape == (2, B, 4096 // n, 52, 128)
+    tok = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    with OpCounter() as c:
+        api.decode(params, cache, tok)
+    r = c.result()
+    L, d, V, H, hd = cfg.num_layers, cfg.d_model, cfg.vocab_size, 52, 128
+    qkv = B * 3 * cfg.q_dim * 2            # the gathered columns, bf16
+    lse = n * B * H * 4                     # every rank's, f32
+    merged = B * H * hd * 4                 # the weighted o, f32
+    rows = B * d * 4                        # a row-parallel sum, f32
+    gathers = L * (qkv + lse) + B * d * 2 + B * V * 2
+    reduces = L * (merged + 2 * rows)
+    assert r["coll_counts"] == {"all_gather": 2 * L + 2,
+                                "all_reduce": 3 * L}
+    assert r["coll_payload"] == gathers + reduces
+    assert r["coll_wire"] == pytest.approx(
+        analysis.wire_bytes("all_gather", gathers, n)
+        + analysis.wire_bytes("all_reduce", reduces, n))
+    assert r["kernels"] == {"rmsnorm": 1, "add_rmsnorm": 2 * L,
+                            "decode_attention_lse": L}
+    q = torch.empty((B, H, 1, hd), dtype=torch.float32)
+    kv = torch.empty((B, H, 4096 // n, hd), dtype=torch.bfloat16)
+    flops, nbytes = cost.of("decode_attention_lse", q, kv, kv,
+                            torch.empty((B,), dtype=torch.int32))
+    plain_f, plain_b = cost.of("decode_attention", q, kv, kv,
+                               torch.empty((B,), dtype=torch.int32))
+    assert flops == plain_f and nbytes == plain_b + 4 * B * H

@@ -103,7 +103,11 @@ def _cfg(case):
 
 
 def _sizes(case):
-    return [n for n in MESHES if not sharding.tp_refusals(_cfg(case), n)]
+    """The model axes that split the case's heads (the gathered ones are
+    tests/test_torch_distributed_seq.py's)."""
+    cfg = _cfg(case)
+    return [n for n in MESHES if not sharding.tp_refusals(cfg, n)
+            and sharding.heads_split(cfg, n)]
 
 
 def _init(cfg, mesh=None, seed=1):

@@ -226,6 +226,7 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
             x[:, :2], x, x, idx[:, None], idx, page_size=8),
         "flash_attention": lambda f: f(x, x, x),
         "decode_attention": lambda f: f(x, x, x, idx),
+        "decode_attention_lse": lambda f: f(x, x, x, idx),
         "rmsnorm": lambda f: f(x, torch.zeros(16)),
         "add_rmsnorm": lambda f: f(x, x, torch.zeros(16)),
     }
