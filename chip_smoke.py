@@ -224,7 +224,7 @@ before the last line:
    run's own sensitivity to one bf16 ulp of every weight); (f) the sharded
    training step (``optimizer.make_train_step`` under the mesh): a
    world-1 NCCL train step of LLaMA-30B cut to one layer bit for bit the
-   unmeshed one; LLaMA-30B at TP 2 (4 layers, 4 x 512, 3 steps), at data
+   unmeshed one; LLaMA-30B at TP 2 (2 layers, 4 x 512, 2 steps), at data
    2 x model 2 (2 layers, one step over four ranks) and qwen3-moe at EP
    2 + TP 2 (one layer, one step), each against the unsharded run of its
    cut: every loss within 1e-2 relative, each leaf's step-1 gradient
@@ -269,7 +269,28 @@ before the last line:
    qwen3-moe's cells at ``one`` (``--all`` takes ~25 min on the host
    there) from phase 10, xlstm's prefill and train cells at ``four``
    left out by name (``P13_SKIP``: its per-token sLSTM loop); every cell
-   must be ``ok``; ``report.table`` of each mesh is printed.
+   must be ``ok``; ``report.table`` of each mesh is printed;
+14. the analysis package and the last model options: (a) ``python -m
+   repro_torch.analysis lint --strict`` and ``check --quick --mutations
+   --replay`` over this checkout (host processes from phase 1: exit 0,
+   all 8 planted bugs caught and replayed), then R002's reachable set
+   held to a real capture: a LLaMA-30B decode chunk (2 layers, dense and
+   int4 pages) captured as a CUDA graph under ``sys.setprofile``; every
+   function of ``src/repro_torch`` that ran must be in the set (the
+   counts printed); (b) the capped flash and dense decode kernels at
+   gemma-2b's shapes against their plain versions (a "no cap" control
+   rejected), then gemma-2b, all 18 layers, with a logit softcap of 50
+   through ``PrefillEngine`` and the dense cache its ``DecodeEngine``
+   falls back to, graphed and eager in lockstep; (c) jamba (16 of 32
+   layers) with a 4096-token window: a 4200-token prompt's ring against
+   the unwindowed prefill's rows rotated, bit for bit, a decode step
+   over it against the plain attention, then the engines; (d) LLaMA-30B
+   (4 layers) on the hkv_s cache against s_hkv: tokens, cache bytes and
+   decode logits bit for bit; and (b)-(d) on the reduced float32
+   configs, card tokens equal to the CPU's. Each of (b)-(d) counts its
+   launches from 0 and must launch its path's kernels
+   (``P14_KERNELS``); the capped instantiations are the kernels line's
+   ``*_softcap`` rows.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs a CUDA card: without
@@ -661,30 +682,38 @@ def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
 
 
 def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
-                plen=None, causal=True, Sk=None, controls=(), timed):
+                plen=None, causal=True, Sk=None, controls=(), timed,
+                softcap=0.0, scale=1.0):
     """Flash attention against its plain version; ``plen`` (B,) makes it
     the suffix mask over a P-token padded prefix; ``causal=False`` with
     ``Sk`` keys is bidirectional attention over another sequence (an
     encoder's frames). ``controls`` names wrong versions the check must
     reject: "window 0" (no window), "last 8 of hd" (the keys' last 8
-    head-dim elements zeroed), "causal" (a causal mask applied)."""
+    head-dim elements zeroed), "causal" (a causal mask applied), "no cap"
+    (the logit softcap left out). ``softcap``: the capped instantiation;
+    ``scale`` multiplies q and k, so the cap bites; its one-call
+    library version is :func:`flex_softcap`."""
     import torch.nn.functional as F
     Sk = Sk or P + Sq
     gen = torch.Generator(device="cuda").manual_seed(SEED + B + Sq + P)
-    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, Sk, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    q = (torch.randn((B, Sq, H, hd), generator=gen, device="cuda")
+         * scale).to(dtype)
+    k = (torch.randn((B, Sk, Hkv, hd), generator=gen, device="cuda")
+         * scale).to(dtype)
     v = torch.randn((B, Sk, Hkv, hd), generator=gen, device="cuda").to(dtype)
     pl = None if plen is None else torch.tensor(plen, dtype=torch.int32,
                                                 device="cuda")
     kw = dict(causal=causal, window=window, prefix_len=pl)
+    if softcap:
+        kw["softcap"] = softcap
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     err = float((got.float() - want.float()).abs().max())
     ok, worst = attn_close(torch, got, want)
     log(f"  flash_attention B={B} S={Sq} Sk={Sk} P={P} H={H} Hkv={Hkv} "
         f"hd={hd} causal={causal} window={window} prefix_len={plen} "
-        f"{str(dtype)[6:]}: max |err| {err:.3e}, worst |err| / tol "
-        f"{worst:.3g} ({ATTN_TOL_TEXT[str(dtype)[6:]]})")
+        f"softcap={softcap} {str(dtype)[6:]}: max |err| {err:.3e}, worst "
+        f"|err| / tol {worst:.3g} ({ATTN_TOL_TEXT[str(dtype)[6:]]})")
     if not ok:
         raise AssertionError("flash attention differs from the plain "
                              "version beyond tolerance")
@@ -693,11 +722,14 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
              "last 8 of hd": lambda: ref.flash_attention_ref(
                  q, last8_zeroed(k), v, **kw),
              "causal": lambda: ref.flash_attention_ref(
-                 q, k, v, **dict(kw, causal=True))}
+                 q, k, v, **dict(kw, causal=True)),
+             "no cap": lambda: ref.flash_attention_ref(
+                 q, k, v, **dict(kw, softcap=0.0))}
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
-    cdata = dict(causal=causal, window=window, prefix_len=plen)
+    cdata = dict(causal=causal, window=window, prefix_len=plen,
+                 softcap=softcap)
     nbytes = cost_bytes("flash_attention", q, k, v, **cdata)
     fn = lambda a, b, c: fa.flash_attention(a, b, c, **kw)
     fn_ref = lambda a, b, c: ref.flash_attention_ref(a, b, c, **kw)
@@ -705,6 +737,16 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
          "plain_ms": cuda_ms(torch, fn_ref, [(q, k, v)], 10),
          "bound": cost_bound("flash_attention", q, k, v,
                              peak=peak_of(torch, dtype), **cdata)}
+    if softcap:
+        r["library_ms"] = flex_softcap(torch, q, k, v, want, softcap,
+                                       causal=causal)
+        r["eager_ms"] = eager_ms(torch, fn, [(q, k, v)], 50)
+        log(f"  flash_attention softcap {softcap}: {r['ms']:.4f} ms "
+            f"({r['eager_ms']:.4f} ms launched eagerly), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {nbytes} B, "
+            f"{cost_flops('flash_attention', q, k, v, **cdata)} FLOP)")
+        return r
     # one PyTorch call of the same function (timed only, never used by
     # the port): SDPA on (B, H, S, hd) views of the same tensors (GQA
     # through enable_gqa), with the suffix mask or the sliding window
@@ -732,6 +774,51 @@ def check_flash(torch, ref, fa, B, Sq, P, H, Hkv, hd, dtype, *, window=0,
         f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, {nbytes} B, "
         f"{cost_flops('flash_attention', q, k, v, **cdata)} FLOP)")
     return r
+
+
+def flex_softcap(torch, q, k, v, want, cap, *, causal, kv_len=None):
+    """The library time of capped attention, or None: PyTorch's
+    ``flex_attention`` with a ``c tanh(s / c)`` score_mod (compiled, as
+    flex_attention runs only compiled; timed only, never used by the
+    port) on q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) in the kernels'
+    layout, causal or masked at ``kv_len``. None, with the reason logged,
+    where it does not compile at these shapes or disagrees with the
+    plain version ``want`` beyond the attention tolerance."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        B, Sq, H, hd = q.shape
+        Sk = k.shape[1]
+
+        def capped(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap)
+
+        if causal:
+            mask = create_block_mask(lambda b, h, qi, ki: ki <= qi, None,
+                                     None, Sq, Sk, device="cuda")
+        else:
+            mask = create_block_mask(lambda b, h, qi, ki: ki < kv_len[b], B,
+                                     None, Sq, Sk, device="cuda")
+        flex = torch.compile(flex_attention, dynamic=False)
+        args = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))]
+        call = lambda a, b, c: flex(a, b, c, score_mod=capped,
+                                    block_mask=mask,
+                                    enable_gqa=H != k.shape[2])
+        t = time.perf_counter()
+        got = call(*args[0]).transpose(1, 2)
+        torch.cuda.synchronize()
+        ok, worst = attn_close(torch, got, want)
+        log(f"    flex_attention (tanh score_mod) compiled in "
+            f"{time.perf_counter() - t:.1f} s; vs plain max |err| "
+            f"{float((got.float() - want.float()).abs().max()):.3e}, worst "
+            f"|err| / tol {worst:.3g}")
+        if not ok:
+            return None
+        return cuda_ms(torch, call, args, 20)
+    except Exception as e:            # a library call that cannot run here
+        log(f"    flex_attention (tanh score_mod): none ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200]})")
+        return None
 
 
 def last8_zeroed(t):
@@ -858,36 +945,60 @@ def check_norm_rows(torch, ops, d, dtype):
 
 
 def check_decode(torch, ref, da, L, B, Hkv, g, hd, S, kv_len, qdt, kvdt, *,
-                 controls=(), timed):
+                 controls=(), timed, softcap=0.0, scale=1.0):
     """Dense decode attention on one layer of an (L, B, S, Hkv, hd) cache,
     read through the permuted (B, Hkv, S, hd) view as the model does;
     layers cycled when timed, so the L2 is cold. ``controls`` names wrong
-    versions the check must reject (:func:`decode_controls`)."""
+    versions the check must reject (:func:`decode_controls`; with a
+    ``softcap`` also "no cap"). ``scale`` multiplies q and K."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED + B + S + hd)
-    K = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda").to(kvdt)
+    K = (torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda")
+         * scale).to(kvdt)
     V = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda").to(kvdt)
-    q = torch.randn((B, Hkv, g, hd), generator=gen, device="cuda").to(qdt)
+    q = (torch.randn((B, Hkv, g, hd), generator=gen, device="cuda")
+         * scale).to(qdt)
     kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     layer = [(q, K[i].permute(0, 2, 1, 3), V[i].permute(0, 2, 1, 3), kl)
              for i in range(L)]
-    fn_ref = lambda a, b, c, n: ref.decode_attention_ref(a, b, c, kv_len=n)
-    got, want = da.decode_attention(*layer[0]), fn_ref(*layer[0])
+    fn_ref = lambda a, b, c, n: ref.decode_attention_ref(
+        a, b, c, kv_len=n, softcap=softcap)
+    fn = lambda a, b, c, n: da.decode_attention(a, b, c, n, softcap=softcap)
+    got, want = fn(*layer[0]), fn_ref(*layer[0])
     err = float((got.float() - want.float()).abs().max())
     ok, worst = attn_close(torch, got, want)
     log(f"  decode_attention B={B} Hkv={Hkv} g={g} hd={hd} S={S} "
-        f"kv_len={kv_len} q {str(qdt)[6:]} kv {str(kvdt)[6:]}: max |err| "
-        f"{err:.3e}, worst |err| / tol {worst:.3g} "
-        f"({ATTN_TOL_TEXT[str(qdt)[6:]]})")
+        f"kv_len={kv_len} softcap={softcap} q {str(qdt)[6:]} kv "
+        f"{str(kvdt)[6:]}: max |err| {err:.3e}, worst |err| / tol "
+        f"{worst:.3g} ({ATTN_TOL_TEXT[str(qdt)[6:]]})")
     if not ok:
         raise AssertionError("decode attention differs from the plain "
                              "version beyond tolerance")
     q0, k0, v0, _ = layer[0]
     wrong = decode_controls(torch, fn_ref, q0, k0, v0, (), kl)
+    wrong["no cap"] = lambda: ref.decode_attention_ref(q0, k0, v0,
+                                                       kv_len=kl)
     negative_controls(torch, got, {c: wrong[c] for c in controls})
     if not timed:
         return None
     nbytes = cost_bytes("decode_attention", *layer[0], kv_len=kv_len)
+    if softcap:
+        r = {"err": err, "ms": cuda_ms(torch, fn, layer, 3 * L),
+             "plain_ms": cuda_ms(torch, fn_ref, layer, L),
+             "library_ms": flex_softcap(torch, q0[:, :, :, None].reshape(
+                 B, Hkv * g, 1, hd).transpose(1, 2), k0.transpose(1, 2),
+                 v0.transpose(1, 2), want.reshape(B, Hkv * g, 1, hd)
+                 .transpose(1, 2), softcap, causal=False, kv_len=kl),
+             "bound": cost_bound("decode_attention", *layer[0],
+                                 kv_len=kv_len, softcap=softcap,
+                                 peak=peak_of(torch, kvdt))}
+        r["eager_ms"] = eager_ms(torch, fn, layer, 3 * L)
+        log(f"  decode_attention softcap {softcap}: {r['ms']:.4f} ms/layer "
+            f"({r['eager_ms']:.4f} ms launched eagerly), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}, {nbytes} B); layers "
+            f"cycled, L2 cold")
+        return r
 
     def sdpa(a, b, c, n):
         # the g query heads of a KV head as g query rows, kv_len as a mask
@@ -1385,14 +1496,15 @@ def prefill_engine(torch, cfg, params, *, max_seq, device="cuda", rt=None):
                            device=device, rt=rt)
 
 
-def serve_small(torch, device, mode="int4", arch="llama-30b"):
+def serve_small(torch, device, mode="int4", arch="llama-30b", over=None):
     """The reduced ``arch`` in float32 through the engines with the decode
     cache of ``mode`` (``DECODE_MODES``); returns tokens. Its prompts (7,
     19 and 33 tokens, 12 new) overrun h2o-danube's 32-token window.
-    Whisper prefills through the model API (:class:`FramePrefill`)."""
+    Whisper prefills through the model API (:class:`FramePrefill`).
+    ``over``: config fields changed (phase 14's options)."""
     from repro_torch.configs import get_reduced
     from repro_torch.serving import engine as E
-    cfg = get_reduced(arch).replace(dtype="float32")
+    cfg = get_reduced(arch).replace(dtype="float32", **(over or {}))
     # drawn on the CPU and copied: a CUDA generator gives other numbers
     params = to_device(make_params(torch, cfg, device="cpu",
                                    dtype=torch.float32), device)
@@ -4184,8 +4296,10 @@ def phase12(torch, *, device="cuda", reduced=False):
 # 2, the TP-2 checkpoint (its 1-layer state is 9.6 GB on disk; the 4-layer
 # one's 25.7 GB would need ~80 GB of host memory to write and read back),
 # qwen3-moe at EP 2 + TP 2
-P12F_LAYERS = {"world1": 1, "tp": 4, "dp": 2, "ckpt": 1, "moe": 1}
-P12F_STEPS = {"tp": 3, "dp": 1, "moe": 1}
+# (f)'s TP-2 run was 4 layers x 3 steps until the script neared its time
+# limit (1131 s on a slow host with phase 14): 2 x 2 keeps the checks
+P12F_LAYERS = {"world1": 1, "tp": 2, "dp": 2, "ckpt": 1, "moe": 1}
+P12F_STEPS = {"tp": 2, "dp": 1, "moe": 1}
 P12F_BATCH = (4, 512)             # rows x tokens of the global batch
 P12F_LOSS_TOL = 1e-2              # relative, every step's loss
 # step-1 gradients, each leaf's relative L2: CHUNK_REL_TOL (bf16 0.05)
@@ -4532,8 +4646,8 @@ def p12f_compare(part, ref, got):
 
 def phase12f(torch, *, device="cuda", reduced=False):
     """Phase 12 (f), the sharded training step: the world-1 check
-    (:func:`p12f_world1`), then for each of LLaMA-30B at TP 2 (4 layers,
-    3 steps; then the checkpoint), data 2 x model 2 (2 layers, one step)
+    (:func:`p12f_world1`), then for each of LLaMA-30B at TP 2 (2 layers,
+    2 steps; then the checkpoint), data 2 x model 2 (2 layers, one step)
     and qwen3-moe at EP 2 + TP 2 (one layer, one step): the unsharded run
     on the card first, freed before the ranks start, then the ranks over
     gloo. No kernel runs in training. Returns (f)'s rows. (The CPU
@@ -5384,6 +5498,379 @@ def p13_train(torch, smi, device="cuda"):
     return out
 
 
+# -- phase 14: the analysis package and the last model options ---------------
+
+P14_CAP = 50.0          # (b): the logit softcap gemma-2b is served with
+P14_WINDOW = 4096       # (c): jamba's long_500k window
+P14_PROMPT = 4200       # (c): a prompt past the window
+P14_LAYERS = {"scope": 2, "jamba": 16, "hkv_s": 4}   # depth cuts
+# the kernels each new path must launch (the engines' wire: kv_quant at
+# extraction, kv_dequant at insertion)
+P14_KERNELS = {
+    "softcap": ("flash_attention", "decode_attention", "rmsnorm",
+                "add_rmsnorm", "kv_quant", "kv_dequant"),
+    "window": ("flash_attention", "decode_attention", "rmsnorm",
+               "add_rmsnorm"),
+    "hkv_s": ("flash_attention", "decode_attention", "rmsnorm",
+              "add_rmsnorm", "kv_quant", "kv_dequant"),
+}
+
+
+def analysis_start():
+    """Phase 14 (a)'s host half, started at phase 1 beside the card's
+    work: the CLI ``python -m repro_torch.analysis lint --strict`` and
+    ``check --quick --mutations --replay`` over this checkout, one
+    process each."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = {}
+    for name, argv in (("lint", ["lint", "--strict"]),
+                       ("check", ["check", "--quick", "--mutations",
+                                  "--replay"])):
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis", *argv], cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    atexit.register(lambda: [p.kill() for _, p in procs.values()
+                             if p.poll() is None])
+    return procs
+
+
+def analysis_finish(procs):
+    """Phase 14 (a): both must exit 0; the check must catch all 8 planted
+    bugs, each with its replay confirmed."""
+    for name, (t0, proc) in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        lines = out.strip().splitlines()
+        for line in lines[-4:] if name == "lint" else [
+                x for x in lines if x.startswith(("check[", "mutation "))]:
+            log(f"    {line}")
+        log(f"  analysis {name}: exit {proc.returncode} ({len(lines)} lines "
+            f"of output, started at phase 1)")
+        if proc.returncode != 0:
+            raise AssertionError(f"analysis {name} failed:\n{out[-3000:]}")
+        if name == "check" and (
+                "all 8 planted bugs caught" not in out
+                or out.count("replay confirmed") != 8):
+            raise AssertionError(f"analysis check: a planted bug missed or "
+                                 f"not replayed:\n{out[-3000:]}")
+
+
+def p14_scope(torch, device="cuda", reduced=False):
+    """Phase 14 (a): R002's reachable set against a real capture. A
+    LLaMA-30B decode chunk (full width, cut to 2 layers: the functions a
+    chunk runs do not depend on the depth) captured as a CUDA graph
+    (``registry.GraphedDecodeChunk``) on the dense cache and on int4
+    pages, its chunk function run under ``sys.setprofile``
+    (``analysis.lint.trace_calls``): every function of ``src/repro_torch``
+    that ran during the capture must be in ``lint.captured_functions``.
+    On the CPU (``reduced``, a rehearsal) the eager chunk is traced."""
+    from repro_torch.analysis import lint
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import paged, registry, transformer
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_reduced("llama-30b") if reduced else \
+        get_config("llama-30b").replace(num_layers=P14_LAYERS["scope"])
+    params = make_params(torch, cfg, device=device)
+    api = registry.build(cfg)
+    t = time.perf_counter()
+    held = lint.captured_functions(root)
+    log(f"  R002's reachable set: {len(held)} functions and lambdas "
+        f"({time.perf_counter() - t:.1f} s)")
+    state = {k: torch.zeros((4,), dtype=torch.bool if k == "active"
+                            else torch.int32, device=device)
+             for k in registry.STATE_KEYS}
+    for what in ("dense", "int4"):
+        if what == "dense":
+            cache = transformer.init_cache(cfg, 4, 256, device=device)
+            step_fn, chunk_fn = api.decode, api.decode_chunk
+        else:
+            cache = paged.init_paged_cache(cfg, 4, 256, 65, page_size=16,
+                                           device=device)
+            step_fn, chunk_fn = api.paged_decode_fns(16)
+        seen = {}
+
+        def traced(*a, _fn=chunk_fn, **kw):
+            out, seen["ran"] = lint.trace_calls(_fn, *a, root=root, **kw)
+            return out
+
+        t = time.perf_counter()
+        if device == "cuda":
+            g = registry.GraphedDecodeChunk(step_fn, traced, params, cache,
+                                            4)
+            g.capture(params, cache, n_steps=2, eos_id=-1, max_seq=256)
+            del g
+        else:
+            traced(params, cache, state, n_steps=2, eos_id=-1, max_seq=256)
+        ran = seen["ran"]
+        missing = sorted(f for f in ran if f[:2] not in held)
+        log(f"  {cfg.name} {what} decode chunk "
+            f"{'captured' if device == 'cuda' else 'run eagerly'} under "
+            f"sys.setprofile in {time.perf_counter() - t:.1f} s: "
+            f"{len(ran)} functions of src/repro_torch ran, "
+            f"{len(ran) - len(missing)} of them in R002's reachable set")
+        if missing or len(ran) < 20:
+            raise AssertionError(f"R002's scope misses what the capture "
+                                 f"ran: {missing}")
+        del cache
+
+
+def serve_pair(torch, cfg, params, pre, mode, spec, max_seq, device):
+    """A graphed and an eager decode engine (:class:`Pair`) of ``mode``
+    through ``spec``'s (prompt tokens, new tokens) requests, in lockstep
+    (equal tokens, state and cache bytes after every admission and
+    chunk). Returns the graphed arm's requests."""
+    from repro_torch.serving import engine as E
+    pair = Pair(torch, cfg, params, mode, device, max_seq=max_seq)
+    rng = np.random.default_rng(SEED)
+    reqs = [pair.request(i, rng.integers(1, cfg.vocab_size, n), m)
+            for i, (n, m) in enumerate(spec)]
+    out = pre.run(reqs)
+    pair.admit(lambda arm: [E.AdmissionItem(pair.reqs[arm][r.rid], f,
+                                            wire=w) for r, w, f in out])
+    pair.step()
+    for r in pair.reqs["graph"].values():
+        toks = np.asarray(r.out_tokens)
+        if len(toks) != r.max_new_tokens or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name} {mode}: bad tokens {toks}")
+    if device == "cuda" and pair.dec["graph"].jit_cache_size != 1:
+        raise AssertionError(f"{cfg.name} {mode}: not one graph")
+    return pair
+
+
+def counted(name, got):
+    """Fail unless every kernel of path ``name`` (``P14_KERNELS``) was
+    launched in its run (``got``: the counts read after it)."""
+    missing = [k for k in P14_KERNELS[name] if not got.get(k)]
+    log(f"  ({name}) launches: {json.dumps({k: n for k, n in got.items() if n})}")
+    if missing:
+        raise AssertionError(f"({name}) never launched {missing}")
+
+
+def p14_softcap(torch, device="cuda", reduced=False):
+    """Phase 14 (b): gemma-2b, all 18 layers at full width, served with a
+    logit softcap of ``P14_CAP`` through ``PrefillEngine`` and the dense
+    ``DecodeEngine`` (a capped config cannot page), graphed and eager in
+    lockstep; its prefill logits differ from the uncapped model's (the
+    cap is on). Returns the path's launch counts (set to 0 before the
+    engines run, read after)."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serving import engine as E
+    base = get_reduced("gemma-2b") if reduced else get_config("gemma-2b")
+    cfg = base.replace(attn_logit_softcap=P14_CAP)
+    params = make_params(torch, cfg, device=device)
+    pre = prefill_engine(torch, cfg, params, max_seq=256, device=device)
+    spec = ((40, 16), (100, 24), (200, 32))
+    if reduced:
+        spec = tuple((min(n, 60), m) for n, m in spec)
+    ops.reset_launches()
+    # the engines ask for pages: a capped config falls back to the dense
+    # cache, as the reference's does
+    pair = serve_pair(torch, cfg, params, pre, "int4", spec, 256, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got = ops.launch_counts()
+    dec = pair.dec["graph"]
+    if dec.paged or "cannot page" not in (dec.paged_fallback or ""):
+        raise AssertionError(f"{cfg.name} softcap: paged {dec.paged}")
+    log(f"  {cfg.name} softcap {P14_CAP}: {cfg.num_layers} layers, "
+        f"{sum(len(r.out_tokens) for r in pair.reqs['graph'].values())} "
+        f"tokens on the dense cache, graphed == eager after every "
+        f"admission and chunk ({pair.n_chunks} chunks); paged_fallback "
+        f"{dec.paged_fallback!r}")
+    del pair
+    tok = torch.as_tensor(np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, (1, 64)), device=device)
+    capped = registry.build(cfg).prefill(params, {"tokens": tok})[0]
+    plain = registry.build(base).prefill(params, {"tokens": tok})[0]
+    gap = float((capped - plain).abs().max())
+    log(f"  {cfg.name}: prefill logits capped vs uncapped max |diff| "
+        f"{gap:.3e}")
+    if not gap > 1e-3:
+        raise AssertionError(f"{cfg.name}: the softcap changed nothing")
+    return got
+
+
+def p14_window(torch, device="cuda", reduced=False):
+    """Phase 14 (c): jamba, full width cut to 16 of 32 layers (phase 10's
+    cut), with a ``P14_WINDOW`` sliding window (its long_500k cell):
+    a ``P14_PROMPT``-token prompt through the model API keeps the last
+    ``window`` positions of each attention layer, rotated so position p
+    sits at row ``p % window``: the first attention layer's ring equals
+    the unwindowed prefill's rows rolled, bit for bit (its input does not
+    depend on the window). A decode step over the ring through the
+    kernel is held to the same step with the plain attention
+    (``ref.decode_attention_ref``). Then the engines (a graphed and an
+    eager dense decode engine, the ring as their cache) decode after the
+    long prompt and a short one. Returns the engines' launch counts."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import registry, transformer
+    if reduced:
+        cfg = get_reduced("jamba-v0.1-52b").replace(sliding_window=8)
+        n_prompt, max_seq = 20, 64
+    else:
+        cfg = get_config("jamba-v0.1-52b").replace(
+            num_layers=P14_LAYERS["jamba"], sliding_window=P14_WINDOW)
+        n_prompt, max_seq = P14_PROMPT, 8192
+    W = cfg.sliding_window
+    params = make_params(torch, cfg, device=device)
+    rng = np.random.default_rng(SEED)
+    tok = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n_prompt)),
+                          device=device)
+    api = registry.build(cfg)
+    t = time.perf_counter()
+    logits, ring = api.prefill(params, {"tokens": tok}, max_seq=max_seq)
+    _, full = registry.build(cfg.replace(sliding_window=0)).prefill(
+        params, {"tokens": tok}, max_seq=max_seq)
+    s0 = next(s for s, k in enumerate(transformer.slot_kinds(cfg))
+              if k.startswith("attn"))
+    for key in ("k", "v"):
+        got = ring[f"slot{s0}"][key]
+        want = torch.roll(full[f"slot{s0}"][key][:, :, -W:],
+                          n_prompt % W, dims=2)
+        if got.shape[2] != W or not torch.equal(got[0], want[0]):
+            raise AssertionError(f"{cfg.name}: the {key} ring is not the "
+                                 f"last {W} rows rotated")
+    del full
+    log(f"  {cfg.name} window {W}: a {n_prompt}-token prompt prefilled "
+        f"twice ({time.perf_counter() - t:.1f} s); slot{s0}'s ring of "
+        f"{W} rows == the unwindowed prefill's last {W} rows rolled by "
+        f"{n_prompt % W}, bit for bit")
+    cache = transformer.init_cache(cfg, 1, max_seq, device=device)
+    for name, slot in ring.items():
+        if name == "lengths":
+            cache[name].copy_(slot)
+            continue
+        for key, t_ in slot.items():
+            cache[name][key].copy_(t_)
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    steps, ran = {}, {}
+    for route in ("kernel", "plain"):
+        c = {n: s.clone() if n == "lengths" else
+             {k: t_.clone() for k, t_ in s.items()}
+             for n, s in cache.items()}
+        before = ops.launch_counts()["decode_attention"]
+        if route == "kernel":
+            steps[route] = api.decode(params, c, nxt)[0]
+        else:
+            kernel = ops.decode_attention
+            ops.decode_attention = lambda q, k, v, kv_len, **kw: \
+                ref.decode_attention_ref(q, k, v, kv_len=kv_len,
+                                         softcap=kw.get("softcap", 0.0))
+            try:
+                steps[route] = api.decode(params, c, nxt)[0]
+            finally:
+                ops.decode_attention = kernel
+        ran[route] = ops.launch_counts()["decode_attention"] - before
+    if device == "cuda" and (ran["plain"] or not ran["kernel"]):
+        raise AssertionError(f"{cfg.name}: decode kernel launches by "
+                             f"route {ran}")
+    a, b = steps["kernel"].float(), steps["plain"].float()
+    rel = float((a - b).norm() / b.norm())
+    log(f"  {cfg.name}: a decode step over the ring, kernel ({ran['kernel']}"
+        f" launches) vs plain attention ({ran['plain']}): rel L2 "
+        f"{rel:.3e}, top-1 equal {bool((a.argmax(-1) == b.argmax(-1)).all())}")
+    if rel > 2e-2:
+        raise AssertionError(f"{cfg.name}: the ring's decode step differs "
+                             f"from the plain attention's")
+    del cache, ring, steps, a, b
+    pre = prefill_engine(torch, cfg, params, max_seq=max_seq, device=device)
+    spec = ((n_prompt, 24), (100 if not reduced else 12, 16))
+    ops.reset_launches()
+    pair = serve_pair(torch, cfg, params, pre, "int4", spec, max_seq, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got = ops.launch_counts()
+    dec = pair.dec["graph"]
+    rows = dec.cache[f"slot{s0}"]["k"].shape[2]
+    log(f"  {cfg.name} engines: paged_fallback {dec.paged_fallback!r}, a "
+        f"{rows}-row ring; prompts {[n for n, _ in spec]}, graphed == "
+        f"eager after every admission and chunk ({pair.n_chunks} chunks)")
+    if dec.paged or rows != W:
+        raise AssertionError(f"{cfg.name}: no {W}-row ring")
+    return got
+
+
+def p14_hkv_s(torch, device="cuda", reduced=False):
+    """Phase 14 (d): LLaMA-30B at full width cut to 4 layers, served
+    through ``PrefillEngine`` and a graphed dense ``DecodeEngine`` on the
+    s_hkv cache and on the hkv_s cache (the reference's (L, B, Hkv, S,
+    hd), held as its transposed view): equal tokens and equal cache bytes;
+    then four model-API decode steps on each layout from one prefill:
+    equal logits, bit for bit. Returns the hkv_s run's launch counts."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry, transformer
+    from repro_torch.serving import engine as E
+    base = get_reduced("llama-30b") if reduced else \
+        get_config("llama-30b").replace(num_layers=P14_LAYERS["hkv_s"])
+    params = make_params(torch, base, device=device)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, base.vocab_size, n) for n in (40, 100, 200)]
+    tok = torch.as_tensor(rng.integers(1, base.vocab_size, (2, 48)),
+                          device=device)
+    out, got = {}, {}
+    for layout in ("s_hkv", "hkv_s"):
+        cfg = base.replace(decode_cache_layout=layout)
+        pre = prefill_engine(torch, cfg, params, max_seq=256, device=device)
+        ops.reset_launches()
+        dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=256,
+                             chunk_size=8, paged=False, device=device)
+        reqs = [E.GenRequest(i, p, 24) for i, p in enumerate(prompts)]
+        if dec.admit(E.AdmissionBatch([E.AdmissionItem(r, f, wire=w)
+                                       for r, w, f in pre.run(reqs)])):
+            raise AssertionError(f"{layout}: admission rejected")
+        while dec.active:
+            dec.step()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        got[layout] = ops.launch_counts()
+        api = registry.build(cfg)
+        logits, pc = api.prefill(params, {"tokens": tok})
+        c = transformer.init_cache(cfg, 2, 256, device=device)
+        for key in ("k", "v"):
+            c["slot0"][key][:, :, :48] = pc["slot0"][key]
+        c["lengths"].copy_(pc["lengths"])
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        steps = []
+        for _ in range(4):
+            lg, c = api.decode(params, c, cur)
+            steps.append(lg)
+            cur = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        k = dec.cache["slot0"]["k"]
+        out[layout] = ([r.out_tokens for r in reqs], k.contiguous(),
+                       torch.stack(steps), k.stride())
+        del dec, c, pc
+    (ta, ka, la, sa), (tb, kb, lb, sb) = out["s_hkv"], out["hkv_s"]
+    same = (ta == tb, torch.equal(ka, kb), torch.equal(la, lb))
+    log(f"  {base.name} ({base.num_layers} layers) hkv_s (cache strides "
+        f"{sb}) vs s_hkv ({sa}): tokens equal {same[0]} "
+        f"({sum(map(len, tb))} tokens), cache bytes equal {same[1]}, four "
+        f"decode steps' logits equal bit for bit {same[2]}")
+    if not all(same):
+        raise AssertionError("hkv_s differs from s_hkv")
+    return got["hkv_s"]
+
+
+def p14_reduced(torch):
+    """(b)-(d) on the reduced float32 configs: tokens on the card (graphed
+    chunks) equal the CPU's (plain versions)."""
+    for arch, over in (("gemma-2b", {"attn_logit_softcap": 30.0}),
+                       ("jamba-v0.1-52b", {"sliding_window": 8}),
+                       ("llama-30b", {"decode_cache_layout": "hkv_s"})):
+        on_card = serve_small(torch, "cuda", "dense", arch, over)
+        on_cpu = serve_small(torch, "cpu", "dense", arch, over)
+        log(f"  {arch} {over} reduced f32: card tokens == CPU tokens: "
+            f"{on_card == on_cpu} ({sum(map(len, on_card))} tokens)")
+        if on_card != on_cpu:
+            raise AssertionError(f"{arch} {over}: card {on_card} != cpu "
+                                 f"{on_cpu}")
+
+
 def main() -> int:
     # phase 11's deterministic cuBLAS: set before the process first uses it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -5403,7 +5890,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("[1/13] device")
+    log("[1/14] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -5417,8 +5904,11 @@ def main() -> int:
     dry = dryrun_start(p13_tmp, ("four-train",))
     log(f"  phase 13(c) started: the dry-run of the train cells at four "
         f"({len(p13_cells('four-train'))}), on the host")
+    analysis = analysis_start()
+    log("  phase 14(a) started: python -m repro_torch.analysis lint "
+        "--strict and check --quick --mutations --replay, on the host")
 
-    log("[2/13] build")
+    log("[2/14] build")
     t = time.perf_counter()
     build.library()
     log(f"  {len(build.sources())} sources -> {build.build().name} in "
@@ -5426,7 +5916,7 @@ def main() -> int:
     for name, regs, spill in kernel_resources(build.build_log()):
         log(f"  {name}: {regs} registers, {spill}")
 
-    log("[3/13] kernels against their plain versions on the card")
+    log("[3/14] kernels against their plain versions on the card")
     cfg = get_config("llama-30b")
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     # the wire of one 256-token bucket: K and V of 60 layers, 52 rows of
@@ -5517,7 +6007,7 @@ def main() -> int:
     arch_rows += lse_rows
     torch.cuda.empty_cache()
 
-    log("[4/13] reduced configs, float32: card vs plain versions on the CPU")
+    log("[4/14] reduced configs, float32: card vs plain versions on the CPU")
     from repro_torch.configs import ALL_ARCHS, get_reduced
     from repro_torch.models.paged import paged_supported
     from repro_torch.models.transformer import recurrent
@@ -5538,7 +6028,7 @@ def main() -> int:
             moe_chunked_f32(torch, arch)
 
     base_mem = settled(torch)
-    log(f"[5/13] serve full-width {cfg.name}: {cfg.num_layers} layers, "
+    log(f"[5/14] serve full-width {cfg.name}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads "
         f"(kv {cfg.num_kv_heads}), head_dim {hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}")
@@ -5550,12 +6040,12 @@ def main() -> int:
         torch.cuda.empty_cache()            # the engines' caches are freed
     log(f"  phase-5 launches: {launches5}")
 
-    log(f"[6/13] the gateway entry point (repro_torch.launch.serve) at full "
+    log(f"[6/14] the gateway entry point (repro_torch.launch.serve) at full "
         f"width on phase 5's weights")
     launches6 = serve_gateway(torch, params)
     log(f"  phase-6 launches: {launches6}")
 
-    log(f"[7/13] the chaos entry point (repro_torch.launch.serve_e2e "
+    log(f"[7/14] the chaos entry point (repro_torch.launch.serve_e2e "
         f"--chaos) at full width on phase 5's weights: a decode crash and "
         f"a spot preemption with graphed decode chunks")
     log(smi.splitlines()[0])
@@ -5564,7 +6054,7 @@ def main() -> int:
     launches = {k: launches5[k] + launches6[k] + launches7[k]
                 for k in launches5}
 
-    log("[8/13] the other dense configs at full width: stablelm-3b, "
+    log("[8/14] the other dense configs at full width: stablelm-3b, "
         "gemma-2b, h2o-danube-3-4b, command-r-35b")
     log(smi.splitlines()[0])
     del params, pre
@@ -5585,7 +6075,7 @@ def main() -> int:
             raise AssertionError(f"{arch}: {mem - base_mem} bytes still "
                                  f"allocated after its run")
 
-    log("[9/13] the MoE and VLM configs at published widths: "
+    log("[9/14] the MoE and VLM configs at published widths: "
         "llava-next-mistral-7b (32 layers), qwen3-moe-235b-a22b (8 of 94 "
         "layers), llama4-maverick-400b-a17b (2 of 48 layers)")
     log(smi.splitlines()[0])
@@ -5606,7 +6096,7 @@ def main() -> int:
     log(f"  phase 13(c) started: the dry-run of {', '.join(P13_ARCHS)}'s "
         f"cells at one and of every serving cell at four, on the host")
 
-    log("[10/13] the recurrent and encoder-decoder configs at published "
+    log("[10/14] the recurrent and encoder-decoder configs at published "
         "widths: xlstm-125m, jamba-v0.1-52b (16 of 32 layers), "
         "whisper-base")
     log(smi.splitlines()[0])
@@ -5627,7 +6117,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
-    log("[11/13] training and checkpoints: (a) every config reduced in "
+    log("[11/14] training and checkpoints: (a) every config reduced in "
         "float32, 3 AdamW steps on the card and on the CPU; (b) LLaMA-30B "
         f"at full width, {TRAIN_LAYERS} of 60 layers, 6 steps through "
         f"launch.train; (c) LLaMA-30B cut to {CKPT_LAYERS} layer, async "
@@ -5659,7 +6149,7 @@ def main() -> int:
         f"checkpoints {restart['write_gbs']:.2f} GB/s written, "
         f"{restart['read_gbs']:.2f} GB/s read")
 
-    log("[12/13] distribution: (a) Runtime over a 1-D model mesh of one "
+    log("[12/14] distribution: (a) Runtime over a 1-D model mesh of one "
         "rank over NCCL, full LLaMA-30B through the engines, graphed and "
         "eager, against the unmeshed engine; (b) LLaMA-30B at TP 2, "
         f"{P12_LAYERS['tp']} of 60 layers, (c) qwen3-moe at EP 2 + TP 2, "
@@ -5707,7 +6197,7 @@ def main() -> int:
     log(smi.splitlines()[0])
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
-    log("[13/13] the counts against the card: LLaMA-30B's int4 decode "
+    log("[13/14] the counts against the card: LLaMA-30B's int4 decode "
         "step, a bucket prefill and phase 11's train step counted on meta "
         "tensors (roofline/op_cost.py) and run on the card; the dry-run "
         "(launch/dryrun.py)")
@@ -5724,6 +6214,53 @@ def main() -> int:
     log(f"  phase 13: {time.perf_counter() - t13:.1f} s; " + "; ".join(
         f"{k} share {100 * v['share']:.2f}%, roofline / measured "
         f"{v['ratio']:.3f}" for k, v in p13.items()))
+
+    log(f"[14/14] the analysis package and the last model options: (a) "
+        f"lint --strict, check --quick --mutations --replay, and R002's "
+        f"scope against a captured LLaMA-30B decode chunk "
+        f"({P14_LAYERS['scope']} layers); (b) gemma-2b, 18 layers, with a "
+        f"logit softcap of {P14_CAP}: the capped kernels at its shapes, "
+        f"then the engines; (c) jamba ({P14_LAYERS['jamba']} of 32 layers) "
+        f"with a {P14_WINDOW}-token window and a {P14_PROMPT}-token prompt; "
+        f"(d) LLaMA-30B ({P14_LAYERS['hkv_s']} layers) on the hkv_s cache "
+        f"against s_hkv; the reduced f32 configs, card vs CPU")
+    log(smi.splitlines()[0])
+    t14 = time.perf_counter()
+    mem = settled(torch)
+    analysis_finish(analysis)
+    p14_scope(torch)
+    log(f"  (a): {time.perf_counter() - t14:.1f} s")
+    t = time.perf_counter()
+    rcap_f = check_flash(torch, ref, fa, 4, 256, 0, 8, 1, 256,
+                         torch.bfloat16, softcap=P14_CAP, scale=4.0,
+                         controls=("no cap",), timed=True)
+    rcap_d = check_decode(torch, ref, da, 18, 4, 1, 8, 256, 256,
+                          [232, 123, 56, 17], torch.bfloat16,
+                          torch.bfloat16, softcap=P14_CAP, scale=4.0,
+                          controls=("no cap",), timed=True)
+    got_b = p14_softcap(torch)
+    counted("softcap", got_b)
+    log(f"  (b): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    settled(torch)
+    got_c = p14_window(torch)
+    counted("window", got_c)
+    log(f"  (c): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    settled(torch)
+    got_d = p14_hkv_s(torch)
+    counted("hkv_s", got_d)
+    p14_reduced(torch)
+    log(f"  (d) and the reduced configs: {time.perf_counter() - t:.1f} s")
+    launches = {k: launches[k] + got_b[k] + got_c[k] + got_d[k]
+                for k in launches}
+    launches["flash_attention_softcap"] = got_b["flash_attention"]
+    launches["decode_attention_softcap"] = got_b["decode_attention"]
+    if settled(torch) > mem:
+        raise AssertionError(f"phase 14 left {settled(torch) - mem} bytes "
+                             f"allocated")
+    log(smi.splitlines()[0])
+    log(f"  phase 14: {time.perf_counter() - t14:.1f} s")
 
     rows = [("kv_quant", "src/repro_torch/kernels/csrc/kv_quant.cu",
              "src/repro/kernels/kv_quant.py:55", rq),
@@ -5749,7 +6286,14 @@ def main() -> int:
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:24", rn_pre),
             ("add_rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:24", radd_dec)]
+             "src/repro/kernels/rmsnorm.py:24", radd_dec),
+            # the capped instantiations (phase 14 (b): gemma-2b's shapes)
+            ("flash_attention_softcap",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:97", rcap_f),
+            ("decode_attention_softcap",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:96", rcap_d)]
     log(f"  kv_quant at the bucket: vector body {rq['ms']:.4f} ms, scalar "
         f"body {rq_s['ms']:.4f} ms; kv_dequant: vector {rd['ms']:.4f} ms, "
         f"scalar {rd_s['ms']:.4f} ms; bounds {rq['bound'][0]:.4f} / "

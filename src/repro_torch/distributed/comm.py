@@ -111,6 +111,7 @@ class Group:
         return dist.get_global_rank(self.pg, r)
 
     def _host(self, x: torch.Tensor) -> torch.Tensor:
+        # repro: ignore[R002] gloo only: a graph never captures a gloo group
         return x.cpu() if self.staged and x.is_cuda else x.contiguous()
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:

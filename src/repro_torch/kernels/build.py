@@ -44,12 +44,12 @@ SIGNATURES = {
                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P),
+                               _I, _I, _I, _I, _F, _F, _P),
     "rmsnorm_launch": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _F,
                        _P),
     "decode_attention_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _F,
-                                _P),
+                                _F, _P),
     "paged_attention_bf16_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }

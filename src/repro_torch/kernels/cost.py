@@ -10,8 +10,10 @@ where they are known -- and returns ``(flops, bytes)``:
   any implementation moves (a decode kernel reads the cache rows up to
   ``kv_len`` only, and writes nothing back but its output);
 - FLOPs: the arithmetic of the function, the attention kernels' two
-  products (4 hd FLOPs a visible query-key pair and query head), the
-  norms' and the quantizer's per-element operations.
+  products (4 hd FLOPs a visible query-key pair and query head; a logit
+  softcap adds :data:`SOFTCAP_OPS` a pair and query head: the division,
+  the tanh counted as one operation, the product), the norms' and the
+  quantizer's per-element operations.
 
 The work of the attention kernels depends on the data: the tokens a
 decode step reads (``kv_len``), the pairs a suffix prefill sees
@@ -27,6 +29,9 @@ from typing import Callable, Dict, Tuple
 import torch
 
 Shape = Tuple[int, ...]
+
+# operations a logit softcap adds to a score: s / c, tanh, c * ...
+SOFTCAP_OPS = 3
 
 
 def _n(shape: Shape) -> int:
@@ -88,7 +93,8 @@ def paged_decode_attention_bf16(shapes, dtypes, *, page_size, kv_len=None):
             + 2 * _n(shapes[0]) * dtypes[0].itemsize + 4 * (B * W + B))
 
 
-def decode_attention(shapes, dtypes, *, kv_len=None, return_lse=False):
+def decode_attention(shapes, dtypes, *, kv_len=None, return_lse=False,
+                     softcap=0.0):
     """q (B, Hkv, g, hd) over k, v (B, Hkv, S, hd) up to kv_len (B,).
     The partial mode (``return_lse``) writes ``o`` in f32 and one f32
     log-sum-exp a query row."""
@@ -97,15 +103,17 @@ def decode_attention(shapes, dtypes, *, kv_len=None, return_lse=False):
     q_bytes = _n(shapes[0]) * dtypes[0].itemsize
     out_bytes = 4 * _n(shapes[0]) + 4 * B * Hkv * g if return_lse \
         else q_bytes
-    return (4 * Hkv * g * hd * tokens,
+    cap = SOFTCAP_OPS if softcap else 0
+    return ((4 * hd + cap) * Hkv * g * tokens,
             tokens * Hkv * hd * 2 * dtypes[1].itemsize
             + q_bytes + out_bytes + 4 * B)
 
 
-def decode_attention_lse(shapes, dtypes, *, kv_len=None):
+def decode_attention_lse(shapes, dtypes, *, kv_len=None, softcap=0.0):
     """The partial mode of :func:`decode_attention` (q read in its own
     type, ``o`` written in f32 beside one f32 log-sum-exp a query row)."""
-    return decode_attention(shapes, dtypes, kv_len=kv_len, return_lse=True)
+    return decode_attention(shapes, dtypes, kv_len=kv_len, return_lse=True,
+                            softcap=softcap)
 
 
 def flash_pairs(B, Sq, Sk, *, causal=True, window=0, prefix_len=None):
@@ -124,14 +132,15 @@ def flash_pairs(B, Sq, Sk, *, causal=True, window=0, prefix_len=None):
 
 
 def flash_attention(shapes, dtypes, *, causal=True, window=0,
-                    prefix_len=None):
+                    prefix_len=None, softcap=0.0):
     """q (B, Sq, H, hd), k, v (B, Sk, Hkv, hd). ``prefix_len``: a list of
     each row's prefix length, or ``"unknown"`` for a suffix call whose
     lengths are not known (every padded prefix position counts)."""
     (B, Sq, H, hd), (_, Sk, _, _) = shapes[0], shapes[1]
     pairs = flash_pairs(B, Sq, Sk, causal=causal, window=window,
                         prefix_len=prefix_len)
-    return (4 * hd * H * pairs,
+    cap = SOFTCAP_OPS if softcap else 0
+    return ((4 * hd + cap) * H * pairs,
             (2 * _n(shapes[0]) + _n(shapes[1]) + _n(shapes[2]))
             * dtypes[0].itemsize)
 

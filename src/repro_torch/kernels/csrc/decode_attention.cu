@@ -13,6 +13,9 @@
 // Both: one query token per sequence, the g query heads of a KV head, keys
 // at or past kv_len[b] never loaded, masked scores -1e30, f32 online
 // softmax, out = acc / max(l, 1e-30) in q's type (so kv_len = 0 gives 0).
+// Dense only: a logit softcap c > 0 replaces each scaled score s by
+// c * tanh(s / c) before the mask, in a compile-time variant (CAP), so
+// c = 0 runs the uncapped instantiation, bit for bit as without it.
 //
 // Partial mode (dense only; lse non-null): each row also writes the
 // log-sum-exp of its scaled scores, lse = m + log(l) in f32 (-inf where
@@ -142,6 +145,7 @@ struct DenseKeys {
   const T* v;
   long long sb, ss, sh;
   int max_len;  // S
+  static constexpr bool kCapable = true;  // has the softcap instantiation
   __device__ __forceinline__ size_t off(int b, int h, int t) const {
     return (size_t)(b * sb + t * ss + h * sh);
   }
@@ -155,6 +159,7 @@ struct PagedKeys {
   const int* page_table;
   int W, ps, Hkv, hd;
   int max_len;  // W * ps
+  static constexpr bool kCapable = false;  // pages refuse a softcap
   __device__ __forceinline__ size_t off(int b, int h, int t) const {
     int page = page_table[(size_t)b * W + t / ps];
     if (page < 0) page = 0;
@@ -162,13 +167,13 @@ struct PagedKeys {
   }
 };
 
-template <int HD, typename Tq, typename To, typename Keys>
+template <int HD, typename Tq, typename To, typename Keys, bool CAP>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const Tq* __restrict__ q, Keys keys,
                   const int* __restrict__ kv_len, To* __restrict__ out,
                   float* __restrict__ lse, float* __restrict__ part,
                   int* __restrict__ counters, int Hkv, int g, int split_len,
-                  float sm_scale) {
+                  float sm_scale, float softcap) {
   using Tkv = typename Keys::Elem;
   constexpr int EPL = Lanes<HD>::EPL;  // elements per lane of a half-warp
   __shared__ float s_m[kHalfWarps], s_l[kHalfWarps];
@@ -229,7 +234,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
-      s[u] = ok[u] ? d * sm_scale : kNegInf;
+      float x = d * sm_scale;
+      if constexpr (CAP) x = softcap * tanhf(x / softcap);
+      s[u] = ok[u] ? x : kNegInf;
       m_new = fmaxf(m_new, s[u]);
     }
     const float corr = expf(m - m_new);
@@ -316,7 +323,10 @@ template <typename Tq, typename To, typename Keys>
 cudaError_t launch(int hd, const void* q, const Keys& keys,
                    const void* kv_len, void* out, void* lse, void* part,
                    void* counters, int B, int Hkv, int g, int split_len,
-                   int n_split, float sm_scale, cudaStream_t st) {
+                   int n_split, float sm_scale, float softcap,
+                   cudaStream_t st) {
+  if (softcap < 0.0f || (softcap > 0.0f && !Keys::kCapable))
+    return cudaErrorInvalidValue;
   if (split_len <= 0 || keys.max_len <= 0 ||
       n_split != (keys.max_len + split_len - 1) / split_len ||
       (long long)B * Hkv > 65535 || g > 65535)
@@ -330,8 +340,16 @@ cudaError_t launch(int hd, const void* q, const Keys& keys,
   float* ep = (float*)lse;
 #define DECODE_HD(HD)                                                      \
   case HD:                                                                 \
-    decode_kernel<HD, Tq, To, Keys><<<grid, kThreads, 0, st>>>(            \
-        qp, keys, lp, op, ep, pp, cp, Hkv, g, split_len, sm_scale);        \
+    if constexpr (Keys::kCapable) {                                        \
+      if (softcap > 0.0f) {                                                \
+        decode_kernel<HD, Tq, To, Keys, true><<<grid, kThreads, 0, st>>>(  \
+            qp, keys, lp, op, ep, pp, cp, Hkv, g, split_len, sm_scale,     \
+            softcap);                                                      \
+        break;                                                             \
+      }                                                                    \
+    }                                                                      \
+    decode_kernel<HD, Tq, To, Keys, false><<<grid, kThreads, 0, st>>>(     \
+        qp, keys, lp, op, ep, pp, cp, Hkv, g, split_len, sm_scale, 0.0f);  \
     break;
   switch (hd) {
     DECODE_HD(16)
@@ -354,44 +372,47 @@ cudaError_t launch_dense(int q_is_bf16, const void* q, const void* k,
                          void* lse, void* part, void* counters, int B,
                          int Hkv, int g, int hd, int S, long long sb,
                          long long ss, long long sh, int split_len,
-                         int n_split, float sm_scale, cudaStream_t st) {
+                         int n_split, float sm_scale, float softcap,
+                         cudaStream_t st) {
   DenseKeys<Tkv> keys{(const Tkv*)k, (const Tkv*)v, sb, ss, sh, S};
   if (!q_is_bf16)
     return launch<float, float>(hd, q, keys, kv_len, out, lse, part,
                                 counters, B, Hkv, g, split_len, n_split,
-                                sm_scale, st);
+                                sm_scale, softcap, st);
   // the partial mode's out is f32 (the cross-rank merge reads it unrounded)
   return lse != nullptr
              ? launch<__nv_bfloat16, float>(hd, q, keys, kv_len, out, lse,
                                             part, counters, B, Hkv, g,
-                                            split_len, n_split, sm_scale, st)
+                                            split_len, n_split, sm_scale,
+                                            softcap, st)
              : launch<__nv_bfloat16, __nv_bfloat16>(
                    hd, q, keys, kv_len, out, lse, part, counters, B, Hkv, g,
-                   split_len, n_split, sm_scale, st);
+                   split_len, n_split, sm_scale, softcap, st);
 }
 
 }  // namespace
 
 // Dense decode attention; sb/ss/sh are K's and V's batch, sequence and head
 // strides in elements (the head dimension is contiguous). lse: null, or
-// (B*Hkv*g) f32 for the partial mode's log-sum-exp of each row.
+// (B*Hkv*g) f32 for the partial mode's log-sum-exp of each row. softcap:
+// 0, or the cap of the scores.
 extern "C" int decode_attention_launch(
     const void* q, int q_is_bf16, const void* k, const void* v,
     int kv_is_bf16, const void* kv_len, void* out, void* lse, void* part,
     void* counters, int B, int Hkv, int g, int hd, int S, long long sb,
     long long ss, long long sh, int split_len, int n_split, float sm_scale,
-    void* stream) {
+    float softcap, void* stream) {
   if (B <= 0 || Hkv <= 0 || g <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(kv_is_bf16
                    ? launch_dense<__nv_bfloat16>(
                          q_is_bf16, q, k, v, kv_len, out, lse, part,
                          counters, B, Hkv, g, hd, S, sb, ss, sh, split_len,
-                         n_split, sm_scale, st)
+                         n_split, sm_scale, softcap, st)
                    : launch_dense<float>(q_is_bf16, q, k, v, kv_len, out,
                                          lse, part, counters, B, Hkv, g, hd,
                                          S, sb, ss, sh, split_len, n_split,
-                                         sm_scale, st));
+                                         sm_scale, softcap, st));
 }
 
 // Paged decode attention over bf16 pages (P, ps, Hkv, hd).
@@ -409,9 +430,9 @@ extern "C" int paged_attention_bf16_launch(
   return (int)(q_is_bf16
                    ? launch<__nv_bfloat16, __nv_bfloat16>(
                          hd, q, keys, kv_len, out, nullptr, part, counters,
-                         B, Hkv, g, split_len, n_split, sm_scale, st)
+                         B, Hkv, g, split_len, n_split, sm_scale, 0.0f, st)
                    : launch<float, float>(hd, q, keys, kv_len, out, nullptr,
                                           part, counters, B, Hkv, g,
                                           split_len, n_split, sm_scale,
-                                          st));
+                                          0.0f, st));
 }

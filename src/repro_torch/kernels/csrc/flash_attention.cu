@@ -13,7 +13,11 @@
 // rows [P, Sk) the keys aligned with the queries. Query i sees prefix key
 // j iff j < prefix_len[b], and aligned key P + j iff j <= i (causal) and
 // j > i - window (window > 0). With P = 0 this is the TPU kernel's
-// contract. Both bodies walk the same two segments: the prefix tiles below
+// contract. A logit softcap c > 0 replaces each scaled score s by
+// c * tanh(s / c) before the mask (the reference's attention_ref): a
+// compile-time variant of each body (CAP), so c = 0 runs the uncapped
+// instantiations, bit for bit the kernel without the option. Both bodies
+// walk the same two segments: the prefix tiles below
 // prefix_len[b], then the aligned tiles from the window's left edge to the
 // causal diagonal, so wholly masked tiles are never loaded; masked
 // probabilities are exactly 0, so a row whose first tiles are all masked
@@ -76,6 +80,7 @@ struct Args {
   void* out;
   int B, Sq, Sk, H, Hkv, P, causal, window;
   float sm_scale;
+  float softcap;  // > 0: scores capped (the CAP instantiations)
 };
 
 // The key segments of one q tile (rows q0 .. q0+bq-1) in tiles of bk keys:
@@ -168,12 +173,12 @@ struct Vec<2> {
   }
 };
 
-template <int HD, typename T>
+template <int HD, typename T, bool CAP>
 __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ prefix_len,
     T* __restrict__ out, int Sq, int Sk, int H, int Hkv, int P, int causal,
-    int window, float sm_scale) {
+    int window, float sm_scale, float softcap) {
   constexpr int QS = HD + kPad;
   constexpr int kOut = HD / 8;            // output columns per thread
   // ... read VW at a time (the widest vector that divides kOut)
@@ -267,7 +272,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
           vis[c] = j < kend && (!causal || ja <= i) &&
                    (window <= 0 || ja > i - window);
         }
-        s[r][c] = vis[c] ? s[r][c] * sm_scale : kNegInf;
+        float x = s[r][c] * sm_scale;
+        if constexpr (CAP) x = softcap * tanhf(x / softcap);
+        s[r][c] = vis[c] ? x : kNegInf;
         tmax = fmaxf(tmax, s[r][c]);
       }
       const float m_new = fmaxf(m[r], group8_max(tmax));
@@ -328,8 +335,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
 
 template <int HD>
 struct F32Body {
+  template <bool CAP>
   static cudaError_t run(const Args& a, cudaStream_t st) {
-    auto kern = flash_f32_kernel<HD, float>;
+    auto kern = flash_f32_kernel<HD, float, CAP>;
     constexpr size_t smem = smem_bytes<HD>();
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(
@@ -340,7 +348,7 @@ struct F32Body {
     kern<<<grid, kThreads, smem, st>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         a.prefix_len, (float*)a.out, a.Sq, a.Sk, a.H, a.Hkv, a.P, a.causal,
-        a.window, a.sm_scale);
+        a.window, a.sm_scale, a.softcap);
     return cudaGetLastError();
   }
 };
@@ -459,13 +467,16 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
   }
 }
 
-template <int HD>
+// CAP: s = softcap * tanh(s * sm_scale / softcap), then into the log2
+// domain (cap_log2 = softcap * log2 e); else s * scale_log2 alone
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads)
     flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const int* __restrict__ prefix_len,
                       bf16* __restrict__ out, int Sq, int Sk, int H, int Hkv,
-                      int P, int causal, int window, float scale_log2) {
+                      int P, int causal, int window, float scale_log2,
+                      float sm_scale, float softcap, float cap_log2) {
   using T = Tile<HD>;
   constexpr int S = T::S, BK = T::BK;
   constexpr int KD = T::HDP / 16;  // k steps of Q K^T
@@ -572,7 +583,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
+        float x;
+        if constexpr (CAP)
+          x = cap_log2 * tanhf(s[n][e] * sm_scale / softcap);
+        else
+          x = s[n][e] * scale_log2;
         if (!full) {
           const int i = r_lo + (e >> 1) * 8;  // query row
           const int j = k0 + n * 8 + (lane & 3) * 2 + (e & 1);  // key row
@@ -673,8 +688,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int HD>
 struct Bf16Body {
+  template <bool CAP>
   static cudaError_t run(const Args& a, cudaStream_t st) {
-    auto kern = tc::flash_bf16_kernel<HD>;
+    auto kern = tc::flash_bf16_kernel<HD, CAP>;
     constexpr size_t smem = tc::smem_bytes<HD>();
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(
@@ -686,28 +702,36 @@ struct Bf16Body {
     kern<<<grid, tc::kThreads, smem, st>>>(
         (const tc::bf16*)a.q, (const tc::bf16*)a.k, (const tc::bf16*)a.v,
         a.prefix_len, (tc::bf16*)a.out, a.Sq, a.Sk, a.H, a.Hkv, a.P,
-        a.causal, a.window, a.sm_scale * 1.4426950408889634f);
+        a.causal, a.window, a.sm_scale * 1.4426950408889634f, a.sm_scale,
+        a.softcap, a.softcap * 1.4426950408889634f);
     return cudaGetLastError();
   }
 };
+
+// a softcap picks the CAP instantiation, so the common path carries no tanh
+template <template <int> class Body, int HD>
+cudaError_t launch_cap(const Args& a, cudaStream_t st) {
+  return a.softcap > 0.0f ? Body<HD>::template run<true>(a, st)
+                          : Body<HD>::template run<false>(a, st);
+}
 
 template <template <int> class Body>
 cudaError_t launch_hd(int hd, const Args& a, cudaStream_t st) {
   switch (hd) {
     case 16:
-      return Body<16>::run(a, st);
+      return launch_cap<Body, 16>(a, st);
     case 32:
-      return Body<32>::run(a, st);
+      return launch_cap<Body, 32>(a, st);
     case 64:
-      return Body<64>::run(a, st);
+      return launch_cap<Body, 64>(a, st);
     case 80:
-      return Body<80>::run(a, st);
+      return launch_cap<Body, 80>(a, st);
     case 120:
-      return Body<120>::run(a, st);
+      return launch_cap<Body, 120>(a, st);
     case 128:
-      return Body<128>::run(a, st);
+      return launch_cap<Body, 128>(a, st);
     case 256:
-      return Body<256>::run(a, st);
+      return launch_cap<Body, 256>(a, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -720,12 +744,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* out, int is_bf16, int B, int Sq,
                                       int Sk, int H, int Hkv, int hd, int P,
                                       int causal, int window, float sm_scale,
-                                      void* stream) {
+                                      float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaGetLastError();
-  if (Hkv <= 0 || H % Hkv != 0 || P < 0 || P > Sk)
+  if (Hkv <= 0 || H % Hkv != 0 || P < 0 || P > Sk || softcap < 0.0f)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,  k,  v,   (const int*)prefix_len, out, B, Sq, Sk, H, Hkv,
-               P, causal, window, sm_scale};
+  const Args a{q,      k,      v,        (const int*)prefix_len,
+               out,    B,      Sq,       Sk,
+               H,      Hkv,    P,        causal,
+               window, sm_scale, softcap};
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch_hd<Bf16Body>(hd, a, st)
                        : launch_hd<F32Body>(hd, a, st));

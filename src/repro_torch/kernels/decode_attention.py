@@ -94,19 +94,22 @@ def split_operands(q, B, Hkv, g, hd, W, page_size=1):
     return split_len, grid[0], part, _counters(q.device, n_count)
 
 
-def decode_attention(q, k, v, kv_len, *, sm_scale=None):
+def decode_attention(q, k, v, kv_len, *, sm_scale=None, softcap=0.0):
     """q: (B, Hkv, g, hd) contiguous, bf16/f32; k/v: (B, Hkv, S, hd) views
     with the same strides and a contiguous last dimension, bf16/f32;
     kv_len (B,) int32. Keys at or past ``kv_len[b]`` are never loaded;
     ``kv_len`` 0 gives zeros (the plain version's softmax over an all-masked
     row gives the mean of V instead; the model never asks: its kv_len is
-    at least 1). Returns (B, Hkv, g, hd) in ``q.dtype``."""
-    out = _launch("decode_attention", q, k, v, kv_len, sm_scale, False)
+    at least 1). A logit ``softcap`` > 0 caps each scaled score (``c
+    tanh(s / c)``, before the mask) in the kernel's capped instantiation.
+    Returns (B, Hkv, g, hd) in ``q.dtype``."""
+    out = _launch("decode_attention", q, k, v, kv_len, sm_scale, False,
+                  softcap)
     decode_attention.launches += 1
     return out
 
 
-def decode_attention_lse(q, k, v, kv_len, *, sm_scale=None):
+def decode_attention_lse(q, k, v, kv_len, *, sm_scale=None, softcap=0.0):
     """The partial mode of :func:`decode_attention` (the same kernel with
     its log-sum-exp output on; its own launch count): ``(o, lse)``, ``o``
     (B, Hkv, g, hd) f32 whatever q's type, normalised over this call's
@@ -115,12 +118,13 @@ def decode_attention_lse(q, k, v, kv_len, *, sm_scale=None):
     where ``kv_len`` is 0 (``o`` 0 there): what ``comm.merge_partials``
     needs to merge rows over disjoint key ranges held by different ranks
     (the kv_seq decode cache)."""
-    out = _launch("decode_attention_lse", q, k, v, kv_len, sm_scale, True)
+    out = _launch("decode_attention_lse", q, k, v, kv_len, sm_scale, True,
+                  softcap)
     decode_attention_lse.launches += 1
     return out
 
 
-def _launch(name, q, k, v, kv_len, sm_scale, with_lse):
+def _launch(name, q, k, v, kv_len, sm_scale, with_lse, softcap):
     """One launch of the dense body: ``out`` in q's type, and with
     ``with_lse`` f32 with the f32 log-sum-exp of each row beside it."""
     no_grad_inputs(name, q, k, v)
@@ -139,13 +143,15 @@ def _launch(name, q, k, v, kv_len, sm_scale, with_lse):
           and hd in HEAD_DIMS
           and all(s % epl == 0 for s in k.stride()[:3])
           and all(t.data_ptr() % 16 == 0 for t in (q, k, v)) and S > 0
+          and softcap >= 0
           and kv_len.dtype == torch.int32 and tuple(kv_len.shape) == (B,))
     if not ok:
         raise ValueError(
             f"{name}: bad operands q {tuple(q.shape)} {q.dtype}, "
             f"k {tuple(k.shape)} {k.dtype} strides {k.stride()}, v "
             f"{tuple(v.shape)} {v.dtype} strides {v.stride()}, kv_len "
-            f"{tuple(kv_len.shape)} {kv_len.dtype}; want a contiguous head "
+            f"{tuple(kv_len.shape)} {kv_len.dtype}, softcap {softcap}; "
+            f"want a contiguous head "
             f"dimension in {HEAD_DIMS}, 16-byte aligned rows, and no copy")
     sb, sh, ss, _ = k.stride()
     lse = torch.empty((B, Hkv, g), dtype=torch.float32, device=q.device) \
@@ -157,7 +163,7 @@ def _launch(name, q, k, v, kv_len, sm_scale, with_lse):
         v.data_ptr(), int(k.dtype == torch.bfloat16), kv_len.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
         part.data_ptr(), counters.data_ptr(), B, Hkv, g, hd, S, sb, ss, sh,
-        split_len, n_split, sm_scale or 1.0 / math.sqrt(hd),
+        split_len, n_split, sm_scale or 1.0 / math.sqrt(hd), float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, name)
     return out if lse is None else (out, lse)

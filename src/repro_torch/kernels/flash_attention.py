@@ -6,7 +6,9 @@ CUDA tensors only (``kernels/ops.py`` sends CPU tensors to
 ``flash_attention.launches``. q/k/v are read in the model's
 ``(B, S, H, hd)`` layout, so no transposed copy is made. The dtype picks
 the kernel's body: bf16 runs on the tensor cores (16-byte asynchronous
-copies, so q/k/v must be 16-byte aligned), f32 on FMAs.
+copies, so q/k/v must be 16-byte aligned), f32 on FMAs. A logit
+``softcap`` > 0 runs each body's capped instantiation (``s = c tanh(s /
+c)`` after the scale, before the mask); 0 the uncapped one.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from repro_torch.kernels.kv_quant import _require_cuda, no_grad_inputs
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)   # the instantiations
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):
+def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None,
+                    softcap=0.0):
     """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) in q's dtype (bf16/f32);
     ``prefix_len``: None or (B,) int32 (then P = Sk - Sq is the padded
     prefix width and the mask is the suffix mask, causal, no window).
@@ -39,7 +42,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):
           and tuple(v.shape) == tuple(k.shape)
           and Hkv > 0 and H % Hkv == 0 and hd in HEAD_DIMS
           and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-          and window >= 0
+          and window >= 0 and softcap >= 0
           and (prefix_len is None
                or (prefix_len.dtype == torch.int32
                    and tuple(prefix_len.shape) == (B,) and P >= 0
@@ -48,7 +51,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):
         raise ValueError(
             f"flash_attention: bad operands q {tuple(q.shape)} {q.dtype}, "
             f"k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} {v.dtype}, "
-            f"causal={causal} window={window}, prefix_len "
+            f"causal={causal} window={window} softcap={softcap}, prefix_len "
             f"{None if prefix_len is None else tuple(prefix_len.shape)}; "
             f"head_dim must be one of {HEAD_DIMS}, q/k/v 16-byte aligned")
     out = torch.empty_like(q)
@@ -57,7 +60,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None):
         None if prefix_len is None else prefix_len.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Sk, H, Hkv,
         hd, P, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -130,26 +130,34 @@ def kv_quant_append(k, v, kpages, vpages, page_table, lengths, *,
                                page_size=page_size)
 
 
-def decode_attention(q, k, v, kv_len, *, return_lse=False,
+def decode_attention(q, k, v, kv_len, *, return_lse=False, softcap=0.0,
                      backend: str = "auto"):
     """Dense flash-decode: q (B, Hkv, g, hd), k/v (B, Hkv, S, hd) read in
     place through their strides (never copied), keys at or past
     ``kv_len (B,)`` masked. ``return_lse``: the partial mode, ``(o f32,
     lse (B, Hkv, g) f32)`` over this call's keys (-inf and 0 for a row
-    with ``kv_len`` 0), for ``comm.merge_partials``."""
+    with ``kv_len`` 0), for ``comm.merge_partials``. ``softcap`` > 0: the
+    scores capped, ``c tanh(s / c)``, before the mask."""
     B, Hkv, g = q.shape[:3]
+    softcap = float(softcap or 0.0)
     name = "decode_attention_lse" if return_lse else "decode_attention"
-    got = _meta(name, q, (q, k, v, kv_len), {},
+    got = _meta(name, q, (q, k, v, kv_len), {"softcap": softcap},
                 lambda: (_empty(q, dtype=torch.float32),
                          _empty(q, (B, Hkv, g), torch.float32))
                 if return_lse else _empty(q))
     if got is not None:
         return got
     if _on_cpu(q):
+        # in the order of a (B, S, Hkv, hd) cache's storage (a no-op for
+        # the s_hkv cache's view), so the plain version's sums, like the
+        # kernel's, do not depend on the layout: hkv_s equals s_hkv
+        k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                for t in (k, v))
         return _ref.decode_attention_ref(q, k, v, kv_len=kv_len,
-                                         return_lse=return_lse)
+                                         return_lse=return_lse,
+                                         softcap=softcap)
     fn = _da.decode_attention_lse if return_lse else _da.decode_attention
-    return fn(q, k, v, kv_len.to(torch.int32))
+    return fn(q, k, v, kv_len.to(torch.int32), softcap=softcap)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
@@ -176,25 +184,28 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=None,
-                    backend: str = "auto"):
+                    softcap=0.0, backend: str = "auto"):
     """Prefill attention, (B, S, H, hd) layout; see
     ``ref.flash_attention_ref`` for the mask (``prefix_len`` selects the
-    suffix mask of partial-hit and chunked prefill)."""
+    suffix mask of partial-hit and chunked prefill) and the logit
+    ``softcap``."""
     window = int(window or 0)
+    softcap = float(softcap or 0.0)
     got = _meta("flash_attention", q, (q, k, v), {
-        "causal": causal, "window": window,
+        "causal": causal, "window": window, "softcap": softcap,
         "prefix_len": None if prefix_len is None else "unknown"},
         lambda: _empty(q))
     if got is not None:
         return got
     if _on_cpu(q):
         return _ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window, prefix_len=prefix_len)
+                                        window=window, prefix_len=prefix_len,
+                                        softcap=softcap)
     if prefix_len is not None:
         prefix_len = prefix_len.to(torch.int32).contiguous()
     return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal, window=window,
-                               prefix_len=prefix_len)
+                               prefix_len=prefix_len, softcap=softcap)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6, backend: str = "auto"):

@@ -9,7 +9,11 @@ plain PyTorch before the flash kernel took its place: scores and softmax
 in f32, probabilities cast to the value type, materialized for problems
 up to 256 x 256 and an online softmax over key chunks above, exactly as
 ``repro.models.layers.attention``; with ``prefix_len`` the suffix mask of
-``repro.models.transformer._suffix_attention``.
+``repro.models.transformer._suffix_attention``. Both attentions take the
+reference's logit ``softcap`` (``s = c tanh(s / c)`` after the
+``1/sqrt(hd)`` scale, before the mask; 0 leaves the scores as they are).
+The reference's ``_suffix_attention`` leaves the softcap out (ROADMAP
+C.4); here the suffix mask takes it like every other mask.
 """
 from __future__ import annotations
 
@@ -23,8 +27,14 @@ from repro_torch.kernels.kv_layout import interleave_nibbles, pack_nibbles
 NEG_INF = -1e30
 
 
+def cap_scores(s, softcap):
+    """The logit softcap of the reference's ``attention_ref``: ``c
+    tanh(s / c)`` (``softcap`` c > 0), else ``s`` unchanged."""
+    return softcap * torch.tanh(s / softcap) if softcap else s
+
+
 def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None,
-                         return_lse=False):
+                         return_lse=False, softcap=0.0):
     """q: (B, Hkv, g, hd); k/v: (B, Hkv, S, hd) (any strided view);
     kv_len: (B,) valid lengths. f32 softmax; output in ``q.dtype``. A row
     with ``kv_len`` 0 is all masked and gives the mean of V (the kernel
@@ -39,7 +49,8 @@ def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None,
     B, Hkv, g, hd = q.shape
     S = k.shape[2]
     sm_scale = sm_scale or 1.0 / math.sqrt(hd)
-    s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * sm_scale
+    s = cap_scores(torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float())
+                   * sm_scale, softcap)
     if kv_len is not None:
         pos = torch.arange(S, device=q.device)
         mask = pos[None, None, None, :] < kv_len[:, None, None, None]
@@ -173,13 +184,13 @@ def _mask_bias(qpos, kpos, *, causal, window):
     return torch.where(ok, zero, NEG_INF)
 
 
-def _attention_materialized(q, k, v, *, causal, window):
+def _attention_materialized(q, k, v, *, causal, window, softcap=0.0):
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     g = H // Hk
     qh = q.reshape(B, Sq, Hk, g, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float()) \
-        / math.sqrt(hd)
+    s = cap_scores(torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float())
+                   / math.sqrt(hd), softcap)
     qpos = torch.arange(Sq, device=q.device).expand(B, Sq)
     kpos = torch.arange(Sk, device=q.device).expand(B, Sk)
     s = s + _mask_bias(qpos, kpos, causal=causal,
@@ -189,7 +200,7 @@ def _attention_materialized(q, k, v, *, causal, window):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _attention_blocked(q, k, v, *, causal, window):
+def _attention_blocked(q, k, v, *, causal, window, softcap=0.0):
     """Online softmax over chunks of 512 queries x 1024 keys (the
     reference's default tiles): no (Sq, Sk) score tensor."""
     B, Sq, H, hd = q.shape
@@ -213,7 +224,8 @@ def _attention_blocked(q, k, v, *, causal, window):
             kblk = kp[:, ki * ck:(ki + 1) * ck]
             vblk = vp[:, ki * ck:(ki + 1) * ck]
             kpos = (ki * ck + torch.arange(ck, device=dev)).expand(B, ck)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", blk, kblk.float()) * scale
+            s = cap_scores(torch.einsum("bqhgd,bkhd->bhgqk", blk,
+                                        kblk.float()) * scale, softcap)
             bias = _mask_bias(qpos, kpos, causal=causal, window=window)
             # the zero padding past Sk is never a key
             bias = torch.where(kpos[:, None, :] < Sk, bias, NEG_INF)
@@ -231,14 +243,14 @@ def _attention_blocked(q, k, v, *, causal, window):
     return o[:, :Sq]
 
 
-def _suffix_attention(q, K, V, prefix_len):
+def _suffix_attention(q, K, V, prefix_len, softcap=0.0):
     B, S, H, hd = q.shape
     Sk, Hk = K.shape[1], K.shape[2]
     P = Sk - S
     g = H // Hk
     qh = q.reshape(B, S, Hk, g, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), K.float()) \
-        / math.sqrt(hd)
+    s = cap_scores(torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), K.float())
+                   / math.sqrt(hd), softcap)
     j = torch.arange(Sk, device=q.device)[None, None, :]
     i = torch.arange(S, device=q.device)[None, :, None]
     plen = prefix_len[:, None, None]
@@ -250,7 +262,8 @@ def _suffix_attention(q, K, V, prefix_len):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, prefix_len=None):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, prefix_len=None,
+                        softcap=0.0):
     """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd), H a multiple of Hkv (GQA:
     q head h reads kv head h // (H // Hkv)). Output (B, Sq, H, hd) in
     ``q.dtype``.
@@ -260,12 +273,14 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, prefix_len=None):
     kernel's contract. With ``prefix_len (B,)``: keys are a right-padded
     prefix of width P = Sk - Sq followed by the Sq suffix keys; query i
     sees prefix key j iff j < prefix_len[b] and suffix key P + j' iff
-    j' <= i (suffix prefill and chunked prefill; causal, no window)."""
+    j' <= i (suffix prefill and chunked prefill; causal, no window).
+    ``softcap`` > 0 caps the scaled scores before the mask."""
     if prefix_len is not None:
         if window or not causal:
             raise ValueError("suffix attention is causal with no window")
-        return _suffix_attention(q, k, v, prefix_len)
+        return _suffix_attention(q, k, v, prefix_len, softcap)
     if q.shape[1] * k.shape[1] <= 256 * 256:
         return _attention_materialized(q, k, v, causal=causal,
-                                       window=window)
-    return _attention_blocked(q, k, v, causal=causal, window=window)
+                                       window=window, softcap=softcap)
+    return _attention_blocked(q, k, v, causal=causal, window=window,
+                              softcap=softcap)

@@ -308,7 +308,8 @@ def attn_qkv_whole(cfg, p, x, positions, rope=None, *, kernels=ops,
     return q, k, v
 
 
-def qseq_attention(tp, q, k, v, *, causal=True, window=0, kernels=ops):
+def qseq_attention(tp, q, k, v, *, causal=True, window=0, softcap=0.0,
+                   kernels=ops):
     """Attention over whole heads (:func:`attn_qkv_whole`) the reference's
     ``ATTN_QSEQ_RULES`` way, returning this rank's columns of the output
     (B, S, H * hd / n) for its row-parallel ``wo``. q: (B, S, H, hd);
@@ -319,23 +320,25 @@ def qseq_attention(tp, q, k, v, *, causal=True, window=0, kernels=ops):
     causal mask of those rows), or bidirectional over every key; the
     rows' outputs go back to the ranks' columns in one all-to-all
     (``comm.rows_to_cols``). Otherwise every rank attends every row and
-    keeps its columns."""
+    keeps its columns. ``softcap``: the logit softcap of every call."""
     B, S, H, hd = q.shape
     n, r = tp.size, tp.rank
     if S % n or window:
-        o = kernels.flash_attention(q, k, v, causal=causal, window=window)
+        o = kernels.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
         return o.reshape(B, S, H * hd).chunk(n, -1)[r]
     m = S // n
     lo = r * m
     qr = q[:, lo:lo + m]
     if not causal:
-        o = kernels.flash_attention(qr, k, v, causal=False)
+        o = kernels.flash_attention(qr, k, v, causal=False, softcap=softcap)
     elif lo == 0:
-        o = kernels.flash_attention(qr, k[:, :m], v[:, :m], causal=True)
+        o = kernels.flash_attention(qr, k[:, :m], v[:, :m], causal=True,
+                                    softcap=softcap)
     else:
         plen = torch.full((B,), lo, dtype=torch.int32, device=q.device)
         o = kernels.flash_attention(qr, k[:, :lo + m], v[:, :lo + m],
-                                    prefix_len=plen)
+                                    prefix_len=plen, softcap=softcap)
     return comm.rows_to_cols(tp, o.reshape(B, m, H * hd))
 
 

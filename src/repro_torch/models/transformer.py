@@ -36,7 +36,18 @@ the ring the decode step writes. The cache is written in place, layer by
 layer.
 
 A decode cache has the same layout at ``cache_rows(cfg, max_seq)``
-positions (``init_cache``). ``decode_step`` is the reference's
+positions (``init_cache``). Under ``cfg.decode_cache_layout == "hkv_s"``
+the K/V tensors are the reference's ``(L, B, Hkv, rows, hd)`` cache, held
+as its view ``transpose(2, 3)``: every index stays ``[layer, b, pos]``,
+only the strides change (a head's positions lie contiguous, the decode
+kernel reads them in place), and ``.transpose(2, 3)`` of a cache tensor
+is the reference's tensor itself, no copy.
+
+A logit softcap (``cfg.attn_logit_softcap``) caps every attention's
+scaled scores (``c tanh(s / c)``, before the mask), in the kernels and
+their plain versions alike. A recurrent stack with a sliding window
+(jamba's long_500k cell) attends with the window in prefill and keeps
+its last ``window`` positions as the decode step's ring. ``decode_step`` is the reference's
 ``decode_step`` / ``decode_step_inplace`` for the plain dense family: it
 scatters the new token's K/V into the stacked cache IN PLACE (at
 ``lengths % window`` on a ring) and attends through the
@@ -399,6 +410,18 @@ def recurrent(cfg) -> bool:
     return any(k.split("+")[0] != "attn" for k in cfg.layer_kinds())
 
 
+def kv_zeros(cfg, shape, dtype, device):
+    """A zero K or V cache tensor of ``shape`` (n, B, rows, Hkv, hd):
+    contiguous, or under the ``hkv_s`` layout the transposed view of a
+    contiguous (n, B, Hkv, rows, hd) tensor (the same indices, a head's
+    positions contiguous)."""
+    if cfg.decode_cache_layout != "hkv_s":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    n, B, rows, Hkv, hd = shape
+    return torch.zeros((n, B, Hkv, rows, hd), dtype=dtype,
+                       device=device).transpose(2, 3)
+
+
 def _slot_cache(cfg, mix, n, batch, max_seq, dtype, device, whole=False):
     """The cache of one slot of a recurrent stack: its ``n`` layers'
     attention K/V (``dtype``; :func:`init_cache` on ``whole``) or
@@ -408,7 +431,7 @@ def _slot_cache(cfg, mix, n, batch, max_seq, dtype, device, whole=False):
         rows = cache_rows(cfg, max_seq)
         shape = (n, batch, rows if whole else seq_rows(cfg, rows),
                  cache_kv_heads(cfg), cfg.head_dim)
-        return {key: torch.zeros(shape, dtype=dtype, device=device)
+        return {key: kv_zeros(cfg, shape, dtype, device)
                 for key in ("k", "v")}
     if mix == "mamba":
         st = dict(zip(("conv", "ssm"), mamba.mamba_state_init(
@@ -432,7 +455,8 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
     the recurrent states (:func:`_slot_cache`). Under kv_seq (a rank's
     config, ``sharding.kv_seq``) the K/V hold every KV head and the
     rank's share of the rows (:func:`seq_rows`); ``whole`` keeps every
-    row (a suffix prefill's cache, which holds its own positions)."""
+    row (a suffix prefill's cache, which holds its own positions). Under
+    the ``hkv_s`` layout the K/V are :func:`kv_zeros`' views."""
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
     if recurrent(cfg):
         kinds = slot_kinds(cfg)
@@ -445,8 +469,8 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
     rows = cache_rows(cfg, max_seq)
     shape = (cfg.num_layers, batch, rows if whole else seq_rows(cfg, rows),
              cache_kv_heads(cfg), cfg.head_dim)
-    return {"slot0": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)},
+    return {"slot0": {"k": kv_zeros(cfg, shape, dtype, device),
+                      "v": kv_zeros(cfg, shape, dtype, device)},
             "lengths": lengths}
 
 
@@ -555,13 +579,15 @@ def _train_layer(cfg, kind, p, x, positions, rope, rt=None):
         q, k, v = layers.attn_qkv_whole(cfg, p["attn"], h, positions, rope,
                                         kernels=layers.PLAIN, tp=tp)
         o = layers.qseq_attention(tp, q, k, v, window=cfg.sliding_window,
+                                  softcap=cfg.attn_logit_softcap,
                                   kernels=layers.PLAIN)
         out = layers.row_proj(p["attn"], "wo", o, tp)
     elif mix == "attn":
         q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope,
                                   kernels=layers.PLAIN, tp=tp)
         o = ref.flash_attention_ref(q, k, v, causal=True,
-                                    window=cfg.sliding_window)
+                                    window=cfg.sliding_window,
+                                    softcap=cfg.attn_logit_softcap)
         out = layers.row_proj(p["attn"], "wo", o.reshape(B, S, cfg.q_dim),
                               tp)
     elif mix == "mamba":
@@ -601,7 +627,8 @@ def forward(cfg, params, tokens, *, patch_embeds=None, rt=None):
     ``layers.norm_plain``, the q/k norms and the attention the plain
     versions (``ref.rmsnorm_ref``, ``ref.flash_attention_ref``, the
     reference's jnp ``layers.attention``; causal, with
-    ``cfg.sliding_window`` as the reference's ``attn_apply``), Mamba's
+    ``cfg.sliding_window`` and the logit softcap as the reference's
+    ``attn_apply``), Mamba's
     scan the out-of-place one. Nothing is written in place and no cache
     is collected. Under ``cfg.remat`` each layer runs under
     ``torch.utils.checkpoint`` (the reference's ``nothing_saveable``
@@ -618,7 +645,6 @@ def forward(cfg, params, tokens, *, patch_embeds=None, rt=None):
     exchange takes the rows as they are (``local_batch``). Under
     ``cfg.remat`` backward recomputes each layer and so issues its
     collectives again, in the same order on every rank."""
-    _unported(cfg, "the training forward", layout=False)
     cfg, tp = shard_view(cfg, rt)
     x = embed(cfg, params, tokens, patch_embeds, tp)
     B, S = x.shape[:2]
@@ -691,7 +717,6 @@ def prefill(cfg, params, tokens, *, max_seq: int, last_pos=None,
     (``sharding.kv_seq``) its share of every KV head's positions
     (:func:`seq_share`), the attention the qseq way
     (:func:`_prefill_attend`)."""
-    _unported(cfg, "prefill", layout=False)
     cfg, tp = shard_view(cfg, rt)
     if recurrent(cfg):
         return _prefill_recurrent(cfg, params, tokens, max_seq=max_seq,
@@ -731,12 +756,15 @@ def _prefill_attend(cfg, p, h, positions, rope, tp, *, window=None):
     attention; else the rank's heads and their output."""
     B, S = h.shape[:2]
     window = cfg.sliding_window if window is None else window
+    cap = cfg.attn_logit_softcap
     if sharding.kv_seq(cfg):
         q, k, v = layers.attn_qkv_whole(cfg, p["attn"], h, positions, rope,
                                         tp=tp)
-        return q, k, v, layers.qseq_attention(tp, q, k, v, window=window)
+        return q, k, v, layers.qseq_attention(tp, q, k, v, window=window,
+                                              softcap=cap)
     q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
-    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    o = ops.flash_attention(q, k, v, causal=True, window=window,
+                            softcap=cap)
     return q, k, v, o.reshape(B, S, cfg.q_dim)
 
 
@@ -748,11 +776,12 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     ``prefix_len (B,)`` the true prefix lengths. Suffix queries sit at
     absolute positions ``prefix_len + i``. The returned cache holds only
     the suffix KV (lengths = suffix true lengths). Full attention only,
-    as the reference asserts."""
+    as the reference asserts. A logit softcap caps the suffix's scores as
+    every other attention's (the reference's ``_suffix_attention`` leaves
+    it out: ROADMAP C.4)."""
     if cfg.sliding_window or recurrent(cfg):
         raise ValueError(f"{cfg.name}: suffix prefill assumes a stack of "
                          f"full attention")
-    _unported(cfg, "suffix prefill", layout=False)
     cfg, tp = shard_view(cfg, rt)
     B, S = tokens.shape
     if S > max_seq:
@@ -774,7 +803,8 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
             q, k, v = layers.attn_qkv(cfg, p["attn"], h, positions, rope)
         K = torch.cat([pk_all[i].to(k.dtype), k], dim=1)
         V = torch.cat([pv_all[i].to(v.dtype), v], dim=1)
-        o = ops.flash_attention(q, K, V, prefix_len=prefix_len).reshape(
+        o = ops.flash_attention(q, K, V, prefix_len=prefix_len,
+                                softcap=cfg.attn_logit_softcap).reshape(
             B, S, -1)
         if seq:
             o = o.chunk(tp.size, -1)[tp.rank]
@@ -785,24 +815,6 @@ def prefill_suffix(cfg, params, tokens, prefix_kv, prefix_len, *,
     x, _ = run_layers(cfg, params, x, attend, final_norm=False, rt=rt)
     cache["lengths"] = _lengths(true_len, B, S, dev)
     return _last_logits(cfg, params, x, last_pos, tp), cache
-
-
-def _unported(cfg, what, *, layout=True, ring=False):
-    """Options no registered config uses, which the kernels do not
-    compute: a logit softcap, a sliding window in a recurrent stack (the
-    reference's jamba long_500k cell) but in the dense decode step
-    (``ring``: its attention layers' ring), and (for the dense decode
-    step) the reference's ``hkv_s`` cache layout."""
-    why = [name for name, on in (
-        ("a logit softcap", cfg.attn_logit_softcap),
-        ("a sliding window in a recurrent stack",
-         cfg.sliding_window and recurrent(cfg) and not ring),
-        ("the hkv_s cache layout",
-         layout and cfg.decode_cache_layout == "hkv_s")) if on]
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} with {', '.join(why)} is not ported "
-            f"(ROADMAP A.15)")
 
 
 def decode_step(cfg, params, cache, tokens, *, backend: str = "auto",
@@ -823,11 +835,11 @@ def decode_step(cfg, params, cache, tokens, *, backend: str = "auto",
     f32, cache) with ``lengths + 1``. Under a mesh (``rt``) the cache
     holds this rank's KV heads, or under kv_seq its share of every KV
     head's positions (:func:`_decode_attend_seq`). A recurrent stack
-    with a window (the
-    reference's jamba long_500k cell) keeps its attention layers' K/V in
-    the same ring (:func:`_decode_step_recurrent`), as the reference's
-    in-place step does; its prefill is not ported (ROADMAP A.15)."""
-    _unported(cfg, "the dense decode step", ring=True)
+    with a window (the reference's jamba long_500k cell) keeps its
+    attention layers' K/V in the same ring (:func:`_decode_step_recurrent`),
+    as the reference's in-place step does. Under the ``hkv_s`` layout the
+    write and the kernel's read go through the same indices, over the
+    cache's other strides (:func:`kv_zeros`)."""
     cfg, tp = shard_view(cfg, rt)
     if recurrent(cfg):
         return _decode_step_recurrent(cfg, params, cache, tokens,
@@ -888,7 +900,7 @@ def _decode_attend(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
     o = ops.decode_attention(
         q[:, 0].reshape(B, Hkv, cfg.num_heads // Hkv, hd).contiguous(),
         K.permute(0, 2, 1, 3), V.permute(0, 2, 1, 3), kv_len,
-        backend=backend)
+        softcap=cfg.attn_logit_softcap, backend=backend)
     return layers.row_proj(p["attn"], "wo",
                            o.reshape(B, 1, cfg.q_dim).to(h.dtype), tp)
 
@@ -909,7 +921,7 @@ def seq_write(K, V, k, v, w_pos, lo):
     V[bidx, loc] = torch.where(own, v.to(V.dtype), V[bidx, loc])
 
 
-def seq_partial(q, K, V, kv_len, lo, backend="auto"):
+def seq_partial(q, K, V, kv_len, lo, backend="auto", softcap=0.0):
     """Whole query heads q (B, Hkv, g, hd) over a kv_seq share ``K``/``V``
     (B, R, Hkv, hd) holding rows ``[lo, lo + R)`` of a cache whose first
     ``kv_len`` rows are valid: the partial mode of the decode kernel over
@@ -918,14 +930,15 @@ def seq_partial(q, K, V, kv_len, lo, backend="auto"):
     local = torch.clamp(kv_len - lo, 0, R).to(torch.int32)
     return ops.decode_attention(q, K.permute(0, 2, 1, 3),
                                 V.permute(0, 2, 1, 3), local,
-                                return_lse=True, backend=backend)
+                                return_lse=True, softcap=softcap,
+                                backend=backend)
 
 
-def seq_attention(q, K, V, kv_len, lo, tp, backend="auto"):
+def seq_attention(q, K, V, kv_len, lo, tp, backend="auto", softcap=0.0):
     """:func:`seq_partial` merged over ``tp`` (``comm.merge_partials``):
     (B, Hkv, g, hd) f32, every rank the same."""
     return comm.merge_partials(tp, *seq_partial(q, K, V, kv_len, lo,
-                                                backend))
+                                                backend, softcap))
 
 
 def _decode_attend_seq(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
@@ -946,7 +959,8 @@ def _decode_attend_seq(cfg, p, h, positions, rope, K, V, w_pos, kv_len,
     lo = tp.rank * K.shape[1]
     seq_write(K, V, k[:, 0], v[:, 0], w_pos, lo)
     o = seq_attention(q[:, 0].reshape(B, Hkv, H // Hkv, hd).contiguous(),
-                      K, V, kv_len, lo, tp, backend)
+                      K, V, kv_len, lo, tp, backend,
+                      cfg.attn_logit_softcap)
     c = H * hd // n
     o = o.reshape(B, 1, H * hd)[..., tp.rank * c:(tp.rank + 1) * c]
     return layers.row_proj(p["attn"], "wo", o.to(h.dtype), tp)
@@ -974,7 +988,11 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
     recurrences: ``PrefillEngine`` prefills these stacks at exact
     lengths. Under a mesh (``rt``) each layer runs on this rank's heads
     or channels, and the cache holds the rank's KV heads (under kv_seq
-    its share of every head's positions) and states."""
+    its share of every head's positions) and states. Under a sliding
+    window the attention layers attend within it, and a prompt longer
+    than the window keeps its last ``window`` positions, position p at
+    ring row ``p % window`` (the reference's rotation at the prefill
+    handoff; :func:`cache_rows`)."""
     tp = None if rt is None else rt.tp
     dev = tokens.device
     x = embed(cfg, params, tokens, tp=tp)
@@ -983,15 +1001,19 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
         raise ValueError(f"prompt {S} exceeds max_seq={max_seq}")
     positions = torch.arange(S, device=dev).expand(B, S)
     rope = layers.model_rope(cfg, positions)
+    rows = cache_rows(cfg, S)
     got = [None] * cfg.num_layers
+
+    def ring(t):
+        # the last `rows` positions, position p at ring row p % rows
+        return torch.roll(t[:, -rows:], S % rows, dims=1) if rows < S else t
 
     def mix(i, p, h):
         kind = _mix_of(cfg, i)[0]
         if kind == "attn":
-            _, k, v, o = _prefill_attend(cfg, p, h, positions, rope, tp,
-                                         window=0)
-            got[i] = {"k": seq_share(cfg, k.to(cache_dtype(cfg)), tp),
-                      "v": seq_share(cfg, v.to(cache_dtype(cfg)), tp)}
+            _, k, v, o = _prefill_attend(cfg, p, h, positions, rope, tp)
+            got[i] = {"k": seq_share(cfg, ring(k).to(cache_dtype(cfg)), tp),
+                      "v": seq_share(cfg, ring(v).to(cache_dtype(cfg)), tp)}
             return layers.row_proj(p["attn"], "wo", o, tp)
         if kind == "mamba":
             o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h, tp=tp)
@@ -1007,11 +1029,24 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
 
     x, _ = run_layers(cfg, params, x, mix, final_norm=False, rt=rt)
     P = len(slot_kinds(cfg))
-    cache = {f"slot{s}": {key: torch.stack([g[key] for g in got[s::P]])
+    cache = {f"slot{s}": {key: _stack_slot(cfg, key, got[s::P])
                           for key in got[s]} for s in range(P)}
     del got
     cache["lengths"] = _lengths(true_len, B, S, dev)
     return _last_logits(cfg, params, x, last_pos, tp), cache
+
+
+def _stack_slot(cfg, key, layers_got):
+    """One slot's tensors of ``key`` stacked over its layers: attention
+    K/V in the cache layout (:func:`kv_zeros`), states as they are."""
+    ts = [g[key] for g in layers_got]
+    if key not in ("k", "v"):
+        return torch.stack(ts)
+    out = kv_zeros(cfg, (len(ts),) + tuple(ts[0].shape), ts[0].dtype,
+                   ts[0].device)
+    for j, t in enumerate(ts):
+        out[j] = t
+    return out
 
 
 def _decode_step_recurrent(cfg, params, cache, tokens, *, backend, rt=None):

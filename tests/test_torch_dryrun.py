@@ -265,8 +265,21 @@ def test_jamba_windowed_decode_matches_reference():
                 == want[:, -1].argmax(-1)[clear]).all()
         cur = want[:, -1].argmax(-1).astype(np.int32)[:, None]
     assert td["lengths"].tolist() == [steps] * B
-    with pytest.raises(NotImplementedError, match="A.15"):
-        build(tcfg).prefill(tp, {"tokens": torch.from_numpy(cur)})
+    # its prefill (refused here until ROADMAP A.15): a 15-token prompt
+    # over the 6-token window, the ring rotated as the reference's
+    toks = np.random.default_rng(6).integers(1, 256, (B, 15)).astype(
+        np.int32)
+    jl, jc = j_tf.prefill(jcfg, jp, jnp.asarray(toks), max_seq=max_seq)
+    tl, tc = build(tcfg).prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                 max_seq=max_seq)
+    assert np.abs(tl.numpy() - np.asarray(jl)).max() <= MODEL_TOL * max(
+        1.0, float(np.abs(np.asarray(jl)).max()))
+    for s in attn:
+        for key in ("k", "v"):
+            want = np.asarray(jc[f"slot{s}"][key])
+            assert tc[f"slot{s}"][key].shape[2] == window
+            assert np.abs(tc[f"slot{s}"][key].numpy() - want).max() <= \
+                MODEL_TOL * max(1.0, float(np.abs(want).max()))
 
 
 # -- (j), (k) the cells and the report ------------------------------------------

@@ -1737,3 +1737,181 @@ def test_gloo_group_refuses_a_graphed_decode_chunk(world1):
     while dec.active:
         dec.step()
     assert len(req.out_tokens) == 5
+
+
+# -- the logit softcap and the hkv_s cache layout (ROADMAP A.15) ----------------
+
+SOFTCAP_FLASH_CASES = [
+    # (B, Sq, P, H, Hkv, hd, window, plen, softcap)
+    (2, 130, 0, 8, 1, 256, 0, None, 50.0),       # gemma-2b: MQA, hd 256
+    (1, 300, 0, 8, 1, 256, 0, None, 50.0),
+    (2, 16, 32, 8, 1, 256, 0, [20, 32], 50.0),   # a suffix over a prefix
+    (2, 100, 0, 8, 2, 128, 0, None, 30.0),
+    (2, 300, 0, 4, 4, 32, 100, None, 5.0),       # a window, a tight cap
+    (3, 32, 224, 8, 4, 128, 0, [0, 100, 224], 30.0),
+]
+
+
+@pytest.mark.parametrize("B,Sq,P,H,Hkv,hd,window,plen,cap",
+                         SOFTCAP_FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_softcap_matches_plain(cuda, B, Sq, P, H, Hkv, hd,
+                                               window, plen, cap, dtype):
+    """The capped instantiations against the plain version's ``c tanh(s /
+    c)`` (scores scaled up so the cap bites); and the same inputs uncapped
+    differ (the cap is on). bf16 at the uncapped tests' 2e-2; f32 at
+    1e-4: ``tanhf`` and the plain version's tanh differ by up to 2 ulps,
+    which the cap multiplies by c (a capped score near 50 moves by ~1e-5,
+    and an output of |v| ~ 3 with it)."""
+    dt = getattr(torch, dtype)
+    gen = _gen(B * 100 + Sq + hd + int(cap))
+    q = (torch.randn((B, Sq, H, hd), generator=gen, device=cuda) * 4).to(dt)
+    k = (torch.randn((B, P + Sq, Hkv, hd), generator=gen, device=cuda)
+         * 4).to(dt)
+    v = torch.randn((B, P + Sq, Hkv, hd), generator=gen, device=cuda).to(dt)
+    pl = None if plen is None else torch.tensor(plen, dtype=torch.int32,
+                                                device=cuda)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window, prefix_len=pl,
+                              softcap=cap)
+    want = ref.flash_attention_ref(q, k, v, window=window, prefix_len=pl,
+                                   softcap=cap)
+    plain = ref.flash_attention_ref(q, k, v, window=window, prefix_len=pl)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert (plain.float() - want.float()).abs().max() > 10 * tol
+
+
+@pytest.mark.parametrize("B,Hkv,g,hd,S,lens", [
+    (4, 1, 8, 256, 256, [232, 123, 56, 17]),     # gemma-2b's decode step
+    (4, 52, 1, 128, 256, [232, 123, 56, 17]),
+    (3, 2, 4, 16, 40, [1, 40, 23])])
+@pytest.mark.parametrize("qdt,kvdt", DTYPE_PAIRS)
+@pytest.mark.parametrize("layout", ["cache", "hkv_s"])
+@pytest.mark.parametrize("lse", [False, True])
+def test_decode_attention_softcap_matches_plain(cuda, B, Hkv, g, hd, S,
+                                                lens, qdt, kvdt, layout,
+                                                lse):
+    """The dense body's capped instantiation (and its partial mode) over
+    the s_hkv cache's view and the hkv_s cache's (the reference's
+    (B, Hkv, S, hd), read where it lies). f32 (and the partial mode) at
+    1e-4, as the flash test says; bf16 q at 2e-2."""
+    q, k, v, kv_len, _ = _decode_inputs(
+        B, Hkv, g, hd, S, lens, getattr(torch, qdt), getattr(torch, kvdt),
+        "bhsd" if layout == "hkv_s" else "cache", seed=B * 11 + hd + S)
+    q = q * 4
+    k = k * 4
+    name = "decode_attention_lse" if lse else "decode_attention"
+    before = ops.KERNELS[name].launches
+    got = ops.decode_attention(q, k, v, kv_len, return_lse=lse,
+                               softcap=30.0)
+    want = ref.decode_attention_ref(q, k, v, kv_len=kv_len,
+                                    return_lse=lse, softcap=30.0)
+    torch.cuda.synchronize()
+    assert ops.KERNELS[name].launches == before + 1
+    tol = 1e-4 if lse or qdt == "float32" else 2e-2
+    if lse:
+        torch.testing.assert_close(got[0], want[0], atol=tol, rtol=tol)
+        torch.testing.assert_close(got[1], want[1], atol=tol, rtol=tol)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("cuda_graph", [True, False])
+def test_hkv_s_decode_equals_s_hkv_bit_for_bit(cuda, cuda_graph):
+    """The reduced model decoding on an hkv_s cache (the same indices over
+    the reference's (L, B, Hkv, S, hd) strides) gives the s_hkv engine's
+    tokens, logits-driven state and cache bytes exactly; graphed too."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    streams, caches = {}, {}
+    for layout in ("s_hkv", "hkv_s"):
+        cfg = get_reduced("llama-30b").replace(decode_cache_layout=layout)
+        params = _tree_to(init_params(cfg, seed=0, device="cpu"), "cuda")
+        pre = E.PrefillEngine(cfg, params, max_seq=64, device="cuda")
+        dec = E.DecodeEngine(cfg, params, max_slots=4, max_seq=64,
+                             chunk_size=4, cuda_graph=cuda_graph,
+                             paged=False, device="cuda")
+        rng = np.random.default_rng(0)
+        reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n), 12)
+                for i, n in enumerate((7, 19, 33))]
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w) for r, w, f in pre.run(reqs)]))
+        while dec.active:
+            dec.step()
+        streams[layout] = [r.out_tokens for r in reqs]
+        k = dec.cache["slot0"]["k"]
+        caches[layout] = k.contiguous()
+        if layout == "hkv_s":
+            assert k.transpose(2, 3).is_contiguous()
+    assert streams["hkv_s"] == streams["s_hkv"]
+    assert torch.equal(caches["hkv_s"], caches["s_hkv"])
+
+
+# -- R002's banned calls under a CUDA graph capture ------------------------------
+
+_CAPTURE_PROBE = r"""
+import json, sys
+import numpy as np
+import torch
+x = torch.arange(1, 9, device="cuda", dtype=torch.float32)
+r = torch.full((8,), 2, device="cuda", dtype=torch.int64)
+CALLS = {
+    ".item()": lambda: x.sum().item(),
+    ".tolist()": lambda: x.tolist(),
+    ".cpu()": lambda: x.cpu(),
+    ".numpy()": lambda: x.numpy(),
+    "int() of an element": lambda: int(x[0]),
+    "float() of an element": lambda: float(x[0]),
+    "bool() of an element": lambda: bool(x[0]),
+    "np.asarray": lambda: np.asarray(x),
+    "np.array": lambda: np.array(x),
+    "torch.cuda.synchronize": lambda: torch.cuda.synchronize(),
+    "nonzero": lambda: torch.nonzero(x),
+    "unique": lambda: torch.unique(x),
+    "masked_select": lambda: x.masked_select(x > 2),
+    "boolean-mask indexing": lambda: x[x > 2],
+    "one-argument where": lambda: torch.where(x > 2),
+    "repeat_interleave without output_size": lambda: x.repeat_interleave(r),
+}
+out = {}
+side = torch.cuda.Stream()
+for name, fn in CALLS.items():
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g, stream=side):
+            fn()
+        out[name] = "captured"
+    except Exception as e:
+        out[name] = "raises: " + type(e).__name__
+    del g
+    try:
+        assert torch.ones(4, device="cuda").sum().item() == 4.0
+    except Exception as e:
+        out[name] += "; context broken: " + type(e).__name__
+        break
+print(json.dumps(out))
+"""
+
+
+def test_r002_banned_calls_raise_under_capture(cuda):
+    """Each call R002 bans, inside ``torch.cuda.graph`` (one process, a
+    capture each, the context probed after each): every one raises, so
+    every finding R002 makes is a real fault on the card."""
+    import json
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _CAPTURE_PROBE],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    print(json.dumps(got, indent=1))
+    assert len(got) == 16, got
+    assert all(v.startswith("raises") and "broken" not in v
+               for v in got.values()), got

@@ -305,6 +305,50 @@ COPY_DIFFERENCES = {
         # allocation sites leave out the port's own sanitizer frames
         "_site": _stmts("repro_torch", "repro"),
     },
+    "analysis/lint.py": {
+        # the R002 rewrite: what a CUDA graph captures, across modules
+        **{name: ONE_SIDE for name in (
+            "_jit_like", "_loop_body_args", "_JitScopeCollector",
+            "_JitScopeCollector.__init__",
+            "_JitScopeCollector.visit_FunctionDef",
+            "_JitScopeCollector.visit_AsyncFunctionDef",
+            "_JitScopeCollector._decorator_jits",
+            "_JitScopeCollector.visit_Call", "_JitScopeCollector.reachable",
+            "_R002", "_R002.__init__", "_R002.run", "_R002._banned",
+            "GRAPH_SCOPES", "GRAPH_ROOT", "_HOST_READS", "_DATA_SHAPES",
+            "module_of", "_Module", "_Module.__init__", "_Module.enclosing",
+            "_Module.local_defs", "_own_nodes", "_Graph", "_Graph.__init__",
+            "_Graph._top", "_Graph._imported", "_Graph.resolve",
+            "_Graph.roots", "_callee_name", "_is_graph_capture",
+            "graph_reachable", "_bool_mask", "_banned", "_r002", "RULES",
+            "_first_line", "captured_functions", "trace_calls")},
+        # the path scopes: src/repro_torch/ and tests/, no benchmarks/
+        "POOL_MODULE": ONE_SIDE, "LAYOUT_MODULE": ONE_SIDE,
+        "_R008_BLESSED": ONE_SIDE, "_in_scope": ONE_SIDE,
+        "DEFAULT_ROOTS": ONE_SIDE,
+        "_R003Coordinator.visit_FunctionDef": _stmts("repro_torch", "repro"),
+        "_R003Coordinator._flag": _stmts("repro_torch", "repro"),
+        "_R003Coordinator.visit_Import": _stmts("repro_torch", "repro"),
+        "_R003Coordinator.visit_ImportFrom": _stmts("repro_torch", "repro"),
+        "_R003Coordinator.visit_ClassDef": _stmts("repro_torch", "repro"),
+        # the R005 table of the port's modules; its hints name the port
+        "_R005_IMPORT_REQUIREMENTS": ONE_SIDE,
+        "_r005_file": _stmts("repro_torch", "repro"),
+        # R002 runs across files, after R005's cross-file half
+        "lint_sources": ONE_SIDE,
+    },
+    "analysis/dataflow.py": {},
+    "analysis/modelcheck.py": {
+        # the replay target: the port's gateway, no jax to wait for
+        "run_mutations": ONE_SIDE, "_jax_available": ONE_SIDE,
+    },
+    "analysis/__main__.py": {
+        # the port's name in the CLI's output and help
+        "_cmd_lint": _stmts("repro_torch", "repro"),
+        "_cmd_check": _stmts("repro_torch", "repro"),
+        # and --replay's help: the port's replay needs no jax
+        "main": ONE_SIDE,
+    },
     "serving/transport.py": {},
     "serving/faults.py": {},
     "serving/profiler.py": {},

@@ -214,14 +214,15 @@ def test_full_width_config_is_llama_30b():
 
 
 def test_unported_families_raise():
-    """What still refuses: a residency nobody has, and a dense decode step
-    the plain kernel cannot compute (softcap, the hkv_s layout: ROADMAP
-    A.15). The hybrid, SSM and audio families, which refused here until
-    the recurrent slice (ROADMAP A.8), now build, and so do biases
-    (whisper has them). A sliding window, which refused here until its
-    ring cache was ported, now decodes: an 8-row ring of a 16-position
-    cache, written at ``lengths % 8``; q/k norms, which refused until the
-    MoE slice, now build."""
+    """What still refuses: a residency nobody has. The hybrid, SSM and
+    audio families, which refused here until the recurrent slice (ROADMAP
+    A.8), now build, and so do biases (whisper has them). A sliding
+    window, which refused here until its ring cache was ported, now
+    decodes: an 8-row ring of a 16-position cache, written at ``lengths %
+    8``; q/k norms, which refused until the MoE slice, now build. A
+    softcap and the hkv_s layout refused here until ROADMAP A.15: their
+    dense step now matches the reference's in-place step on the same
+    weights, and hkv_s the port's s_hkv step bit for bit."""
     for arch in ("jamba-v0.1-52b", "xlstm-125m", "whisper-base"):
         api = build(get_reduced(arch))
         assert api.decode is not None and api.paged_decode_fns is None
@@ -240,8 +241,7 @@ def test_unported_families_raise():
         cache = t_tf.init_cache(cfg, 1, 16, device="cpu")
         tok = torch.ones((1, 1), dtype=torch.long)
         if not cfg.sliding_window:
-            with pytest.raises(NotImplementedError, match="A.15"):
-                api.decode(params, cache, tok)
+            _a15_step_matches(cfg, params, api)
             continue
         assert cache["slot0"]["k"].shape[2] == 8
         cache["lengths"].fill_(11)
@@ -249,6 +249,36 @@ def test_unported_families_raise():
         assert bool(torch.isfinite(logits).all())
         assert int(cache["lengths"][0]) == 12
         assert bool(cache["slot0"]["k"][:, 0, 11 % 8].abs().sum() > 0)
+
+
+def _a15_step_matches(cfg, params, api):
+    """Three dense steps from lengths 5 of a zero f32 cache: the port's
+    logits within ``ATOL`` of the reference's ``decode_step_inplace`` on
+    the same converted weights (hkv_s: the reference's (L, B, Hkv, S, hd)
+    cache); hkv_s equal to the s_hkv step bit for bit."""
+    tree = convert.params_to_tree(params, cfg)
+    jcfg = j_get_reduced("llama-30b").replace(
+        dtype="float32", attn_logit_softcap=cfg.attn_logit_softcap,
+        decode_cache_layout=cfg.decode_cache_layout)
+    jp = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float32)),
+                      tree)
+    jc = j_tf.init_cache(jcfg, 1, 16, jnp.float32)
+    jc["lengths"] = jnp.full((1,), 5, jnp.int32)
+    tc = t_tf.init_cache(cfg, 1, 16, torch.float32, device="cpu")
+    tc["lengths"].fill_(5)
+    plain = cfg.replace(decode_cache_layout="s_hkv")
+    pc = t_tf.init_cache(plain, 1, 16, torch.float32, device="cpu")
+    pc["lengths"].fill_(5)
+    rt = j_tf.Runtime(inplace_decode=True)
+    tok = np.array([[7]], np.int32)
+    for _ in range(3):
+        jl, jc = j_tf.decode_step(jcfg, jp, jc, jnp.asarray(tok), rt=rt)
+        tl, tc = api.decode(params, tc, torch.from_numpy(tok))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        pl, pc = build(plain).decode(params, pc, torch.from_numpy(tok))
+        if cfg.decode_cache_layout == "hkv_s":
+            assert torch.equal(tl, pl)
+        tok = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)[:, None]
 
 
 @pytest.mark.parametrize("path", ["prefill", "suffix", "dense", "int4",

@@ -286,8 +286,9 @@ def test_unported_engine_modes_raise(runs):
     wrong device. An arch that cannot page falls back to the dense cache,
     as the reference does; with a sliding window (whose step refused here
     until its ring cache was ported) that cache is an 8-row ring and the
-    engine decodes past it, while a softcap still refuses its first step
-    (ROADMAP A.15). The dense engine and a dense ``Replica`` build. The
+    engine decodes past it; a softcap (ROADMAP A.15, which refused here
+    until it was ported) serves on the dense cache and decodes the JAX
+    engines' tokens. The dense engine and a dense ``Replica`` build. The
     phase-switching ``Replica`` builds each phase's engine once around the
     same parameters and refuses an undrained flip."""
     cfg, params = runs["tcfg"], runs["tparams"]
@@ -313,20 +314,24 @@ def test_unported_engine_modes_raise(runs):
     while fb.active:
         fb.step()
     assert len(swa_req.out_tokens) == 4
-    capped = cfg.replace(attn_logit_softcap=30.0)
-    fc = TE.DecodeEngine(capped, params, max_slots=2, max_seq=64,
-                         device="cpu")
-    assert not fc.paged and "cannot page" in fc.paged_fallback
-    with pytest.raises(NotImplementedError, match="A.15"):
-        TE.PrefillEngine(capped, params, max_seq=64, device="cpu").run(
-            [TE.GenRequest(0, np.arange(1, 12), 4)])
-    (_, w, f), = TE.PrefillEngine(cfg, params, max_seq=64,
-                                  device="cpu").run(
-        [TE.GenRequest(0, np.arange(1, 12), 4)])
-    assert not fc.admit(TE.AdmissionBatch([TE.AdmissionItem(
-        TE.GenRequest(0, np.arange(1, 12), 4), f, wire=w)]))
-    with pytest.raises(NotImplementedError, match="A.15"):
-        fc.step()
+    capped = {}
+    for E, c, p, dev in (
+            (TE, cfg.replace(attn_logit_softcap=30.0), params,
+             {"device": "cpu"}),
+            (JE, runs["jcfg"].replace(attn_logit_softcap=30.0),
+             runs["jparams"], {})):
+        fc = E.DecodeEngine(c, p, max_slots=2, max_seq=64, paged=True,
+                            **dev)
+        assert not fc.paged and "cannot page" in fc.paged_fallback
+        reqs = [E.GenRequest(i, np.arange(1 + i, 12 + 3 * i), 6)
+                for i in range(2)]
+        out = E.PrefillEngine(c, p, max_seq=64, **dev).run(reqs)
+        assert not fc.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w) for r, w, f in out]))
+        while fc.active:
+            fc.step()
+        capped[E is TE] = [r.out_tokens for r in reqs]
+    assert capped[True] == capped[False]
     with pytest.raises(ValueError, match="params live on"):
         TE.PrefillEngine(cfg, params, device="cuda")
     with pytest.raises(ValueError, match="params live on"):
