@@ -60,6 +60,7 @@ from repro_torch.distributed import sharding
 from repro_torch.models import paged as paged_fmt
 from repro_torch.models import registry, transformer, whisper
 from repro_torch.serving import kv_transfer, page_pool, protocol
+from repro_torch.serving import trace as _trace
 from repro_torch.serving.kv_transfer import KVWire
 from repro_torch.serving.page_pool import PagePool, pages_needed
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
@@ -252,7 +253,13 @@ class PrefillEngine:
             backend: str = "auto") -> List[Tuple[GenRequest, KVWire, int]]:
         """Prefill a batch; returns per-request (req, wire, first_token).
         Requests carrying a resident prefix (``start_pos``/``prefix_wire``)
-        take the suffix path."""
+        take the suffix path. Traced as ``prefill.call``: ``rows`` the
+        model's rows (padding rows too), ``tokens`` the prompts' own,
+        ``padded_tokens`` the rest of rows x bucket (0 at exact lengths)."""
+        with _trace.span("prefill.call"):
+            return self._run(reqs, compress=compress, backend=backend)
+
+    def _run(self, reqs, *, compress, backend):
         if not reqs:
             return []
         suffix = [r for r in reqs
@@ -282,45 +289,47 @@ class PrefillEngine:
         across ``jobs`` (FIFO), one model call per tick. Each chunk is a
         suffix prefill over the concat of the job's raw chunk wires (plus
         any prefix-cache wire); the admission wire is quantized once, over
-        the spliced whole, at completion. Mutates and returns ``jobs``."""
-        left = max(int(budget), 0)
-        work = []                       # (job, clone, take)
-        for job in jobs:
-            if job.done or job.remaining <= 0 or left <= 0:
-                continue
-            take = protocol.chunk_take(job.remaining, left,
-                                       self.supports_suffix)
-            left -= min(take, left)
-            req = job.req
-            upto = job.next_pos + take
-            clone = GenRequest(req.rid, np.asarray(req.tokens)[:upto],
-                               req.max_new_tokens, extras=req.extras)
-            if job.next_pos > 0:
-                parts = ([req.prefix_wire]
-                         if req.start_pos > 0 and req.prefix_wire is not None
-                         else []) + job.wires
-                clone.start_pos = job.next_pos
-                clone.prefix_wire = kv_transfer.concat_wires(
-                    parts, backend=backend)
-            work.append((job, clone, take))
-        if not work:
+        the spliced whole, at completion. Mutates and returns ``jobs``.
+        Traced as ``prefill.call``, as :meth:`run`."""
+        with _trace.span("prefill.call"):
+            left = max(int(budget), 0)
+            work = []                       # (job, clone, take)
+            for job in jobs:
+                if job.done or job.remaining <= 0 or left <= 0:
+                    continue
+                take = protocol.chunk_take(job.remaining, left,
+                                           self.supports_suffix)
+                left -= min(take, left)
+                req = job.req
+                upto = job.next_pos + take
+                clone = GenRequest(req.rid, np.asarray(req.tokens)[:upto],
+                                   req.max_new_tokens, extras=req.extras)
+                if job.next_pos > 0:
+                    parts = ([req.prefix_wire] if req.start_pos > 0
+                             and req.prefix_wire is not None
+                             else []) + job.wires
+                    clone.start_pos = job.next_pos
+                    clone.prefix_wire = kv_transfer.concat_wires(
+                        parts, backend=backend)
+                work.append((job, clone, take))
+            if not work:
+                return jobs
+            by_clone = {id(c): (job, take) for job, c, take in work}
+            # chunks extract RAW (protocol.chunk_extract_compress() is False)
+            for clone, wire, first in self._run(
+                    [c for _, c, _ in work],
+                    compress=protocol.chunk_extract_compress(),
+                    backend=backend):
+                job, take = by_clone[id(clone)]
+                job.wires.append(wire)
+                job.pos += take
+                if protocol.chunk_complete(job.next_pos, len(job.req.tokens)):
+                    job.done = True
+                    job.first = int(first)
+                    full = kv_transfer.concat_wires(job.wires)
+                    job.transport = (kv_transfer.compress_wire(
+                        full, backend=backend) if compress else full)
             return jobs
-        by_clone = {id(c): (job, take) for job, c, take in work}
-        # chunks extract RAW (protocol.chunk_extract_compress() is False)
-        for clone, wire, first in self.run(
-                [c for _, c, _ in work],
-                compress=protocol.chunk_extract_compress(),
-                backend=backend):
-            job, take = by_clone[id(clone)]
-            job.wires.append(wire)
-            job.pos += take
-            if protocol.chunk_complete(job.next_pos, len(job.req.tokens)):
-                job.done = True
-                job.first = int(first)
-                full = kv_transfer.concat_wires(job.wires)
-                job.transport = (kv_transfer.compress_wire(
-                    full, backend=backend) if compress else full)
-        return jobs
 
     def _run_exact(self, reqs, *, compress, backend):
         """Group by exact prompt length (no padding ever enters attention),
@@ -336,13 +345,18 @@ class PrefillEngine:
                 sub = group[lo:lo + self.max_batch]
                 toks = np.stack([np.asarray(r.tokens) for r in sub]).astype(
                     np.int64)
-                logits, cache = self._whole(self.api.prefill(
-                    self.params, {"tokens": self._tensor(toks)},
-                    max_seq=self.max_seq))
-                first = _first_tokens(logits, self.api.tp)
-                wires = kv_transfer.extract_batch(
-                    cache, [(i, n) for i in range(len(sub))],
-                    compress=compress, backend=backend)
+                _trace.add(rows=len(sub), tokens=n * len(sub),
+                           padded_tokens=0)
+                with _trace.span("prefill.model"):
+                    logits, cache = self._whole(self.api.prefill(
+                        self.params, {"tokens": self._tensor(toks)},
+                        max_seq=self.max_seq))
+                with _trace.span("prefill.first_token"):
+                    first = _first_tokens(logits, self.api.tp)
+                with _trace.span("prefill.wire"):
+                    wires = kv_transfer.extract_batch(
+                        cache, [(i, n) for i in range(len(sub))],
+                        compress=compress, backend=backend)
                 out.extend((r, wires[i], int(first[i]))
                            for i, r in enumerate(sub))
         return out
@@ -376,13 +390,17 @@ class PrefillEngine:
 
     def _run_one_bucket(self, group, Lb, *, compress, backend):
         lens = [min(len(r.tokens), Lb) for r in group]
-        _, batch = self._bucket_batch(group, Lb, lens, [0] * len(group))
-        logits, cache = self._whole(self.api.prefill(
-            self.params, batch, max_seq=self.max_seq))
-        first = _first_tokens(logits, self.api.tp)
-        wires = kv_transfer.extract_batch(
-            cache, [(i, lens[i]) for i in range(len(group))],
-            compress=compress, backend=backend, pad_to=Lb)
+        B, batch = self._bucket_batch(group, Lb, lens, [0] * len(group))
+        _trace.add(rows=B, tokens=sum(lens), padded_tokens=B * Lb - sum(lens))
+        with _trace.span("prefill.model"):
+            logits, cache = self._whole(self.api.prefill(
+                self.params, batch, max_seq=self.max_seq))
+        with _trace.span("prefill.first_token"):
+            first = _first_tokens(logits, self.api.tp)
+        with _trace.span("prefill.wire"):
+            wires = kv_transfer.extract_batch(
+                cache, [(i, lens[i]) for i in range(len(group))],
+                compress=compress, backend=backend, pad_to=Lb)
         return [(r, wires[i], int(first[i])) for i, r in enumerate(group)]
 
     def _run_suffix(self, reqs, *, compress, backend):
@@ -405,6 +423,8 @@ class PrefillEngine:
         slens = [min(len(r.tokens) - r.start_pos, Lb) for r in group]
         B, batch = self._bucket_batch(group, Lb, slens,
                                       [r.start_pos for r in group])
+        _trace.add(rows=B, tokens=sum(slens),
+                   padded_tokens=B * Lb - sum(slens))
         prefix_kv, plen = kv_transfer.dequantize_prefix_batch(
             [r.prefix_wire for r in group], Pb, backend=backend)
         if B > len(group):
@@ -417,12 +437,15 @@ class PrefillEngine:
             plen = torch.cat([plen, plen.new_zeros(pad)])
         batch["prefix_kv"] = prefix_kv
         batch["prefix_len"] = plen
-        logits, cache = self.api.prefill_suffix(self.params, batch,
-                                                max_seq=self.max_seq)
-        first = _first_tokens(logits, self.api.tp)
-        wires = kv_transfer.extract_batch(
-            cache, [(i, slens[i]) for i in range(len(group))],
-            compress=compress, backend=backend, pad_to=Lb)
+        with _trace.span("prefill.model"):
+            logits, cache = self.api.prefill_suffix(self.params, batch,
+                                                    max_seq=self.max_seq)
+        with _trace.span("prefill.first_token"):
+            first = _first_tokens(logits, self.api.tp)
+        with _trace.span("prefill.wire"):
+            wires = kv_transfer.extract_batch(
+                cache, [(i, slens[i]) for i in range(len(group))],
+                compress=compress, backend=backend, pad_to=Lb)
         return [(r, wires[i], int(first[i])) for i, r in enumerate(group)]
 
 
@@ -578,25 +601,26 @@ class DecodeEngine:
         request on the page budget (pages for prompt + max_new reserved up
         front); PREFIX_HIT items share their resident chain (copy-on-write
         of the boundary page); wire items scatter in one ``insert_wires``
-        call."""
+        call. Traced as ``decode.admit``."""
         if not isinstance(batch, AdmissionBatch):
             raise TypeError("admit() takes an AdmissionBatch")
-        items = list(batch.items)
-        if sanitizers.sanitize_enabled() and self.paged \
-                and self.kv_resident == "int4":
-            # a migrated wire re-encoding (instead of zero-copy page
-            # scatter) means extract_slot_wire/insert_wires drifted apart;
-            # bf16 pages ship raw wires by design
-            for it in items:
-                if it.source == ADMIT_MIGRATED:
-                    sanitizers.check_wire_alignment(
-                        it.wire, self.kv_cfg,
-                        context=f"admit MIGRATED rid={it.req.rid}")
-        if self.paged:
-            n = self._admit_paged(items, backend=backend)
-        else:
-            n = self._admit_dense(items, backend=backend)
-        return AdmissionBatch(items[n:])
+        with _trace.span("decode.admit"):
+            items = list(batch.items)
+            if sanitizers.sanitize_enabled() and self.paged \
+                    and self.kv_resident == "int4":
+                # a migrated wire re-encoding (instead of zero-copy page
+                # scatter) means extract_slot_wire/insert_wires drifted
+                # apart; bf16 pages ship raw wires by design
+                for it in items:
+                    if it.source == ADMIT_MIGRATED:
+                        sanitizers.check_wire_alignment(
+                            it.wire, self.kv_cfg,
+                            context=f"admit MIGRATED rid={it.req.rid}")
+            if self.paged:
+                n = self._admit_paged(items, backend=backend)
+            else:
+                n = self._admit_dense(items, backend=backend)
+            return AdmissionBatch(items[n:])
 
     def _admit_dense(self, items: List[AdmissionItem], *, backend) -> int:
         free = self.free_slots()
@@ -848,48 +872,68 @@ class DecodeEngine:
         finished requests. ONE device -> host copy for the whole chunk.
         ``sync_check=True`` runs the chunk's device loop under
         ``torch.cuda.set_sync_debug_mode("error")``, so a hidden host
-        synchronization inside the loop (or the graph replay) raises."""
+        synchronization inside the loop (or the graph replay) raises.
+
+        Traced as ``decode.chunk`` (``steps``, ``residents`` and a paged
+        engine's ``reserved_pages``), over ``decode.stage`` (the host
+        state and the capture check), ``decode.replay`` (the chunk),
+        ``decode.readback`` (the copy back, which waits for the chunk) and
+        ``decode.retire`` (tokens out, finished slots released)."""
         if self.active == 0:
             return []
         n = n_steps or self.chunk_size
-        state = self._host_state()
-        chunk = self._chunk
-        if self.graphs is not None:
-            # a capture synchronizes the device: it runs before the guard
-            self.graphs.capture(self.params, self.cache, n_steps=n,
-                                eos_id=self.eos_id, max_seq=self.max_seq)
-            chunk = self.graphs
-        with _sync_errors(self.device, sync_check):
-            toks_d, valid_d, self.cache, st = chunk(
-                self.params, self.cache, state, n_steps=n,
-                eos_id=self.eos_id, max_seq=self.max_seq)
-        B = self.max_slots
-        # the single device -> host hop for this chunk
-        host = torch.cat([toks_d.reshape(-1),
-                          valid_d.reshape(-1).to(torch.int32), st["cur"],
-                          st["active"].to(torch.int32),
-                          self.cache["lengths"]]).cpu().numpy()
-        host = _agree(self.api.tp, host, self.device, "a decode chunk")
-        toks = host[:n * B].reshape(n, B)
-        valid = host[n * B:2 * n * B].reshape(n, B).astype(bool)
-        cur, still_active, lengths = (host[2 * n * B:2 * n * B + B],
-                                      host[2 * n * B + B:2 * n * B + 2 * B],
-                                      host[2 * n * B + 2 * B:])
-        self.host_syncs += 1
-        self.steps_run += n
-        self.cur_token = cur.astype(np.int32)
-        finished, freed = [], []
-        for i, req in enumerate(self.slots):
-            if req is None:
-                continue
-            req.out_tokens.extend(int(t) for t in toks[valid[:, i], i])
-            if not still_active[i]:
-                finished.append(req)
-                self.slots[i] = None
-                freed.append(i)
-        for req, i in zip(finished, freed):
-            self._release_finished(i, req, int(lengths[i]))
-        return finished
+        with _trace.span("decode.chunk") as sp:
+            if sp:
+                sp.set(steps=n, residents=self.active, reserved_pages=sum(
+                    map(len, self._slot_pages.values()))
+                    if self.paged else None)
+            with _trace.span("decode.stage"):
+                state = self._host_state()
+                chunk = self._chunk
+                if self.graphs is not None:
+                    # a capture synchronizes the device: it runs before
+                    # the guard
+                    self.graphs.capture(self.params, self.cache,
+                                        n_steps=n, eos_id=self.eos_id,
+                                        max_seq=self.max_seq)
+                    chunk = self.graphs
+            with _trace.span("decode.replay"), \
+                    _sync_errors(self.device, sync_check):
+                toks_d, valid_d, self.cache, st = chunk(
+                    self.params, self.cache, state, n_steps=n,
+                    eos_id=self.eos_id, max_seq=self.max_seq)
+            B = self.max_slots
+            # the single device -> host hop for this chunk
+            with _trace.span("decode.readback"):
+                host = torch.cat([toks_d.reshape(-1),
+                                  valid_d.reshape(-1).to(torch.int32),
+                                  st["cur"], st["active"].to(torch.int32),
+                                  self.cache["lengths"]]).cpu().numpy()
+                host = _agree(self.api.tp, host, self.device,
+                              "a decode chunk")
+            toks = host[:n * B].reshape(n, B)
+            valid = host[n * B:2 * n * B].reshape(n, B).astype(bool)
+            cur, still_active, lengths = (
+                host[2 * n * B:2 * n * B + B],
+                host[2 * n * B + B:2 * n * B + 2 * B],
+                host[2 * n * B + 2 * B:])
+            self.host_syncs += 1
+            self.steps_run += n
+            self.cur_token = cur.astype(np.int32)
+            with _trace.span("decode.retire"):
+                finished, freed = [], []
+                for i, req in enumerate(self.slots):
+                    if req is None:
+                        continue
+                    req.out_tokens.extend(
+                        int(t) for t in toks[valid[:, i], i])
+                    if not still_active[i]:
+                        finished.append(req)
+                        self.slots[i] = None
+                        freed.append(i)
+                for req, i in zip(finished, freed):
+                    self._release_finished(i, req, int(lengths[i]))
+            return finished
 
     def _release_finished(self, slot: int, req: GenRequest, kv_len: int):
         """Zero a finished slot's length (the chunk loop froze it) and, for

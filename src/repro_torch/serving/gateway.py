@@ -72,6 +72,7 @@ from repro_torch.serving.faults import (ReplicaCrashError, RetryPolicy,
                                   TransientTransportError)
 from repro_torch.serving.kv_transfer import KVWire
 from repro_torch.serving.profiler import WorkloadProfiler
+from repro_torch.serving import trace as _trace
 from repro_torch.serving.transport import (InProcessTransport, TransferTicket,
                                      Transport)
 
@@ -982,28 +983,34 @@ class Gateway:
 
         ``max_prefill_batch`` is a DEPRECATED one-PR override of
         ``scheduler.max_prefill_batch``."""
-        if self.chaos is not None:
-            self.chaos.tick(self.clock())
-        if self._pending_failover:
-            self._run_failover()
-        now = self.clock()
-        self._check_heartbeats()
-        self._update_suspects(now)
-        self._shed_expired(now)
-        self._flush_retries(now)
-        # 1. dispatch queued prompts: drain EVERY routable prefill replica
-        #    this round (the TSTP masses only order who gets fed first)
-        batch_cap = (max_prefill_batch if max_prefill_batch is not None
-                     else self.scheduler.max_prefill_batch)
-        if self.queue or self._chunks:
-            self._dispatch_round(batch_cap, now)
-        # 2. drain KV transfers whose wires have arrived into decode slots
-        #    (prefill-side queueing: wires wait here if the target has no
-        #    free slot, cf. Appendix E)
-        self._drain_transfers()
-        # 3. advance every decode replica one chunk of steps; stream every
-        #    newly emitted token to its handle
-        return self._step_decodes()
+        with _trace.span("pump"):
+            with _trace.span("pump.housekeeping"):
+                if self.chaos is not None:
+                    self.chaos.tick(self.clock())
+                if self._pending_failover:
+                    self._run_failover()
+                now = self.clock()
+                self._check_heartbeats()
+                self._update_suspects(now)
+                self._shed_expired(now)
+                self._flush_retries(now)
+            # 1. dispatch queued prompts: drain EVERY routable prefill
+            #    replica this round (the TSTP masses only order who gets
+            #    fed first)
+            batch_cap = (max_prefill_batch if max_prefill_batch is not None
+                         else self.scheduler.max_prefill_batch)
+            if self.queue or self._chunks:
+                with _trace.span("pump.dispatch"):
+                    self._dispatch_round(batch_cap, now)
+            # 2. drain KV transfers whose wires have arrived into decode
+            #    slots (prefill-side queueing: wires wait here if the
+            #    target has no free slot, cf. Appendix E)
+            with _trace.span("pump.transfers"):
+                self._drain_transfers()
+            # 3. advance every decode replica one chunk of steps; stream
+            #    every newly emitted token to its handle
+            with _trace.span("pump.decode"):
+                return self._step_decodes()
 
     def _dispatch_round(self, batch_cap: int, now: float):
         if self.queue:
@@ -1262,18 +1269,19 @@ class Gateway:
                 self._confirm_dead(handle, str(e))
                 continue
             t1 = self.clock()
-            if handle.client.active or finished:
-                self._track(handle, t1 - t0, t1)
-            for req in handle.client.resident():
-                self._sync_tokens(self._by_req[id(req)], t1)
-            for req in finished:
-                h = self._by_req[id(req)]
-                self._sync_tokens(h, t1)
-                h._transition(DONE, t1)
-                self.profiler.record(len(req.tokens), len(req.out_tokens),
-                                     t1)
-                self._finish(h)
-                n_done += 1
+            with _trace.span("pump.deliver"):
+                if handle.client.active or finished:
+                    self._track(handle, t1 - t0, t1)
+                for req in handle.client.resident():
+                    self._sync_tokens(self._by_req[id(req)], t1)
+                for req in finished:
+                    h = self._by_req[id(req)]
+                    self._sync_tokens(h, t1)
+                    h._transition(DONE, t1)
+                    self.profiler.record(len(req.tokens),
+                                         len(req.out_tokens), t1)
+                    self._finish(h)
+                    n_done += 1
         return n_done
 
     def _finish(self, h: RequestHandle):

@@ -441,7 +441,39 @@ COPY_DIFFERENCES = {
 
 
 class _Strip(ast.NodeTransformer):
-    """Drop imports and docstrings; name both packages alike."""
+    """Drop imports and docstrings; name both packages alike. With
+    ``tracer`` (the name the port's module imports
+    ``repro_torch.serving.trace`` under; the port's side only) also drop
+    the tracer's own statements: a ``with <tracer>.span(...)`` item (a
+    ``with`` left with none is replaced by its body) and an expression
+    statement calling ``<tracer>.*``, each only where every argument is a
+    constant, so no other code hides in them."""
+
+    def __init__(self, tracer=None):
+        self.tracer = tracer
+
+    def _is_tracer(self, node):
+        return (self.tracer is not None and isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == self.tracer
+                and all(isinstance(a, ast.Constant) for a in
+                        [*node.args, *(k.value for k in node.keywords)]))
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        items = [it for it in node.items
+                 if not (self._is_tracer(it.context_expr)
+                         and it.context_expr.func.attr == "span")]
+        if len(items) == len(node.items):
+            return node
+        if not items:
+            return node.body
+        node.items = items
+        return node
+
+    def visit_Expr(self, node):
+        return None if self._is_tracer(node.value) else node
 
     def _body(self, node):
         self.generic_visit(node)
@@ -461,11 +493,28 @@ class _Strip(ast.NodeTransformer):
     visit_ImportFrom = visit_Import
 
 
-def _definitions(path: pathlib.Path):
+def _tracer_name(tree: ast.Module):
+    """The name a module imports ``repro_torch.serving.trace`` under, or
+    None."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and \
+                node.module == "repro_torch.serving":
+            for a in node.names:
+                if a.name == "trace":
+                    return a.asname or a.name
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name == "repro_torch.serving.trace" and a.asname:
+                    return a.asname
+    return None
+
+
+def _definitions(path: pathlib.Path, *, port: bool = False):
     """{qualified name: ast node} of a module's statements: classes are
     split into their header (bases, decorators, non-method body) and one
-    entry per method."""
-    tree = _Strip().visit(ast.parse(path.read_text()))
+    entry per method. ``port``: the tracer's statements are dropped."""
+    tree = ast.parse(path.read_text())
+    tree = _Strip(_tracer_name(tree) if port else None).visit(tree)
     body = tree.body
     if (body and isinstance(body[0], ast.Expr)
             and isinstance(body[0].value, ast.Constant)):
@@ -516,26 +565,86 @@ def _same_but_marked(mine, theirs, rule):
     return n_diff > 0 or ast.dump(mine.args) != ast.dump(theirs.args)
 
 
-@pytest.mark.parametrize("module", sorted(COPY_DIFFERENCES))
-def test_copies_match_the_reference_ast(module):
-    mine = _definitions(PORT / module)
-    theirs = _definitions(REF / module)
+def _mismatches(module, mine_path, theirs_path):
+    """Every way the port's copy departs from the reference beyond
+    ``COPY_DIFFERENCES[module]``."""
+    mine = _definitions(mine_path, port=True)
+    theirs = _definitions(theirs_path)
     allowed = COPY_DIFFERENCES[module]
+    bad = []
     for name in sorted(set(mine) | set(theirs)):
         if name in allowed:
             rule = allowed[name]
             if rule is ONE_SIDE:
                 # listed, so it must really differ (no stale entries)
-                assert name not in mine or name not in theirs or \
-                    ast.dump(mine[name]) != ast.dump(theirs[name]), name
-            else:
-                assert _same_but_marked(mine[name], theirs[name], rule), \
-                    f"{module}: {name} differs beyond its listed change"
-            continue
-        assert name in mine, f"{module}: {name} missing from the port"
-        assert name in theirs, f"{module}: {name} not in the reference"
-        assert ast.dump(mine[name]) == ast.dump(theirs[name]), \
-            f"{module}: {name} differs"
+                if not (name not in mine or name not in theirs
+                        or ast.dump(mine[name]) != ast.dump(theirs[name])):
+                    bad.append(f"{module}: {name} listed but equal")
+            elif not _same_but_marked(mine[name], theirs[name], rule):
+                bad.append(f"{module}: {name} differs beyond its listed "
+                           f"change")
+        elif name not in mine:
+            bad.append(f"{module}: {name} missing from the port")
+        elif name not in theirs:
+            bad.append(f"{module}: {name} not in the reference")
+        elif ast.dump(mine[name]) != ast.dump(theirs[name]):
+            bad.append(f"{module}: {name} differs")
+    return bad
+
+
+@pytest.mark.parametrize("module", sorted(COPY_DIFFERENCES))
+def test_copies_match_the_reference_ast(module):
+    assert not _mismatches(module, PORT / module, REF / module)
+
+
+def test_the_gateway_imports_the_tracer_and_traces_the_pump():
+    tree = ast.parse((PORT / "serving" / "gateway.py").read_text())
+    name = _tracer_name(tree)
+    assert name is not None
+    spans = {n.items[0].context_expr.args[0].value for n in ast.walk(tree)
+             if isinstance(n, ast.With)
+             and _Strip(name)._is_tracer(n.items[0].context_expr)}
+    assert {"pump", "pump.housekeeping", "pump.dispatch", "pump.transfers",
+            "pump.decode", "pump.deliver"} <= spans
+
+
+# (old statement in Gateway.pump / _step_decodes, its edit)
+_GATEWAY_EDITS = {
+    # an edited statement inside a traced span
+    "edited_in_span": ("self._flush_retries(now)",
+                       "self._flush_retries(now + 1.0)"),
+    # a span of another object than the tracer is not stripped
+    "other_span": ("with _trace.span('pump.transfers'):",
+                   "with self.span('pump.transfers'):"),
+    # only expression statements calling the tracer go, not assignments
+    "tracer_assignment": ("self._flush_retries(now)",
+                          "self._flush_retries(now)\n"
+                          "                seen = _trace.spans()"),
+    # a call hidden in a span's arguments keeps the span
+    "call_in_span_args": ("with _trace.span('pump.housekeeping'):",
+                          "with _trace.span('pump.housekeeping', "
+                          "n=self._check_heartbeats()):"),
+    # a call hidden in a tracer call's arguments keeps the statement
+    "call_in_tracer_call": ("self._flush_retries(now)",
+                            "self._flush_retries(now)\n"
+                            "                _trace.add(n=self._flush_retries(now))"),
+}
+
+
+@pytest.mark.parametrize("edit", sorted(_GATEWAY_EDITS))
+def test_a_traced_gateway_with_another_edit_fails_the_comparison(
+        edit, tmp_path):
+    src = (PORT / "serving" / "gateway.py").read_text()
+    old, new = _GATEWAY_EDITS[edit]
+    old = old.replace("'", '"')
+    new = new.replace("'", '"')
+    assert src.count(old) >= 1, old
+    edited = tmp_path / "gateway.py"
+    edited.write_text(src.replace(old, new, 1))
+    ast.parse(edited.read_text())
+    bad = _mismatches("serving/gateway.py", edited,
+                      REF / "serving" / "gateway.py")
+    assert bad == ["serving/gateway.py: Gateway.pump differs"], bad
 
 
 def test_replica_copy_differs_only_in_its_device_argument():
