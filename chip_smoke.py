@@ -646,26 +646,36 @@ def check_attention(torch, ref, pa, L, B, Hkv, gq, hd, ps, W, kv_len,
                     dtype, *, controls=(), timed):
     """The int4 paged kernel over L layers of random pages; ``controls``
     names wrong versions the check must reject (:func:`decode_controls`,
-    not "last 8 of hd")."""
+    not "last 8 of hd"). Slots at kv_len 0 must read exactly 0 (the plain
+    version gives the mean of V there); the others are checked."""
     q, kt, vt, pt, kl, g, ppr = make_pages(torch, L, B, Hkv, gq, hd, ps, W,
                                            kv_len, dtype)
     layer = [(q, tuple(t[i] for t in kt), tuple(t[i] for t in vt), pt, kl)
              for i in range(L)]
     fn = lambda *a: pa.paged_decode_attention_int4(*a, page_size=ps)
     fn_ref = lambda *a: ref.paged_decode_attention_ref(*a, page_size=ps)
+    ctas = pa.paged_decode_attention_int4.ctas
     got, want = fn(*layer[0]), fn_ref(*layer[0])
+    ctas = pa.paged_decode_attention_int4.ctas - ctas
+    live = kl > 0
+    if got[~live].any():
+        raise AssertionError("paged attention: a slot at kv_len 0 is not 0")
+    got, want = got[live], want[live]
     err = float((got.float() - want.float()).abs().max())
     ok, worst = attn_close(torch, got, want)
+    lens = kv_len if len(kv_len) <= 8 else \
+        f"{int(live.sum())} of {B} live: {[n for n in kv_len if n]}"
     log(f"  paged_decode_attention_int4 B={B} Hkv={Hkv} gq={gq} hd={hd} "
-        f"g={g} ps={ps} kv_len={kv_len} {str(dtype)[6:]}: max |err| "
-        f"{err:.3e}, worst |err| / tol {worst:.3g} "
+        f"g={g} ps={ps} W={W} kv_len={lens} {str(dtype)[6:]}: {ctas} "
+        f"CTAs; max |err| {err:.3e}, worst |err| / tol {worst:.3g} "
         f"({ATTN_TOL_TEXT[str(dtype)[6:]]})")
     if not ok:
         raise AssertionError("paged attention differs from the plain "
                              "version beyond tolerance")
     wrong = decode_controls(torch, fn_ref, q, layer[0][1], layer[0][2],
                             (pt,), kl)
-    negative_controls(torch, got, {c: wrong[c] for c in controls})
+    negative_controls(torch, got, {c: (lambda w=wrong[c]: w()[live])
+                                   for c in controls})
     if not timed:
         return None
     nbytes = cost_bytes("paged_decode_attention_int4", *layer[0],
@@ -1236,6 +1246,10 @@ ARCH_SHAPES = ("stablelm-3b", "h2o-danube-3-4b", "gemma-2b", "command-r-35b",
                "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
                "llava-next-mistral-7b")
 DECODE_LENS = [232, 123, 56, 17]          # phase 5's decode step
+# the live slots of the served cells' decode step (96 slots): about
+# conversation's 12 residents and coding's 3, at 1,000-3,000 tokens
+CELL_LIVE = ((1000, 1234, 1500, 1777, 2000, 2048, 2049, 2222, 2500, 2750,
+              2999, 3000), (1024, 1800, 3000))
 # arch -> (flash batch, prompt tokens), (dense cache rows, kv_len) where
 # they are not the bucket's 4 x 256 and DECODE_LENS over 256 rows
 FLASH_SHAPE = {"llava-next-mistral-7b": (1, 616)}
@@ -5943,6 +5957,21 @@ def main() -> int:
                     torch.float32, timed=False)
     check_attention(torch, ref, pa, 2, 3, 2, 4, 32, 8, 4, [5, 16, 23],
                     torch.bfloat16, timed=False)
+    # the served cells' decode step (perfbench's command-r-35b: 96 slots of
+    # 256 16-token pages, 8 query heads a KV head), 4 layers cycled
+    cell_rows = []
+    for live in CELL_LIVE:
+        lens = [0] * 96
+        for i, n in enumerate(live):
+            lens[7 * i + 3] = n
+        cell_rows.append(check_attention(
+            torch, ref, pa, 4, 96, 8, 8, 128, 16, 256, lens, torch.bfloat16,
+            controls=("kv_len - 64", "rows rolled"), timed=True))
+    for live, r in zip(CELL_LIVE, cell_rows):
+        log(f"  paged_decode_attention_int4 at the cells' step, {len(live)} "
+            f"of 96 slots live: {r['ms']:.5f} ms (plain "
+            f"{r['plain_ms']:.5f}, bound {r['bound'][0]:.5f} by "
+            f"{r['bound'][1]}; {r['ms'] / r['bound'][0]:.1f}x the bound)")
     H = cfg.num_heads
     # the prefill bucket: 4 prompts of 256 tokens
     rf = check_flash(torch, ref, fa, 4, 256, 0, H, Hkv, hd, torch.bfloat16,

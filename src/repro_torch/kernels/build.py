@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_PI = ctypes.POINTER(ctypes.c_int)
 # every exported C function: (argtypes), returns cudaGetLastError()
 SIGNATURES = {
     "kv_quant_launch": (_P, _I, _P, _P, _P, _LL, _I, _I, _P),
@@ -42,7 +43,8 @@ SIGNATURES = {
                                _P, _I, _P),
     "paged_attention_int4_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _P),
+                                    _I, _I, _I, _I, _I, _F, _P),
+    "paged_attention_int4_occupancy": (_I, _I, _I, _I, _PI, _PI),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _F, _P),
     "rmsnorm_launch": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _F,

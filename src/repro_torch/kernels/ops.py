@@ -56,6 +56,12 @@ def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def cta_counts():
+    """The CTAs launched so far, by the wrappers that count them."""
+    return {name: fn.ctas for name, fn in KERNELS.items()
+            if hasattr(fn, "ctas")}
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True

@@ -185,7 +185,8 @@ class GraphedDecodeChunk:
 
     The wrappers count their launches in Python, which a replay does not
     run: the counts a capture adds are taken back, and added again at
-    every replay; so are the collectives' (``comm.counts``). Replays run
+    every replay; so are the CTAs the int4 paged kernel counts
+    (``ops.cta_counts``) and the collectives' (``comm.counts``). Replays run
     on the current stream, in order, like the eager launches they
     replace (the split decode kernels share one merge counter buffer per
     device and must not overlap).
@@ -243,7 +244,7 @@ class GraphedDecodeChunk:
         if key in self._graphs:
             return
         self._check(params, cache)
-        before = ops.launch_counts()
+        before, before_ctas = ops.launch_counts(), ops.cta_counts()
         before_comm = comm.counts()
         graph = torch.cuda.CUDAGraph()
         gc.collect()
@@ -258,22 +259,26 @@ class GraphedDecodeChunk:
             if collecting:
                 gc.enable()
         after, after_comm = ops.launch_counts(), comm.counts()
+        ctas = {k: n - before_ctas[k] for k, n in ops.cta_counts().items()
+                if n != before_ctas[k]}
         for name, n in before.items():          # the capture ran nothing
             ops.KERNELS[name].launches = n
+        for name, n in before_ctas.items():
+            ops.KERNELS[name].ctas = n
         comm.set_counts(before_comm)
         launches = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
         collectives = {k: n - before_comm.get(k, 0)
                        for k, n in after_comm.items()
                        if n != before_comm.get(k, 0)}
-        self._graphs[key] = (graph, out, launches, collectives)
+        self._graphs[key] = (graph, out, launches, collectives, ctas)
 
     def captured(self, n_steps: int, eos_id: int, max_seq: int):
         """``(graph, launches)`` of a captured chunk: the
         ``torch.cuda.CUDAGraph`` (a replay with the state buffers as they
         are runs the chunk again, for timing) and the kernel launches one
         replay makes, by wrapper, as counted while it was captured."""
-        graph, _, launches, _ = self._graphs[(n_steps, eos_id, max_seq)]
+        graph, _, launches, _, _ = self._graphs[(n_steps, eos_id, max_seq)]
         return graph, dict(launches)
 
     def collectives(self, n_steps: int, eos_id: int, max_seq: int):
@@ -286,13 +291,15 @@ class GraphedDecodeChunk:
         self.capture(params, cache, n_steps=n_steps, eos_id=eos_id,
                      max_seq=max_seq)
         self._check(params, cache)
-        graph, (toks, valid, _, st), launches, collectives = \
+        graph, (toks, valid, _, st), launches, collectives, ctas = \
             self._graphs[(n_steps, eos_id, max_seq)]
         for k in STATE_KEYS:
             self._state[k].copy_(state[k])
         graph.replay()
         for name, n in launches.items():
             ops.KERNELS[name].launches += n
+        for name, n in ctas.items():
+            ops.KERNELS[name].ctas += n
         comm.add_counts(collectives)
         return toks, valid, cache, st
 

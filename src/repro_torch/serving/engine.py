@@ -57,6 +57,7 @@ import torch
 from repro_torch.analysis import sanitizers
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
+from repro_torch.kernels import ops
 from repro_torch.models import paged as paged_fmt
 from repro_torch.models import registry, transformer, whisper
 from repro_torch.serving import kv_transfer, page_pool, protocol
@@ -874,9 +875,11 @@ class DecodeEngine:
         ``torch.cuda.set_sync_debug_mode("error")``, so a hidden host
         synchronization inside the loop (or the graph replay) raises.
 
-        Traced as ``decode.chunk`` (``steps``, ``residents`` and a paged
-        engine's ``reserved_pages``), over ``decode.stage`` (the host
-        state and the capture check), ``decode.replay`` (the chunk),
+        Traced as ``decode.chunk`` (``steps``, ``residents``, a paged
+        engine's ``reserved_pages`` and, on int4 pages on the card,
+        ``attn_ctas``: the CTAs each paged attention launch of the chunk
+        runs, a host number fixed at capture), over ``decode.stage`` (the
+        host state and the capture check), ``decode.replay`` (the chunk),
         ``decode.readback`` (the copy back, which waits for the chunk) and
         ``decode.retire`` (tokens out, finished slots released)."""
         if self.active == 0:
@@ -897,11 +900,17 @@ class DecodeEngine:
                                         n_steps=n, eos_id=self.eos_id,
                                         max_seq=self.max_seq)
                     chunk = self.graphs
+            ctas0, launches0 = ops.cta_counts(), ops.launch_counts()
             with _trace.span("decode.replay"), \
                     _sync_errors(self.device, sync_check):
                 toks_d, valid_d, self.cache, st = chunk(
                     self.params, self.cache, state, n_steps=n,
                     eos_id=self.eos_id, max_seq=self.max_seq)
+            int4 = "paged_decode_attention_int4"
+            launched = ops.launch_counts()[int4] - launches0[int4]
+            if sp and launched:
+                sp.set(attn_ctas=(ops.cta_counts()[int4] - ctas0[int4])
+                       // launched)
             B = self.max_slots
             # the single device -> host hop for this chunk
             with _trace.span("decode.readback"):

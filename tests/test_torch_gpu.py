@@ -186,6 +186,28 @@ def _random_pages(B, Hkv, gq, hd, ps, W, kv_len, dtype, seed):
             torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
 
 
+# 96 slots, 12 of them live (1,000-3,000 tokens), the others at kv_len 0
+CELL_LENS = [0] * 96
+for _i, _n in enumerate((1000, 1234, 1500, 1777, 2000, 2048, 2049, 2222,
+                         2500, 2750, 2999, 3000)):
+    CELL_LENS[7 * _i + 3] = _n
+
+
+def _spread(B, hi, empty=2):
+    """B lengths spread evenly over 1..hi, the first ``empty`` at 0."""
+    n = B - empty
+    return [0] * empty + [1 + (hi - 1) * i // (n - 1) for i in range(n)]
+
+
+# more live items than the int4 kernel's grid (4 waves of the CTAs the
+# card keeps resident): each CTA strides over several
+PAGED_OVER_CASES = [
+    (32, 52, 1, 128, 16, 64, _spread(32, 1024)),   # LLaMA-30B's one row
+    (64, 32, 1, 80, 16, 32, _spread(64, 512)),     # stablelm-3b, hd 80
+    (1024, 1, 8, 256, 16, 32, _spread(1024, 512)),  # gemma-2b, hd 256
+    (128, 8, 5, 128, 16, 32, _spread(128, 512)),   # llama4-maverick, gq 5
+]
+
 PAGED_CASES = [
     # (B, Hkv, gq, hd, ps, W, kv_len)
     (4, 52, 1, 128, 16, 16, [256, 1, 100, 17]),   # LLaMA-30B width, g = hd
@@ -206,7 +228,10 @@ PAGED_CASES = [
     (4, 4, 16, 128, 16, 16, [232, 123, 56, 17]),
     (4, 8, 5, 128, 16, 16, [232, 123, 56, 17]),
     (3, 8, 4, 128, 16, 16, [200, 1, 65]),
-]
+    # the served cell's decode step (command-r-35b): 96 slots of 256
+    # 16-token pages, 12 live at 1,000-3,000 tokens, the rest empty
+    (96, 8, 8, 128, 16, 256, CELL_LENS),
+] + PAGED_OVER_CASES
 
 
 @pytest.mark.parametrize("B,Hkv,gq,hd,ps,W,lens", PAGED_CASES)
@@ -224,8 +249,100 @@ def test_paged_attention_kernel_matches_plain(cuda, B, Hkv, gq, hd, ps, W,
     assert pa.paged_decode_attention_int4.launches == before + 1
     assert got.dtype == dt and got.shape == q.shape
     tol = 2e-2 if dt == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                               rtol=tol)
+    live = kv_len > 0     # kv_len 0 gives 0 (the plain version: mean V)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_paged_attention_slot_alone_and_in_a_batch(cuda, dtype):
+    """A slot's output bytes depend on its own kv_len and pages alone: the
+    same alone (the other 95 slots empty) as among 11 live ones, at the
+    served cell's shape; the launch's CTAs come from shapes alone."""
+    dt = getattr(torch, dtype)
+    q, kpg, vpg, pt, kv_len = _random_pages(96, 8, 8, 128, 16, 256,
+                                            CELL_LENS, dt, seed=31)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n0 = pa.paged_decode_attention_int4.ctas
+    batch = pa.paged_decode_attention_int4(q, kpg, vpg, pt, kv_len,
+                                           page_size=16)
+    ctas = pa.paged_decode_attention_int4.ctas - n0
+    assert 0 < ctas <= pa.WAVES * 16 * sms      # 16: 2,048 threads of 128
+    for b in (3, 45, 80):
+        alone = torch.zeros_like(kv_len)
+        alone[b] = kv_len[b]
+        n0 = pa.paged_decode_attention_int4.ctas
+        out = pa.paged_decode_attention_int4(q, kpg, vpg, pt, alone,
+                                             page_size=16)
+        assert pa.paged_decode_attention_int4.ctas - n0 == ctas
+        assert torch.equal(out[b], batch[b])
+        assert not out[torch.arange(96, device=cuda) != b].any()
+
+
+@pytest.mark.parametrize("B,Hkv,gq,hd,ps,W,lens", PAGED_OVER_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_paged_attention_strides_over_more_items_than_ctas(cuda, B, Hkv, gq,
+                                                           hd, ps, W, lens,
+                                                           dtype):
+    """Where the live items outnumber the grid's CTAs, each CTA takes
+    several; a slot's output bytes still depend on its own kv_len alone:
+    the even slots read the same with the odd ones emptied."""
+    dt = getattr(torch, dtype)
+    q, kpg, vpg, pt, kv_len = _random_pages(B, Hkv, gq, hd, ps, W, lens,
+                                            dt, seed=B + hd)
+    n_rb = -(-gq // pa.rows_per_cta(gq))
+    items = sum(pa.int4_split(n, W, ps)[1] for n in lens) * Hkv * n_rb
+    n0 = pa.paged_decode_attention_int4.ctas
+    full = pa.paged_decode_attention_int4(q, kpg, vpg, pt, kv_len,
+                                          page_size=ps)
+    assert items > pa.paged_decode_attention_int4.ctas - n0
+    even = kv_len.clone()
+    even[1::2] = 0
+    half = pa.paged_decode_attention_int4(q, kpg, vpg, pt, even,
+                                          page_size=ps)
+    assert torch.equal(half[0::2], full[0::2])
+    assert not half[1::2].any()
+
+
+def test_paged_int4_graph_replays_follow_kv_len_at_the_cell_shape(cuda):
+    """The served cell's shape (command-r-35b: 96 slots, tables of 256
+    16-token pages, 8 query heads a KV head), two layers' launches captured
+    in one CUDA graph as a decode chunk holds them, replayed back to back
+    while kv_len changes in place (12 live slots, 3, all 96, none): every
+    replay equals the eager launches byte for byte, so the capture baked in
+    no length and each launch leaves the merge counters at 0."""
+    bf = torch.bfloat16
+    full = [256 * 16] * 96
+    layers = [_random_pages(96, 8, 8, 128, 16, 256, full, bf, seed=40 + i)
+              for i in range(2)]
+    kv_len = layers[0][4]
+    few = [0] * 96
+    few[3], few[50], few[95] = 1024, 1800, 3000
+
+    def run():
+        return [pa.paged_decode_attention_int4(q, kpg, vpg, pt, kv_len,
+                                               page_size=16)
+                for q, kpg, vpg, pt, _ in layers]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                   # build, counters, warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for lens in (CELL_LENS, few, _spread(96, 4096, empty=0), [0] * 96,
+                 CELL_LENS):
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        graph.replay()
+        want = run()
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got, w)
+        assert not outs[0][kv_len == 0].any()
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -1128,6 +1245,38 @@ def _step_both(decs, n_steps=None):
     assert launched[True] == launched[False]
     _assert_same_decode_state(decs[True], decs[False])
     return launched[True]
+
+
+def test_decode_chunk_span_carries_attn_ctas(cuda):
+    """On int4 pages a traced ``decode.chunk`` carries ``attn_ctas``, the
+    CTAs each paged int4 launch of the chunk runs as the wrapper counts
+    them (``ops.cta_counts``): the same graphed and eager, since the grid
+    comes from shapes alone, and at most the items the shapes allow."""
+    import numpy as np
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import trace
+    cfg, pre, decs = _graph_engines("int4")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 19, 30)]
+    for dec in decs.values():
+        reqs = [E.GenRequest(i, p, 6) for i, p in enumerate(prompts)]
+        assert not dec.admit(E.AdmissionBatch(
+            [E.AdmissionItem(r, f, wire=w)
+             for r, (_, w, f) in zip(reqs, pre.run(reqs))]))
+    trace.clear()
+    trace.enable()
+    try:
+        _step_both(decs)
+        _step_both(decs)
+    finally:
+        trace.disable()
+    chunks = [r.attrs for r in trace.spans() if r.name == "decode.chunk"]
+    assert len(chunks) == 4
+    ctas = {r["attn_ctas"] for r in chunks}
+    Hkv, H = cfg.num_kv_heads, cfg.num_heads
+    rows = pa.rows_per_cta(H // Hkv)
+    items = 4 * Hkv * -(-(H // Hkv) // rows) * pa.split_plan(64 // 8, 8)[1]
+    assert len(ctas) == 1 and 0 < ctas.pop() <= items
 
 
 @pytest.mark.parametrize("mode", sorted(GRAPH_MODES))

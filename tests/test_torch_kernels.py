@@ -251,23 +251,156 @@ def test_split_plan_covers_every_page_once(W, ps):
 
 
 def test_split_plan_reads_only_host_shapes():
-    """Grid, scratch and counters come from shapes alone (the wrapper never
-    reads kv_len, so it runs under set_sync_debug_mode("error") and in a
-    CUDA graph), and the main path's decode step (4 slots, 52 KV heads,
-    W = 16 pages of 16 tokens) puts at least 2 CTAs on each SM."""
+    """Grid, scratch and counters come from shapes and the card's
+    residency alone (the wrapper never reads kv_len, so it runs under
+    set_sync_debug_mode("error") and in a CUDA graph): the grid is 1-D, at
+    most WAVES times the CTAs the SMs hold (16 each at most: 2,048 threads
+    of 128), so at most 64 x 132 on the H100 whatever B and W are, and at
+    most the work items the shapes allow; the main path's decode step (4
+    slots, 52 KV heads, W = 16 pages of 16 tokens) gets a CTA for each of
+    its items, at least 2 on each SM."""
     import inspect
     assert list(inspect.signature(t_pa.split_plan).parameters) == \
         ["W", "page_size"]
-    params = inspect.signature(t_pa.launch_shape).parameters
-    assert "kv_len" not in params
-    grid, n_part, n_count = t_pa.launch_shape(4, 52, 1, 128, 16, 16)
-    assert math.prod(grid) >= 2 * H100_SMS
-    assert grid == (t_pa.split_plan(16, 16)[1], 4 * 52, 1)
-    assert n_part == 4 * 52 * grid[0] * (128 + 2) and n_count == 4 * 52
+    assert list(inspect.signature(t_pa.launch_shape).parameters) == \
+        ["B", "Hkv", "gq", "hd", "W", "page_size", "sms", "per_sm"]
+    assert t_pa.WAVES == 4
+    ctas, n_part, n_count = t_pa.launch_shape(4, 52, 1, 128, 16, 16,
+                                              H100_SMS, 3)
+    assert 2 * H100_SMS <= ctas == 4 * 52 * t_pa.split_plan(16, 16)[1]
+    assert n_part == 4 * 52 * 4 * (128 + 2) and n_count == 4 * 52
+    # the served cell: 96 slots of 256 16-token pages, 8 KV heads of 8
+    # query rows (2 row blocks of 4): 98,304 items, 4 waves of CTAs
+    ctas, n_part, n_count = t_pa.launch_shape(96, 8, 8, 128, 256, 16,
+                                              H100_SMS, 4)
+    assert ctas == 4 * 4 * H100_SMS and n_count == 96 * 8 * 2
+    assert n_part == 96 * 8 * 2 * 4 * 64 * (128 + 2)
+    for B in (1, 4, 96, 1024):
+        for W in (1, 16, 256, 4096):
+            for per_sm in (1, 3, 4, 16):
+                ctas = t_pa.launch_shape(B, 8, 8, 128, W, 16, H100_SMS,
+                                         per_sm)[0]
+                items = B * 8 * 2 * t_pa.split_plan(W, 16)[1]
+                assert 1 <= ctas <= min(items, 64 * H100_SMS,
+                                         t_pa.WAVES * H100_SMS * per_sm)
     # GQA: rows in blocks of 4, the last block padded
-    grid, n_part, n_count = t_pa.launch_shape(3, 2, 6, 32, 4, 8)
-    assert grid == (1, 6, 2) and n_count == 12
+    ctas, n_part, n_count = t_pa.launch_shape(3, 2, 6, 32, 4, 8,
+                                              H100_SMS, 8)
+    assert ctas == 12 and n_count == 12
     assert n_part == 6 * 2 * 4 * 1 * (32 + 2)
+    assert t_pa.paged_decode_attention_int4.ctas >= 0
+    assert "paged_decode_attention_int4" in t_ops.cta_counts()
+
+
+@pytest.mark.parametrize("W,ps", [(256, 16), (16, 16), (5, 16), (1, 16),
+                                  (4, 8), (17, 4), (64, 1), (3, 128)])
+def test_int4_split_tiles_each_slot(W, ps):
+    """A slot's int4 splits (a function of its own kv_len and the shapes)
+    tile its keys, none empty; each is split_plan's length up to
+    INT4_SPLITS of them (there the kernel's arithmetic is the split
+    plan's), else grows, a whole number of pages, to at most
+    INT4_MAX_SPLIT_TOKENS; a slot never has more splits than split_plan
+    gives, so the scratch sized by shapes holds them."""
+    pages, n_split = t_pa.split_plan(W, ps)
+    top = max(pages, t_pa.INT4_MAX_SPLIT_TOKENS // ps) * ps
+    for kv_len in range(-1, W * ps + 5):
+        tokens, n = t_pa.int4_split(kv_len, W, ps)
+        m = min(max(kv_len, 0), W * ps)
+        assert tokens % ps == 0 and pages * ps <= tokens <= top
+        assert n <= n_split and (n - 1) * tokens < m <= n * tokens or \
+            m == n == 0
+        if m <= t_pa.INT4_SPLITS * pages * ps:
+            assert tokens == pages * ps
+        elif tokens < top:
+            assert n <= t_pa.INT4_SPLITS
+
+
+def _work_list(kv_len, Hkv, n_rb, W, ps, ctas):
+    """A model of the int4 kernel's work (``csrc/paged_attention.cu``),
+    each slot split by ``int4_split`` of its own kv_len: the block scan of
+    each slot's live splits lists the live items, nested (slot, split,
+    head, row block); CTA ``c`` of the 1-D grid of ``ctas`` takes items
+    ``c, c + ctas, ...`` and finds each one's slot by the kernel's binary
+    search. Returns ``[(cta, b, split, h, rb, t0, t_end)]``."""
+    max_len = W * ps
+    lens = [min(max(int(n), 0), max_len) for n in kv_len]
+    plans = [t_pa.int4_split(n, W, ps) for n in lens]
+    first = [0]
+    for _, n in plans:
+        first.append(first[-1] + n * Hkv * n_rb)
+    out = []
+    for cta in range(ctas):
+        for item in range(cta, first[-1], ctas):
+            b, hi = 0, len(lens)
+            while hi - b > 1:
+                mid = (b + hi) >> 1
+                if first[mid] <= item:
+                    b = mid
+                else:
+                    hi = mid
+            k = item - first[b]
+            rb, h, split = k % n_rb, (k // n_rb) % Hkv, k // (n_rb * Hkv)
+            t0 = split * plans[b][0]
+            out.append((cta, b, split, h, rb, t0,
+                        min(lens[b], t0 + plans[b][0])))
+    return out
+
+
+@pytest.mark.parametrize("B,Hkv,gq,W,ps,seed", [
+    (96, 8, 8, 256, 16, 0),      # the served cell: 96 slots, gq 8
+    (96, 8, 8, 256, 16, 1),
+    (96, 8, 8, 256, 16, 2),
+    (96, 52, 1, 16, 16, 3),      # LLaMA-30B's one-row body
+    (7, 1, 8, 16, 16, 4),        # gemma-2b: 8 query heads over 1 KV head
+    (5, 4, 16, 8, 4, 5),         # qwen3-moe: 4 row blocks
+    (9, 8, 5, 17, 8, 6),         # llama4-maverick: gq 5, a ragged last split
+    (200, 2, 4, 3, 16, 7),       # more slots than a CTA's 128 threads
+])
+def test_int4_work_list_covers_live_items_once(B, Hkv, gq, W, ps, seed):
+    """Random kv_len over B slots, zeros included, up to W x page_size:
+    every live (slot, split, head, row block) is one item, taken by
+    exactly one CTA, whatever the grid (one item a CTA, or several); a
+    slot's splits tile its own keys; and a slot's split boundaries stay
+    the same when the other slots' lengths change or its items fall to
+    other CTAs."""
+    rng = np.random.default_rng(seed)
+    n_rb = -(-gq // t_pa.rows_per_cta(gq))
+    _, n_split = t_pa.split_plan(W, ps)
+    max_len = W * ps
+
+    def draw():
+        lens = rng.integers(1, max_len + 1, size=B)
+        lens[rng.random(B) < 0.5] = 0
+        lens[rng.integers(B)] = max_len
+        return lens
+
+    def slot_spans(work, b):
+        return sorted(w[2:] for w in work if w[1] == b)
+
+    lens = draw()
+    ctas = t_pa.launch_shape(B, Hkv, gq, 128, W, ps, H100_SMS, 4)[0]
+    work = _work_list(lens, Hkv, n_rb, W, ps, ctas)
+    items = [w[1:5] for w in work]
+    assert len(set(items)) == len(items)
+    assert sorted(items) == sorted(
+        (b, s, h, rb) for b in range(B) for h in range(Hkv)
+        for rb in range(n_rb)
+        for s in range(t_pa.int4_split(lens[b], W, ps)[1]))
+    assert all(0 <= w[2] < n_split and w[5] < w[6] for w in work)
+    for b in range(B):
+        keys = [t for w in work if w[1] == b and w[3:5] == (0, 0)
+                for t in range(w[5], w[6])]
+        assert sorted(keys) == list(range(lens[b]))
+    others = draw()
+    for b in np.flatnonzero(lens)[:4]:
+        moved = others.copy()
+        moved[b] = lens[b]
+        alone = np.zeros_like(lens)
+        alone[b] = lens[b]
+        want = slot_spans(work, b)
+        for kl, n in ((moved, ctas), (alone, 1), (lens, 7)):
+            got = _work_list(kl, Hkv, n_rb, W, ps, n)
+            assert slot_spans(got, b) == want
 
 
 DECODE_CASES = [
