@@ -219,9 +219,10 @@ before the last line:
    ranks' included, are summed into the kernels line, and every kernel
    must launch in it. Phase 3 also checks and times the kernels at a
    TP-2 rank's shapes (LLaMA-30B's 26 heads, qwen3-moe's 32 over 2);
-   (e) the nine other configs at TP 2 (xlstm in f32; in bf16 too, as
-   ROADMAP C.3's probe, printed and not held, beside the unsharded
-   run's own sensitivity to one bf16 ulp of every weight); (f) the sharded
+   (e) the nine other configs at TP 2 (xlstm and jamba in f32; in
+   bf16 too, as ROADMAP C.3's probes, printed and not held, beside
+   the unsharded run's own sensitivity to one bf16 ulp of every
+   weight); (f) the sharded
    training step (``optimizer.make_train_step`` under the mesh): a
    world-1 NCCL train step of LLaMA-30B cut to one layer bit for bit the
    unmeshed one; LLaMA-30B at TP 2 (2 layers, 4 x 512, 2 steps), at data
@@ -3750,19 +3751,22 @@ P12E = {"stablelm-3b": 4, "gemma-2b": None, "h2o-danube-3-4b": 4,
         "command-r-35b": 4, "llava-next-mistral-7b": 4,
         "llama4-maverick-400b-a17b": 2, "jamba-v0.1-52b": 8,
         "xlstm-125m": None, "whisper-base": None}
-# (e)'s C.3 probe: xlstm at TP 2 in bf16, measured and printed, not held
-# (ROADMAP C.3 stays open with its value)
-P12E_PROBE = "xlstm-125m:bf16"
-P12E[P12E_PROBE] = None
+# (e)'s C.3 probes: xlstm and jamba at TP 2 in bf16, measured and printed,
+# not held (ROADMAP C.3 stays open with their values)
+P12E_PROBES = ("xlstm-125m:bf16", "jamba-v0.1-52b:bf16")
+P12E.update({"xlstm-125m:bf16": None, "jamba-v0.1-52b:bf16": 8})
 # (e)'s world-1 NCCL runs: a paged stack with one KV head, a recurrent one
-P12E_WORLD1 = ("gemma-2b", "jamba-v0.1-52b")
-# xlstm runs (e) in float32: in bf16 its random-weight stack compounds
-# every rounding a rank's products make apart from the unsharded ones
-# through its exponential gates, to 0.102 relative L2 at the logits of 12
-# layers on an H100 with f32 row-parallel sums (0.152 with bf16 sums)
-# against 0.007-0.02 for the other configs (ROADMAP C.3, PERF.md); f32
-# holds the sharding itself to P12_LOGIT_TOL's 1e-4
-P12E_F32 = ("xlstm-125m",)
+P12E_WORLD1 = ("gemma-2b", "jamba-v0.1-52b:bf16")
+# xlstm and jamba run (e) in float32: in bf16 their random-weight stacks
+# compound every rounding a rank's products make apart from the unsharded
+# ones, xlstm's through its exponential gates (0.102 relative L2 at the
+# logits of 12 layers on an H100 with f32 row-parallel sums, 0.152 with
+# bf16 sums), jamba's through each Mamba step's decay and its routes
+# (0.03-0.07 at the logits and 0.06-0.08 at the states of layers 5-7 of
+# 8, once dropless routing held every layer), against 0.007-0.02 for the
+# other configs (ROADMAP C.3, PERF.md); f32 holds the sharding itself to
+# P12_LOGIT_TOL's 1e-4
+P12E_F32 = ("xlstm-125m", "jamba-v0.1-52b")
 P12E_STEPS = 4        # teacher-forced dense decode steps
 P12E_NEW = 8          # tokens a request on the main path: one chunk
 # the dim of a cache tensor its heads or channels are split on
@@ -3794,7 +3798,7 @@ def c3_sensitivity(torch, cfg, params, device="cuda", reduced=False):
 
     def moved(t):
         step = torch.randint(0, 2, t.shape, generator=gen,
-                             device=t.device) * 2 - 1
+                             device=t.device, dtype=torch.int8) * 2 - 1
         if t.dtype == torch.bfloat16:
             bits = t.view(torch.int16)
             step = torch.where((bits & 0x7FFF) != 0, step, 0)
@@ -4198,14 +4202,15 @@ def phase12(torch, *, device="cuda", reduced=False):
         del params, seq, x
         if device == "cuda":
             settled(torch)
-        sens = None
+        sens = {}
         for arch in P12E:
             ecfg = p12e_cfg(arch, reduced)
             params = p12e_params(torch, ecfg, device)
             refs[arch] = tp_family_case(torch, ecfg, params, device=device,
                                         reduced=reduced)
-            if arch == P12E_PROBE:
-                sens = c3_sensitivity(torch, ecfg, params, device, reduced)
+            if arch in P12E_PROBES:
+                sens[arch] = c3_sensitivity(torch, ecfg, params, device,
+                                            reduced)
             torch.save(refs[arch], os.path.join(tmp, f"e_{arch}.pt"))
             del params
             if device == "cuda":
@@ -4273,7 +4278,7 @@ def phase12(torch, *, device="cuda", reduced=False):
         ecfg = p12e_cfg(arch, reduced)
         rows.append(compare_family(torch, arch, ecfg, refs[arch],
                                    [g["e"][arch] for g in got], ecfg.dtype,
-                                   gated=arch != P12E_PROBE))
+                                   gated=arch not in P12E_PROBES))
         for r, g in enumerate(got):
             mine = g["e"][arch]["launches"]
             log(f"  (e) {arch} rank {r}'s kernel launches at its shapes: "
@@ -4291,12 +4296,13 @@ def phase12(torch, *, device="cuda", reduced=False):
             f"{r['engine_equal']}/4 | "
             f"{', '.join(f'{s:.2f}' for s in r['coll_s'])} | "
             f"{', '.join(f'{s:.1f}' for s in r['rank_s'])}")
-    probe = next(r for r in rows if r["arch"] == P12E_PROBE)
-    log(f"  (e) C.3: {P12E_PROBE} at TP 2, prefill logits relative L2 "
-        f"{probe['logit_rel_l2']:.3e} (row-parallel sums in f32 above "
-        f"axis size 1), beside the "
-        f"unsharded run's own sensitivity to one bf16 ulp of every weight: "
-        f"{sens:.3e}; the other configs' bound 2e-2")
+    for probe in (r for r in rows if r["arch"] in P12E_PROBES):
+        log(f"  (e) C.3: {probe['arch']} at TP 2, prefill logits relative "
+            f"L2 {probe['logit_rel_l2']:.3e}, worst cache relative L2 "
+            f"{probe['cache_rel_l2']:.3e} (row-parallel sums in f32 above "
+            f"axis size 1), beside the unsharded run's own sensitivity to "
+            f"one bf16 ulp of every weight: {sens[probe['arch']]:.3e}; the "
+            f"other configs' bound 2e-2")
     for arch, times in replay.items():
         log(f"  (e) {arch} world 1, one replay of the graphed chunk (ms): "
             f"meshed {times.get('graphed')}, unmeshed "

@@ -1,10 +1,14 @@
 """Model/shape configuration: the port's own copy of ``repro.configs.base``.
 
-The dataclass is stdlib-only and identical to the JAX package's, so a
-config built here describes the same model there; the port keeps a copy
-instead of importing it (``tests/test_torch_isolation.py`` checks that the
-two stay equal). ``reduced()`` returns a small same-family config for CPU
-tests.
+The dataclass is stdlib-only and the JAX package's, so a config built
+here describes the same model there; the port keeps a copy instead of
+importing it (``tests/test_torch_isolation.py`` checks that the two stay
+equal). It adds two block options the JAX package lacks (ROADMAP C.4),
+whose defaults are the JAX package's behaviour: ``moe_renormalize``
+(True: the top-k gates renormalised to sum to 1; jamba turns it off) and
+``mamba_inner_norms`` (False; jamba turns on the published mixer's
+unit-gain RMSNorms of the time-step input, B and C). ``reduced()`` returns a small
+same-family config for CPU tests.
 """
 from __future__ import annotations
 
@@ -75,6 +79,7 @@ class ModelConfig:
     moe_d_ff: int = 0                # expert hidden dim (0 -> d_ff)
     moe_shared_expert: bool = False  # llama4-style shared expert
     moe_capacity_factor: float = 1.25
+    moe_renormalize: bool = True     # top-k gates renormalised to sum to 1
 
     # Hybrid (jamba): attention on layers l % attn_period == attn_offset, Mamba elsewhere
     attn_period: int = 0
@@ -83,6 +88,7 @@ class ModelConfig:
     mamba_d_conv: int = 4
     mamba_expand: int = 2
     mamba_dt_rank: int = 0           # 0 -> ceil(d_model / 16)
+    mamba_inner_norms: bool = False  # unit-gain RMSNorms of dt, B, C (jamba)
 
     # Encoder-decoder (whisper)
     is_encoder_decoder: bool = False

@@ -173,7 +173,7 @@ def proj(p, name, x):
     return dense(p[name], x, p.get(name + "_b"))
 
 
-def _f32_product(x, w):
+def f32_product(x, w):
     """``x @ w`` with an f32 result: on the card (or meta) without grad,
     a bf16 or f16 product written in f32 (``torch.mm``'s ``out_dtype``,
     where this PyTorch has it: the same GEMM, its accumulator kept);
@@ -195,7 +195,7 @@ def row_proj(p, name, x, tp=None):
     """A row-parallel projection (attention's and the MLP's ``wo``): this
     rank's partial product summed over the model axis ``tp``
     (``distributed/comm.py``; none without a mesh), then the bias, once.
-    Above axis size 1 the partial product is f32 (:func:`_f32_product`),
+    Above axis size 1 the partial product is f32 (:func:`f32_product`),
     summed in f32 and cast once to ``x``'s type, so the sum is rounded
     once as the unsharded product is (a sum of rounded partials would
     round again, which compounds through xLSTM's exponential gates); at
@@ -203,7 +203,7 @@ def row_proj(p, name, x, tp=None):
     run at size 1 is the unmeshed run bit for bit. :func:`proj` where
     ``tp`` is None."""
     if tp is not None and tp.size > 1:
-        y = comm.reduce_from_model(tp, _f32_product(x, p[name])).to(x.dtype)
+        y = comm.reduce_from_model(tp, f32_product(x, p[name])).to(x.dtype)
     else:
         y = comm.reduce_from_model(tp, x @ p[name])
     b = p.get(name + "_b")

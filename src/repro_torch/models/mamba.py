@@ -2,7 +2,10 @@
 ``repro.models.mamba``).
 
 Prefill runs the diagonal recurrence ``h_t = dA_t * h_(t-1) + dBx_t``
-over chunks of at most 512 steps. PyTorch has no ``associative_scan``:
+over chunks of at most 512 steps, the last one holding only the steps
+left: the state handed on is the one after the prompt's last step (the
+JAX package pads the last chunk and keeps the state after the padding,
+whose steps decay it; ROADMAP C.4). PyTorch has no ``associative_scan``:
 each chunk is a doubling (Hillis-Steele) scan in f32, log2(c + 1) rounds
 over the ``(B, c + 1, d_inner, d_state)`` pairs, with the carried state
 as an extra first step whose ``dA`` is 1 (the reference's form). It adds
@@ -14,6 +17,11 @@ round overwrites what the last one saved for backward): the training
 forward passes ``scan=doubling_scan_out``, the same rounds out of place,
 which gives the in-place scan's values bit for bit.
 
+With ``cfg.mamba_inner_norms`` (the published Jamba mixer) the
+time-step input, B and C are each RMS-normed at unit gain straight after
+``x_proj``, before ``dt_proj``, the softplus and the products; no
+parameter is added.
+
 Parameters, one dict a layer: ``in_proj (d, 2 di)``, ``conv_w (d_conv,
 di)`` and ``conv_b (di,)`` bf16, ``x_proj (di, dt_rank + 2 d_state)``,
 ``dt_proj (dt_rank, di)`` bf16 and its f32 bias ``dt_proj_b (di,)``,
@@ -24,10 +32,16 @@ config a rank's, ``sharding.local_cfg``, whose ``mamba_d_inner`` is the
 rank's ``di / n`` channels) a rank holds its channels of ``in_proj``
 (of x and of z each), the conv, ``dt_proj``, ``A_log`` and ``D``, and its
 rows of ``x_proj``, whose ``(dt_rank + 2 d_state)`` output is then a sum
-of partial products, all-reduced before the reference's f32 cast. The
-scan and its states run on the rank's channels; ``y`` is gathered before
-the whole ``out_proj`` (the reference's spec leaves it whole), so every
-rank computes the layer's whole output.
+of partial products, all-reduced (the inner norms act on that whole,
+reduced output). ``x_proj``'s product is kept in f32
+(:func:`~repro_torch.models.layers.f32_product`: on the card the bf16
+GEMM written in f32, the weight never cast), its partials summed in f32,
+where the reference rounds it to the stream's type before its f32 cast
+(ROADMAP C.4): the inner norms carry a bf16 rounding of it,
+which a TP rank's sum and one card's product make apart, into every
+step's decay. The scan and its states run on the rank's channels; ``y``
+is gathered before the whole ``out_proj`` (the reference's spec leaves
+it whole), so every rank computes the layer's whole output.
 
 Under autograd (the sharded training step) ``h`` enters ``in_proj``
 through ``comm.copy_to_model``, the reduced ``x_proj`` output feeds the
@@ -42,17 +56,26 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import comm
-from repro_torch.models.layers import causal_conv1d, dense, row_proj
+from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.models.layers import causal_conv1d, dense, f32_product
 
 CHUNK = 512            # steps a prefill chunk scans at once
+
+
+def unit_rmsnorm(t):
+    """RMSNorm at gain 1 (the inner norms' initial gain, which the port's
+    parameter tree does not carry), eps 1e-6: Jamba's ``rms_norm_eps``."""
+    return rmsnorm_ref(t, t.new_zeros(()))
 
 
 def _selective_terms(cfg, p, xc, tp=None):
     """dA, dBx (B, S, di, ds) f32 and C (B, S, ds) f32 of the conv's
     output xc (B, S, di)."""
     ds, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
-    proj = comm.copy_to_model(tp, row_proj(p, "x_proj", xc, tp)).float()
+    proj = comm.sum_over(tp, f32_product(xc, p["x_proj"]))
     dt_r, Bm, Cm = torch.split(proj, [dtr, ds, ds], dim=-1)
+    if cfg.mamba_inner_norms:
+        dt_r, Bm, Cm = unit_rmsnorm(dt_r), unit_rmsnorm(Bm), unit_rmsnorm(Cm)
     dt = F.softplus(dt_r @ p["dt_proj"].float() + p["dt_proj_b"])
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt[..., None] * A)
@@ -112,8 +135,9 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
     """The full-sequence path over x (B, S, d); ``state`` an optional
     carried (conv_state, ssm_state). ``scan`` runs each chunk's
     recurrence (:func:`doubling_scan`, or :func:`doubling_scan_out` under
-    autograd). Returns (out, new state); under ``tp`` the state is the
-    rank's channels'."""
+    autograd); the last chunk holds the ``S - (n - 1) c`` steps left, so
+    the state returned is the one after step S. Returns (out, new state);
+    under ``tp`` the state is the rank's channels'."""
     B, S, _ = x.shape
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     conv_state = state[0] if state is not None else None
@@ -121,12 +145,9 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
          torch.zeros((B, di, ds), dtype=torch.float32, device=x.device))
     xc, z, conv_state = _front(cfg, p, x, conv_state, tp)
     c = min(chunk, S)
-    n = -(-S // c)
-    xcp = F.pad(xc, (0, 0, 0, n * c - S))
     ys = []
-    for i in range(n):
-        dA, dBx, Cm = _selective_terms(cfg, p, xcp[:, i * c:(i + 1) * c],
-                                       tp)
+    for lo in range(0, S, c):
+        dA, dBx, Cm = _selective_terms(cfg, p, xc[:, lo:lo + c], tp)
         # the carried state enters as an extra first step with dA = 1
         a = torch.cat([torch.ones_like(dA[:, :1]), dA], dim=1)
         del dA
@@ -137,7 +158,7 @@ def mamba_apply(cfg, p, x, *, chunk: int = CHUNK, state=None,
         h = hs[:, -1].clone()
         ys.append(torch.einsum("bcns,bcs->bcn", hs[:, 1:], Cm))
         del hs, b
-    y = torch.cat(ys, dim=1)[:, :S]
+    y = torch.cat(ys, dim=1)
     return _back(p, y, xc, z, x.dtype, tp), (conv_state, h)
 
 

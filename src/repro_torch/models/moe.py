@@ -2,14 +2,17 @@
 (``repro.models.moe``: ``route``, ``_expert_ffn`` and ``moe_apply``).
 
 Routing follows GShard/Switch as the reference's does: the router runs
-in f32, the top-k gates are renormalised, each route's position in its
+in f32, the top-k gates are renormalised (unless ``cfg.moe_renormalize``
+is off, as in the published Jamba block, which weighs each route by its
+softmax probability over all the experts), each route's position in its
 expert is counted choice-major (every first choice gets a slot before
 any second choice), capacity is
 ``max(min(T, 32), ceil(T * k * cf / E))`` over all ``T = B * S`` tokens
 of the call, padding included, and a route past capacity is dropped (its
 token's residual passes through). So a prompt's output depends on its
 batch-mates and its padding once an expert overflows, in the reference
-as here.
+as here. A capacity factor of ``E / k`` (jamba's) makes capacity the
+call's token count, so no route is dropped.
 
 The expert products are library products (batched matmuls), as the
 reference leaves its ``jnp.einsum`` to XLA; there is no Pallas kernel on
@@ -85,7 +88,8 @@ def route(cfg, router_w, x2d, capacity: int):
         left = left.scatter(1, picks[-1], -1.0)
     idx = torch.cat(picks, dim=1)                         # (T, k)
     gates = torch.gather(probs, 1, idx)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if cfg.moe_renormalize:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     experts = torch.arange(E, device=x2d.device)
     onehot = [(idx[:, c:c + 1] == experts).long() for c in range(k)]

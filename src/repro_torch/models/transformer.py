@@ -74,6 +74,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import axis_group, data_axes, shape_of
 from repro_torch.models import layers, mamba, moe, xlstm
 from repro_torch.models.layers import dense
+from repro_torch.serving import trace as _trace
 
 
 def _lcm(a, b):
@@ -475,7 +476,7 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *,
 
 
 def run_layers(cfg, params, x, attend, *, final_norm=True,
-               backend: str = "auto", rt=None):
+               backend: str = "auto", rt=None, ffn=None):
     """The residual stream ``x`` through every layer: ``attend(i, p, h)``
     returns layer i's mixer output (attention projected back to d_model,
     or a recurrent block's) for the normed input ``h``. Each residual add
@@ -497,12 +498,15 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
     Under a mesh (``rt``; ``cfg`` is then this rank's, ``shard_view``)
     the MLP reduces its row-parallel ``wo`` over the model axis and the
     MoE runs ``moe.moe_apply_shard_map`` where ``rt.moe_shard_map``; the
-    residual stream stays whole on every rank.
+    residual stream stays whole on every rank. ``ffn(cfg, p, h, rt)``
+    stands in for a MoE layer's :func:`_ffn` where given (the recurrent
+    prefill's traced one).
 
     On the CPU the arithmetic is the reference's exactly: an add, then
     the norm's plain version."""
     blocks = params["layers"]
     tp = None if rt is None else rt.tp
+    ffn = ffn or _ffn
     h = layers.norm_apply(cfg, blocks[0]["norm1"], x, backend=backend)
     for i, p in enumerate(blocks):
         o = attend(i, p, h)
@@ -513,7 +517,7 @@ def run_layers(cfg, params, x, attend, *, final_norm=True,
             x = x + o
         elif "norm2" in p:
             x, h = layers.add_norm(cfg, x, o, p["norm2"], backend=backend)
-            m = _ffn(cfg, p, h, rt) if "moe" in p else \
+            m = ffn(cfg, p, h, rt) if "moe" in p else \
                 layers.mlp_apply(cfg, p["mlp"], h, tp)
         else:
             m = o
@@ -535,6 +539,20 @@ def _ffn(cfg, p, h, rt):
     if rt is not None and rt.moe_shard_map and rt.mesh is not None:
         return moe.moe_apply_shard_map(cfg, p["moe"], h, mesh=rt.mesh)[0]
     return moe.moe_apply(cfg, p["moe"], h)[0]
+
+
+def _traced_ffn(cfg, p, h, rt):
+    """:func:`_ffn` in a ``prefill.moe`` span. The enclosing
+    ``prefill.call`` gains ``moe_routes`` (tokens x k) and ``moe_rows``
+    (experts x capacity: the rows the expert products compute) of
+    ``moe_apply``'s buffer, host numbers from the shapes."""
+    with _trace.span("prefill.moe") as sp:
+        if sp and not (rt is not None and rt.moe_shard_map):
+            T = h.shape[0] * h.shape[1]
+            _trace.add_to("prefill.call", moe_routes=T * cfg.moe_top_k,
+                          moe_rows=cfg.moe_num_experts
+                          * moe.capacity_of(cfg, T))
+        return _ffn(cfg, p, h, rt)
 
 
 def logits_of(cfg, params, h, tp=None):
@@ -992,7 +1010,13 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
     window the attention layers attend within it, and a prompt longer
     than the window keeps its last ``window`` positions, position p at
     ring row ``p % window`` (the reference's rotation at the prefill
-    handoff; :func:`cache_rows`)."""
+    handoff; :func:`cache_rows`).
+
+    Traced (``serving/trace.py``): a ``prefill.mamba`` span around each
+    Mamba mixer, whose device time (CUDA events, on the card) the
+    enclosing ``prefill.call`` sums as ``mamba_ms``, and a
+    ``prefill.moe`` span around each expert layer
+    (:func:`_traced_ffn`)."""
     tp = None if rt is None else rt.tp
     dev = tokens.device
     x = embed(cfg, params, tokens, tp=tp)
@@ -1016,7 +1040,10 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
                       "v": seq_share(cfg, ring(v).to(cache_dtype(cfg)), tp)}
             return layers.row_proj(p["attn"], "wo", o, tp)
         if kind == "mamba":
-            o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h, tp=tp)
+            with _trace.span("prefill.mamba"), \
+                    _trace.device_ms("prefill.call", "mamba_ms", dev):
+                o, (conv, ssm) = mamba.mamba_apply(cfg, p["mamba"], h,
+                                                   tp=tp)
             got[i] = {"conv": conv, "ssm": ssm}
         elif kind == "mlstm":
             o, ((C, n, m), conv) = xlstm.mlstm_apply(cfg, p["mlstm"], h,
@@ -1027,7 +1054,8 @@ def _prefill_recurrent(cfg, params, tokens, *, max_seq, last_pos, true_len,
             got[i] = dict(zip("cnhm", st))
         return o
 
-    x, _ = run_layers(cfg, params, x, mix, final_norm=False, rt=rt)
+    x, _ = run_layers(cfg, params, x, mix, final_norm=False, rt=rt,
+                      ffn=_traced_ffn)
     P = len(slot_kinds(cfg))
     cache = {f"slot{s}": {key: _stack_slot(cfg, key, got[s::P])
                           for key in got[s]} for s in range(P)}

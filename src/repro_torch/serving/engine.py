@@ -256,7 +256,9 @@ class PrefillEngine:
         Requests carrying a resident prefix (``start_pos``/``prefix_wire``)
         take the suffix path. Traced as ``prefill.call``: ``rows`` the
         model's rows (padding rows too), ``tokens`` the prompts' own,
-        ``padded_tokens`` the rest of rows x bucket (0 at exact lengths)."""
+        ``padded_tokens`` the rest of rows x bucket (0 at exact lengths);
+        a recurrent stack's adds ``mamba_ms``, ``moe_routes`` and
+        ``moe_rows`` (``transformer._prefill_recurrent``)."""
         with _trace.span("prefill.call"):
             return self._run(reqs, compress=compress, backend=backend)
 

@@ -20,6 +20,12 @@ records go into a ring of :data:`RING` entries, stamped with
 Off, :func:`span` returns the one shared :data:`NOOP` (falsy, allocates
 nothing) after one probe of the profiler's state.
 
+:func:`device_ms` times a block on the card with a pair of CUDA events
+and adds the milliseconds to an attribute of an enclosing span, read when
+that span closes: the enclosing span has by then waited for the device
+itself (a prefill call copies its first tokens back), so the reading adds
+no synchronization.
+
 No span goes in code a CUDA graph captures (``models/registry.py``'s
 chunk): a capture records device work only.
 """
@@ -101,10 +107,11 @@ NOOP = _Noop()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "t0", "depth", "_rf")
+    __slots__ = ("name", "attrs", "t0", "depth", "_rf", "events")
 
     def __init__(self, name: str, attrs: Dict[str, object]):
         self.name, self.attrs = name, attrs
+        self.events = None          # [(attribute, start, end)] to read
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -125,6 +132,10 @@ class _Span:
         if self._rf is not None:
             self._rf.__exit__(*exc)
         _stack().pop()
+        if self.events and exc[0] is None:
+            a = self.attrs
+            for key, e0, e1 in self.events:
+                a[key] = a.get(key, 0.0) + e0.elapsed_time(e1)
         _ring.append(Record(self.name, self.t0, t1, self.depth, self.attrs))
         return False
 
@@ -135,6 +146,54 @@ def span(name: str, **attrs):
     if _enabled or _profiling():
         return _Span(name, attrs)
     return NOOP
+
+
+def _open(name: str):
+    """The innermost open span called ``name``, or None."""
+    for sp in reversed(getattr(_local, "stack", None) or ()):
+        if sp.name == name:
+            return sp
+    return None
+
+
+def add_to(name: str, **counts):
+    """:func:`add` to the innermost open span called ``name``; nothing
+    when none is open."""
+    sp = _open(name)
+    if sp is not None:
+        for k, v in counts.items():
+            sp.attrs[k] = sp.attrs.get(k, 0) + v
+
+
+class _DeviceTimer:
+    __slots__ = ("owner", "key", "e0")
+
+    def __init__(self, owner: _Span, key: str):
+        self.owner, self.key = owner, key
+
+    def __enter__(self):
+        self.e0 = torch.cuda.Event(enable_timing=True)
+        self.e0.record()
+        return self
+
+    def __exit__(self, *exc):
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record()
+        if self.owner.events is None:
+            self.owner.events = []
+        self.owner.events.append((self.key, self.e0, e1))
+        return False
+
+
+def device_ms(owner: str, key: str, device):
+    """Time the block on ``device`` with CUDA events; the innermost open
+    span called ``owner`` adds the milliseconds to its attribute ``key``
+    when it closes. :data:`NOOP` when the tracer is off, no such span is
+    open or ``device`` is not a CUDA device."""
+    if torch.device(device).type != "cuda":
+        return NOOP
+    sp = _open(owner)
+    return NOOP if sp is None else _DeviceTimer(sp, key)
 
 
 def add(**counts):

@@ -30,3 +30,14 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a CUDA card; skipped (by a fixture) without "
         "one")
+
+
+def jax_block(cfg):
+    """``cfg`` with the block options at the JAX package's behaviour. The
+    port's jamba runs the published block (unit-gain RMSNorms of dt, B and
+    C; the top-k gates as the softmax gives them; dropless routing at a
+    capacity factor of E / k), which the JAX package does not (ROADMAP
+    C.4): tests that hold the port to it set these back. A no-op for the
+    other configs, whose options are the defaults."""
+    return cfg.replace(mamba_inner_norms=False, moe_renormalize=True,
+                       moe_capacity_factor=1.25)

@@ -7,14 +7,18 @@ llava-next-mistral-7b, llama4-maverick, jamba, xlstm-125m, whisper-base),
 reduced and in float32, run at a model axis of 2 (a ``data 2 x model 2``
 mesh) and of 4 (``1 x 4``) where their heads divide it (reduced xlstm's 2
 heads: 2 only), plus whisper with a vocabulary of 257, which no axis
-divides (``unembed`` stays whole, every rank computes every logit).
+divides (``unembed`` stays whole, every rank computes every logit), and
+jamba with the port's published block (``/published``: the Mamba
+mixer's dt/B/C norms on the all-reduced ``x_proj`` output, the gates not
+renormalised, dropless routing; every other case takes the JAX
+package's block, ``conftest.jax_block``).
 Four ranks run over gloo, one spawned process each (``python -c`` with
 ``src`` and ``tests`` on the path, a ``file://`` store in the tmp dir);
 ONE spawn makes every multi-rank run (:func:`worker`) and saves it, and
-the tests read the results. jamba's and whisper's weights come from the
-JAX package (``convert.params_from_numpy(mesh=)``), the others' from
-``init_params(mesh=)``, each rank keeping its shard of tensors drawn
-whole.
+the tests read the results. jamba's (both cases') and whisper's
+weights come from the JAX package (``convert.params_from_numpy(mesh=)``),
+the others' from ``init_params(mesh=)``, each rank keeping its shard of
+tensors drawn whole.
 
 Tolerances:
 
@@ -55,6 +59,7 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
+from conftest import jax_block  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -74,7 +79,8 @@ ARCHS = ("stablelm-3b", "gemma-2b", "h2o-danube-3-4b", "command-r-35b",
          "jamba-v0.1-52b", "xlstm-125m", "whisper-base")
 JAX_WEIGHTS = ("jamba-v0.1-52b", "whisper-base")
 WIDE_VOCAB = "whisper-base/v257"          # no axis divides 257
-CASES = ARCHS + (WIDE_VOCAB,)
+PUBLISHED = "jamba-v0.1-52b/published"  # the port's own block (ROADMAP C.4)
+CASES = ARCHS + (WIDE_VOCAB, PUBLISHED)
 B, S = 2, 12                              # the prefill batch
 PROMPTS, MAX_NEW, MAX_SEQ = (7, 13), 6, 32
 BF16_ULP = 2.0 ** -7
@@ -86,9 +92,12 @@ HEADS_DIM = {"k": 3, "v": 3, "self_k": 3, "self_v": 3, "cross_k": 3,
 
 
 def _cfg(case):
-    arch, _, vocab = case.partition("/v")
+    arch, _, variant = case.partition("/")
     cfg = get_reduced(arch).replace(dtype="float32")
-    return cfg.replace(vocab_size=int(vocab)) if vocab else cfg
+    if variant == "published":
+        return cfg
+    cfg = jax_block(cfg)
+    return cfg.replace(vocab_size=int(variant[1:])) if variant else cfg
 
 
 def _sizes(case):
@@ -113,8 +122,9 @@ def _init(cfg, mesh, seed=1):
 
 def _params(case, mesh, trees):
     cfg = _cfg(case)
-    if case in trees:
-        return convert.params_from_numpy(trees[case], cfg, "cpu", mesh=mesh)
+    tree = trees.get(PUBLISHED.split("/")[0] if case == PUBLISHED else case)
+    if tree is not None:
+        return convert.params_from_numpy(tree, cfg, "cpu", mesh=mesh)
     return _init(cfg, mesh)
 
 

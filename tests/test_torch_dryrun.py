@@ -58,6 +58,7 @@ from repro.configs import SHAPES as J_SHAPES  # noqa: E402
 from repro.models import build as j_build  # noqa: E402
 from repro.models import transformer as j_tf  # noqa: E402
 from repro.roofline import report as j_report  # noqa: E402
+from conftest import jax_block  # noqa: E402
 from repro_torch.configs import (ALL_ARCHS, SHAPES, all_cells,  # noqa: E402
                                  get_config, get_reduced)
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -239,8 +240,8 @@ def test_jamba_windowed_decode_matches_reference():
     window, B, max_seq, steps = 6, 2, 24, 14
     jcfg = j_get_reduced("jamba-v0.1-52b").replace(
         dtype="float32", sliding_window=window)
-    tcfg = get_reduced("jamba-v0.1-52b").replace(
-        dtype="float32", sliding_window=window)
+    tcfg = jax_block(get_reduced("jamba-v0.1-52b").replace(
+        dtype="float32", sliding_window=window))
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jax.jit(
         j_build(jcfg).init)(jax.random.PRNGKey(0)))
     jp = jax.tree.map(jnp.asarray, tree)

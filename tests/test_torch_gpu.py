@@ -1684,6 +1684,83 @@ def test_moe_apply_in_a_graph_without_host_sync(cuda):
                                rtol=2e-2)
 
 
+# -- jamba at the published widths (ROADMAP C.5) ---------------------------------
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("S", [600, 1100])
+def test_jamba_mamba_state_at_full_width_is_the_prompts(cuda, S):
+    """One Mamba mixer of jamba-v0.1-52b at its published widths (d 4,096,
+    d_inner 8,192, d_state 16, dt_rank 256, the inner norms on), bf16
+    weights: over S tokens, more than the 512-step chunk and no multiple
+    of it, ``mamba_apply`` hands on the state after step S: the
+    step-by-step recurrence's (``mamba_decode_step`` over the prompt) and
+    its own call in one chunk: within 1e-3 relative L2 of the one-chunk
+    call (the same inputs, summed in another order) and 1e-2 of the steps
+    (a token's ``in_proj`` alone rounds its bf16 output apart from the
+    whole prompt's); the state after zeros padded to a whole chunk, which
+    the padding's steps decay, misses the steps' by over 0.1. The outputs
+    and the conv state agree with the steps' within 1e-2 (bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+    from repro_torch.models.transformer import ParamMaker
+    cfg = get_config("jamba-v0.1-52b")
+    assert cfg.mamba_inner_norms and cfg.mamba_d_inner == 8192
+    p = ParamMaker(cfg, 0, cuda, torch.bfloat16).mamba()
+    x = torch.randn((1, S, cfg.d_model), generator=_gen(S),
+                    device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        out, (conv, h) = mamba.mamba_apply(cfg, p, x)
+        _, (_, h_one) = mamba.mamba_apply(cfg, p, x, chunk=S)
+        st = mamba.mamba_state_init(cfg, 1, device=cuda)
+        ys = []
+        for t in range(S):
+            y, st = mamba.mamba_decode_step(cfg, p, x[:, t:t + 1], st)
+            ys.append(y)
+        padded = torch.cat([x, torch.zeros_like(x[:, :512 - S % 512])], 1)
+        _, (_, h_pad) = mamba.mamba_apply(cfg, p, padded)
+    assert _rel_l2(h, h_one) < 1e-3 and _rel_l2(h, st[1]) < 1e-2
+    assert _rel_l2(conv, st[0]) < 1e-2
+    assert _rel_l2(out, torch.cat(ys, 1)) < 1e-2
+    assert _rel_l2(h_pad, st[1]) > 0.1
+
+
+def test_jamba_prefill_call_times_its_mamba_mixers(cuda):
+    """The reduced jamba's exact-length prefill on the card under the
+    tracer: ``prefill.call`` carries ``mamba_ms``, the CUDA-event time of
+    its Mamba mixers (positive, below the call's own host time, which
+    waits for the first tokens), beside ``moe_routes`` and ``moe_rows``;
+    with the tracer off no event is recorded and the call has no
+    record."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import trace
+    cfg = get_reduced("jamba-v0.1-52b")
+    params = init_params(cfg, device=cuda)
+    pre = E.PrefillEngine(cfg, params, max_seq=128, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n)
+                         .astype(np.int32), 4) for i, n in enumerate((30, 90))]
+    pre.run(reqs)
+    trace.clear()
+    trace.enable()
+    try:
+        pre.run(reqs)
+    finally:
+        trace.disable()
+    call, = [r for r in trace.spans() if r.name == "prefill.call"]
+    assert 0 < call.attrs["mamba_ms"] < 1e3 * (call.t1 - call.t0)
+    assert call.attrs["moe_routes"] > 0 and call.attrs["moe_rows"] > 0
+    trace.clear()
+    pre.run(reqs)
+    assert not trace.spans()
+
+
 # -- training (the plain versions under autograd; no kernel) -----------------
 
 

@@ -41,6 +41,7 @@ from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
 from repro.serving import page_pool as j_pp  # noqa: E402
 from repro.serving import prefix_cache as j_pc  # noqa: E402
 from repro.serving import protocol as j_proto  # noqa: E402
+from conftest import jax_block  # noqa: E402
 from repro_torch.configs import ALL_ARCHS, get_config  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
@@ -147,17 +148,30 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
 # -- configs -------------------------------------------------------------------
 
 
+# the port's own block options (ROADMAP C.4): their defaults are the
+# reference's behaviour, and jamba's config turns them on with a dropless
+# capacity factor
+PORT_FIELDS = ("moe_renormalize", "mamba_inner_norms")
+
+
 def test_model_config_copy_matches():
     """The port registers every arch of the reference, in its order, and
-    each, full and reduced, has the reference's fields, parameter count
-    and layer kinds."""
-    assert [f.name for f in dataclasses.fields(ModelConfig)] == \
+    each, full and reduced, has the reference's fields (and the port's
+    ``PORT_FIELDS``), parameter count and layer kinds, and the
+    reference's values once its block options are the reference's
+    (``conftest.jax_block``); only jamba's differ before."""
+    assert [f.name for f in dataclasses.fields(ModelConfig)
+            if f.name not in PORT_FIELDS] == \
         [f.name for f in dataclasses.fields(JModelConfig)]
     assert ALL_ARCHS == J_ALL_ARCHS and len(ALL_ARCHS) == 11
     for arch in ALL_ARCHS:
         for mine, theirs in ((get_config(arch), j_get_config(arch)),
                              (get_reduced(arch), j_get_reduced(arch))):
-            assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+            assert (jax_block(mine) == mine) == (arch != "jamba-v0.1-52b")
+            d = dataclasses.asdict(jax_block(mine))
+            for f in PORT_FIELDS:
+                del d[f]
+            assert d == dataclasses.asdict(theirs)
             assert mine.param_count() == theirs.param_count()
             assert mine.layer_kinds() == theirs.layer_kinds()
 
@@ -394,7 +408,10 @@ COPY_DIFFERENCES = {
     "configs/qwen3_moe_235b_a22b.py": {},
     "configs/llama4_maverick_400b_a17b.py": {},
     "configs/llava_next_mistral_7b.py": {},
-    "configs/jamba_v01_52b.py": {},
+    # the published block: inner norms, gates as they come, dropless
+    "configs/jamba_v01_52b.py": {"CONFIG": ONE_SIDE, "reduced": ONE_SIDE},
+    # the dataclass gains PORT_FIELDS (test_model_config_copy_matches)
+    "configs/base.py": {"ModelConfig": ONE_SIDE},
     "configs/xlstm_125m.py": {},
     "configs/whisper_base.py": {},
     # a data rank's rows of the global batch (the sharded train step)

@@ -22,6 +22,7 @@ from repro.configs import get_reduced as j_get_reduced  # noqa: E402
 from repro.models import build as j_build  # noqa: E402
 from repro.models import layers as j_layers  # noqa: E402
 from repro.models import transformer as j_tf  # noqa: E402
+from conftest import jax_block  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import build, convert  # noqa: E402
@@ -51,7 +52,7 @@ def _same_tokens(got, want):
 
 def _models(arch, **over):
     jcfg = j_get_reduced(arch).replace(dtype="float32", **over)
-    tcfg = get_reduced(arch).replace(dtype="float32", **over)
+    tcfg = jax_block(get_reduced(arch).replace(dtype="float32", **over))
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jax.jit(
         j_build(jcfg).init)(jax.random.PRNGKey(0)))
     return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,

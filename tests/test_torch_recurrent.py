@@ -7,7 +7,8 @@ reduced configs in float32, the JAX weights carried over by
   step and the Mamba and mLSTM decode steps: within 1e-5 (of the
   output's largest magnitude where it passes 1).
 * ``mamba_apply`` (chunks of 4, the doubling scan against
-  ``lax.associative_scan``) and ``mlstm_apply`` (chunks of 8) over
+  ``lax.associative_scan``; its state against the reference's unpadded
+  call, ROADMAP C.4) and ``mlstm_apply`` (chunks of 8) over
   several chunks from a carried state, and each family's prefill logits
   and states and decode logits (four steps, fed the JAX run's greedy
   tokens): within 1e-4 of the largest |logit|, with the tokens equal
@@ -16,6 +17,9 @@ reduced configs in float32, the JAX weights carried over by
   side is the reference's ``decode_step_inplace``, the step whose states
   keep the cache's types (its scan step returns a conv state in the
   stream's type, which its jitted decode chunk refuses on an f32 model).
+* jamba's config: the port runs the published block (unit-gain dt/B/C
+  norms, gates not renormalised, dropless routing), the reference does
+  not: the port's side takes ``conftest.jax_block``.
 * The wire: recurrent states cross raw (``test_recurrent_state_transfer
   _roundtrip`` of ``tests/test_serving.py``), an insert followed by an
   extract gives them back bit for bit, and the port's wire has the JAX
@@ -46,6 +50,7 @@ from repro.models import transformer as j_tf  # noqa: E402
 from repro.models import xlstm as j_xlstm  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
 from repro.serving import kv_transfer as j_kvt  # noqa: E402
+from conftest import jax_block  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.launch import serve_e2e  # noqa: E402
@@ -79,7 +84,7 @@ def _model(arch):
     tree) of the reduced ``arch`` in float32."""
     if arch not in _MODELS:
         jcfg = j_get_reduced(arch).replace(dtype="float32")
-        tcfg = get_reduced(arch).replace(dtype="float32")
+        tcfg = jax_block(get_reduced(arch).replace(dtype="float32"))
         tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jax.jit(
             j_build(jcfg).init)(jax.random.PRNGKey(0)))
         _MODELS[arch] = (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
@@ -156,13 +161,18 @@ def test_mamba_decode_step_matches_jax():
 
 def test_mamba_apply_over_chunks_matches_jax():
     """11 steps in chunks of 4 from a carried state: the doubling scan
-    against the reference's associative scan."""
+    against the reference's associative scan. The reference pads the last
+    chunk and hands on the state after the padding; the port's state is
+    the one after step 11 (ROADMAP C.4), which the reference gives when
+    one chunk holds all 11 steps."""
     jcfg, jl, tcfg, tl = _layer("jamba-v0.1-52b", "mamba")
     rng = np.random.default_rng(3)
     conv, ssm = _mamba_state(rng, jcfg, jl, 2)
     x = _randn(rng, 2, 11, jcfg.d_model)
-    jo, (jc, jh) = J_MAMBA_APPLY(jcfg, jl, jnp.asarray(x), chunk=4,
-                                 state=(conv, ssm))
+    jo, (jc, _) = J_MAMBA_APPLY(jcfg, jl, jnp.asarray(x), chunk=4,
+                                state=(conv, ssm))
+    _, (_, jh) = J_MAMBA_APPLY(jcfg, jl, jnp.asarray(x), chunk=16,
+                               state=(conv, ssm))
     to, (tc, th) = t_mamba.mamba_apply(tcfg, tl, torch.from_numpy(x),
                                        chunk=4, state=(_t(conv), _t(ssm)))
     for got, want in ((to, jo), (tc, jc), (th, jh)):

@@ -185,3 +185,55 @@ def test_the_ring_stays_bounded():
     got = trace.spans()
     assert len(got) == trace.RING
     assert got[0].attrs["i"] == 10 and got[-1].attrs["i"] == trace.RING + 9
+
+
+def test_recurrent_prefill_spans_and_moe_counts():
+    """jamba's exact-length prefill: a ``prefill.mamba`` span around each
+    Mamba mixer and a ``prefill.moe`` span around each expert layer,
+    nested in the call's ``prefill.call``, which counts the routes
+    (tokens x k) and the expert products' rows (experts x capacity) of
+    every expert layer from the shapes; ``mamba_ms`` (CUDA events) is
+    left out on the CPU."""
+    from repro_torch.models import moe
+    cfg = get_reduced("jamba-v0.1-52b")
+    params = init_params(cfg, device="cpu")
+    pre = E.PrefillEngine(cfg, params, max_seq=64, device="cpu")
+    kinds = [k.split("+") for k in cfg.layer_kinds()]
+    n_mamba = sum(mix == "mamba" for mix, _ in kinds)
+    n_moe = sum(ffn == "moe" for _, ffn in kinds)
+    assert n_mamba and n_moe
+    rng = np.random.default_rng(2)
+    lens = [9, 40]
+    reqs = [E.GenRequest(i, rng.integers(1, cfg.vocab_size, n)
+                         .astype(np.int32), 4) for i, n in enumerate(lens)]
+    trace.enable()
+    pre.run(reqs)
+    call, = [r for r in trace.spans() if r.name == "prefill.call"]
+    got = collections.Counter(r.name for r in trace.spans()
+                              if call.t0 <= r.t0 and r.t1 <= call.t1)
+    assert got["prefill.mamba"] == n_mamba * len(lens)
+    assert got["prefill.moe"] == n_moe * len(lens)
+    k, E_ = cfg.moe_top_k, cfg.moe_num_experts
+    assert call.attrs["moe_routes"] == n_moe * k * sum(lens)
+    assert call.attrs["moe_rows"] == n_moe * E_ * sum(
+        moe.capacity_of(cfg, n) for n in lens)
+    assert "mamba_ms" not in call.attrs
+
+
+def test_add_to_and_device_ms_find_their_span():
+    """``add_to`` sums into the innermost open span of its name and does
+    nothing with none open; ``device_ms`` is the no-op off the card, with
+    the tracer off, or with no such span open."""
+    trace.enable()
+    trace.add_to("outer", n=1)
+    with trace.span("outer") as o:
+        with trace.span("inner") as i:
+            trace.add_to("outer", n=2)
+            trace.add_to("outer", n=3)
+            assert trace.device_ms("outer", "ms", "cpu") is trace.NOOP
+        assert "n" not in i.attrs
+    assert o.attrs["n"] == 5
+    assert trace.device_ms("outer", "ms", "cuda") is trace.NOOP
+    trace.disable()
+    with trace.span("outer"):
+        assert trace.device_ms("outer", "ms", "cuda") is trace.NOOP

@@ -37,6 +37,7 @@ from repro.configs import ALL_ARCHS  # noqa: E402
 from repro.configs import get_reduced as j_get_reduced  # noqa: E402
 from repro.models import build as j_build  # noqa: E402
 from repro.models import whisper as j_whisper  # noqa: E402
+from conftest import jax_block  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build, convert  # noqa: E402
@@ -64,7 +65,7 @@ def family_case(arch):
     """(JAX config, JAX f32 params, port config, port params, batch as
     numpy) of ``arch`` reduced in f32."""
     jcfg = j_get_reduced(arch).replace(dtype="float32")
-    cfg = get_reduced(arch).replace(dtype="float32")
+    cfg = jax_block(get_reduced(arch).replace(dtype="float32"))
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
                         j_build(jcfg).init(jax.random.PRNGKey(0)))
     batch = PackedLM(DataConfig(cfg.vocab_size, S, B)).batch_at(0)
